@@ -1,0 +1,17 @@
+"""cld_tpu_torch — the PyTorch + CUDA port of cld_tpu for one NVIDIA H100.
+
+The package runs the guided open-loop latent-diffusion pipeline
+(`pipeline.guided_collect`): context encode, 100-step DDPM sampling of the
+temporal UNet with a per-step Adam perturbation through the frozen LSTM
+decoder and the unicycle dynamics, decode, reward. Three hand-written CUDA
+kernels carry its hot path (`csrc/`): the fused 2-layer LSTM forward, its
+reverse sweep, and the bit-packed drivable-map gather.
+
+Dispatch rule: a kernel wrapper looks at the device of the tensor it is
+given. A CUDA tensor launches the kernel (or the wrapper raises); a CPU
+tensor takes the kernel's plain PyTorch version. Entry points take an
+explicit ``device=`` that defaults to ``"cuda"``.
+
+The package imports torch and numpy only; it keeps its own copy of every
+piece of the JAX package it needs.
+"""

@@ -1,0 +1,1 @@
+"""Subpackage of cld_tpu_torch."""

@@ -1,0 +1,261 @@
+"""Fused 2-layer LSTM decoder core: CUDA kernels, plain versions, autograd.
+
+Counterpart of `cld_tpu/ops/lstm_pallas.py`. The guided sampler runs the VAE
+decoder and its VJP at every denoise step; the sequential core of that
+decoder is one forward kernel and one reverse-sweep kernel
+(`csrc/lstm.cu`), wrapped as the autograd Function `Lstm2Core`:
+
+* forward: xg1 [B, T, 4H] (= z @ Wx1 + b1, computed outside), h0 [B, H]
+  (initial hidden of BOTH layers, cell states zero), Wh1 [H, 4H],
+  W2 [2H, 4H] (input rows over recurrent rows), b2 [4H] -> y [B, T, H],
+  saving the h1, c1, c2 sequences;
+* backward: the reverse-sweep kernel emits the pre-activation gate
+  cotangents dg1, dg2 [B, T, 4H]; everything else falls out of them as
+  batched matmuls (as `lstm_pallas.py:697-718` does outside its kernel):
+  dxg1 = dg1, dWh1 = h1prev^T dg1, dW2 = [h1; h2prev]^T dg2,
+  db2 = sum dg2, dh0 = dg1[:, 0] Wh1^T + dg2[:, 0] W2[H:]^T.
+  The VJP is exact in all five arguments.
+
+Dispatch is by the device of the tensors: CUDA tensors launch the kernels
+(or the wrapper raises), CPU tensors take the plain PyTorch versions
+`lstm2_core_ref` / `lstm2_bwd_ref`, which compute the same functions.
+Storage and math are float32.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+from cld_tpu_torch.ops import native
+
+
+class LSTMDecodeParams(NamedTuple):
+    """Concatenated decoder weights (gate order i, f, g, o).
+
+    Wc [C, H], bc [H] (cond2hidden); Wx1 [L, 4H], Wh1 [H, 4H], b1 [4H];
+    W2 [2H, 4H], b2 [4H]; Wo [H, 2], bo [2] (hid2act)."""
+
+    Wc: torch.Tensor
+    bc: torch.Tensor
+    Wx1: torch.Tensor
+    Wh1: torch.Tensor
+    b1: torch.Tensor
+    W2: torch.Tensor
+    b2: torch.Tensor
+    Wo: torch.Tensor
+    bo: torch.Tensor
+
+
+def extract_decoder_params(decoder) -> LSTMDecodeParams:
+    """`models.vae.LSTMDecoder` (reference torch layout: Linear [out, in],
+    fused-gate LSTM weights [4H, in], two summed biases) -> the kernels'
+    [in, out] layout, contiguous."""
+    lstm = decoder.lstm
+    c = lambda w: w.t().contiguous()
+    return LSTMDecodeParams(
+        Wc=c(decoder.cond2hidden.weight),
+        bc=decoder.cond2hidden.bias,
+        Wx1=c(lstm.weight_ih_l0),
+        Wh1=c(lstm.weight_hh_l0),
+        b1=lstm.bias_ih_l0 + lstm.bias_hh_l0,
+        W2=torch.cat([lstm.weight_ih_l1.t(), lstm.weight_hh_l1.t()], dim=0).contiguous(),
+        b2=lstm.bias_ih_l1 + lstm.bias_hh_l1,
+        Wo=c(decoder.hid2act.weight),
+        bo=decoder.hid2act.bias,
+    )
+
+
+def _gate_act(pre: torch.Tensor, H: int):
+    i = torch.sigmoid(pre[..., 0 * H : 1 * H])
+    f = torch.sigmoid(pre[..., 1 * H : 2 * H])
+    g = torch.tanh(pre[..., 2 * H : 3 * H])
+    o = torch.sigmoid(pre[..., 3 * H : 4 * H])
+    return i, f, g, o
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def lstm2_core_ref(xg1, h0, Wh1, W2, b2) -> Tuple[torch.Tensor, ...]:
+    """Plain forward: -> (y, h1s, c1s, c2s), each [B, T, H]. Differentiable
+    by autograd, which makes it the reference for `Lstm2Core`'s VJP."""
+    H = h0.shape[-1]
+    h1, h2 = h0, h0
+    c1 = c2 = torch.zeros_like(h0)
+    ys, h1s, c1s, c2s = [], [], [], []
+    for t in range(xg1.shape[1]):
+        i1, f1, g1, o1 = _gate_act(xg1[:, t] + h1 @ Wh1, H)
+        c1 = f1 * c1 + i1 * g1
+        h1 = o1 * torch.tanh(c1)
+        i2, f2, g2, o2 = _gate_act(torch.cat([h1, h2], -1) @ W2 + b2, H)
+        c2 = f2 * c2 + i2 * g2
+        h2 = o2 * torch.tanh(c2)
+        ys.append(h2)
+        h1s.append(h1)
+        c1s.append(c1)
+        c2s.append(c2)
+    st = lambda s: torch.stack(s, dim=1)
+    return st(ys), st(h1s), st(c1s), st(c2s)
+
+
+def lstm2_bwd_ref(dy, xg1, h0, Wh1, W2, b2, h1s, c1s, ys, c2s):
+    """Plain reverse sweep: recompute each step's gates from the saved
+    states, return the gate cotangents (dg1, dg2), each [B, T, 4H]."""
+    B, T, H4 = xg1.shape
+    H = H4 // 4
+    zero = torch.zeros_like(h0)
+    dh1c = dc1c = dh2c = dc2c = zero
+    dg1 = torch.empty_like(xg1)
+    dg2 = torch.empty_like(xg1)
+    W2t = W2.t()
+    Wh1t = Wh1.t()
+    for t in range(T - 1, -1, -1):
+        h1p = h1s[:, t - 1] if t > 0 else h0
+        c1p = c1s[:, t - 1] if t > 0 else zero
+        h2p = ys[:, t - 1] if t > 0 else h0
+        c2p = c2s[:, t - 1] if t > 0 else zero
+        i1, f1, g1, o1 = _gate_act(xg1[:, t] + h1p @ Wh1, H)
+        i2, f2, g2, o2 = _gate_act(torch.cat([h1s[:, t], h2p], -1) @ W2 + b2, H)
+
+        dh2 = dy[:, t] + dh2c
+        tc2 = torch.tanh(c2s[:, t])
+        do2 = dh2 * tc2
+        dc2 = dc2c + dh2 * o2 * (1.0 - tc2 * tc2)
+        d2 = torch.cat([
+            dc2 * g2 * i2 * (1.0 - i2),
+            dc2 * c2p * f2 * (1.0 - f2),
+            dc2 * i2 * (1.0 - g2 * g2),
+            do2 * o2 * (1.0 - o2),
+        ], dim=-1)
+        dxh = d2 @ W2t  # [B, 2H]
+
+        dh1 = dxh[:, :H] + dh1c
+        tc1 = torch.tanh(c1s[:, t])
+        do1 = dh1 * tc1
+        dc1 = dc1c + dh1 * o1 * (1.0 - tc1 * tc1)
+        d1 = torch.cat([
+            dc1 * g1 * i1 * (1.0 - i1),
+            dc1 * c1p * f1 * (1.0 - f1),
+            dc1 * i1 * (1.0 - g1 * g1),
+            do1 * o1 * (1.0 - o1),
+        ], dim=-1)
+        dg1[:, t] = d1
+        dg2[:, t] = d2
+        dh1c, dc1c, dh2c, dc2c = d1 @ Wh1t, dc1 * f1, dxh[:, H:], dc2 * f2
+    return dg1, dg2
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _shapes(xg1, h0):
+    B, T, H4 = xg1.shape
+    return B, T, H4 // 4
+
+
+def lstm2_fwd(xg1, h0, Wh1, W2, b2):
+    """Forward sweep -> (y, h1s, c1s, c2s). CUDA tensors launch
+    `lstm2_fwd_kernel`; CPU tensors take `lstm2_core_ref`."""
+    if xg1.device.type == "cpu":
+        return lstm2_core_ref(xg1, h0, Wh1, W2, b2)
+    if xg1.device.type != "cuda":
+        raise ValueError(f"lstm2_fwd: unsupported device {xg1.device}")
+    B, T, H = _shapes(xg1, h0)
+    dev, f32 = xg1.device, torch.float32
+    for name, t, shape in (("xg1", xg1, (B, T, 4 * H)), ("h0", h0, (B, H)),
+                           ("Wh1", Wh1, (H, 4 * H)), ("W2", W2, (2 * H, 4 * H)),
+                           ("b2", b2, (4 * H,))):
+        native.require(t, name, f32, shape, dev)
+    y, h1s, c1s, c2s = (torch.empty((B, T, H), dtype=f32, device=dev) for _ in range(4))
+    lib = native.library()
+    native.check(lib.cld_lstm2_fwd(
+        xg1.data_ptr(), h0.data_ptr(), Wh1.data_ptr(), W2.data_ptr(), b2.data_ptr(),
+        y.data_ptr(), h1s.data_ptr(), c1s.data_ptr(), c2s.data_ptr(), B, T, H,
+        native.stream_ptr(dev),
+    ), "lstm2_fwd")
+    native.count_launch("lstm2_fwd")
+    return y, h1s, c1s, c2s
+
+
+def lstm2_bwd(dy, xg1, h0, Wh1, W2, b2, h1s, c1s, ys, c2s):
+    """Reverse sweep -> (dg1, dg2). CUDA tensors launch `lstm2_bwd_kernel`;
+    CPU tensors take `lstm2_bwd_ref`."""
+    if xg1.device.type == "cpu":
+        return lstm2_bwd_ref(dy, xg1, h0, Wh1, W2, b2, h1s, c1s, ys, c2s)
+    if xg1.device.type != "cuda":
+        raise ValueError(f"lstm2_bwd: unsupported device {xg1.device}")
+    B, T, H = _shapes(xg1, h0)
+    dev, f32 = xg1.device, torch.float32
+    seq = (B, T, H)
+    for name, t, shape in (("dy", dy, seq), ("xg1", xg1, (B, T, 4 * H)), ("h0", h0, (B, H)),
+                           ("Wh1", Wh1, (H, 4 * H)), ("W2", W2, (2 * H, 4 * H)),
+                           ("b2", b2, (4 * H,)), ("h1s", h1s, seq), ("c1s", c1s, seq),
+                           ("ys", ys, seq), ("c2s", c2s, seq)):
+        native.require(t, name, f32, shape, dev)
+    dg1 = torch.empty((B, T, 4 * H), dtype=f32, device=dev)
+    dg2 = torch.empty_like(dg1)
+    lib = native.library()
+    native.check(lib.cld_lstm2_bwd(
+        dy.data_ptr(), xg1.data_ptr(), h0.data_ptr(), Wh1.data_ptr(), W2.data_ptr(),
+        b2.data_ptr(), h1s.data_ptr(), c1s.data_ptr(), ys.data_ptr(), c2s.data_ptr(),
+        dg1.data_ptr(), dg2.data_ptr(), B, T, H, native.stream_ptr(dev),
+    ), "lstm2_bwd")
+    native.count_launch("lstm2_bwd")
+    return dg1, dg2
+
+
+class Lstm2Core(torch.autograd.Function):
+    """y = core(xg1, h0, Wh1, W2, b2), differentiable in all five inputs."""
+
+    @staticmethod
+    def forward(ctx, xg1, h0, Wh1, W2, b2):
+        y, h1s, c1s, c2s = lstm2_fwd(xg1, h0, Wh1, W2, b2)
+        ctx.save_for_backward(xg1, h0, Wh1, W2, b2, h1s, c1s, y, c2s)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        xg1, h0, Wh1, W2, b2, h1s, c1s, y, c2s = ctx.saved_tensors
+        H = h0.shape[-1]
+        dg1, dg2 = lstm2_bwd(dy.contiguous(), xg1, h0, Wh1, W2, b2, h1s, c1s, y, c2s)
+        need = ctx.needs_input_grad
+        flat = lambda a: a.reshape(-1, a.shape[-1])
+        dWh1 = dW2 = db2 = dh0 = None
+        if need[2]:
+            h1prev = torch.cat([h0[:, None], h1s[:, :-1]], dim=1)
+            dWh1 = flat(h1prev).t() @ flat(dg1)
+        if need[3]:
+            h2prev = torch.cat([h0[:, None], y[:, :-1]], dim=1)
+            dW2 = flat(torch.cat([h1s, h2prev], dim=-1)).t() @ flat(dg2)
+        if need[4]:
+            db2 = dg2.sum(dim=(0, 1))
+        if need[1]:
+            dh0 = dg1[:, 0] @ Wh1.t() + dg2[:, 0] @ W2[H:].t()
+        return dg1, dh0, dWh1, dW2, db2
+
+
+def lstm2_core(xg1, h0, Wh1, W2, b2) -> torch.Tensor:
+    """Fused sequential core -> y [B, T, H] (see `Lstm2Core`)."""
+    return Lstm2Core.apply(xg1, h0, Wh1, W2, b2)
+
+
+def fused_decode_actions(decoder, z: torch.Tensor, cond_feat: torch.Tensor) -> torch.Tensor:
+    """Latents z [..., T, L] + cond_feat [..., C] -> scaled actions
+    [..., T, 2], through the kernel-backed core. Differentiable in z,
+    cond_feat and the decoder weights."""
+    p = extract_decoder_params(decoder)
+    lead = z.shape[:-2]
+    T, L = z.shape[-2:]
+    z2 = z.reshape(-1, T, L)
+    cond2 = cond_feat.reshape(-1, cond_feat.shape[-1])
+    xg1 = z2 @ p.Wx1 + p.b1
+    h0 = cond2 @ p.Wc + p.bc
+    y = lstm2_core(xg1.contiguous(), h0.contiguous(), p.Wh1, p.W2, p.b2)
+    acts = y @ p.Wo + p.bo
+    return acts.reshape(*lead, T, p.Wo.shape[-1])

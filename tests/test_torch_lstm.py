@@ -1,0 +1,126 @@
+"""The port's LSTM decoder core (`cld_tpu_torch.ops.lstm_kernels`) against
+the JAX package's fused decoder (`cld_tpu.ops.lstm_pallas`).
+
+On the CPU the port's wrappers take the kernels' plain versions; the JAX
+side runs its jnp reference and its Pallas kernels in interpret mode, f32
+storage. Tolerances: values at rtol 1e-5 / atol 1e-6 (f32, the two sides
+sum the gate products in another order); gradients at rtol 1e-4 / atol
+1e-5 (the reverse sweep compounds that rounding over T steps).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cld_tpu.models.lstm import LSTMVAE
+from cld_tpu.ops import lstm_pallas as jl
+from cld_tpu_torch.models.vae import LSTMDecoder
+from cld_tpu_torch.ops import lstm_kernels as tl
+from cld_tpu_torch.utils.weights import export_lstm_vae
+
+torch.set_num_threads(2)
+
+VAL = dict(rtol=1e-5, atol=1e-6)
+GRAD = dict(rtol=1e-4, atol=1e-5)
+
+
+def _core_inputs(seed, B, T, H):
+    rng = np.random.default_rng(seed)
+    k = 1.0 / np.sqrt(H)
+    return [
+        rng.normal(size=(B, T, 4 * H)).astype(np.float32),
+        rng.normal(size=(B, H)).astype(np.float32) * 0.5,
+        rng.uniform(-k, k, size=(H, 4 * H)).astype(np.float32),
+        rng.uniform(-k, k, size=(2 * H, 4 * H)).astype(np.float32),
+        rng.uniform(-k, k, size=(4 * H,)).astype(np.float32),
+    ]
+
+
+@pytest.mark.parametrize("B,T,H", [(3, 7, 16), (4, 13, 8)])
+def test_core_values_match_jax(B, T, H):
+    args = _core_inputs(0, B, T, H)
+    want = jl.lstm2_core_ref(*map(jnp.asarray, args))
+    got = tl.lstm2_core_ref(*map(torch.from_numpy, args))
+    for w, g in zip(want, got):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **VAL)
+    y_pallas = jl.lstm2_core(*map(jnp.asarray, args), True)
+    np.testing.assert_allclose(tl.lstm2_core(*map(torch.from_numpy, args)).numpy(),
+                               np.asarray(y_pallas), **VAL)
+
+
+@pytest.mark.parametrize("B,T,H", [(3, 7, 16), (2, 5, 8)])
+def test_core_vjp_matches_jax_in_all_five_arguments(B, T, H):
+    args = _core_inputs(1, B, T, H)
+    ct = np.random.default_rng(2).normal(size=(B, T, H)).astype(np.float32)
+
+    def loss_jax(*a):
+        return jnp.sum(jl.lstm2_core(*a, True) * ct)
+
+    want = jax.grad(loss_jax, argnums=(0, 1, 2, 3, 4))(*map(jnp.asarray, args))
+
+    def torch_grads(fn):
+        ts = [torch.from_numpy(a).requires_grad_(True) for a in args]
+        (fn(*ts) * torch.from_numpy(ct)).sum().backward()
+        return [t.grad.numpy() for t in ts]
+
+    got = torch_grads(tl.lstm2_core)
+    autograd_ref = torch_grads(lambda *a: tl.lstm2_core_ref(*a)[0])
+    for w, g, r in zip(want, got, autograd_ref):
+        np.testing.assert_allclose(g, np.asarray(w), **GRAD)
+        np.testing.assert_allclose(g, r, **GRAD)
+
+
+def test_bwd_ref_gate_cotangents_are_the_xg1_gradient():
+    B, T, H = 2, 6, 8
+    args = [torch.from_numpy(a) for a in _core_inputs(3, B, T, H)]
+    y, h1s, c1s, c2s = tl.lstm2_core_ref(*args)
+    dy = torch.from_numpy(np.random.default_rng(4).normal(size=(B, T, H)).astype(np.float32))
+    dg1, dg2 = tl.lstm2_bwd_ref(dy, *args, h1s, c1s, y, c2s)
+    xg1 = args[0].clone().requires_grad_(True)
+    (tl.lstm2_core_ref(xg1, *args[1:])[0] * dy).sum().backward()
+    np.testing.assert_allclose(dg1.numpy(), xg1.grad.numpy(), **GRAD)
+    assert dg2.shape == (B, T, 4 * H)
+
+
+@pytest.fixture(scope="module")
+def vae_pair():
+    m = LSTMVAE(hidden_size=16, latent_size=4)
+    v = m.init({"params": jax.random.key(0)}, jnp.zeros((2, 9, 6)), jnp.zeros((2, 32)))
+    sd = export_lstm_vae(jax.tree.map(np.asarray, v["params"]), root="")
+    dec = LSTMDecoder(latent_size=4, hidden_size=16, cond_dim=32)
+    dec.load_state_dict({k[len("lstm_dec."):]: torch.from_numpy(a)
+                         for k, a in sd.items() if k.startswith("lstm_dec.")}, strict=True)
+    return {"params": {"lstmvae": v["params"]}}, dec
+
+
+def test_fused_decode_actions_matches_jax(vae_pair):
+    variables, dec = vae_pair
+    rng = np.random.default_rng(5)
+    z = rng.normal(size=(3, 9, 4)).astype(np.float32)
+    cond = rng.normal(size=(3, 32)).astype(np.float32)
+    ct = rng.normal(size=(3, 9, 2)).astype(np.float32)
+
+    def loss(z, c):
+        return jnp.sum(jl.fused_decode_actions(variables, z, c, impl="interpret") * ct)
+
+    want = jl.fused_decode_actions(variables, jnp.asarray(z), jnp.asarray(cond), impl="ref")
+    gz, gc = jax.grad(loss, argnums=(0, 1))(jnp.asarray(z), jnp.asarray(cond))
+
+    zt = torch.from_numpy(z).requires_grad_(True)
+    ctt = torch.from_numpy(cond).requires_grad_(True)
+    got = tl.fused_decode_actions(dec, zt, ctt)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **VAL)
+    (got * torch.from_numpy(ct)).sum().backward()
+    np.testing.assert_allclose(zt.grad.numpy(), np.asarray(gz), **GRAD)
+    np.testing.assert_allclose(ctt.grad.numpy(), np.asarray(gc), **GRAD)
+
+
+def test_decoder_params_match_jax_extraction(vae_pair):
+    variables, dec = vae_pair
+    want = jl.extract_decoder_params(variables["params"]["lstmvae"]["lstm_dec"])
+    got = tl.extract_decoder_params(dec)
+    for name in want._fields:
+        np.testing.assert_array_equal(getattr(got, name).detach().numpy(),
+                                      np.asarray(getattr(want, name)), err_msg=name)

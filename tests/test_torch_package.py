@@ -1,0 +1,70 @@
+"""Package rules of the port: `cld_tpu_torch` imports no JAX, flax or
+cld_tpu module; its entry points default to the CUDA device; its kernel
+wrappers dispatch by tensor device and never fall back quietly."""
+
+import ast
+import inspect
+from pathlib import Path
+
+import pytest
+import torch
+
+import cld_tpu_torch
+from cld_tpu_torch import pipeline
+from cld_tpu_torch.data import synthetic
+from cld_tpu_torch.ops import diffusion, gather_kernels, lstm_kernels, native
+
+torch.set_num_threads(2)
+PKG = Path(cld_tpu_torch.__file__).parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "cld_tpu")
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def test_no_jax_or_reference_package_imports():
+    files = sorted(PKG.rglob("*.py")) + [PKG.parent / "chip_smoke.py"]
+    assert len(files) > 15
+    for f in files:
+        for mod in _imports(f):
+            top = mod.split(".")[0]
+            assert top not in FORBIDDEN, f"{f.relative_to(PKG.parent)} imports {mod}"
+
+
+@pytest.mark.parametrize("fn", [pipeline.build_models, synthetic.synthetic_batch,
+                                diffusion.make_schedule])
+def test_entry_points_default_to_cuda(fn):
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_wrappers_raise_on_devices_without_a_kernel():
+    B, T, H = 2, 3, 4
+    m = lambda *s, dtype=torch.float32: torch.empty(*s, dtype=dtype, device="meta")
+    with pytest.raises(ValueError):
+        lstm_kernels.lstm2_fwd(m(B, T, 4 * H), m(B, H), m(H, 4 * H), m(2 * H, 4 * H), m(4 * H))
+    with pytest.raises(ValueError):
+        lstm_kernels.lstm2_bwd(m(B, T, H), m(B, T, 4 * H), m(B, H), m(H, 4 * H),
+                               m(2 * H, 4 * H), m(4 * H), *(m(B, T, H) for _ in range(4)))
+    with pytest.raises(ValueError):
+        gather_kernels.drivable_bit_gather(m(B, 5, 2, dtype=torch.int32),
+                                           m(B, 4, 1, dtype=torch.int8))
+
+
+def test_cpu_tensors_take_the_plain_versions_without_counting():
+    native.reset_launch_counts()
+    pix = torch.zeros((1, 3, 2), dtype=torch.int32)
+    packed = gather_kernels.pack_drivable_bits(torch.ones((1, 4, 9)))
+    assert gather_kernels.drivable_bit_gather(pix, packed).tolist() == [[1.0, 1.0, 1.0]]
+    assert native.launch_counts() == {k: 0 for k in native.KERNELS}
+
+
+def test_kernel_library_name_tracks_the_sources():
+    path = native.library_path()
+    assert path.parent == PKG / "_build" and path.suffix == ".so"
+    assert sorted(p.name for p in native.CSRC.glob("*.cu")) == ["bit_gather.cu", "lstm.cu"]
