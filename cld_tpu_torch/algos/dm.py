@@ -30,7 +30,6 @@ def sample_traj(
     cond_feat: torch.Tensor,
     horizon: int,
     latent_size: int,
-    num_samp: int = 1,
     guidance_fn: Optional[Callable[[torch.Tensor, int], torch.Tensor]] = None,
     x_init: Optional[torch.Tensor] = None,
     step_noises: Optional[torch.Tensor] = None,
@@ -39,10 +38,11 @@ def sample_traj(
     """Full ancestral sampling. guidance_fn(mean, t) perturbs the posterior
     mean at every step except the last (t = 0), the config of record.
 
-    Returns pred_traj [BN, T, D] (x_0), x1 [BN, T, D] (state after the t = 1
-    transition), log_prob_final [BN] and cond_feat [BN, C]."""
+    One sample per conditioning row (`num_samp` 1, the config of record).
+    Returns pred_traj [B, T, D] (x_0), x1 [B, T, D] (state after the t = 1
+    transition), log_prob_final [B] and cond_feat [B, C]."""
     dev = cond_feat.device
-    cond = torch.repeat_interleave(cond_feat, num_samp, dim=0)  # [B*N, C]
+    cond = cond_feat
     BN = cond.shape[0]
     n = schedule.n_timesteps
     shape = (BN, horizon, latent_size)

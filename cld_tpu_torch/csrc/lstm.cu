@@ -363,8 +363,4 @@ int cld_lstm2_bwd(const float* dy, const float* xg1, const float* h0, const floa
   return (int)cudaGetLastError();
 }
 
-size_t cld_lstm2_smem_bytes(int H, int backward) {
-  return backward ? bwd_smem_bytes(H) : fwd_smem_bytes(H);
-}
-
 }  // extern "C"

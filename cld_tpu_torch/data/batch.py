@@ -36,9 +36,6 @@ class TrafficBatch(NamedTuple):
     def batch_size(self) -> int:
         return self.image.shape[0]
 
-    def to(self, device) -> "TrafficBatch":
-        return TrafficBatch(*(f.to(device) for f in self))
-
 
 def get_current_states(batch: TrafficBatch) -> torch.Tensor:
     """Current unicycle state [B, 4] = (x, y, v, yaw): last history pose +

@@ -101,16 +101,15 @@ class AgentCollisionLoss:
 
     Only the scene-block path is ported: the batch must be contiguous
     equal-size scenes of `scene_block` agents, and distances are computed
-    block-diagonally ([S, A, A]) with the "diff" pairwise form ("auto"
-    resolves to it)."""
+    block-diagonally ([S, A, A]) with the JAX package's "diff" pairwise
+    form (the full disk-difference tensor, which its "auto" picks at these
+    block sizes)."""
 
     num_disks: int = 5
     buffer_dist: float = 0.2
     decay_rate: float = 0.9
     guide_moving_speed_th: float = 0.5
-    excluded_agents: Optional[Tuple[int, ...]] = None
     scene_block: Optional[int] = None
-    pairwise_impl: str = "auto"
 
     def __call__(self, x, ctx: GuidanceContext, agt_mask=None) -> torch.Tensor:
         B, N, T, _ = x.shape
@@ -119,11 +118,6 @@ class AgentCollisionLoss:
             raise NotImplementedError(
                 "AgentCollisionLoss: only the scene-block path is ported "
                 f"(scene_block={A}, B={B})"
-            )
-        if self.pairwise_impl not in ("auto", "diff"):
-            raise NotImplementedError(
-                f"AgentCollisionLoss: pairwise_impl {self.pairwise_impl!r} is not "
-                "ported (use 'diff' or 'auto')"
             )
         dev = x.device
         moving = torch.abs(ctx.curr_speed) > self.guide_moving_speed_th
@@ -154,11 +148,6 @@ class AgentCollisionLoss:
         pen_d = rad[:, :, None] + rad[:, None, :] + self.buffer_dist  # [S, A, A]
         eye = torch.eye(A, dtype=torch.bool, device=dev)
         pair_valid = (si[:, :, None] == si[:, None, :]) & ~eye[None]
-        if self.excluded_agents:
-            exc = torch.zeros(B, dtype=torch.bool, device=dev)
-            exc[list(self.excluded_agents)] = True
-            exc = exc.reshape(S, A)
-            pair_valid = pair_valid & ~(exc[:, :, None] & exc[:, None, :])
 
         cent_t = cent_w.reshape(S, A, N, T, D, 2).permute(3, 0, 1, 2, 4, 5)  # [T,S,A,N,D,2]
         diff = (
@@ -261,19 +250,14 @@ class MinDistSeparable(torch.autograd.Function):
 class MapCollisionLoss:
     """Offroad penalty with an on-road-pull gradient: sample a grid of points
     in each agent bbox; for off-road points, loss 1 - min_dist/diag where
-    min_dist runs to the nearest (detached) on-road point. Only
-    min_dist_impl="separable" is ported."""
+    min_dist runs to the nearest (detached) on-road point, by the JAX
+    package's default min_dist_impl="separable" (`MinDistSeparable`)."""
 
     num_points_lw: Tuple[int, int] = (10, 10)
     decay_rate: float = 0.9
     guide_moving_speed_th: float = 0.5
-    min_dist_impl: str = "separable"
 
     def __call__(self, x, ctx: GuidanceContext, agt_mask=None) -> torch.Tensor:
-        if self.min_dist_impl != "separable":
-            raise NotImplementedError(
-                f"MapCollisionLoss: min_dist_impl {self.min_dist_impl!r} is not ported"
-            )
         B, N, T, _ = x.shape
         dev = x.device
         R, C = self.num_points_lw

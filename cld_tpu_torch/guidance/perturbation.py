@@ -1,7 +1,7 @@
 """Perturbation guidance: gradient steering of the sampler (port of
 `cld_tpu/guidance/perturbation.py:79-205`).
 
-`perturb` runs `grad_steps` hand-rolled Adam (or SGD) updates on the
+`perturb` runs `grad_steps` hand-rolled Adam updates on the
 sampler's posterior mean, with the gradient of the guidance cost of its
 decoded trajectory taken by `torch.autograd.grad`; the cumulative change is
 clipped to `perturb_th`. `make_perturbation_guidance` builds the hook that
@@ -24,27 +24,26 @@ from cld_tpu_torch.guidance.losses import (
 )
 
 
+# Adam moments and epsilon (torch.optim.Adam's defaults, as the reference's)
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+
+
 @dataclasses.dataclass(frozen=True)
 class GuidanceSpec:
-    """One guidance rule: a loss callable + weight + optional agent mask."""
+    """One guidance rule, applied to every agent: a loss callable + weight."""
 
     loss: Callable
     weight: float = 1.0
-    agent_mask: Optional[Tuple[bool, ...]] = None  # static [B] mask, None = all
 
 
 def compute_guidance_loss(
     x_traj: torch.Tensor, ctx: GuidanceContext, specs: Sequence[GuidanceSpec]
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Weighted sum of per-rule masked means over [B, N, T, 6] trajectories."""
-    B = x_traj.shape[0]
+    """Weighted sum of per-rule means over [B, N, T, 6] trajectories."""
+    mask = torch.ones((x_traj.shape[0],), dtype=torch.bool, device=x_traj.device)
     total = torch.zeros((), dtype=x_traj.dtype, device=x_traj.device)
     per_losses: Dict[str, torch.Tensor] = {}
     for i, spec in enumerate(specs):
-        if spec.agent_mask is not None:
-            mask = torch.as_tensor(spec.agent_mask, device=x_traj.device)
-        else:
-            mask = torch.ones((B,), dtype=torch.bool, device=x_traj.device)
         cur = spec.loss(x_traj, ctx, agt_mask=mask)  # [B, N]
         per_losses[f"{type(spec.loss).__name__}_{i}"] = cur
         total = total + masked_mean(cur, mask) * spec.weight
@@ -73,30 +72,22 @@ def perturb(
     lr: float = 0.3,
     grad_steps: int = 1,
     perturb_th=None,
-    optimizer: str = "adam",
-    b1: float = 0.9,
-    b2: float = 0.999,
-    eps: float = 1e-8,
 ) -> torch.Tensor:
-    """Adam/SGD descent on x of the guidance cost of its decoded trajectory;
+    """Adam descent on x of the guidance cost of its decoded trajectory;
     the cumulative change from x_initial is clipped to +-perturb_th (a float
     or a 0-dim tensor)."""
+    b1, b2, eps = ADAM_B1, ADAM_B2, ADAM_EPS
     x_initial = x_initial.detach()
     x = x_initial
     m = torch.zeros_like(x_initial)
     v = torch.zeros_like(x_initial)
     for step in range(grad_steps):
         g = guidance_gradient(x, ctx, specs, decode_fn)
-        if optimizer == "adam":
-            m = b1 * m + (1 - b1) * g
-            v = b2 * v + (1 - b2) * g**2
-            m_hat = m / (1 - b1 ** (step + 1))
-            v_hat = v / (1 - b2 ** (step + 1))
-            x = x - lr * m_hat / (torch.sqrt(v_hat) + eps)
-        elif optimizer == "sgd":
-            x = x - lr * g
-        else:
-            raise NotImplementedError(optimizer)
+        m = b1 * m + (1 - b1) * g
+        v = b2 * v + (1 - b2) * g**2
+        m_hat = m / (1 - b1 ** (step + 1))
+        v_hat = v / (1 - b2 ** (step + 1))
+        x = x - lr * m_hat / (torch.sqrt(v_hat) + eps)
         if perturb_th is not None:
             th = torch.as_tensor(perturb_th, dtype=x.dtype, device=x.device)
             delta = torch.minimum(torch.maximum(x - x_initial, -th), th)

@@ -23,9 +23,6 @@ class DiffusionSchedule(NamedTuple):
     """The coefficient buffers the sampler reads; each is [n_timesteps] f32."""
 
     n_timesteps: int
-    betas: torch.Tensor
-    alphas_cumprod: torch.Tensor
-    posterior_variance: torch.Tensor
     posterior_log_variance_clipped: torch.Tensor
     # epsilon-parameterized posterior mean: mu = x_t_cof * x_t - noise_cof * eps
     x_t_cof: torch.Tensor
@@ -46,9 +43,6 @@ def make_schedule(
 
     return DiffusionSchedule(
         n_timesteps=int(n_timesteps),
-        betas=f32(betas),
-        alphas_cumprod=f32(alphas_cumprod),
-        posterior_variance=f32(posterior_variance),
         posterior_log_variance_clipped=f32(
             np.log(np.clip(posterior_variance, 1e-20, None))
         ),

@@ -24,15 +24,6 @@ class UnicycleParams(NamedTuple):
     v_lo: float = -10.0
     v_hi: float = 30.0
 
-    @classmethod
-    def from_config(cls, dyn_cfg) -> "UnicycleParams":
-        return cls(
-            max_steer=float(dyn_cfg["max_steer"]),
-            max_yawvel=float(dyn_cfg["max_yawvel"]),
-            acce_lo=float(dyn_cfg["acce_bound"][0]),
-            acce_hi=float(dyn_cfg["acce_bound"][1]),
-        )
-
 
 def _clip(x: torch.Tensor, lo, hi) -> torch.Tensor:
     """jnp.clip(x, lo, hi) == minimum(maximum(x, lo), hi), with the same

@@ -114,8 +114,6 @@ def library() -> ctypes.CDLL:
         lib.cld_lstm2_fwd.restype = i
         lib.cld_lstm2_bwd.argtypes = [p] * 12 + [i, i, i, p]
         lib.cld_lstm2_bwd.restype = i
-        lib.cld_lstm2_smem_bytes.argtypes = [i, i]
-        lib.cld_lstm2_smem_bytes.restype = ctypes.c_size_t
         lib.cld_bit_gather.argtypes = [p] * 3 + [i, i, i, i, p]
         lib.cld_bit_gather.restype = i
         _LIB = lib

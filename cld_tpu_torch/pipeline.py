@@ -117,14 +117,15 @@ def guided_collect(
     batch: TrafficBatch,
     guided: bool = True,
     agents_per_scene: int = 4,
-    num_samp: int = 1,
     x_init: Optional[torch.Tensor] = None,
     step_noises: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
 ) -> Dict[str, torch.Tensor]:
     """One pipeline call. Returns the mean reward, the per-agent reward, the
-    final latents, the decoded trajectories [B, N, T, 6], cond_feat, and
-    `launches`: how many times each CUDA kernel launched during the call."""
+    sampler's outputs (final latents, x1, log_prob_final), the decoded
+    trajectories [B, N, T, 6], cond_feat, and `launches`: how many times
+    each CUDA kernel launched during the call. One sample per agent
+    (`num_samp` 1, the config of record)."""
     before = native.launch_counts()
     normalizer = TrajNormalizer()
     with torch.no_grad():
@@ -157,7 +158,7 @@ def guided_collect(
         )
     out = sample_traj(
         models.unet, models.schedule, cond_feat, models.horizon, models.latent_size,
-        num_samp=num_samp, guidance_fn=gfn, x_init=x_init, step_noises=step_noises,
+        guidance_fn=gfn, x_init=x_init, step_noises=step_noises,
         generator=generator,
     )
     with torch.no_grad():
@@ -168,6 +169,8 @@ def guided_collect(
         "reward": reward.mean(),
         "reward_per_agent": reward,
         "pred_traj": out["pred_traj"],
+        "x1": out["x1"],
+        "log_prob_final": out["log_prob_final"],
         "traj": traj,
         "cond_feat": cond_feat,
         "launches": {k: after[k] - before[k] for k in after},

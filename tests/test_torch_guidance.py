@@ -72,8 +72,7 @@ def _scene(seed=0):
 LOSSES = {
     "agent_collision": (jlo.AgentCollisionLoss(num_disks=5, buffer_dist=0.2, scene_block=A,
                                                pairwise_impl="diff"),
-                        tlo.AgentCollisionLoss(num_disks=5, buffer_dist=0.2, scene_block=A,
-                                               pairwise_impl="diff")),
+                        tlo.AgentCollisionLoss(num_disks=5, buffer_dist=0.2, scene_block=A)),
     "map_collision": (jlo.MapCollisionLoss(num_points_lw=(10, 10), min_dist_impl="separable"),
                       tlo.MapCollisionLoss(num_points_lw=(10, 10))),
 }

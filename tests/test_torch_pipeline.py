@@ -104,7 +104,8 @@ def _jax_pipeline(jb, vae, vv, unet, uv, key, guided):
     out = jax_sample(lambda x, c, t: unet.apply(uv, x, c, t), schedule, key, cond, T, L,
                      guidance_fn=gfn)
     traj = decode_fn(out["pred_traj"])
-    return cond, out["pred_traj"], traj, jax_reward(traj, jb, normalizer.scale(traj))
+    return (cond, out["pred_traj"], out["x1"], out["log_prob_final"], traj,
+            jax_reward(traj, jb, normalizer.scale(traj)))
 
 
 def _close(got, want, rtol, floor):
@@ -128,7 +129,7 @@ def test_slice_matches_jax(slice_pair, guided):
     jb, vae, vv, unet, uv, models = slice_pair
     key = jax.random.key(7)
     run = jax.jit(_jax_pipeline, static_argnums=(1, 3, 6))
-    cond_j, pred_j, traj_j, rew_j = run(jb, vae, vv, unet, uv, key, guided)
+    cond_j, pred_j, x1_j, logp_j, traj_j, rew_j = run(jb, vae, vv, unet, uv, key, guided)
     x_init, noises = _jax_noise(key)
     tb = synthetic_batch(seed=0, batch_size=B, raster_size=64, device="cpu")
     out = pipeline.guided_collect(models, tb, guided=guided, agents_per_scene=A,
@@ -137,6 +138,9 @@ def test_slice_matches_jax(slice_pair, guided):
     assert torch.isfinite(out["traj"]).all() and out["traj"].shape == (B, 1, T, 6)
     pred_j, traj_j = np.asarray(pred_j), np.asarray(traj_j)
     _close(out["pred_traj"].numpy(), pred_j, 1e-4, 1e-5 if guided else 1e-6)
+    _close(out["x1"].numpy(), np.asarray(x1_j), 1e-4, 1e-5 if guided else 1e-6)
+    if not guided:  # the t=0 log-prob divides by sigma = 1e-10: held unguided only
+        _close(out["log_prob_final"].numpy(), np.asarray(logp_j), 1e-4, 1e-6)
     _close(out["traj"].numpy(), traj_j, 1e-4, 1e-6)
     np.testing.assert_allclose(out["reward_per_agent"].numpy(), np.asarray(rew_j), **NET)
     assert out["launches"] == {"lstm2_fwd": 0, "lstm2_bwd": 0, "bit_gather": 0}
