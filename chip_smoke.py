@@ -21,7 +21,26 @@
 5. Runs the slice at a small size (B=8, raster 64, 10 steps) on the card and
    on the CPU (plain versions) with the same weights and noise, and holds
    the results against each other.
-6. Prints the card line, one `{"kernels": [...]}` line, and last
+6. Holds the two map-gather kernels of the closed loop against their plain
+   versions, exactly, at the closed loop's shapes: `value_gather` (64
+   windows of 256x256x3 int8, 25,088 queries each) and `drivable_gather`
+   (32 maps of 224x224, 5,200 queries each; int8 and float32 maps); and the
+   banded `warp_scene_maps` against the exact one for the 32-agent pack.
+7. Runs the guided closed loop `sim.env.simulate` at full width: 4 scenes x
+   8 agents, raster 224x224x34, world maps 512x512x3, 100 frames, a replan
+   every 5 frames, each replan one guided 100-step DDPM call. Launch counts
+   are zeroed just before the episode and read just after, and must be
+   exact (`value_gather` = replans, `lstm2_fwd` = 100 x replans,
+   `lstm2_bwd` = `bit_gather` = 99 x replans); the trajectory log must be
+   finite; prints `summarize_metrics`, agent-steps/s and the host time per
+   replan split into render / policy / step.
+8. Runs one replan with `MapCollisionLoss(gather_impl="px")`: its guidance
+   gradient and its plan must equal the "bits" ones exactly, with 99
+   `drivable_gather` launches and no `bit_gather` launch.
+9. Runs a small closed loop (2 x 3 agents, raster 64, 10 DDPM steps, 10
+   frames) on the card and on the CPU with the same weights and noise.
+10. Prints the card line, one `{"kernels": [...]}` line (`launches` there is
+   the sum over the main-path runs of 4, 7 and 8), and last
    `{"ok": true, "device": {...}}`. Any failed check exits non-zero first.
 
 A longer report goes to chiprun_out/chip_smoke.json.
@@ -46,6 +65,11 @@ AGENTS_PER_SCENE = 4
 N_STEPS = 100
 RASTER = 224
 Q = T * 100  # map-loss query points per agent: horizon x 10x10 bbox grid
+
+# closed loop of record (`bench.py`: CL_SCENES, CL_AGENTS, CL_STEPS; replan / 5)
+CL_SCENES, CL_AGENTS, CL_STEPS, CL_N_STEP = 4, 8, 100, 5
+CL_B = CL_SCENES * CL_AGENTS
+WORLD_MAP = 512
 
 LSTM_REL_TOL = 1e-5  # max |kernel - plain| / max |plain|: f32, other summation order
 SLICE_RTOL = 1e-4  # small-slice card vs CPU: f32 networks on two backends
@@ -97,6 +121,16 @@ def rel_err(got, want) -> tuple:
     err = float((got - want).abs().max())
     scale = float(want.abs().max())
     return err, err / max(scale, 1e-30)
+
+
+def gather_pix(g, M, Qn, W, Hm, dev):
+    """Random in-range (col, row) queries with the four corners forced in."""
+    import torch
+
+    pix = torch.stack([torch.randint(0, W, (M, Qn), generator=g),
+                       torch.randint(0, Hm, (M, Qn), generator=g)], dim=-1)
+    pix[:, :4] = torch.tensor([[0, 0], [W - 1, 0], [0, Hm - 1], [W - 1, Hm - 1]])
+    return pix.to(torch.int32).to(dev).contiguous()
 
 
 def check_lstm(models, dev, report):
@@ -192,10 +226,7 @@ def check_gather(batch, dev, report):
     Hm, W8 = packed.shape[1:]
     W = batch.drivable_map.shape[-1]
     g = torch.Generator().manual_seed(2)
-    pix = torch.stack([torch.randint(0, W, (B, Q), generator=g),
-                       torch.randint(0, Hm, (B, Q), generator=g)], dim=-1)
-    pix[:, :4] = torch.tensor([[0, 0], [W - 1, 0], [0, Hm - 1], [W - 1, Hm - 1]])
-    pix = pix.to(torch.int32).to(dev).contiguous()
+    pix = gather_pix(g, B, Q, W, Hm, dev)
     got = gk.drivable_bit_gather(pix, packed)
     want = gk.drivable_bit_gather_ref(pix, packed)
     torch.cuda.synchronize()
@@ -229,7 +260,8 @@ def run_main_path(models, batch, report):
     launches = native.launch_counts()
     log(f"guided pipeline (first call, {first_s:.2f} s): launches {launches}, "
         f"reward {float(out['reward']):.4f}")
-    want = {"lstm2_fwd": N_STEPS, "lstm2_bwd": N_STEPS - 1, "bit_gather": N_STEPS - 1}
+    want = {"lstm2_fwd": N_STEPS, "lstm2_bwd": N_STEPS - 1, "bit_gather": N_STEPS - 1,
+            "value_gather": 0, "drivable_gather": 0}
     check(launches == want, f"kernel launches {launches}, expected {want}")
     for k in ("pred_traj", "traj", "reward_per_agent", "cond_feat"):
         check(bool(torch.isfinite(out[k]).all()), f"guided output {k} is not finite")
@@ -247,7 +279,8 @@ def run_main_path(models, batch, report):
 
     guided_s, _ = timed(True, 11)
     unguided_s, uo = timed(False, 12)
-    check(uo["launches"] == {"lstm2_fwd": 1, "lstm2_bwd": 0, "bit_gather": 0},
+    check(uo["launches"] == {"lstm2_fwd": 1, "lstm2_bwd": 0, "bit_gather": 0,
+                             "value_gather": 0, "drivable_gather": 0},
           f"unguided launches {uo['launches']}")
     for k in ("pred_traj", "traj", "reward_per_agent"):
         check(bool(torch.isfinite(uo[k]).all()), f"unguided output {k} is not finite")
@@ -303,7 +336,8 @@ def check_small_slice(dev, report):
             AGENTS_PER_SCENE), decode_fn)
         res[str(where)] = (outs, grad.cpu(), outs[True]["launches"])
     (c_outs, c_grad, _), (g_outs, g_grad, g_launch) = res["cpu"], res[str(dev)]
-    check(g_launch == {"lstm2_fwd": steps, "lstm2_bwd": steps - 1, "bit_gather": steps - 1},
+    check(g_launch == {"lstm2_fwd": steps, "lstm2_bwd": steps - 1, "bit_gather": steps - 1,
+                       "value_gather": 0, "drivable_gather": 0},
           f"small slice launches {g_launch}")
 
     def close(name, a, b, floor):
@@ -327,6 +361,284 @@ def check_small_slice(dev, report):
     report["small_slice"] = summary
 
 
+def check_map_gathers(dev, report):
+    """`value_gather` and `drivable_gather` against their plain versions at
+    the closed loop's shapes, exactly."""
+    import torch
+
+    from cld_tpu_torch.ops import gather_kernels as gk
+    from cld_tpu_torch.ops.raster import _pick_band
+
+    g = torch.Generator().manual_seed(6)
+    BH, WIN = _pick_band(RASTER, 1.0)
+    M, Qb, C = CL_B * (RASTER // BH), BH * RASTER, 3
+    wins = torch.randint(-128, 128, (M, WIN, WIN, C), generator=g, dtype=torch.int8).to(dev)
+    pix = gather_pix(g, M, Qb, WIN, WIN, dev)
+    got = gk.value_gather(pix, wins)
+    want = gk.value_gather_ref(pix, wins)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    log(f"value_gather [M={M}, Q={Qb}, {WIN}x{WIN}x{C}]: max abs err {err} (tolerance 0, exact); "
+        f"values in [{float(want.min()):.0f}, {float(want.max()):.0f}]")
+    check(err == 0.0, "value_gather disagrees with its plain version")
+    check(float(want.min()) == -128.0 and float(want.max()) == 127.0,
+          "value_gather fixture misses the byte range's ends")
+    ms = cuda_ms(lambda: gk.value_gather(pix, wins), 100)
+    plain_ms = cuda_ms(lambda: gk.value_gather_ref(pix, wins), 20)
+    b_ms, b_by = bound(8 * M * Qb + M * WIN * WIN * C + 4 * M * Qb * C, 0.0)
+    report["value_gather"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                  bound_by=b_by, library_ms=None)
+
+    drv = (torch.rand((CL_B, RASTER, RASTER), generator=g) < 0.6)
+    pix = gather_pix(g, CL_B, Q, RASTER, RASTER, dev)
+    worst = 0.0
+    for name, m in (("int8", (drv.to(torch.int8) * 3 - 1).to(dev)),
+                    ("float32", torch.where(drv, torch.rand(drv.shape, generator=g) + 0.1,
+                                            torch.zeros(())).to(dev))):
+        got, want = gk.drivable_gather(pix, m), gk.drivable_gather_ref(pix, m)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        n_on = int((want > 0).sum())
+        log(f"drivable_gather {name} [B={CL_B}, Q={Q}, {RASTER}x{RASTER}]: max abs err {err} "
+            f"(tolerance 0, exact); {n_on} of {CL_B * Q} on-road")
+        check(err == 0.0, f"drivable_gather ({name}) disagrees with its plain version")
+        check(0 < n_on < CL_B * Q, "drivable_gather fixture is degenerate")
+        worst = max(worst, err)
+    m8 = drv.to(torch.int8).to(dev)
+    ms = cuda_ms(lambda: gk.drivable_gather(pix, m8), 200)
+    plain_ms = cuda_ms(lambda: gk.drivable_gather_ref(pix, m8), 50)
+    b_ms, b_by = bound(8 * CL_B * Q + CL_B * RASTER * RASTER + 4 * CL_B * Q, 0.0)
+    report["drivable_gather"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                     bound_by=b_by, library_ms=None)
+
+
+def check_warp(pack, dev, report):
+    """Banded vs exact `warp_scene_maps` on the card for the 32-agent pack,
+    at the spawn poses and at the same positions under random yaws. The
+    pack's drivable and lane layers are {0, 1}: identical. Its middle layer
+    is 0.5, which the 8-bit windows store as 128/255: within 1/510."""
+    import torch
+
+    from cld_tpu_torch.ops.geometry import world_from_agent_matrix
+    from cld_tpu_torch.ops.raster import warp_scene_maps
+
+    g = torch.Generator().manual_seed(8)
+    pos = pack.init_states[:, :2]
+    worst = 0.0
+    for yaw in (pack.init_states[:, 3], (torch.rand((CL_B,), generator=g) * 6.2 - 3.1).to(dev)):
+        wfa = world_from_agent_matrix(pos, yaw)
+        args = (pack.world_map, pack.map_origin, pack.map_resolution, wfa, pack.scene_index,
+                RASTER, 0.5, (-0.5, 0.0))
+        exact = warp_scene_maps(*args, impl="exact")
+        banded = warp_scene_maps(*args, impl="banded")
+        torch.cuda.synchronize()
+        check(torch.equal(banded[..., 0], exact[..., 0]) and torch.equal(banded[..., 2],
+                                                                         exact[..., 2]),
+              "banded warp differs from the exact warp on a {0, 1} layer")
+        err = float((banded[..., 1] - exact[..., 1]).abs().max())
+        check(err <= 1.0 / 510 + 1e-6, f"banded warp is {err} off on the 0.5 layer")
+        check(0.0 < float(exact[..., 0].mean()) < 1.0, "warp fixture is degenerate")
+        worst = max(worst, err)
+    ms = {impl: cuda_ms(lambda: warp_scene_maps(*args, impl=impl), 10) for impl in
+          ("banded", "exact")}
+    log(f"warp_scene_maps banded vs exact, {CL_B} agents: {{0,1}} layers identical, 0.5 layer "
+        f"max abs diff {worst:.3e} (<= 1/510); banded {ms['banded']:.3f} ms, exact "
+        f"{ms['exact']:.3f} ms per call")
+    report["warp"] = dict(max_abs_diff_half_layer=worst, banded_ms=ms["banded"],
+                          exact_ms=ms["exact"])
+
+
+def run_closed_loop(models, pack, report):
+    """The guided closed loop at full width, once; launch counts exact."""
+    import torch
+
+    from cld_tpu_torch import pipeline
+    from cld_tpu_torch.ops import native
+    from cld_tpu_torch.sim import env
+    from cld_tpu_torch.sim.metrics import summarize_metrics
+
+    dev = pack.init_states.device
+    cfg = env.SimConfig(num_simulation_steps=CL_STEPS, n_step_action=CL_N_STEP,
+                        raster_size=RASTER)
+    policy = pipeline.make_dm_policy(models, CL_AGENTS)
+    marks = []
+
+    def timed_policy(obs, rng):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = policy(obs, rng)
+        torch.cuda.synchronize()
+        marks.append((t0, time.perf_counter()))
+        return out
+
+    g = torch.Generator(device=dev)
+    # one replan first, so that the timed episode does not pay for first-call set-up
+    warm = env.SimConfig(num_simulation_steps=CL_N_STEP, n_step_action=CL_N_STEP,
+                         raster_size=RASTER)
+    env.simulate(pack, policy, warm, generator=g.manual_seed(20))
+    native.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, traj = env.simulate(pack, timed_policy, cfg, generator=g.manual_seed(21))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = native.launch_counts()
+    n = cfg.num_replans
+    want = {"lstm2_fwd": N_STEPS * n, "lstm2_bwd": (N_STEPS - 1) * n,
+            "bit_gather": (N_STEPS - 1) * n, "value_gather": n, "drivable_gather": 0}
+    log(f"closed loop ({CL_SCENES} x {CL_AGENTS} agents, {CL_STEPS} frames, {n} replans, "
+        f"{wall:.2f} s): launches {launches}")
+    check(launches == want, f"closed-loop launches {launches}, expected {want}")
+    check(tuple(traj.shape) == (CL_STEPS, CL_B, 4), f"trajectory log shape {tuple(traj.shape)}")
+    check(bool(torch.isfinite(traj).all()) and bool(torch.isfinite(state.states).all()),
+          "closed-loop states are not finite")
+    check(state.step == CL_STEPS, f"closed loop stopped at frame {state.step}")
+    moved = traj[-1, :, 0] - pack.init_states[:, 0]
+    check(bool((moved.abs() > 0.1).all()), "an agent did not move in the closed loop")
+    metrics = summarize_metrics(pack, state, cfg)
+    log(f"closed-loop metrics: {json.dumps(metrics)}")
+
+    policy_s = sum(b - a for a, b in marks) / n
+    # render and step alone, on the episode's last state
+    world_q8 = env.quantize_world_maps_q8(pack.world_map)
+    last = state._replace(step=CL_STEPS - CL_N_STEP)
+
+    def host_s(fn, iters=5):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / iters
+
+    render_s = host_s(lambda: env.render_observation(pack, last, cfg, world_q8=world_q8))
+    acts = torch.zeros((CL_B, T, 2), device=dev)
+    step_s = host_s(lambda: env._consume_actions(pack, last, acts, cfg))
+    rate = CL_B * CL_STEPS / wall
+    report["launches_closed_loop"] = launches
+    report["closed_loop"] = dict(
+        wall_s=wall, agent_steps_per_s=rate, replans=n, s_per_replan=wall / n,
+        policy_s_per_replan=policy_s, render_s_per_replan=render_s,
+        step_s_per_replan=step_s, metrics=metrics)
+    log(f"closed loop {rate:.1f} agent-steps/s ({wall / n:.3f} s per replan: policy "
+        f"{policy_s:.3f} s, render {render_s * 1e3:.2f} ms, {CL_N_STEP} frames of stepping "
+        f"{step_s * 1e3:.2f} ms) at {CL_SCENES} x {CL_AGENTS} agents, raster {RASTER}, "
+        f"{N_STEPS} DDPM steps per replan, on {report['card']}")
+
+
+def run_px_replan(models, pack, report):
+    """One replan with the unpacked drivable gather: same guidance gradient
+    and same plan as with the bit gather, exactly."""
+    import torch
+
+    from cld_tpu_torch import pipeline
+    from cld_tpu_torch.guidance import losses as gl
+    from cld_tpu_torch.guidance.perturbation import guidance_gradient
+    from cld_tpu_torch.ops import native
+    from cld_tpu_torch.sim import env
+
+    dev = pack.init_states.device
+    cfg = env.SimConfig(num_simulation_steps=CL_STEPS, n_step_action=CL_N_STEP,
+                        raster_size=RASTER)
+    # a state with agents off the road and on top of each other, so that both
+    # losses and both gathers have work: lateral offsets up to the road's edge
+    g = torch.Generator().manual_seed(9)
+    init = pack.init_states.clone()
+    init[:, 1] += (torch.rand((CL_B,), generator=g) * 10.0 - 5.0).to(dev)
+    init[:, 3] += (torch.rand((CL_B,), generator=g) * 0.6 - 0.3).to(dev)
+    init[1::2, 0] = init[0::2, 0] + 3.0
+    moved = pack._replace(init_states=init)
+    obs = env.render_observation(moved, env.init_sim_state(moved, cfg), cfg)
+
+    aux = models.context(obs)
+    ctx = gl.prepack_map_bbox(gl.prepack_drivable(gl.GuidanceContext(
+        obs.drivable_map, obs.raster_from_agent, obs.extent, obs.curr_speed,
+        obs.world_from_agent, obs.scene_index)))
+
+    def decode_fn(v):
+        acts = pipeline.decode_actions(models.decoder, v, aux["cond_feat"])
+        return pipeline.convert_action_to_state_and_action(
+            acts, aux["curr_states"], models.dyn, pipeline.TrajNormalizer(),
+            descaled_output=True)[:, None]
+
+    z = torch.randn((CL_B, T, L), generator=g).to(dev)
+    grads = {impl: guidance_gradient(z, ctx, pipeline.flagship_guidance_specs(CL_AGENTS, impl),
+                                     decode_fn) for impl in ("bits", "px")}
+    torch.cuda.synchronize()
+    gmax = float(grads["bits"].abs().max())
+    gdiff = float((grads["bits"] - grads["px"]).abs().max())
+    log(f"guidance gradient, bits vs px gather: max abs diff {gdiff} (tolerance 0, exact); "
+        f"max |g| {gmax:.3e}")
+    check(gmax > 0.0, "px replan: the guidance gradient is zero")
+    check(torch.equal(grads["bits"], grads["px"]), "px and bits guidance gradients differ")
+
+    gen = torch.Generator(device=dev)
+    plans, counts = {}, {}
+    for impl in ("bits", "px"):
+        policy = pipeline.make_dm_policy(
+            models, CL_AGENTS, specs=pipeline.flagship_guidance_specs(CL_AGENTS, impl))
+        native.reset_launch_counts()
+        plans[impl] = policy(obs, gen.manual_seed(22)).controls
+        torch.cuda.synchronize()
+        counts[impl] = native.launch_counts()
+    want = {"lstm2_fwd": N_STEPS, "lstm2_bwd": N_STEPS - 1, "bit_gather": 0,
+            "value_gather": 0, "drivable_gather": N_STEPS - 1}
+    log(f"px replan: launches {counts['px']}")
+    check(counts["px"] == want, f"px replan launches {counts['px']}, expected {want}")
+    check(bool(torch.isfinite(plans["px"]).all()), "px replan's plan is not finite")
+    check(torch.equal(plans["px"], plans["bits"]), "px and bits plans differ")
+    report["launches_px_replan"] = counts["px"]
+
+
+def check_small_closed_loop(dev, report):
+    """A small closed loop (2 x 3 agents, raster 64, 10 DDPM steps, 10
+    frames) on the card and on the CPU, same weights and noise, both with
+    the banded warp (the CPU through the plain gather). Held as the small
+    slice is: |card - cpu| <= 1e-4 |cpu| + 1e-6 max |cpu| on the trajectory
+    log; the accumulators' frame counts equal."""
+    import torch
+
+    from cld_tpu_torch import pipeline
+    from cld_tpu_torch.ops import native
+    from cld_tpu_torch.sim import env
+    from cld_tpu_torch.sim.scene import synthetic_scene_pack
+
+    S, A, steps, frames = 2, 3, 10, 10
+    cfg = env.SimConfig(num_simulation_steps=frames, n_step_action=5, raster_size=64,
+                        warp_impl="banded")
+    g = torch.Generator().manual_seed(13)
+    noises = [{"x_init": torch.randn((S * A, T, L), generator=g),
+               "step_noises": torch.randn((steps, S * A, T, L), generator=g)}
+              for _ in range(cfg.num_replans)]
+    res = {}
+    for where in ("cpu", dev):
+        m = pipeline.build_models(seed=5, device=where, n_diffusion_steps=steps)
+        pack = synthetic_scene_pack(seed=3, num_scenes=S, agents_per_scene=A, world_map_size=256,
+                                    sim_steps=frames, device=where)
+        native.reset_launch_counts()
+        state, traj = env.simulate(
+            pack, pipeline.make_dm_policy(m, A), cfg,
+            replan_noises=[{k: v.to(where) for k, v in n.items()} for n in noises])
+        res[str(where)] = (state, traj.cpu(), native.launch_counts())
+    (c_state, c_traj, c_launch), (g_state, g_traj, g_launch) = res["cpu"], res[str(dev)]
+    n = cfg.num_replans
+    want = {"lstm2_fwd": steps * n, "lstm2_bwd": (steps - 1) * n, "bit_gather": (steps - 1) * n,
+            "value_gather": n, "drivable_gather": 0}
+    check(g_launch == want, f"small closed loop launches {g_launch}, expected {want}")
+    check(c_launch == {k: 0 for k in want}, f"the CPU run counted launches: {c_launch}")
+    err = float((g_traj - c_traj).abs().max())
+    tol = SLICE_RTOL * c_traj.abs() + 1e-6 * float(c_traj.abs().max())
+    log(f"small closed loop trajectory log: card vs CPU max abs diff {err:.3e} "
+        f"(rtol {SLICE_RTOL:.0e}, floor 1e-06 of max {float(c_traj.abs().max()):.3g})")
+    check(bool(((g_traj - c_traj).abs() <= tol).all()),
+          "small closed loop disagrees between card and CPU")
+    for name in ("offroad_steps", "collision_steps", "collision_type_steps"):
+        check(torch.equal(getattr(g_state, name).cpu(), getattr(c_state, name)),
+              f"small closed loop {name} differ between card and CPU")
+    report["small_closed_loop"] = dict(traj=err)
+
+
 def main() -> int:
     import torch
 
@@ -338,6 +650,7 @@ def main() -> int:
         from cld_tpu_torch import pipeline
         from cld_tpu_torch.data.synthetic import synthetic_batch
         from cld_tpu_torch.ops import native
+        from cld_tpu_torch.sim.scene import synthetic_scene_pack
     except ImportError as e:
         log(f"FAIL: the cld_tpu_torch package is not beside this script: {e}")
         return 2
@@ -352,6 +665,7 @@ def main() -> int:
     t0 = time.perf_counter()
     native.library()
     report["build_s"] = time.perf_counter() - t0
+    t_start = t0
     log(f"kernels built and loaded in {report['build_s']:.1f} s: {native.library_path().name}")
 
     t0 = time.perf_counter()
@@ -366,22 +680,41 @@ def main() -> int:
     check_gather(batch, dev, kernels)
     run_main_path(models, batch, report)
     check_small_slice(dev, report)
+    del batch
+
+    pack = synthetic_scene_pack(seed=0, num_scenes=CL_SCENES, agents_per_scene=CL_AGENTS,
+                                world_map_size=WORLD_MAP, sim_steps=CL_STEPS, device=dev)
+    check_map_gathers(dev, kernels)
+    check_warp(pack, dev, report)
+    run_closed_loop(models, pack, report)
+    run_px_replan(models, pack, report)
+    check_small_closed_loop(dev, report)
 
     replaces = {
         "lstm2_fwd": ("cld_tpu_torch/csrc/lstm.cu", "cld_tpu/ops/lstm_pallas.py:169"),
         "lstm2_bwd": ("cld_tpu_torch/csrc/lstm.cu", "cld_tpu/ops/lstm_pallas.py:312"),
         "bit_gather": ("cld_tpu_torch/csrc/bit_gather.cu", "cld_tpu/ops/pallas_kernels.py:179"),
+        "value_gather": ("cld_tpu_torch/csrc/value_gather.cu",
+                         "cld_tpu/ops/pallas_kernels.py:291"),
+        "drivable_gather": ("cld_tpu_torch/csrc/drivable_gather.cu",
+                            "cld_tpu/ops/pallas_kernels.py:102"),
     }
+    paths = ("launches", "launches_closed_loop", "launches_px_replan")
     line = []
     for name, (src, rep) in replaces.items():
         k = kernels[name]
         line.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": report["launches"][name], "max_abs_err": k["max_abs_err"],
+            "launches": sum(report[p][name] for p in paths), "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
         })
     report["kernels"] = kernels
+    check(len(line) == len(native.KERNELS), "a kernel is missing from the kernels line")
+    for k in line:
+        check(k["launches"] > 0, f"kernel {k['name']} was launched by no main-path run")
+    report["total_s"] = time.perf_counter() - t_start
+    log(f"all checks passed in {report['total_s']:.1f} s (build included)")
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

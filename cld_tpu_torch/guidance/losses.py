@@ -6,7 +6,8 @@ ctx, agt_mask [B]) -> [B, N]. Ported here: `AgentCollisionLoss` on the
 scene-block "diff" path and `MapCollisionLoss` with the separable
 exact-EDT min distance (`min_dist_impl="separable"`), whose custom backward
 is the autograd Function `MinDistSeparable`. On a CUDA map the drivable
-lookup runs the bit-gather kernel (`ops.gather_kernels`).
+lookup runs a gather kernel of `ops.gather_kernels`: the bit gather from the
+packed map (`gather_impl="bits"`) or the unpacked value gather (`"px"`).
 """
 
 from __future__ import annotations
@@ -17,7 +18,11 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from cld_tpu_torch.ops.gather_kernels import drivable_bit_gather, pack_drivable_bits
+from cld_tpu_torch.ops.gather_kernels import (
+    drivable_bit_gather,
+    drivable_gather,
+    pack_drivable_bits,
+)
 from cld_tpu_torch.ops.geometry import transform_points
 
 
@@ -251,11 +256,17 @@ class MapCollisionLoss:
     """Offroad penalty with an on-road-pull gradient: sample a grid of points
     in each agent bbox; for off-road points, loss 1 - min_dist/diag where
     min_dist runs to the nearest (detached) on-road point, by the JAX
-    package's default min_dist_impl="separable" (`MinDistSeparable`)."""
+    package's default min_dist_impl="separable" (`MinDistSeparable`).
+
+    `gather_impl` picks the drivable lookup: "bits" gathers the on-road bit
+    from the bit-packed map (the JAX package's "pallas"); "px" gathers the
+    value of the map binarized to int8, unpacked (its "pallas_px"). Both
+    give the same off-road mask."""
 
     num_points_lw: Tuple[int, int] = (10, 10)
     decay_rate: float = 0.9
     guide_moving_speed_th: float = 0.5
+    gather_impl: str = "bits"
 
     def __call__(self, x, ctx: GuidanceContext, agt_mask=None) -> torch.Tensor:
         B, N, T, _ = x.shape
@@ -279,15 +290,21 @@ class MapCollisionLoss:
         ry = px * s + py * c
         agt_pts = torch.stack([rx, ry], dim=-1) + pos[..., None, :]  # [B, N, T, P, 2]
 
-        # raster query (detached ints), on-road bit from the packed map
+        # raster query (detached ints)
         pix = transform_points(agt_pts.detach().reshape(B, -1, 2), ctx.raster_from_agent)
         Hm, W = ctx.drivable_map.shape[-2:]
         col = torch.clamp(pix[..., 0].to(torch.int32), 0, W - 1)
         row = torch.clamp(pix[..., 1].to(torch.int32), 0, Hm - 1)
-        packed = ctx.drivable_packed
-        if packed is None:
-            packed = pack_drivable_bits(ctx.drivable_map)
-        vals = drivable_bit_gather(torch.stack([col, row], dim=-1).contiguous(), packed)
+        pixq = torch.stack([col, row], dim=-1).contiguous()
+        if self.gather_impl == "bits":
+            packed = ctx.drivable_packed
+            if packed is None:
+                packed = pack_drivable_bits(ctx.drivable_map)
+            vals = drivable_bit_gather(pixq, packed)
+        elif self.gather_impl == "px":
+            vals = drivable_gather(pixq, (ctx.drivable_map > 0).to(torch.int8))
+        else:
+            raise ValueError(f"unknown gather_impl {self.gather_impl!r} (expected bits|px)")
         offroad = vals.reshape(B, N, T, P) <= 0
 
         per_step_coll = offroad.sum(dim=-1)

@@ -9,7 +9,8 @@ reference computes it under `torch.no_grad()`).
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import math
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -25,6 +26,13 @@ class UnicycleParams(NamedTuple):
     v_hi: float = 30.0
 
 
+# bounds of the config of record (`cld_tpu/utils/config.py` algo.dynamics), which
+# are also the simulator's defaults (`cld_tpu/sim/env.py` SimConfig.dyn)
+RECORD_DYNAMICS = UnicycleParams(
+    max_steer=0.5, max_yawvel=2 * math.pi, acce_lo=-10.0, acce_hi=8.0
+)
+
+
 def _clip(x: torch.Tensor, lo, hi) -> torch.Tensor:
     """jnp.clip(x, lo, hi) == minimum(maximum(x, lo), hi), with the same
     gradient at the bounds: maximum/minimum split an exact tie evenly, as
@@ -32,6 +40,64 @@ def _clip(x: torch.Tensor, lo, hi) -> torch.Tensor:
     lo_t = torch.as_tensor(lo, dtype=x.dtype, device=x.device)
     hi_t = torch.as_tensor(hi, dtype=x.dtype, device=x.device)
     return torch.minimum(torch.maximum(x, lo_t), hi_t)
+
+
+def unicycle_ubound(params: UnicycleParams, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Speed-dependent action bounds (lb, ub) [..., 2] for states x [..., 4]:
+    the yaw-rate bound is min(max_steer |v|, max_yawvel / max(|v|, 0.1))
+    floored at 0.1; the acceleration bound keeps the velocity inside
+    (v_lo, v_hi) while staying inside (acce_lo, acce_hi)."""
+    v = x[..., 2:3]
+    av = torch.abs(v)
+    yawbound = torch.minimum(params.max_steer * av, params.max_yawvel / torch.clamp(av, min=0.1))
+    yawbound = torch.clamp(yawbound, min=0.1)
+    acce_lb = torch.clamp(torch.clamp(params.v_lo - v, max=params.acce_hi), min=params.acce_lo)
+    acce_ub = torch.clamp(torch.clamp(params.v_hi - v, min=params.acce_lo), max=params.acce_hi)
+    return torch.cat([acce_lb, -yawbound], dim=-1), torch.cat([acce_ub, yawbound], dim=-1)
+
+
+def unicycle_step(
+    params: UnicycleParams, x: torch.Tensor, u: torch.Tensor, dt: float, bound: bool = True
+) -> torch.Tensor:
+    """One midpoint-integration step of states x [..., 4] under actions
+    u [..., 2]; `bound` clips u to the (detached) `unicycle_ubound`."""
+    if bound:
+        lb, ub = unicycle_ubound(params, x)
+        u = torch.minimum(torch.maximum(u, lb.detach()), ub.detach())
+    theta = x[..., 3:4]
+    v_mid = x[..., 2:3] + u[..., 0:1] * dt * 0.5
+    dxdt = torch.cat([torch.cos(theta) * v_mid, torch.sin(theta) * v_mid, u], dim=-1)
+    return x + dxdt * dt
+
+
+def angle_diff(theta1: torch.Tensor, theta2: torch.Tensor) -> torch.Tensor:
+    """Smallest signed angle difference (floor-mod wrap, as jnp.mod)."""
+    period = 2 * math.pi
+    diff = torch.remainder(theta1 - theta2 + period / 2, period) - period / 2
+    return torch.where(diff > math.pi, diff - 2 * math.pi, diff)
+
+
+def convert_state_to_state_and_action(
+    traj_state: torch.Tensor, vel_init: torch.Tensor, dt: float
+) -> torch.Tensor:
+    """Infer (vel, acc, yawvel) from an (x, y, yaw) trajectory by inverse
+    unicycle dynamics. The current pose is the agent-frame origin, so the
+    trajectory is pre-padded with zero pos/yaw before differencing.
+
+    traj_state [..., T, 3], vel_init [...] -> [..., T, 6]
+    (x, y, vel, yaw, acc, yawvel)."""
+    bm = traj_state.shape[:-2]
+    pos_init = traj_state.new_zeros((*bm, 1, 2))
+    yaw_init = traj_state.new_zeros((*bm, 1, 1))
+    pos = torch.cat([pos_init, traj_state[..., :2]], dim=-2)  # [..., T+1, 2]
+    yaw = torch.cat([yaw_init, traj_state[..., 2:]], dim=-2)
+    vel = (pos[..., 1:, 0:1] - pos[..., :-1, 0:1]) / dt * torch.cos(yaw[..., 1:, :]) + (
+        pos[..., 1:, 1:2] - pos[..., :-1, 1:2]
+    ) / dt * torch.sin(yaw[..., 1:, :])
+    vel = torch.cat([vel_init[..., None, None].to(vel.dtype), vel], dim=-2)
+    acc = (vel[..., 1:, :] - vel[..., :-1, :]) / dt
+    yawvel = angle_diff(yaw[..., 1:, :], yaw[..., :-1, :]) / dt
+    return torch.cat([pos[..., 1:, :], vel[..., 1:, :], yaw[..., 1:, :], acc, yawvel], dim=-1)
 
 
 def unicycle_forward_dynamics(

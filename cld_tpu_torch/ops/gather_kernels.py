@@ -1,16 +1,25 @@
-"""Bit-packed drivable-map gather: CUDA kernel, plain version, packing.
+"""Map gathers under integer query pixels: CUDA kernels, plain versions,
+packing.
 
-Counterpart of the bit-gather part of `cld_tpu/ops/pallas_kernels.py`
-(`pack_drivable_bits`, `drivable_bit_gather_pallas`). The map binarizes
+Counterpart of the gathers of `cld_tpu/ops/pallas_kernels.py`
+(`pack_drivable_bits`, `drivable_bit_gather_pallas`,
+`drivable_gather_pallas`, `value_gather_pallas`).
+
+Bit gather: the map binarizes
 (value > 0) and packs 8 columns per int8 byte, LSB first; the gather returns
 the on-road bit under each query pixel. `MapCollisionLoss` only needs that
 bit, so the guided sampler packs the map once per context and gathers from
 the packed form at every guidance step.
 
-`drivable_bit_gather` dispatches by device: CUDA tensors launch
-`bit_gather_kernel` (`csrc/bit_gather.cu`), CPU tensors take
-`drivable_bit_gather_ref`. The gather has no gradient (pixel coordinates
-are detached integers).
+Unpacked gather (`drivable_gather`): the raw map value under each query
+pixel, from an int8 or float32 map. Value gather (`value_gather`): the C
+int8 channel bytes under each window-local query of per-window map crops,
+the inner step of the banded semantic-map warp (`ops.raster.warp_scene_maps`).
+
+Every wrapper dispatches by device: CUDA tensors launch the kernel
+(`csrc/bit_gather.cu`, `csrc/drivable_gather.cu`, `csrc/value_gather.cu`),
+CPU tensors take the `_ref` plain version beside it. The gathers have no
+gradient (pixel coordinates are detached integers).
 """
 
 from __future__ import annotations
@@ -18,6 +27,13 @@ from __future__ import annotations
 import torch
 
 from cld_tpu_torch.ops import native
+
+
+def _require_pix(pix: torch.Tensor, shape) -> None:
+    native.require(pix, "pix", torch.int32, shape, pix.device)
+    if pix.data_ptr() % 8:
+        raise ValueError("pix: the kernel reads (col, row) as 8-byte pairs; "
+                         "the storage must be 8-byte aligned")
 
 
 def pack_drivable_bits(drivable: torch.Tensor) -> torch.Tensor:
@@ -58,11 +74,8 @@ def drivable_bit_gather(pix: torch.Tensor, packed: torch.Tensor) -> torch.Tensor
         raise ValueError(f"drivable_bit_gather: unsupported device {pix.device}")
     B, Q, _ = pix.shape
     Hm, W8 = packed.shape[1:]
-    native.require(pix, "pix", torch.int32, (B, Q, 2), pix.device)
+    _require_pix(pix, (B, Q, 2))
     native.require(packed, "packed", torch.int8, (B, Hm, W8), pix.device)
-    if pix.data_ptr() % 8:
-        raise ValueError("pix: the kernel reads (col, row) as 8-byte pairs; "
-                         "the storage must be 8-byte aligned")
     out = torch.empty((B, Q), dtype=torch.float32, device=pix.device)
     lib = native.library()
     native.check(lib.cld_bit_gather(
@@ -70,4 +83,80 @@ def drivable_bit_gather(pix: torch.Tensor, packed: torch.Tensor) -> torch.Tensor
         native.stream_ptr(pix.device),
     ), "bit_gather")
     native.count_launch("bit_gather")
+    return out
+
+
+def drivable_gather_ref(pix: torch.Tensor, drivable: torch.Tensor) -> torch.Tensor:
+    """Plain version: pix [B, Q, 2] int32 (col, row), drivable [B, H, W]
+    -> [B, Q] f32 map values. Coordinates clamp to the map, as in the
+    kernel."""
+    B = pix.shape[0]
+    Hm, W = drivable.shape[1:]
+    col = pix[..., 0].long().clamp(0, W - 1)
+    row = pix[..., 1].long().clamp(0, Hm - 1)
+    b = torch.arange(B, device=pix.device)[:, None]
+    return drivable[b, row, col].to(torch.float32)
+
+
+def drivable_gather(pix: torch.Tensor, drivable: torch.Tensor) -> torch.Tensor:
+    """Map value per query point: pix [B, Q, 2] int32 (col, row), drivable
+    [B, H, W] int8 or float32 -> [B, Q] f32. An int8 map's values come back
+    exactly. A float32 map's values come back as they are; the JAX package's
+    kernel rounds float maps through bf16 (sign-preserving; consumers
+    threshold at <= 0), so the two agree exactly only where the values are
+    bf16-representable, e.g. {0, 1} masks."""
+    if pix.device.type == "cpu":
+        return drivable_gather_ref(pix, drivable)
+    if pix.device.type != "cuda":
+        raise ValueError(f"drivable_gather: unsupported device {pix.device}")
+    B, Q, _ = pix.shape
+    Hm, W = drivable.shape[1:]
+    _require_pix(pix, (B, Q, 2))
+    lib = native.library()
+    if drivable.dtype == torch.int8:
+        fn = lib.cld_drivable_gather_i8
+    elif drivable.dtype == torch.float32:
+        fn = lib.cld_drivable_gather_f32
+    else:
+        raise TypeError(f"drivable: dtype {drivable.dtype}, expected int8 or float32")
+    native.require(drivable, "drivable", drivable.dtype, (B, Hm, W), pix.device)
+    out = torch.empty((B, Q), dtype=torch.float32, device=pix.device)
+    native.check(fn(pix.data_ptr(), drivable.data_ptr(), out.data_ptr(), B, Q, Hm, W,
+                    native.stream_ptr(pix.device)), "drivable_gather")
+    native.count_launch("drivable_gather")
+    return out
+
+
+def value_gather_ref(pix: torch.Tensor, wins: torch.Tensor) -> torch.Tensor:
+    """Plain version: pix [M, Q, 2] int32 (col, row) window-local, wins
+    [M, H, W, C] int8 -> [M, Q, C] f32 signed byte values. Coordinates clamp
+    to the window, as in the kernel."""
+    M = pix.shape[0]
+    H, W = wins.shape[1:3]
+    col = pix[..., 0].long().clamp(0, W - 1)
+    row = pix[..., 1].long().clamp(0, H - 1)
+    m = torch.arange(M, device=pix.device)[:, None]
+    return wins[m, row, col].to(torch.float32)
+
+
+def value_gather(pix: torch.Tensor, wins: torch.Tensor) -> torch.Tensor:
+    """Channel bytes per query point: pix [M, Q, 2] int32 (col, row),
+    pre-clamped into the window by the caller; wins [M, H, W, C] int8
+    contiguous -> [M, Q, C] f32 holding each byte as a signed value in
+    [-128, 127] (callers recover the unsigned byte with +256 where < 0)."""
+    if pix.device.type == "cpu":
+        return value_gather_ref(pix, wins)
+    if pix.device.type != "cuda":
+        raise ValueError(f"value_gather: unsupported device {pix.device}")
+    M, Q, _ = pix.shape
+    H, W, C = wins.shape[1:]
+    _require_pix(pix, (M, Q, 2))
+    native.require(wins, "wins", torch.int8, (M, H, W, C), pix.device)
+    out = torch.empty((M, Q, C), dtype=torch.float32, device=pix.device)
+    lib = native.library()
+    native.check(lib.cld_value_gather(
+        pix.data_ptr(), wins.data_ptr(), out.data_ptr(), M, Q, H, W, C,
+        native.stream_ptr(pix.device),
+    ), "value_gather")
+    native.count_launch("value_gather")
     return out

@@ -45,3 +45,56 @@ def world_from_agent_matrix(pos: torch.Tensor, yaw: torch.Tensor) -> torch.Tenso
         ],
         dim=-2,
     )
+
+
+def agent_from_world_matrix(pos: torch.Tensor, yaw: torch.Tensor) -> torch.Tensor:
+    """[..., 3, 3] transform taking world points into the frame of an agent
+    at (pos, yaw). Inverse of `world_from_agent_matrix`."""
+    c, s = torch.cos(yaw), torch.sin(yaw)
+    tx = -(c * pos[..., 0] + s * pos[..., 1])
+    ty = -(-s * pos[..., 0] + c * pos[..., 1])
+    zeros = torch.zeros_like(c)
+    ones = torch.ones_like(c)
+    return torch.stack(
+        [
+            torch.stack([c, s, tx], dim=-1),
+            torch.stack([-s, c, ty], dim=-1),
+            torch.stack([zeros, zeros, ones], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
+def rotation_matrix_2d(yaw: torch.Tensor) -> torch.Tensor:
+    """[..., 2, 2] rotation matrices from yaw angles [...]."""
+    c, s = torch.cos(yaw), torch.sin(yaw)
+    return torch.stack([torch.stack([c, -s], dim=-1), torch.stack([s, c], dim=-1)], dim=-2)
+
+
+def obb_collision_matrix(
+    pos: torch.Tensor, yaw: torch.Tensor, extent_lw: torch.Tensor, extent_scale: float = 1.0
+) -> torch.Tensor:
+    """Exact oriented-bounding-box overlap for every agent pair, by the
+    separating-axis theorem over the 4 face normals of two rectangles.
+
+    pos [..., Na, 2], yaw [..., Na], extent_lw [..., Na, 2] (length, width).
+    Returns [..., Na, Na] bool; the diagonal is True (a box overlaps
+    itself), so callers mask with a pair-validity matrix."""
+    c, s = torch.cos(yaw), torch.sin(yaw)
+    hl = extent_lw[..., 0] * (0.5 * extent_scale)
+    hw = extent_lw[..., 1] * (0.5 * extent_scale)
+    rel = pos[..., None, :, :] - pos[..., :, None, :]  # [..., i, j, 2] p_j - p_i
+    rx, ry = rel[..., 0], rel[..., 1]
+    ci, si = c[..., :, None], s[..., :, None]
+    cj, sj = c[..., None, :], s[..., None, :]
+    cosd = torch.abs(ci * cj + si * sj)
+    sind = torch.abs(si * cj - ci * sj)
+    hli, hwi = hl[..., :, None], hw[..., :, None]
+    hlj, hwj = hl[..., None, :], hw[..., None, :]
+    sep = (
+        (torch.abs(rx * ci + ry * si) > hli + hlj * cosd + hwj * sind)
+        | (torch.abs(-rx * si + ry * ci) > hwi + hlj * sind + hwj * cosd)
+        | (torch.abs(rx * cj + ry * sj) > hlj + hli * cosd + hwi * sind)
+        | (torch.abs(-rx * sj + ry * cj) > hwj + hli * sind + hwi * cosd)
+    )
+    return ~sep

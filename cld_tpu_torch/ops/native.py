@@ -28,7 +28,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
 
-KERNELS = ("lstm2_fwd", "lstm2_bwd", "bit_gather")
+KERNELS = ("lstm2_fwd", "lstm2_bwd", "bit_gather", "value_gather", "drivable_gather")
 _LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -116,6 +116,11 @@ def library() -> ctypes.CDLL:
         lib.cld_lstm2_bwd.restype = i
         lib.cld_bit_gather.argtypes = [p] * 3 + [i, i, i, i, p]
         lib.cld_bit_gather.restype = i
+        lib.cld_value_gather.argtypes = [p] * 3 + [i, i, i, i, i, p]
+        lib.cld_value_gather.restype = i
+        for fn in (lib.cld_drivable_gather_i8, lib.cld_drivable_gather_f32):
+            fn.argtypes = [p] * 3 + [i, i, i, i, p]
+            fn.restype = i
         _LIB = lib
     return _LIB
 

@@ -1,5 +1,6 @@
-"""The guided open-loop pipeline: encode, guided (or unguided) 100-step
-latent DDPM sampling, decode, reward.
+"""The guided pipeline: encode, guided (or unguided) 100-step latent DDPM
+sampling, decode; open loop with a reward (`guided_collect`) and as the
+closed loop's policy (`make_dm_policy`).
 
 Counterpart of `bench.py:335-376` (`bench_open_loop`'s `guided_collect`):
 the ResNet-18 context encoder gives `cond_feat`; `sample_traj` runs the
@@ -9,13 +10,17 @@ cumulative change clipped to the posterior sigma) taken through the frozen
 LSTM decoder and the unicycle; the final latents are decoded and scored by
 `compute_reward`. Scenes are 4 agents in adjacent lanes with longitudinal
 stagger, the world-pose layout of `bench.py:325-330`.
+
+`make_dm_policy` is the counterpart of `bench.py:551-598` (the policy of
+`bench_closed_loop`, `rollout.py:make_dm_policy` at `num_samp` 1 with the
+DDPM sampler): the same call per replan, with the world poses and scene
+indices of the simulator's observation. Both go through `sample_plans`.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import math
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -39,15 +44,10 @@ from cld_tpu_torch.models.vae import (
 )
 from cld_tpu_torch.ops import native
 from cld_tpu_torch.ops.diffusion import DiffusionSchedule, make_schedule
-from cld_tpu_torch.ops.dynamics import UnicycleParams
+from cld_tpu_torch.ops.dynamics import RECORD_DYNAMICS, UnicycleParams
 from cld_tpu_torch.ops.geometry import world_from_agent_matrix
 from cld_tpu_torch.ops.normalization import TrajNormalizer
-
-# dynamics of the config of record (`cld_tpu/utils/config.py` algo.dynamics)
-RECORD_DYNAMICS = UnicycleParams(
-    max_steer=0.5, max_yawvel=2 * math.pi, acce_lo=-10.0, acce_hi=8.0
-)
-
+from cld_tpu_torch.policies.common import Action, action_from_trajectory
 
 @dataclasses.dataclass
 class GuidedModels:
@@ -91,12 +91,13 @@ def build_models(
                         horizon=horizon, latent_size=latent_size)
 
 
-def flagship_guidance_specs(scene_block: int):
-    """The flagship editing rules (`bench.py:263-296`)."""
+def flagship_guidance_specs(scene_block: int, gather_impl: str = "bits"):
+    """The flagship editing rules (`bench.py:263-296`); `gather_impl` is
+    `MapCollisionLoss`'s drivable lookup."""
     return [
         GuidanceSpec(AgentCollisionLoss(num_disks=5, buffer_dist=0.2,
                                         scene_block=scene_block), 10.0),
-        GuidanceSpec(MapCollisionLoss(num_points_lw=(10, 10)), 10.0),
+        GuidanceSpec(MapCollisionLoss(num_points_lw=(10, 10), gather_impl=gather_impl), 10.0),
     ]
 
 
@@ -110,6 +111,56 @@ def scene_world_poses(batch_size: int, agents_per_scene: int, device):
     yaw_w = torch.zeros((batch_size,), device=device)
     scene_index = torch.arange(batch_size, device=device) // agents_per_scene
     return world_from_agent_matrix(pos_w, yaw_w), scene_index
+
+
+def sample_plans(
+    models: GuidedModels,
+    batch: TrafficBatch,
+    specs: Optional[Sequence[GuidanceSpec]] = None,
+    world_from_agent: Optional[torch.Tensor] = None,
+    scene_index: Optional[torch.Tensor] = None,
+    x_init: Optional[torch.Tensor] = None,
+    step_noises: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+) -> Dict[str, torch.Tensor]:
+    """Encode the batch, sample latents (guided by `specs` when given, with
+    the caller's world poses [B, 3, 3] and scene indices [B]) and decode:
+    the sampler's outputs (pred_traj, x1, log_prob_final, cond_feat) plus
+    the decoded trajectories `traj` [B, 1, T, 6]. One sample per agent."""
+    normalizer = TrajNormalizer()
+    with torch.no_grad():
+        aux = models.context(batch)
+    cond_feat, curr = aux["cond_feat"], aux["curr_states"]
+
+    def decode_fn(z):
+        acts = decode_actions(models.decoder, z, cond_feat)
+        traj = convert_action_to_state_and_action(
+            acts, curr, models.dyn, normalizer, descaled_output=True
+        )
+        return traj[:, None]
+
+    gfn = None
+    if specs:
+        ctx = prepack_drivable(GuidanceContext(
+            drivable_map=batch.drivable_map,
+            raster_from_agent=batch.raster_from_agent,
+            extent=batch.extent,
+            curr_speed=batch.curr_speed,
+            world_from_agent=world_from_agent,
+            scene_index=scene_index,
+        ))
+        gfn = make_perturbation_guidance(
+            ctx, specs, decode_fn, lr=0.3, grad_steps=1, perturb_th=None,
+            sigma_schedule=torch.exp(0.5 * models.schedule.posterior_log_variance_clipped),
+        )
+    out = sample_traj(
+        models.unet, models.schedule, cond_feat, models.horizon, models.latent_size,
+        guidance_fn=gfn, x_init=x_init, step_noises=step_noises,
+        generator=generator,
+    )
+    with torch.no_grad():
+        out["traj"] = decode_fn(out["pred_traj"])
+    return out
 
 
 def guided_collect(
@@ -127,43 +178,16 @@ def guided_collect(
     each CUDA kernel launched during the call. One sample per agent
     (`num_samp` 1, the config of record)."""
     before = native.launch_counts()
-    normalizer = TrajNormalizer()
-    with torch.no_grad():
-        aux = models.context(batch)
-    cond_feat, curr = aux["cond_feat"], aux["curr_states"]
-
-    def decode_fn(z):
-        acts = decode_actions(models.decoder, z, cond_feat)
-        traj = convert_action_to_state_and_action(
-            acts, curr, models.dyn, normalizer, descaled_output=True
-        )
-        return traj[:, None]
-
-    gfn = None
+    specs = wfa = scene_index = None
     if guided:
+        specs = flagship_guidance_specs(agents_per_scene)
         wfa, scene_index = scene_world_poses(batch.batch_size, agents_per_scene,
-                                             cond_feat.device)
-        ctx = prepack_drivable(GuidanceContext(
-            drivable_map=batch.drivable_map,
-            raster_from_agent=batch.raster_from_agent,
-            extent=batch.extent,
-            curr_speed=batch.curr_speed,
-            world_from_agent=wfa,
-            scene_index=scene_index,
-        ))
-        gfn = make_perturbation_guidance(
-            ctx, flagship_guidance_specs(agents_per_scene), decode_fn,
-            lr=0.3, grad_steps=1, perturb_th=None,
-            sigma_schedule=torch.exp(0.5 * models.schedule.posterior_log_variance_clipped),
-        )
-    out = sample_traj(
-        models.unet, models.schedule, cond_feat, models.horizon, models.latent_size,
-        guidance_fn=gfn, x_init=x_init, step_noises=step_noises,
-        generator=generator,
-    )
+                                             batch.image.device)
+    out = sample_plans(models, batch, specs, wfa, scene_index,
+                       x_init=x_init, step_noises=step_noises, generator=generator)
+    traj = out["traj"]
     with torch.no_grad():
-        traj = decode_fn(out["pred_traj"])
-        reward = compute_reward(traj, batch, normalizer.scale(traj))
+        reward = compute_reward(traj, batch, TrajNormalizer().scale(traj))
     after = native.launch_counts()
     return {
         "reward": reward.mean(),
@@ -172,6 +196,37 @@ def guided_collect(
         "x1": out["x1"],
         "log_prob_final": out["log_prob_final"],
         "traj": traj,
-        "cond_feat": cond_feat,
+        "cond_feat": out["cond_feat"],
         "launches": {k: after[k] - before[k] for k in after},
     }
+
+
+def make_dm_policy(
+    models: GuidedModels,
+    agents_per_scene: int,
+    guided: bool = True,
+    specs: Optional[Sequence[GuidanceSpec]] = None,
+) -> Callable[[TrafficBatch, object], Action]:
+    """The diffusion policy of the closed loop: obs -> (guided) latent
+    sampling -> the decoded plan as an `Action` (its `controls` are the
+    [Na, T, 2] (acc, yawvel) the simulator steps with). Guidance defaults to
+    the flagship rules over scenes of `agents_per_scene` agents, with the
+    observation's world poses and scene indices.
+
+    Per replan the policy's `rng` is explicit noise, a dict with `x_init`
+    [Na, T, D] and `step_noises` [n_steps, Na, T, D] (either may be missing),
+    or a `torch.Generator` (or None) to draw them from. The models live on
+    the device `build_models` put them on ("cuda" by default)."""
+    if guided and specs is None:
+        specs = flagship_guidance_specs(agents_per_scene)
+
+    def policy(obs: TrafficBatch, rng=None) -> Action:
+        noise = rng if isinstance(rng, dict) else {}
+        out = sample_plans(
+            models, obs, specs if guided else None, obs.world_from_agent, obs.scene_index,
+            x_init=noise.get("x_init"), step_noises=noise.get("step_noises"),
+            generator=None if isinstance(rng, dict) else rng,
+        )
+        return action_from_trajectory(out["traj"][:, 0])
+
+    return policy

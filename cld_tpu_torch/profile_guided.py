@@ -15,6 +15,14 @@ steps, seeded random weights), with TF32 off, this measures:
   the host issues work), the number of kernel launches, and the kernels
   that take the most device time.
 
+* one replan of the guided closed loop (4 scenes x 8 agents: render, the
+  guided call at B=32, 5 frames of stepping) under `torch.profiler`, the same
+  way;
+* the three map-gather kernels' device time per launch at the paths' shapes,
+  from replays of a CUDA graph that holds 100 launches: back-to-back
+  launches from Python are bound by the host's launch path (~25 us each),
+  which the graph takes out.
+
 Prints a summary and writes chiprun_out/profile_guided.json. Needs a CUDA
 card; fails without one.
 """
@@ -34,6 +42,9 @@ from cld_tpu_torch.data.synthetic import synthetic_batch
 from cld_tpu_torch.guidance.losses import GuidanceContext, prepack_drivable
 from cld_tpu_torch.guidance.perturbation import make_perturbation_guidance
 from cld_tpu_torch.algos.reward import compute_reward
+from cld_tpu_torch.ops import gather_kernels as gk
+from cld_tpu_torch.sim import env
+from cld_tpu_torch.sim.scene import synthetic_scene_pack
 
 B, RASTER, A = 128, 224, 4
 
@@ -45,6 +56,79 @@ def _host_s(fn, repeats: int) -> float:
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) / repeats
+
+
+def _profile(fn) -> dict:
+    """Run fn once under torch.profiler: wall time, summed device time of
+    all kernels, launches, and the kernels that take the most device time."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.device_time for e in kernels)
+    rows = {}
+    for e in kernels:
+        r = rows.setdefault(e.name, [0, 0.0])
+        r[0] += 1
+        r[1] += e.device_time
+    top = sorted(rows.items(), key=lambda kv: -kv[1][1])[:15]
+    return {
+        "wall_s": wall,
+        "device_busy_s": busy_us * 1e-6,
+        "device_busy_share": busy_us * 1e-6 / wall,
+        "kernel_launches": len(kernels),
+        "top_kernels": [{"name": n[:120], "count": c, "device_ms": us * 1e-3}
+                        for n, (c, us) in top],
+    }
+
+
+def _graph_ms(fn, launches: int = 100, replays: int = 20) -> float:
+    """Device ms per call of fn, from replays of a CUDA graph of `launches`
+    calls."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (launches * replays)
+
+
+def _gather_device_ms(dev) -> dict:
+    g = torch.Generator().manual_seed(0)
+
+    def pix(M, Q, W, H):
+        return torch.stack([torch.randint(0, W, (M, Q), generator=g),
+                            torch.randint(0, H, (M, Q), generator=g)],
+                           dim=-1).to(torch.int32).to(dev).contiguous()
+
+    wins = torch.randint(-128, 128, (64, 256, 256, 3), generator=g, dtype=torch.int8).to(dev)
+    pw = pix(64, 112 * 224, 256, 256)
+    drv = (torch.rand((32, 224, 224), generator=g) < 0.6).to(torch.int8).to(dev)
+    pd = pix(32, 5200, 224, 224)
+    drv128 = (torch.rand((128, 224, 224), generator=g) < 0.6).to(dev)
+    packed = gk.pack_drivable_bits(drv128)
+    pb = pix(128, 5200, 224, 224)
+    return {
+        "value_gather [64 x 25088 queries, 256x256x3 windows]":
+            _graph_ms(lambda: gk.value_gather(pw, wins)),
+        "drivable_gather [32 x 5200 queries, 224x224 int8 maps]":
+            _graph_ms(lambda: gk.drivable_gather(pd, drv)),
+        "bit_gather [128 x 5200 queries, 224x28 packed maps]":
+            _graph_ms(lambda: gk.drivable_bit_gather(pb, packed)),
+    }
 
 
 def main() -> int:
@@ -102,40 +186,29 @@ def main() -> int:
             "decode_and_reward": _host_s(final, 20),
         }
 
-    # one guided call under the profiler
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        call(True, 3)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.device_time for e in kernels)
-    rows = {}
-    for e in kernels:
-        r = rows.setdefault(e.name, [0, 0.0])
-        r[0] += 1
-        r[1] += e.device_time
-    top = sorted(rows.items(), key=lambda kv: -kv[1][1])[:15]
-    rep["profiled_guided_call"] = {
-        "wall_s": wall,
-        "device_busy_s": busy_us * 1e-6,
-        "device_busy_share": busy_us * 1e-6 / wall,
-        "kernel_launches": len(kernels),
-        "top_kernels": [{"name": n[:120], "count": c, "device_ms": us * 1e-3}
-                        for n, (c, us) in top],
-    }
+    rep["profiled_guided_call"] = _profile(lambda: call(True, 3))
+
+    # one replan of the guided closed loop (render + policy + 5 frames)
+    pack = synthetic_scene_pack(seed=0, num_scenes=4, agents_per_scene=8, sim_steps=100,
+                                device=dev)
+    cfg = env.SimConfig(num_simulation_steps=5, n_step_action=5, raster_size=RASTER)
+    policy = pipeline.make_dm_policy(models, 8)
+    replan = lambda seed: env.simulate(pack, policy, cfg, generator=gen.manual_seed(seed))
+    replan(4)  # warm-up at B=32
+    rep["closed_loop_replan_s"] = min(_host_s(lambda: replan(5), 1) for _ in range(3))
+    rep["profiled_closed_loop_replan"] = _profile(lambda: replan(6))
+    rep["gather_device_ms"] = _gather_device_ms(dev)
 
     out = Path(__file__).resolve().parents[1] / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "profile_guided.json").write_text(json.dumps(rep, indent=1))
-    print(json.dumps({k: v for k, v in rep.items() if k != "profiled_guided_call"}, indent=1))
-    p = rep["profiled_guided_call"]
-    print(f"profiled guided call: wall {p['wall_s']:.3f} s, device busy {p['device_busy_s']:.3f} s "
-          f"({100 * p['device_busy_share']:.1f}%), {p['kernel_launches']} kernel launches")
-    for k in p["top_kernels"]:
-        print(f"  {k['device_ms']:9.2f} ms  {k['count']:6d}x  {k['name']}")
+    print(json.dumps({k: v for k, v in rep.items() if not k.startswith("profiled_")}, indent=1))
+    for what in ("profiled_guided_call", "profiled_closed_loop_replan"):
+        p = rep[what]
+        print(f"{what}: wall {p['wall_s']:.3f} s, device busy {p['device_busy_s']:.3f} s "
+              f"({100 * p['device_busy_share']:.1f}%), {p['kernel_launches']} kernel launches")
+        for k in p["top_kernels"]:
+            print(f"  {k['device_ms']:9.2f} ms  {k['count']:6d}x  {k['name']}")
     return 0
 
 

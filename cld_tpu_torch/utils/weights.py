@@ -211,6 +211,8 @@ def export_dm_checkpoint(variables: Dict[str, Any], prefix: str = "dm") -> State
 def _load(module: torch.nn.Module, sd: StateDict, prefix: str) -> torch.nn.Module:
     sub = {k[len(prefix):]: torch.as_tensor(np.ascontiguousarray(v))
            for k, v in sd.items() if k.startswith(prefix)}
+    ref = next(module.parameters())
+    sub = {k: v.to(ref.device) for k, v in sub.items()}
     module.load_state_dict(sub, strict=True)
     return module
 
@@ -228,3 +230,13 @@ def load_lstm_decoder(module, vae_variables: Dict[str, Any]):
 def load_temporal_unet(module, unet_variables: Dict[str, Any]):
     """Load `TemporalMapUnet` variables ({"params": ...}) into the port's."""
     return _load(module, export_dm_checkpoint(unet_variables), "dm.model.")
+
+
+def load_state_dicts(context, decoder, unet, sd: StateDict):
+    """Load one flat converted state dict (the union of
+    `export_vae_checkpoint` and `export_dm_checkpoint`, e.g. read back from
+    an .npz) into the port's `ContextEncoder`, `LSTMDecoder` and
+    `TemporalMapUnet`, each ``strict=True``."""
+    _load(context, sd, "vae.context_encoder.")
+    _load(decoder, sd, "vae.lstmvae.lstm_dec.")
+    _load(unet, sd, "dm.model.")

@@ -75,7 +75,11 @@ LOSSES = {
                         tlo.AgentCollisionLoss(num_disks=5, buffer_dist=0.2, scene_block=A)),
     "map_collision": (jlo.MapCollisionLoss(num_points_lw=(10, 10), min_dist_impl="separable"),
                       tlo.MapCollisionLoss(num_points_lw=(10, 10))),
+    # the unpacked int8 drivable gather (Pallas kernel in interpret mode)
+    "map_collision_px": (jlo.MapCollisionLoss(num_points_lw=(10, 10), gather_impl="pallas_px"),
+                         tlo.MapCollisionLoss(num_points_lw=(10, 10), gather_impl="px")),
 }
+FLAGSHIP = ("agent_collision", "map_collision")
 
 
 @pytest.mark.parametrize("name", sorted(LOSSES))
@@ -98,10 +102,19 @@ def test_loss_values_and_grads_match(name, packed):
     assert float(np.abs(np.asarray(gj)).max()) > 1e-3
 
 
+def test_map_collision_gather_impls_agree_and_unknown_raises():
+    x, _, tctx = _scene(3)
+    xt = torch.from_numpy(x)
+    bits, px = LOSSES["map_collision"][1], LOSSES["map_collision_px"][1]
+    assert torch.equal(bits(xt, tctx), px(xt, tctx))
+    with pytest.raises(ValueError, match="gather_impl"):
+        tlo.MapCollisionLoss(gather_impl="pallas")(xt, tctx)
+
+
 def test_perturb_step_matches():
     x, jctx, tctx = _scene(2)
-    jspecs = [jpt.GuidanceSpec(LOSSES[k][0], 10.0) for k in sorted(LOSSES)]
-    tspecs = [tpt.GuidanceSpec(LOSSES[k][1], 10.0) for k in sorted(LOSSES)]
+    jspecs = [jpt.GuidanceSpec(LOSSES[k][0], 10.0) for k in FLAGSHIP]
+    tspecs = [tpt.GuidanceSpec(LOSSES[k][1], 10.0) for k in FLAGSHIP]
     lat = x[:, 0]  # perturb the trajectory itself: decode = add the sample axis
     want = jpt.perturb(jnp.asarray(lat), jctx, jspecs, lambda v: v[:, None],
                        lr=0.3, grad_steps=1, perturb_th=jnp.float32(0.05))

@@ -3,7 +3,10 @@ the JAX package's fused decoder (`cld_tpu.ops.lstm_pallas`).
 
 On the CPU the port's wrappers take the kernels' plain versions; the JAX
 side runs its jnp reference and its Pallas kernels in interpret mode, f32
-storage. Tolerances: values at rtol 1e-5 / atol 1e-6 (f32, the two sides
+storage, its reverse sweep in both of its kernels: v2, the default, and v1
+(`CLD_LSTM_BWD_IMPL=v1`), which computes the same gate cotangents in another
+memory layout and which the port's one reverse sweep also stands for.
+Tolerances: values at rtol 1e-5 / atol 1e-6 (f32, the two sides
 sum the gate products in another order); gradients at rtol 1e-4 / atol
 1e-5 (the reverse sweep compounds that rounding over T steps).
 """
@@ -82,6 +85,38 @@ def test_bwd_ref_gate_cotangents_are_the_xg1_gradient():
     (tl.lstm2_core_ref(xg1, *args[1:])[0] * dy).sum().backward()
     np.testing.assert_allclose(dg1.numpy(), xg1.grad.numpy(), **GRAD)
     assert dg2.shape == (B, T, 4 * H)
+
+
+@pytest.mark.parametrize("impl", ["v1", "v2"])
+@pytest.mark.parametrize("B,T,H", [(3, 7, 16), (2, 5, 8)])
+def test_bwd_ref_matches_jax_reverse_sweep_kernels(monkeypatch, impl, B, T, H):
+    """`lstm2_bwd_ref` (the contract of the CUDA `lstm2_bwd_kernel`) on the
+    JAX forward's own residuals and the same dy, against the JAX package's
+    v1 and v2 backward kernels in interpret mode: dg1 directly, dg2 through
+    the two products the JAX backward forms from it (db2, dW2)."""
+    ran = []
+    for name in ("_bwd_kernel", "_bwd_kernel_v2"):
+        kernel = getattr(jl, name)
+        monkeypatch.setattr(jl, name, lambda *a, _k=kernel, _n=name: (ran.append(_n), _k(*a))[1])
+    monkeypatch.setenv("CLD_LSTM_BWD_IMPL", impl)
+    args = _core_inputs(6, B, T, H)
+    dy = np.random.default_rng(7).normal(size=(B, T, H)).astype(np.float32)
+    _, res = jl._core_fwd(*map(jnp.asarray, args), True)
+    dg1_j, _, _, dW2_j, db2_j = jl._core_bwd(True, res, jnp.asarray(dy))
+    assert ran == ["_bwd_kernel" if impl == "v1" else "_bwd_kernel_v2"]
+
+    h1c1, yc2 = (torch.from_numpy(np.array(r)) for r in res[5:])
+    h1s, c1s, y, c2s = h1c1[..., :H], h1c1[..., H:], yc2[..., :H], yc2[..., H:]
+    targs = [torch.from_numpy(a) for a in args]
+    dg1, dg2 = tl.lstm2_bwd_ref(torch.from_numpy(dy), *targs, h1s.contiguous(),
+                                c1s.contiguous(), y.contiguous(), c2s.contiguous())
+    np.testing.assert_allclose(dg1.numpy(), np.asarray(dg1_j), **VAL)
+    np.testing.assert_allclose(dg2.sum(dim=(0, 1)).numpy(), np.asarray(db2_j), rtol=1e-5,
+                               atol=1e-5)
+    h2prev = torch.cat([targs[1][:, None], y[:, :-1]], dim=1)
+    in2 = torch.cat([h1s, h2prev], dim=-1).reshape(B * T, 2 * H)
+    np.testing.assert_allclose((in2.T @ dg2.reshape(B * T, 4 * H)).numpy(), np.asarray(dW2_j),
+                               rtol=1e-5, atol=1e-5)
 
 
 @pytest.fixture(scope="module")

@@ -10,9 +10,12 @@ import pytest
 import torch
 
 import cld_tpu_torch
-from cld_tpu_torch import pipeline
+import numpy as np
+
+from cld_tpu_torch import pipeline, rollout
 from cld_tpu_torch.data import synthetic
 from cld_tpu_torch.ops import diffusion, gather_kernels, lstm_kernels, native
+from cld_tpu_torch.sim import scene
 
 torch.set_num_threads(2)
 PKG = Path(cld_tpu_torch.__file__).parent
@@ -30,7 +33,9 @@ def _imports(path):
 
 def test_no_jax_or_reference_package_imports():
     files = sorted(PKG.rglob("*.py")) + [PKG.parent / "chip_smoke.py"]
-    assert len(files) > 15
+    assert len(files) > 25
+    names = {f.name for f in files}
+    assert {"env.py", "scene.py", "raster.py", "lanes.py", "wrappers.py", "rollout.py"} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
@@ -38,7 +43,7 @@ def test_no_jax_or_reference_package_imports():
 
 
 @pytest.mark.parametrize("fn", [pipeline.build_models, synthetic.synthetic_batch,
-                                diffusion.make_schedule])
+                                diffusion.make_schedule, scene.synthetic_scene_pack])
 def test_entry_points_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
@@ -54,6 +59,12 @@ def test_wrappers_raise_on_devices_without_a_kernel():
     with pytest.raises(ValueError):
         gather_kernels.drivable_bit_gather(m(B, 5, 2, dtype=torch.int32),
                                            m(B, 4, 1, dtype=torch.int8))
+    with pytest.raises(ValueError):
+        gather_kernels.drivable_gather(m(B, 5, 2, dtype=torch.int32),
+                                       m(B, 4, 4, dtype=torch.int8))
+    with pytest.raises(ValueError):
+        gather_kernels.value_gather(m(B, 5, 2, dtype=torch.int32),
+                                    m(B, 4, 4, 3, dtype=torch.int8))
 
 
 def test_cpu_tensors_take_the_plain_versions_without_counting():
@@ -61,10 +72,41 @@ def test_cpu_tensors_take_the_plain_versions_without_counting():
     pix = torch.zeros((1, 3, 2), dtype=torch.int32)
     packed = gather_kernels.pack_drivable_bits(torch.ones((1, 4, 9)))
     assert gather_kernels.drivable_bit_gather(pix, packed).tolist() == [[1.0, 1.0, 1.0]]
+    drv = torch.full((1, 4, 9), 3, dtype=torch.int8)
+    assert gather_kernels.drivable_gather(pix, drv).tolist() == [[3.0, 3.0, 3.0]]
+    assert gather_kernels.value_gather(pix, drv[..., None]).tolist() == [[[3.0]] * 3]
     assert native.launch_counts() == {k: 0 for k in native.KERNELS}
 
 
 def test_kernel_library_name_tracks_the_sources():
     path = native.library_path()
     assert path.parent == PKG / "_build" and path.suffix == ".so"
-    assert sorted(p.name for p in native.CSRC.glob("*.cu")) == ["bit_gather.cu", "lstm.cu"]
+    assert sorted(p.name for p in native.CSRC.glob("*.cu")) == [
+        "bit_gather.cu", "drivable_gather.cu", "lstm.cu", "value_gather.cu"]
+
+
+def test_rollout_cli_defaults_to_cuda_and_runs_on_the_cpu(tmp_path, capsys):
+    """The CLI at a small size on the CPU: 1 scene x 2 agents, raster 64,
+    4 DDPM steps, 10 frames; finite trajectory log of the right shape,
+    reproducible from the seed; without `--device cpu` it asks for the card."""
+    argv = ["--num-scenes", "1", "--agents-per-scene", "2", "--num-sim-steps", "10",
+            "--raster-size", "64", "--hist-frames", "10", "--diffusion-steps", "4"]
+    runs = []
+    for guidance in ("flagship", "flagship", "none"):
+        out = tmp_path / f"{guidance}{len(runs)}"
+        report = rollout.main(argv + ["--device", "cpu", "--guidance", guidance,
+                                      "--output", str(out)])
+        assert report["num_sim_steps"] == 10 and report["device"] == "cpu"
+        assert report["num_controlled_agents"] == 1
+        with np.load(out / "trajectories.npz") as f:
+            traj = f["trajectories"]
+            assert f["controlled_mask"].tolist() == [True, False]
+        assert traj.shape == (10, 2, 4) and np.isfinite(traj).all()
+        runs.append(traj)
+    assert "offroad_rate" in capsys.readouterr().out
+    np.testing.assert_array_equal(runs[0], runs[1])
+    np.testing.assert_array_equal(runs[0][:, 1], runs[2][:, 1])  # the replay agent ignores guidance
+    assert (np.diff(runs[2][:, :, 0], axis=0) > 0).all()  # both agents drive on
+    if not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError)):
+            rollout.main(argv + ["--output", str(tmp_path / "cuda")])

@@ -143,7 +143,8 @@ def test_slice_matches_jax(slice_pair, guided):
         _close(out["log_prob_final"].numpy(), np.asarray(logp_j), 1e-4, 1e-6)
     _close(out["traj"].numpy(), traj_j, 1e-4, 1e-6)
     np.testing.assert_allclose(out["reward_per_agent"].numpy(), np.asarray(rew_j), **NET)
-    assert out["launches"] == {"lstm2_fwd": 0, "lstm2_bwd": 0, "bit_gather": 0}
+    assert out["launches"] == {"lstm2_fwd": 0, "lstm2_bwd": 0, "bit_gather": 0,
+                               "value_gather": 0, "drivable_gather": 0}
 
 
 def test_first_guidance_gradient_matches_jax(slice_pair):
