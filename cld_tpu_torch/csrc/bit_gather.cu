@@ -10,7 +10,8 @@
 // What bounds it on the H100: bytes. At the guided path's shapes (B = 128,
 // Q = 5200 query points, a 224 x 28-byte packed map per agent) it reads
 // 5.3 MB of int32 coordinates and writes 2.7 MB of f32; the packed maps are
-// 0.8 MB and stay in L2. There is no arithmetic to speak of.
+// 0.8 MB, of which it needs at most the 5200 bytes per map under its queries,
+// and stay in L2. There is no arithmetic to speak of.
 //
 // What the design does about it: one thread per query point, the (col, row)
 // pair read as one 8-byte int2 load, neighbouring threads on neighbouring

@@ -11,8 +11,10 @@
 //
 // What bounds it on the H100: bytes. At the closed loop's shapes (M = 64
 // windows of 256 x 256 x 3 int8, Q = 25,088 queries per window) it reads
-// 12.8 MB of int32 coordinates and 12.6 MB of windows and writes 19.3 MB of
-// f32. There is no arithmetic to speak of.
+// 12.8 MB of int32 coordinates and writes 19.3 MB of f32. Of the 12.6 MB of
+// windows it needs only the bytes under its queries: at most 3 x 25,088 per
+// window, 4.8 MB in all, and fewer where queries share a pixel. There is no
+// arithmetic to speak of.
 //
 // What the design does about it: one thread per query point, the (col, row)
 // pair read as one 8-byte int2 load, the C channel bytes of a pixel adjacent

@@ -161,7 +161,8 @@ def warp_scene_maps(
     from `quantize_world_maps_q8` to do it once outside a loop), copies one
     [WIN, WIN] window per (agent, band) and fetches the bytes with
     `value_gather`. `"auto"` is banded on a CUDA tensor when the window
-    fits the map, exact otherwise."""
+    fits the map, exact otherwise; an explicit `"banded"` raises when the
+    window does not fit."""
     if impl not in ("auto", "exact", "banded"):
         raise ValueError(f"unknown warp impl {impl!r} (expected auto|exact|banded)")
     Ns, Hw, Ww, C = world_maps.shape
@@ -172,9 +173,14 @@ def warp_scene_maps(
     origins = map_origin[scene_index.long()]  # [Na, 2]
 
     bh_win = _pick_band(raster_size, pixel_size / res)
-    banded = impl == "banded" or (impl == "auto" and dev.type == "cuda")
-    if bh_win is None or min(Hw, Ww) < bh_win[1]:
-        banded = False
+    fits = min(Hw, Ww) >= bh_win[1]
+    if impl == "banded" and not fits:
+        raise ValueError(
+            f"impl='banded' needs a world map of at least {bh_win[1]} px a "
+            f"side for raster {raster_size} at {pixel_size / res:g} map px per raster px; got "
+            f"{Hw}x{Ww}. Use impl='auto' to take the exact warp on small maps."
+        )
+    banded = fits and (impl == "banded" or (impl == "auto" and dev.type == "cuda"))
     if not banded:
         return _warp_exact(world_maps, scene_index, world_from_agent, origins, res,
                            raster_size, pixel_size, ego_center, fill_value)

@@ -54,8 +54,6 @@ class SimConfig:
     # intersection; > 1 adds a safety margin)
     collision_thresh: float = 1.0
     dyn: UnicycleParams = RECORD_DYNAMICS
-    # `ops.raster.warp_scene_maps` impl: auto | exact | banded
-    warp_impl: str = "auto"
 
     @property
     def num_replans(self) -> int:
@@ -132,7 +130,7 @@ def render_observation(
     sem = warp_scene_maps(
         pack.world_map, pack.map_origin, pack.map_resolution, w_from_a, pack.scene_index,
         cfg.raster_size, cfg.pixel_size, cfg.ego_center,
-        impl=cfg.warp_impl, world_maps_q8=world_q8,
+        impl="auto", world_maps_q8=world_q8,
     )  # [Na, H, W, C_sem]
 
     # histories into each agent's frame; neighbors: all agents of the same

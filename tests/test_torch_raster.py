@@ -147,9 +147,12 @@ def test_warp_falls_back_to_exact_when_the_window_exceeds_the_map():
     world, origin, scene, pos, yaw = _warp_inputs(5, Hw=96)
     wfa = world_from_agent_matrix(T(pos), T(yaw))
     args = (T(world), T(origin), 0.5, wfa, T(scene))
-    assert torch.equal(tr.warp_scene_maps(*args, impl="banded", **KW),
+    assert torch.equal(tr.warp_scene_maps(*args, impl="auto", **KW),
                        tr.warp_scene_maps(*args, impl="exact", **KW))
-    with pytest.raises(ValueError):
+    # an explicit "banded" never takes the exact warp silently
+    with pytest.raises(ValueError, match="at least 128 px"):
+        tr.warp_scene_maps(*args, impl="banded", **KW)
+    with pytest.raises(ValueError, match="unknown warp impl"):
         tr.warp_scene_maps(*args, impl="pallas", **KW)
 
 
