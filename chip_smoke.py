@@ -41,10 +41,29 @@
    `drivable_gather` launches and no `bit_gather` launch.
 9. Runs a small closed loop (2 x 3 agents, raster 64, 10 DDPM steps, 10
    frames) on the card and on the CPU with the same weights and noise.
-10. Prints the card line, one `{"kernels": [...]}` line (`launches_by_path`
-   there holds each main-path run's own count, of 4, 7 and 8, each zeroed
-   before its run and checked exactly; `launches` is their sum), and last
-   `{"ok": true, "device": {...}}`. Any failed check exits non-zero first.
+10. Holds the three rigid map-distance kernels against their plain versions
+   on the card at the open loop's shape (B=128 agents, Q=52 steps, P=100 bbox
+   points; the distance cache from `prepack_map_bbox` on the synthetic batch,
+   the on-road mask from the batch's own map with random bits mixed in and
+   an all-off-road and an all-on-road step forced) and at two ragged shapes:
+   `rigid_min` and `rigid_min_fused` give `dist` within 1e-6 relative and
+   `idx` exactly, and equal each other bit for bit; `rigid_bwd` agrees
+   within rtol 1e-4 / atol 1e-5 and repeats itself bit for bit. Times each.
+11. Runs `pipeline.guided_collect` at full width with
+   `MapCollisionLoss(min_dist_impl="rigid_kernel")` (99 `rigid_min`, 99
+   `rigid_bwd`, no `rigid_min_fused`) and with `min_dist_impl="rigid",
+   min_fwd_impl="fused"` (99 `rigid_min_fused`, none of the other two);
+   launch counts zeroed before each and exact; prints NFE/s. One guidance
+   gradient at B=128 under "rigid_kernel", "rigid" + "fused" and
+   "separable": the first two agree within rtol 1e-4, the loss values of
+   all three within 1e-5 relative.
+12. Runs one closed-loop replan (4 x 8 agents) and the small slice of 5 with
+   "rigid_kernel" specs: exact launch counts, a finite plan, card vs CPU.
+13. Prints the card line, one `{"kernels": [...]}` line (`launches_by_path`
+   there holds each main-path run's own count, of 4, 7, 8, 11 and 12, each
+   zeroed before its run and checked exactly; `launches` is their sum), and
+   last `{"ok": true, "device": {...}}`. Any failed check exits non-zero
+   first.
 
 A longer report goes to chiprun_out/chip_smoke.json.
 """
@@ -91,6 +110,13 @@ def check(cond: bool, msg: str) -> None:
         raise CheckFailed(msg)
 
 
+def counts(**launched) -> dict:
+    """Expected launch counts: the named kernels, every other kernel 0."""
+    from cld_tpu_torch.ops import native
+
+    return {**{k: 0 for k in native.KERNELS}, **launched}
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -112,6 +138,29 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, launches: int = 100, replays: int = 20) -> float:
+    """Device ms per call of fn, from replays of a CUDA graph of `launches`
+    calls: back-to-back launches from Python read the host's launch path
+    (~0.02-0.03 ms) for any kernel shorter than that, the graph takes it out."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (launches * replays)
 
 
 def bound(nbytes: float, flops: float):
@@ -281,8 +330,7 @@ def run_main_path(models, batch, report):
     launches = native.launch_counts()
     log(f"guided pipeline (first call, {first_s:.2f} s): launches {launches}, "
         f"reward {float(out['reward']):.4f}")
-    want = {"lstm2_fwd": N_STEPS, "lstm2_bwd": N_STEPS - 1, "bit_gather": N_STEPS - 1,
-            "value_gather": 0, "drivable_gather": 0}
+    want = counts(lstm2_fwd=N_STEPS, lstm2_bwd=N_STEPS - 1, bit_gather=N_STEPS - 1)
     check(launches == want, f"kernel launches {launches}, expected {want}")
     for k in ("pred_traj", "traj", "reward_per_agent", "cond_feat"):
         check(bool(torch.isfinite(out[k]).all()), f"guided output {k} is not finite")
@@ -300,9 +348,7 @@ def run_main_path(models, batch, report):
 
     guided_s, _ = timed(True, 11)
     unguided_s, uo = timed(False, 12)
-    check(uo["launches"] == {"lstm2_fwd": 1, "lstm2_bwd": 0, "bit_gather": 0,
-                             "value_gather": 0, "drivable_gather": 0},
-          f"unguided launches {uo['launches']}")
+    check(uo["launches"] == counts(lstm2_fwd=1), f"unguided launches {uo['launches']}")
     for k in ("pred_traj", "traj", "reward_per_agent"):
         check(bool(torch.isfinite(uo[k]).all()), f"unguided output {k} is not finite")
     nfe = B * N_STEPS
@@ -314,15 +360,30 @@ def run_main_path(models, batch, report):
         f"{N_STEPS} steps, on {report['card']}")
 
 
-def check_small_slice(dev, report):
+def road_edge_shift(g, Bn):
+    """[Bn, 1, 1, 6] sideways shifts of 5.5 to 8.5 m to either side: added to
+    trajectories that run along the synthetic road (7 m wide to each side of
+    its centre line), they put the bbox grids across its edge."""
+    import torch
+
+    side = torch.zeros((Bn, 1, 1, 6))
+    side[:, 0, 0, 1] = (torch.rand((Bn,), generator=g) * 3.0 + 5.5) * (
+        torch.randint(0, 2, (Bn,), generator=g) * 2 - 1)
+    return side
+
+
+def check_small_slice(dev, report, min_dist_impl="separable"):
     """The slice at a small size on the card (kernels) and on the CPU (plain
-    versions), same weights and noise. Each comparison holds
+    versions), same weights and noise, with the map loss under
+    `min_dist_impl`. Each comparison holds
     |card - cpu| <= 1e-4 |cpu| + floor * max |cpu|. The floor is 1e-6 for
     trajectories and unguided latents. It is 1e-4 for the guided latents:
     one Adam step from m = v = 0 moves a component by ~lr * sign(g), so a
     gradient component near zero can take the other sign and move by up to
     2 sigma. It is 1e-4 for the guidance gradient too, whose near-zero
-    components carry the rounding of f32 sums over the bbox grid."""
+    components carry the rounding of f32 sums over the bbox grid; it is taken
+    on the decoded trajectories shifted to the road's edge
+    (`road_edge_shift`)."""
     import torch
 
     from cld_tpu_torch import pipeline
@@ -335,12 +396,15 @@ def check_small_slice(dev, report):
     x_init = torch.randn((Bs, T, L), generator=g)
     noises = torch.randn((steps, Bs, T, L), generator=g)
     z = torch.randn((Bs, T, L), generator=g)
+    side = road_edge_shift(g, Bs)  # the gradient is taken where the map loss has work
     res = {}
     for where in ("cpu", dev):
         m = pipeline.build_models(seed=5, device=where, n_diffusion_steps=steps)
         b = synthetic_batch(seed=4, batch_size=Bs, raster_size=64, device=where)
+        specs = pipeline.flagship_guidance_specs(AGENTS_PER_SCENE, min_dist_impl=min_dist_impl)
         outs = {gd: pipeline.guided_collect(m, b, guided=gd, agents_per_scene=AGENTS_PER_SCENE,
-                                            x_init=x_init.to(where), step_noises=noises.to(where))
+                                            x_init=x_init.to(where), step_noises=noises.to(where),
+                                            specs=specs)
                 for gd in (False, True)}
         aux = m.context(b)
         wfa, si = pipeline.scene_world_poses(Bs, AGENTS_PER_SCENE, where)
@@ -351,24 +415,25 @@ def check_small_slice(dev, report):
             acts = pipeline.decode_actions(m.decoder, v, aux["cond_feat"])
             return pipeline.convert_action_to_state_and_action(
                 acts, aux["curr_states"], m.dyn, pipeline.TrajNormalizer(),
-                descaled_output=True)[:, None]
+                descaled_output=True)[:, None] + side.to(where)
 
-        grad = guidance_gradient(z.to(where), ctx, pipeline.flagship_guidance_specs(
-            AGENTS_PER_SCENE), decode_fn)
+        grad = guidance_gradient(z.to(where), ctx, specs, decode_fn)
         res[str(where)] = (outs, grad.cpu(), outs[True]["launches"])
     (c_outs, c_grad, _), (g_outs, g_grad, g_launch) = res["cpu"], res[str(dev)]
-    check(g_launch == {"lstm2_fwd": steps, "lstm2_bwd": steps - 1, "bit_gather": steps - 1,
-                       "value_gather": 0, "drivable_gather": 0},
-          f"small slice launches {g_launch}")
+    want = counts(lstm2_fwd=steps, lstm2_bwd=steps - 1, bit_gather=steps - 1)
+    if min_dist_impl == "rigid_kernel":
+        want.update(rigid_min=steps - 1, rigid_bwd=steps - 1)
+    check(g_launch == want, f"small slice ({min_dist_impl}) launches {g_launch}, expected {want}")
+    tag0 = f"small slice ({min_dist_impl})"
 
     def close(name, a, b, floor):
         a, b = a.detach().cpu(), b.detach().cpu()
         err = float((a - b).abs().max())
         tol = SLICE_RTOL * b.abs() + floor * float(b.abs().max())
         ok = bool(((a - b).abs() <= tol).all())
-        log(f"small slice {name}: card vs CPU max abs diff {err:.3e} "
+        log(f"{tag0} {name}: card vs CPU max abs diff {err:.3e} "
             f"(rtol {SLICE_RTOL:.0e}, floor {floor:.0e} of max {float(b.abs().max()):.3g})")
-        check(ok, f"small slice {name} disagrees between card and CPU")
+        check(ok, f"{tag0} {name} disagrees between card and CPU")
         return err
 
     summary = {}
@@ -379,7 +444,8 @@ def check_small_slice(dev, report):
                                           c_outs[gd]["pred_traj"], 1e-4 if gd else 1e-6)
     check(float(c_grad.abs().max()) > 0.0, "small slice guidance gradient is zero")
     summary["guidance_grad"] = close("guidance gradient", g_grad, c_grad, 1e-4)
-    report["small_slice"] = summary
+    report["small_slice" if min_dist_impl == "separable" else f"small_slice_{min_dist_impl}"] = \
+        summary
 
 
 def check_map_gathers(dev, report):
@@ -509,8 +575,8 @@ def run_closed_loop(models, pack, report):
     wall = time.perf_counter() - t0
     launches = native.launch_counts()
     n = cfg.num_replans
-    want = {"lstm2_fwd": N_STEPS * n, "lstm2_bwd": (N_STEPS - 1) * n,
-            "bit_gather": (N_STEPS - 1) * n, "value_gather": n, "drivable_gather": 0}
+    want = counts(lstm2_fwd=N_STEPS * n, lstm2_bwd=(N_STEPS - 1) * n,
+                  bit_gather=(N_STEPS - 1) * n, value_gather=n)
     log(f"closed loop ({CL_SCENES} x {CL_AGENTS} agents, {CL_STEPS} frames, {n} replans, "
         f"{wall:.2f} s): launches {launches}")
     check(launches == want, f"closed-loop launches {launches}, expected {want}")
@@ -552,6 +618,25 @@ def run_closed_loop(models, pack, report):
         f"{N_STEPS} DDPM steps per replan, on {report['card']}")
 
 
+def offroad_observation(pack, g):
+    """The pack's first observation with agents off the road and on top of
+    each other, so that both losses and the gathers have work: lateral
+    offsets up to the road's edge."""
+    import torch
+
+    from cld_tpu_torch.sim import env
+
+    dev = pack.init_states.device
+    cfg = env.SimConfig(num_simulation_steps=CL_STEPS, n_step_action=CL_N_STEP,
+                        raster_size=RASTER)
+    init = pack.init_states.clone()
+    init[:, 1] += (torch.rand((CL_B,), generator=g) * 10.0 - 5.0).to(dev)
+    init[:, 3] += (torch.rand((CL_B,), generator=g) * 0.6 - 0.3).to(dev)
+    init[1::2, 0] = init[0::2, 0] + 3.0
+    moved = pack._replace(init_states=init)
+    return env.render_observation(moved, env.init_sim_state(moved, cfg), cfg)
+
+
 def run_px_replan(models, pack, report):
     """One replan with the unpacked drivable gather: same guidance gradient
     and same plan as with the bit gather, exactly."""
@@ -561,20 +646,10 @@ def run_px_replan(models, pack, report):
     from cld_tpu_torch.guidance import losses as gl
     from cld_tpu_torch.guidance.perturbation import guidance_gradient
     from cld_tpu_torch.ops import native
-    from cld_tpu_torch.sim import env
 
     dev = pack.init_states.device
-    cfg = env.SimConfig(num_simulation_steps=CL_STEPS, n_step_action=CL_N_STEP,
-                        raster_size=RASTER)
-    # a state with agents off the road and on top of each other, so that both
-    # losses and both gathers have work: lateral offsets up to the road's edge
     g = torch.Generator().manual_seed(9)
-    init = pack.init_states.clone()
-    init[:, 1] += (torch.rand((CL_B,), generator=g) * 10.0 - 5.0).to(dev)
-    init[:, 3] += (torch.rand((CL_B,), generator=g) * 0.6 - 0.3).to(dev)
-    init[1::2, 0] = init[0::2, 0] + 3.0
-    moved = pack._replace(init_states=init)
-    obs = env.render_observation(moved, env.init_sim_state(moved, cfg), cfg)
+    obs = offroad_observation(pack, g)
 
     aux = models.context(obs)
     ctx = gl.prepack_map_bbox(gl.prepack_drivable(gl.GuidanceContext(
@@ -599,21 +674,272 @@ def run_px_replan(models, pack, report):
     check(torch.equal(grads["bits"], grads["px"]), "px and bits guidance gradients differ")
 
     gen = torch.Generator(device=dev)
-    plans, counts = {}, {}
+    plans, launched = {}, {}
     for impl in ("bits", "px"):
         policy = pipeline.make_dm_policy(
             models, CL_AGENTS, specs=pipeline.flagship_guidance_specs(CL_AGENTS, impl))
         native.reset_launch_counts()
         plans[impl] = policy(obs, gen.manual_seed(22)).controls
         torch.cuda.synchronize()
-        counts[impl] = native.launch_counts()
-    want = {"lstm2_fwd": N_STEPS, "lstm2_bwd": N_STEPS - 1, "bit_gather": 0,
-            "value_gather": 0, "drivable_gather": N_STEPS - 1}
-    log(f"px replan: launches {counts['px']}")
-    check(counts["px"] == want, f"px replan launches {counts['px']}, expected {want}")
+        launched[impl] = native.launch_counts()
+    want = counts(lstm2_fwd=N_STEPS, lstm2_bwd=N_STEPS - 1, drivable_gather=N_STEPS - 1)
+    log(f"px replan: launches {launched['px']}")
+    check(launched["px"] == want, f"px replan launches {launched['px']}, expected {want}")
     check(bool(torch.isfinite(plans["px"]).all()), "px replan's plan is not finite")
     check(torch.equal(plans["px"], plans["bits"]), "px and bits plans differ")
-    report["launches_px_replan"] = counts["px"]
+    report["launches_px_replan"] = launched["px"]
+
+
+def rigid_fixture(g, Bn, Qn, P, dev, d2=None, on=None):
+    """(d2 [Bn, P, P], on [Bn, Qn, P] bool, pts, g_out) for the rigid kernels:
+    a random point cloud's distances and random mask unless given; an
+    all-off-road and an all-on-road step forced in; cotangents zero at
+    on-road columns and in steps without an on-road row, as the loss has
+    them."""
+    import torch
+
+    if d2 is None:
+        local = torch.randn((Bn, P, 2), generator=g) * 2.0
+        d2 = ((local[:, :, None] - local[:, None]) ** 2).sum(-1).to(dev).contiguous()
+    if on is None:
+        on = (torch.rand((Bn, Qn, P), generator=g) > 0.4).to(dev)
+    on = on.clone()
+    on[0, 0] = False
+    on[1, 1] = True
+    pts = (torch.randn((Bn, Qn, P, 2), generator=g) * 5.0).to(dev)
+    gout = torch.randn((Bn, Qn, P), generator=g).to(dev)
+    gout = torch.where(on | ~on.any(-1, keepdim=True), torch.zeros(()).to(dev), gout)
+    return d2, on.contiguous(), pts, gout.contiguous()
+
+
+def check_rigid(batch, dev, report):
+    """`rigid_min`, `rigid_min_fused` and `rigid_bwd` against their plain
+    versions on the card."""
+    import torch
+
+    from cld_tpu_torch.guidance import losses as gl
+    from cld_tpu_torch.ops import gather_kernels as gk
+    from cld_tpu_torch.ops import rigid_kernels as rk
+
+    g = torch.Generator().manual_seed(14)
+    P = 100
+    wfa = torch.eye(3, device=dev).expand(B, 3, 3)
+    ctx = gl.prepack_map_bbox(gl.GuidanceContext(
+        batch.drivable_map, batch.raster_from_agent, batch.extent, batch.curr_speed, wfa,
+        torch.zeros((B,), dtype=torch.long, device=dev)))
+    # the mask: the batch's own on-road bits under random pixels, 10% random bits mixed in
+    Hm, W = batch.drivable_map.shape[-2:]
+    pix = gather_pix(g, B, T * P, W, Hm, dev)
+    on_map = gk.drivable_bit_gather(pix, gk.pack_drivable_bits(batch.drivable_map)) > 0
+    flip = (torch.rand((B, T * P), generator=g) < 0.1).to(dev)
+    rand = (torch.rand((B, T * P), generator=g) < 0.5).to(dev)
+    on_full = torch.where(flip, rand, on_map).reshape(B, T, P)
+
+    shapes = {"open_loop": (B, T, P, ctx.bbox_d2, on_full), "ragged": (5, 7, 16, None, None),
+              "max_p": (2, 3, rk.MAX_P, None, None)}
+    worst = {"rigid_min": 0.0, "rigid_min_fused": 0.0, "rigid_bwd": 0.0}
+    for name, (Bn, Qn, Pn, d2, on) in shapes.items():
+        d2, on, pts, gout = rigid_fixture(g, Bn, Qn, Pn, dev, d2, on)
+        want_d, want_i = rk.rigid_min_ref(d2, on)
+        outs = {"rigid_min": rk.rigid_min(d2, on), "rigid_min_fused": rk.rigid_min_fused(d2, on)}
+        torch.cuda.synchronize()
+        for kname, (got_d, got_i) in outs.items():
+            err, rel = rel_err(got_d, want_d)
+            rel_each = float(((got_d - want_d).abs() / want_d).max())
+            exact = bool(torch.equal(got_d, want_d))
+            log(f"{kname} [{name}: B={Bn}, Q={Qn}, P={Pn}]: dist max rel err {rel_each:.3e} "
+                f"(tolerance 1e-6; exact: {exact}), idx equal: {bool(torch.equal(got_i, want_i))}")
+            check(rel_each <= 1e-6, f"{kname} ({name}) dist disagrees with its plain version")
+            check(torch.equal(got_i, want_i), f"{kname} ({name}) idx disagrees")
+            worst[kname] = max(worst[kname], err)
+        check(torch.equal(outs["rigid_min"][0], outs["rigid_min_fused"][0])
+              and torch.equal(outs["rigid_min"][1], outs["rigid_min_fused"][1]),
+              f"rigid_min_fused differs from rigid_min ({name})")
+        check(bool((want_d[0, 0] == 1e6).all()) and bool((want_i[0, 0] == 0).all()),
+              "all-off-road step: expected dist 1e6, idx 0")
+        check(torch.equal(want_i[1, 1].long(), torch.arange(Pn, device=dev)),
+              "all-on-road step: every column should match itself")
+        n_on = int(on.sum())
+        check(0 < n_on < on.numel(), "rigid fixture mask is degenerate")
+
+        got = rk.rigid_bwd(pts, want_i, want_d, gout)
+        again = rk.rigid_bwd(pts, want_i, want_d, gout)
+        ref = rk.rigid_bwd_ref(pts, want_i, want_d, gout)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        ok = bool(((got - ref).abs() <= 1e-4 * ref.abs() + 1e-5).all())
+        log(f"rigid_bwd [{name}]: max abs err {err:.3e} (rtol 1e-4, atol 1e-5; max |plain| "
+            f"{float(ref.abs().max()):.3g}); repeated launch bit-identical: "
+            f"{bool(torch.equal(got, again))}")
+        check(ok, f"rigid_bwd ({name}) disagrees with its plain version")
+        check(torch.equal(got, again), f"rigid_bwd ({name}) differs between two launches")
+        check(float(ref.abs().max()) > 0.0, "rigid_bwd fixture routes nothing")
+        worst["rigid_bwd"] = max(worst["rigid_bwd"], err)
+        if name == "open_loop":
+            full = (d2, on, pts, gout, want_d, want_i)
+
+    d2, on, pts, gout, dist, idx = full
+    ms = {
+        "rigid_min": cuda_ms(lambda: rk.rigid_min(d2, on), 200),
+        "rigid_min_fused": cuda_ms(lambda: rk.rigid_min_fused(d2, on), 200),
+        "rigid_bwd": cuda_ms(lambda: rk.rigid_bwd(pts, idx, dist, gout), 200),
+    }
+    plain_min = cuda_ms(lambda: rk.rigid_min_ref(d2, on), 5)
+    plain_bwd = cuda_ms(lambda: rk.rigid_bwd_ref(pts, idx, dist, gout), 5)
+    # the closed loop's batch, for the schedule comparison
+    d2s, ons = d2[:CL_B].contiguous(), on[:CL_B].contiguous()
+    # device time from a CUDA graph, at both batch sizes: which schedule the card prefers
+    gms = {
+        "rigid_min": graph_ms(lambda: rk.rigid_min(d2, on)),
+        "rigid_min_fused": graph_ms(lambda: rk.rigid_min_fused(d2, on)),
+        "rigid_bwd": graph_ms(lambda: rk.rigid_bwd(pts, idx, dist, gout)),
+    }
+    gms32 = {k: graph_ms(lambda: getattr(rk, k)(d2s, ons))
+             for k in ("rigid_min", "rigid_min_fused")}
+    log(f"rigid kernels at B={B}, back to back from Python: "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+        + f"; plain min {plain_min:.3f} ms, plain bwd {plain_bwd:.3f} ms")
+    log(f"rigid kernels from a CUDA graph: at B={B} "
+        + ", ".join(f"{k} {v:.5f} ms" for k, v in gms.items()) + f"; at B={CL_B} "
+        + ", ".join(f"{k} {v:.5f} ms" for k, v in gms32.items()))
+    # bytes: every input read once, every output written once; operations: one
+    # compare and one select per (b, q, i, j)
+    n = B * T * P
+    min_b, min_by = bound(4 * B * P * P + n + 8 * n, 2.0 * n * P)
+    bwd_b, bwd_by = bound(8 * n + 3 * 4 * n + 8 * n, 2.0 * n * P)
+    for k in ("rigid_min", "rigid_min_fused"):
+        report[k] = dict(max_abs_err=worst[k], ms=ms[k], plain_ms=plain_min, bound_ms=min_b,
+                         bound_by=min_by, library_ms=None, graph_ms=gms[k],
+                         graph_ms_at_b32=gms32[k])
+    report["rigid_bwd"] = dict(max_abs_err=worst["rigid_bwd"], ms=ms["rigid_bwd"],
+                               plain_ms=plain_bwd, bound_ms=bwd_b, bound_by=bwd_by,
+                               library_ms=None, graph_ms=gms["rigid_bwd"])
+
+
+RIGID_SPECS = {"rigid_kernel": dict(min_dist_impl="rigid_kernel"),
+               "fused": dict(min_dist_impl="rigid", min_fwd_impl="fused")}
+
+
+def run_rigid_paths(models, batch, report):
+    """The full-width guided call with the rigid map-distance kernels:
+    "rigid_kernel" (forward and backward kernels), then "rigid" + "fused"
+    (the fused forward kernel, plain routing backward). Counts exact."""
+    import torch
+
+    from cld_tpu_torch import pipeline
+    from cld_tpu_torch.ops import native
+
+    g = torch.Generator(device=batch.image.device)
+    n = N_STEPS - 1
+    base = dict(lstm2_fwd=N_STEPS, lstm2_bwd=n, bit_gather=n)
+    wants = {"rigid_kernel": counts(rigid_min=n, rigid_bwd=n, **base),
+             "fused": counts(rigid_min_fused=n, **base)}
+    for name, kw in RIGID_SPECS.items():
+        specs = pipeline.flagship_guidance_specs(AGENTS_PER_SCENE, **kw)
+        native.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pipeline.guided_collect(models, batch, guided=True, specs=specs,
+                                      agents_per_scene=AGENTS_PER_SCENE,
+                                      generator=g.manual_seed(10))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = native.launch_counts()
+        log(f"guided pipeline, {name} ({secs:.2f} s, {B * N_STEPS / secs:.1f} NFE/s; the "
+            f"separable call: {report['pipeline']['guided_nfe_per_s']:.1f} NFE/s): "
+            f"launches {launches}, reward {float(out['reward']):.4f}")
+        check(launches == wants[name], f"{name} launches {launches}, expected {wants[name]}")
+        for k in ("pred_traj", "traj", "reward_per_agent"):
+            check(bool(torch.isfinite(out[k]).all()), f"{name} guided output {k} is not finite")
+        check(tuple(out["traj"].shape) == (B, 1, T, 6), f"traj shape {tuple(out['traj'].shape)}")
+        report[f"launches_{name}"] = launches
+        report["pipeline"][f"{name}_guided_s"] = secs
+        report["pipeline"][f"{name}_guided_nfe_per_s"] = B * N_STEPS / secs
+
+
+def check_rigid_agreement(models, batch, dev, report):
+    """One guidance gradient at full width under "rigid_kernel", "rigid" +
+    "fused" and "separable", on the decoded trajectories shifted sideways to
+    the road's edge (`road_edge_shift`), so that the map loss has work. The
+    first two share the tie rule (the lowest
+    on-road row takes a tied column's cotangent): |a - b| <= 1e-4 |b| + 1e-6
+    max |b|. "separable" splits ties, so only its loss value is held (1e-5
+    relative); the gradients' largest difference is printed."""
+    import torch
+
+    from cld_tpu_torch import pipeline
+    from cld_tpu_torch.guidance import losses as gl
+    from cld_tpu_torch.guidance import perturbation as gp
+
+    g = torch.Generator().manual_seed(15)
+    aux = models.context(batch)
+    wfa, si = pipeline.scene_world_poses(B, AGENTS_PER_SCENE, dev)
+    ctx = gl.prepack_map_bbox(gl.prepack_drivable(gl.GuidanceContext(
+        batch.drivable_map, batch.raster_from_agent, batch.extent, batch.curr_speed, wfa, si)))
+
+    side = road_edge_shift(g, B).to(dev)
+
+    def decode_fn(v):
+        acts = pipeline.decode_actions(models.decoder, v, aux["cond_feat"])
+        return pipeline.convert_action_to_state_and_action(
+            acts, aux["curr_states"], models.dyn, pipeline.TrajNormalizer(),
+            descaled_output=True)[:, None] + side
+
+    z = torch.randn((B, T, L), generator=g).to(dev)
+    grads, totals = {}, {}
+    for name, kw in {**RIGID_SPECS, "separable": {}}.items():
+        specs = pipeline.flagship_guidance_specs(AGENTS_PER_SCENE, **kw)
+        grads[name] = gp.guidance_gradient(z, ctx, specs, decode_fn)
+        with torch.no_grad():
+            totals[name] = float(gp.compute_guidance_loss(decode_fn(z), ctx, specs[1:])[0])
+    torch.cuda.synchronize()
+    a, b = grads["rigid_kernel"], grads["fused"]
+    gmax = float(b.abs().max())
+    err = float((a - b).abs().max())
+    log(f"guidance gradient at B={B}: rigid_kernel vs rigid+fused max abs diff {err:.3e} "
+        f"(rtol 1e-4, floor 1e-6 of max |g| {gmax:.3e}); vs separable "
+        f"{float((a - grads['separable']).abs().max()):.3e} (printed only: other tie rule)")
+    check(gmax > 0.0 and totals["separable"] > 0.0, "the map guidance is idle on this batch")
+    check(bool(((a - b).abs() <= 1e-4 * b.abs() + 1e-6 * gmax).all()),
+          "rigid_kernel and rigid+fused guidance gradients disagree")
+    for name in RIGID_SPECS:
+        rel = abs(totals[name] - totals["separable"]) / totals["separable"]
+        log(f"map loss value, {name} vs separable: {totals[name]:.6f} vs "
+            f"{totals['separable']:.6f} (rel diff {rel:.2e}, tolerance 1e-5)")
+        check(rel <= 1e-5, f"{name} map loss value differs from separable's")
+    report["rigid_agreement"] = dict(
+        kernel_vs_fused_grad=err, kernel_vs_separable_grad=float(
+            (a - grads["separable"]).abs().max()), max_grad=gmax, map_loss=totals)
+
+
+def run_rigid_replan(models, pack, report):
+    """One closed-loop replan (4 x 8 agents) with "rigid_kernel" specs:
+    exact launch counts and a finite plan."""
+    import torch
+
+    from cld_tpu_torch import pipeline
+    from cld_tpu_torch.ops import native
+
+    dev = pack.init_states.device
+    obs = offroad_observation(pack, torch.Generator().manual_seed(9))
+    gen = torch.Generator(device=dev)
+    plans = {}
+    for name in ("separable", "rigid_kernel"):
+        policy = pipeline.make_dm_policy(models, CL_AGENTS, specs=pipeline.flagship_guidance_specs(
+            CL_AGENTS, min_dist_impl=name))
+        native.reset_launch_counts()
+        plans[name] = policy(obs, gen.manual_seed(22)).controls
+        torch.cuda.synchronize()
+        launches = native.launch_counts()
+    n = N_STEPS - 1
+    want = counts(lstm2_fwd=N_STEPS, lstm2_bwd=n, bit_gather=n, rigid_min=n, rigid_bwd=n)
+    diff = float((plans["rigid_kernel"] - plans["separable"]).abs().max())
+    log(f"rigid replan: launches {launches}; plan vs the separable plan max abs diff {diff:.3e} "
+        "(printed only: other tie rule)")
+    check(launches == want, f"rigid replan launches {launches}, expected {want}")
+    check(bool(torch.isfinite(plans["rigid_kernel"]).all()), "rigid replan's plan is not finite")
+    check(tuple(plans["rigid_kernel"].shape) == (CL_B, T, 2), "rigid replan's plan shape")
+    report["launches_rigid_replan"] = launches
 
 
 def check_small_closed_loop(dev, report):
@@ -649,8 +975,8 @@ def check_small_closed_loop(dev, report):
         res[str(where)] = (state, traj.cpu(), native.launch_counts())
     (c_state, c_traj, c_launch), (g_state, g_traj, g_launch) = res["cpu"], res[str(dev)]
     n = cfg.num_replans
-    want = {"lstm2_fwd": steps * n, "lstm2_bwd": (steps - 1) * n, "bit_gather": (steps - 1) * n,
-            "value_gather": n, "drivable_gather": 0}
+    want = counts(lstm2_fwd=steps * n, lstm2_bwd=(steps - 1) * n, bit_gather=(steps - 1) * n,
+                  value_gather=n)
     check(g_launch == want, f"small closed loop launches {g_launch}, expected {want}")
     check(c_launch == {k: 0 for k in want}, f"the CPU run counted launches: {c_launch}")
     err = float((g_traj - c_traj).abs().max())
@@ -704,8 +1030,12 @@ def main() -> int:
     kernels = {}
     check_lstm(models, dev, kernels)
     check_gather(batch, dev, kernels)
+    check_rigid(batch, dev, kernels)
     run_main_path(models, batch, report)
+    run_rigid_paths(models, batch, report)
+    check_rigid_agreement(models, batch, dev, report)
     check_small_slice(dev, report)
+    check_small_slice(dev, report, min_dist_impl="rigid_kernel")
     del batch
 
     pack = synthetic_scene_pack(seed=0, num_scenes=CL_SCENES, agents_per_scene=CL_AGENTS,
@@ -714,6 +1044,7 @@ def main() -> int:
     check_warp(pack, dev, report)
     run_closed_loop(models, pack, report)
     run_px_replan(models, pack, report)
+    run_rigid_replan(models, pack, report)
     check_small_closed_loop(dev, report)
 
     replaces = {
@@ -724,9 +1055,14 @@ def main() -> int:
                          "cld_tpu/ops/pallas_kernels.py:291"),
         "drivable_gather": ("cld_tpu_torch/csrc/drivable_gather.cu",
                             "cld_tpu/ops/pallas_kernels.py:102"),
+        "rigid_min": ("cld_tpu_torch/csrc/rigid_min.cu", "cld_tpu/ops/pallas_kernels.py:471"),
+        "rigid_min_fused": ("cld_tpu_torch/csrc/rigid_min.cu",
+                            "cld_tpu/ops/pallas_kernels.py:404"),
+        "rigid_bwd": ("cld_tpu_torch/csrc/rigid_bwd.cu", "cld_tpu/ops/pallas_kernels.py:541"),
     }
     paths = {"open_loop": "launches", "closed_loop": "launches_closed_loop",
-             "px_replan": "launches_px_replan"}
+             "px_replan": "launches_px_replan", "rigid_open_loop": "launches_rigid_kernel",
+             "fused_open_loop": "launches_fused", "rigid_replan": "launches_rigid_replan"}
     line = []
     for name, (src, rep) in replaces.items():
         k = kernels[name]

@@ -1,11 +1,13 @@
-"""Perturbation guidance: gradient steering of the sampler (port of
-`cld_tpu/guidance/perturbation.py:79-205`).
+"""Perturbation guidance: gradient steering of the sampler, and sample
+selection (port of `cld_tpu/guidance/perturbation.py`).
 
-`perturb` runs `grad_steps` hand-rolled Adam updates on the
+`perturb` runs `grad_steps` hand-rolled Adam (or SGD) updates on the
 sampler's posterior mean, with the gradient of the guidance cost of its
 decoded trajectory taken by `torch.autograd.grad`; the cumulative change is
 clipped to `perturb_th`. `make_perturbation_guidance` builds the hook that
 `algos.dm.sample_traj` calls at each guided denoise step.
+`per_sample_guidance_loss`, `choose_best_sample` and `choose_closest_to_gt`
+pick one of `num_samp` > 1 samples per agent.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import torch
 
 from cld_tpu_torch.guidance.losses import (
+    AgentCollisionLoss,
     GuidanceContext,
     MapCollisionLoss,
     masked_mean,
@@ -30,20 +33,25 @@ ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
 @dataclasses.dataclass(frozen=True)
 class GuidanceSpec:
-    """One guidance rule, applied to every agent: a loss callable + weight."""
+    """One guidance rule: a loss callable + weight + optional static agent
+    mask ([B] bools, None = every agent)."""
 
     loss: Callable
     weight: float = 1.0
+    agent_mask: Optional[Tuple[bool, ...]] = None
 
 
 def compute_guidance_loss(
     x_traj: torch.Tensor, ctx: GuidanceContext, specs: Sequence[GuidanceSpec]
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Weighted sum of per-rule means over [B, N, T, 6] trajectories."""
-    mask = torch.ones((x_traj.shape[0],), dtype=torch.bool, device=x_traj.device)
+    """Weighted sum of per-rule masked means over [B, N, T, 6] trajectories."""
+    every = torch.ones((x_traj.shape[0],), dtype=torch.bool, device=x_traj.device)
     total = torch.zeros((), dtype=x_traj.dtype, device=x_traj.device)
     per_losses: Dict[str, torch.Tensor] = {}
     for i, spec in enumerate(specs):
+        mask = every
+        if spec.agent_mask is not None:
+            mask = torch.as_tensor(spec.agent_mask, dtype=torch.bool, device=x_traj.device)
         cur = spec.loss(x_traj, ctx, agt_mask=mask)  # [B, N]
         per_losses[f"{type(spec.loss).__name__}_{i}"] = cur
         total = total + masked_mean(cur, mask) * spec.weight
@@ -72,10 +80,13 @@ def perturb(
     lr: float = 0.3,
     grad_steps: int = 1,
     perturb_th=None,
+    optimizer: str = "adam",
 ) -> torch.Tensor:
-    """Adam descent on x of the guidance cost of its decoded trajectory;
-    the cumulative change from x_initial is clipped to +-perturb_th (a float
-    or a 0-dim tensor)."""
+    """Adam (or plain SGD, `optimizer="sgd"`) descent on x of the guidance
+    cost of its decoded trajectory; the cumulative change from x_initial is
+    clipped to +-perturb_th (a float or a 0-dim tensor)."""
+    if optimizer not in ("adam", "sgd"):
+        raise NotImplementedError(optimizer)
     b1, b2, eps = ADAM_B1, ADAM_B2, ADAM_EPS
     x_initial = x_initial.detach()
     x = x_initial
@@ -83,11 +94,14 @@ def perturb(
     v = torch.zeros_like(x_initial)
     for step in range(grad_steps):
         g = guidance_gradient(x, ctx, specs, decode_fn)
-        m = b1 * m + (1 - b1) * g
-        v = b2 * v + (1 - b2) * g**2
-        m_hat = m / (1 - b1 ** (step + 1))
-        v_hat = v / (1 - b2 ** (step + 1))
-        x = x - lr * m_hat / (torch.sqrt(v_hat) + eps)
+        if optimizer == "adam":
+            m = b1 * m + (1 - b1) * g
+            v = b2 * v + (1 - b2) * g**2
+            m_hat = m / (1 - b1 ** (step + 1))
+            v_hat = v / (1 - b2 ** (step + 1))
+            x = x - lr * m_hat / (torch.sqrt(v_hat) + eps)
+        else:
+            x = x - lr * g
         if perturb_th is not None:
             th = torch.as_tensor(perturb_th, dtype=x.dtype, device=x.device)
             delta = torch.minimum(torch.maximum(x - x_initial, -th), th)
@@ -133,17 +147,24 @@ def make_perturbation_guidance(
     n_timesteps: Optional[int] = None,
 ) -> Callable[[torch.Tensor, int], torch.Tensor]:
     """The guidance hook of `sample_traj`: (posterior_mean, t) -> perturbed
-    mean, t the python int timestep. The packed drivable map and the bbox
-    grid are prepared here, once, out of the sampling loop."""
+    mean, t the python int timestep. The packed drivable map, the bbox grid
+    and (when a rigid or pairwise `min_dist_impl` will read it) the [B, P, P]
+    distance cache are prepared here, once, out of the sampling loop."""
     ctx = prepack_drivable(ctx)
-    grids = {s.loss.num_points_lw for s in specs if isinstance(s.loss, MapCollisionLoss)}
-    if len(grids) > 1:
-        raise ValueError(
-            "multiple MapCollisionLoss specs with different num_points_lw "
-            f"{sorted(grids)}: the context carries one prepacked grid"
+    map_specs = [s for s in specs if isinstance(s.loss, MapCollisionLoss)]
+    if map_specs:
+        grids = {s.loss.num_points_lw for s in map_specs}
+        if len(grids) > 1:
+            raise ValueError(
+                "multiple MapCollisionLoss specs with different num_points_lw "
+                f"{sorted(grids)}: prepacking supports one grid per context - unify the "
+                "specs' num_points_lw"
+            )
+        need_d2 = any(
+            s.loss.min_dist_impl not in ("separable", "separable_xy", "separable_xy_bf16")
+            for s in map_specs
         )
-    if grids:
-        ctx = prepack_map_bbox(ctx, grids.pop())
+        ctx = prepack_map_bbox(ctx, map_specs[0].loss.num_points_lw, with_d2=need_d2)
 
     def guidance_fn(mean: torch.Tensor, t: int) -> torch.Tensor:
         step_lr, th = guidance_opt_schedule(
@@ -154,3 +175,75 @@ def make_perturbation_guidance(
                        grad_steps=grad_steps, perturb_th=th)
 
     return guidance_fn
+
+
+def per_sample_guidance_loss(
+    x_traj: torch.Tensor, ctx: GuidanceContext, specs: Sequence[GuidanceSpec]
+) -> torch.Tensor:
+    """Total weighted guidance loss per (agent, sample): [B, N, T, 6] ->
+    [B, N], the filtration score. Agents outside a rule's mask contribute 0
+    for that rule."""
+    B, N = x_traj.shape[:2]
+    total = torch.zeros((B, N), dtype=x_traj.dtype, device=x_traj.device)
+    for spec in specs:
+        cur = spec.loss(x_traj, ctx, agt_mask=None)  # [B, N]
+        if spec.agent_mask is not None:
+            keep = torch.as_tensor(spec.agent_mask, dtype=torch.bool, device=cur.device)
+            cur = torch.where(keep[:, None], cur, torch.zeros_like(cur))
+        total = total + spec.weight * cur
+    return total
+
+
+def _take_sample(samples: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """samples [B, N, ...], idx [B] -> samples[b, idx[b]] as [B, ...]."""
+    return samples[torch.arange(samples.shape[0], device=samples.device), idx]
+
+
+def choose_closest_to_gt(
+    samples: torch.Tensor,
+    positions: torch.Tensor,
+    gt_positions: torch.Tensor,
+    gt_avail: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pick the sample whose positions are closest to the ground-truth
+    future: availability-masked mean Euclidean error; agents with no valid
+    ground truth keep sample 0.
+
+    samples [B, N, ...], positions [B, N, T, 2], gt_positions [B, T, 2],
+    gt_avail [B, T] -> ([B, ...], [B] indices)."""
+    av = gt_avail.to(positions.dtype)
+    err = torch.linalg.norm(positions - gt_positions[:, None], dim=-1)  # [B, N, T]
+    n_av = torch.sum(av, dim=-1)
+    ade = torch.sum(err * av[:, None], dim=-1) / torch.clamp(n_av, min=1.0)[:, None]  # [B, N]
+    idx = torch.where(n_av > 0, torch.argmin(ade, dim=-1), torch.zeros_like(n_av, dtype=torch.long))
+    return _take_sample(samples, idx), idx
+
+
+def choose_best_sample(
+    samples: torch.Tensor,
+    guide_losses: torch.Tensor,
+    scene_index: Optional[torch.Tensor] = None,
+    scene_level: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Filtration: pick the sample with the lowest total guidance loss, per
+    agent. With `scene_level` (a scene-coupled rule is active) each scene
+    picks one shared sample index by the argmin of the agent-summed loss:
+    pair losses score sample n as if every agent of the scene played sample
+    n, so independent picks would execute combinations that were never
+    scored.
+
+    samples [B, N, ...], guide_losses [B, N], scene_index [B] int ->
+    ([B, ...], [B] indices)."""
+    if scene_level and scene_index is not None:
+        per_scene = torch.zeros_like(guide_losses).index_add_(0, scene_index.long(), guide_losses)
+        idx = torch.argmin(per_scene, dim=-1)[scene_index.long()]  # [B]
+    else:
+        idx = torch.argmin(guide_losses, dim=-1)  # [B]
+    return _take_sample(samples, idx), idx
+
+
+def is_scene_level_spec(spec: GuidanceSpec) -> bool:
+    """Whether the rule's per-sample loss couples the agents of a scene, so
+    that filtration must share one sample index per scene. Of the JAX
+    package's four such rules the port has `AgentCollisionLoss`."""
+    return isinstance(spec.loss, AgentCollisionLoss)

@@ -23,7 +23,13 @@ class DiffusionSchedule(NamedTuple):
     """The coefficient buffers the sampler reads; each is [n_timesteps] f32."""
 
     n_timesteps: int
+    alphas_cumprod: torch.Tensor
+    sqrt_recip_alphas_cumprod: torch.Tensor
+    sqrt_recipm1_alphas_cumprod: torch.Tensor
     posterior_log_variance_clipped: torch.Tensor
+    # x0-parameterized posterior mean: mu = coef1 * x0 + coef2 * x_t
+    posterior_mean_coef1: torch.Tensor
+    posterior_mean_coef2: torch.Tensor
     # epsilon-parameterized posterior mean: mu = x_t_cof * x_t - noise_cof * eps
     x_t_cof: torch.Tensor
     noise_cof: torch.Tensor
@@ -43,8 +49,15 @@ def make_schedule(
 
     return DiffusionSchedule(
         n_timesteps=int(n_timesteps),
+        alphas_cumprod=f32(alphas_cumprod),
+        sqrt_recip_alphas_cumprod=f32(np.sqrt(1.0 / alphas_cumprod)),
+        sqrt_recipm1_alphas_cumprod=f32(np.sqrt(1.0 / alphas_cumprod - 1.0)),
         posterior_log_variance_clipped=f32(
             np.log(np.clip(posterior_variance, 1e-20, None))
+        ),
+        posterior_mean_coef1=f32(betas * np.sqrt(alphas_cumprod_prev) / (1.0 - alphas_cumprod)),
+        posterior_mean_coef2=f32(
+            (1.0 - alphas_cumprod_prev) * np.sqrt(alphas) / (1.0 - alphas_cumprod)
         ),
         x_t_cof=f32(np.sqrt(1.0 / alphas)),
         noise_cof=f32(betas / np.sqrt(alphas - alphas_cumprod * alphas)),
@@ -67,6 +80,26 @@ def posterior_mean_logvar(
     )
     log_var = extract(schedule.posterior_log_variance_clipped, t, x_t.ndim)
     return mean, log_var
+
+
+def predict_start_from_noise(
+    schedule: DiffusionSchedule, x_t: torch.Tensor, eps: torch.Tensor, t: torch.Tensor
+) -> torch.Tensor:
+    """x0_hat from the epsilon prediction."""
+    return (
+        extract(schedule.sqrt_recip_alphas_cumprod, t, x_t.ndim) * x_t
+        - extract(schedule.sqrt_recipm1_alphas_cumprod, t, x_t.ndim) * eps
+    )
+
+
+def q_posterior_mean(
+    schedule: DiffusionSchedule, x0: torch.Tensor, x_t: torch.Tensor, t: torch.Tensor
+) -> torch.Tensor:
+    """Posterior mean q(x_{t-1} | x_t, x0) parameterized by the clean sample."""
+    return (
+        extract(schedule.posterior_mean_coef1, t, x0.ndim) * x0
+        + extract(schedule.posterior_mean_coef2, t, x_t.ndim) * x_t
+    )
 
 
 def normal_log_prob(x: torch.Tensor, mean: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:

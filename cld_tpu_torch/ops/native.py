@@ -28,7 +28,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
 
-KERNELS = ("lstm2_fwd", "lstm2_bwd", "bit_gather", "value_gather", "drivable_gather")
+KERNELS = ("lstm2_fwd", "lstm2_bwd", "bit_gather", "value_gather", "drivable_gather",
+           "rigid_min", "rigid_min_fused", "rigid_bwd")
 _LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -121,6 +122,11 @@ def library() -> ctypes.CDLL:
         for fn in (lib.cld_drivable_gather_i8, lib.cld_drivable_gather_f32):
             fn.argtypes = [p] * 3 + [i, i, i, i, p]
             fn.restype = i
+        for fn in (lib.cld_rigid_min, lib.cld_rigid_min_fused):
+            fn.argtypes = [p] * 4 + [i, i, i, p]
+            fn.restype = i
+        lib.cld_rigid_bwd.argtypes = [p] * 5 + [i, i, p]
+        lib.cld_rigid_bwd.restype = i
         _LIB = lib
     return _LIB
 

@@ -1,0 +1,129 @@
+"""Rigid map-distance kernels: masked min / argmin over a pose-invariant
+distance cache, and the argmin-routed backward. CUDA kernels, plain versions.
+
+Counterpart of the rigid section of `cld_tpu/ops/pallas_kernels.py`
+(`rigid_min_ref`, `rigid_min_pallas`, `rigid_min_fused_pallas`,
+`rigid_bwd_ref`, `rigid_bwd_pallas`).
+
+The P bbox points of one agent are a rigid transform of a fixed local grid,
+so their pairwise squared distances `d2_local` [B, P, P] do not depend on the
+pose. Per (agent b, step q, point j) the forward takes the minimum over the
+on-road rows i of `d2_local[b, i, j]`, returns `dist = sqrt(min + 1e-12)` and
+`idx`, the lowest row that attains the minimum; off-road rows count as 1e12,
+so a step with no on-road point gives dist 1e6 and idx 0. `rigid_min` and
+`rigid_min_fused` compute the same function under two schedules
+(`csrc/rigid_min.cu`): blocks over (agent, chunk of steps), or one block per
+agent that sweeps the horizon with the cache loaded once. The backward
+(`csrc/rigid_bwd.cu`) routes column j's `a_j = g_j / dist_j` to row `idx_j`:
+
+    grad_i = p_i * sum_{j: idx_j = i} a_j - sum_{j: idx_j = i} a_j p_j
+
+Every wrapper dispatches by device: CUDA tensors launch the kernel, CPU
+tensors take the `_ref` plain version beside it.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from cld_tpu_torch.ops import native
+
+BIG_D2 = 1e12  # squared distance of a masked (off-road) row
+# the forward kernels keep the [P, P] cache in one block's shared memory
+# (4 P^2 bytes + the mask chunk, of 227 KB); the backward's arrays hold 256
+MAX_P = 224
+
+
+def rigid_min_ref(d2_local: torch.Tensor, onroad: torch.Tensor):
+    """Plain version: d2_local [B, P, P] f32 (rows = live points, columns =
+    detached points), onroad [B, Q, P] bool mask of live rows -> (dist
+    [B, Q, P] f32, idx [B, Q, P] int32, the lowest argmin row per column)."""
+    P = d2_local.shape[-1]
+    big = torch.full((), BIG_D2, dtype=d2_local.dtype, device=d2_local.device)
+    d2 = torch.where((onroad != 0)[..., :, None], d2_local[:, None], big)  # [B, Q, P, P]
+    m = torch.amin(d2, dim=-2)
+    rows = torch.arange(P, dtype=torch.int32, device=d2.device)[:, None]
+    idx = torch.amin(torch.where(d2 == m[..., None, :], rows, P), dim=-2)
+    return torch.sqrt(m + 1e-12), idx.to(torch.int32)
+
+
+def _rigid_min_launch(name: str, d2_local: torch.Tensor, onroad: torch.Tensor):
+    dev = d2_local.device
+    if dev.type == "cpu":
+        return rigid_min_ref(d2_local, onroad)
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    B, P, _ = d2_local.shape
+    Q = onroad.shape[1]
+    if P > MAX_P:
+        raise ValueError(f"{name}: P = {P} bbox points exceed the kernel's limit of {MAX_P} "
+                         "(the distance cache must fit one block's shared memory)")
+    native.require(d2_local, "d2_local", torch.float32, (B, P, P), dev)
+    if onroad.dtype not in (torch.bool, torch.uint8):
+        raise TypeError(f"onroad: dtype {onroad.dtype}, expected bool or uint8")
+    native.require(onroad, "onroad", onroad.dtype, (B, Q, P), dev)
+    dist = torch.empty((B, Q, P), dtype=torch.float32, device=dev)
+    idx = torch.empty((B, Q, P), dtype=torch.int32, device=dev)
+    fn = getattr(native.library(), f"cld_{name}")
+    native.check(fn(d2_local.data_ptr(), onroad.data_ptr(), dist.data_ptr(), idx.data_ptr(),
+                    B, Q, P, native.stream_ptr(dev)), name)
+    native.count_launch(name)
+    return dist, idx
+
+
+def rigid_min(d2_local: torch.Tensor, onroad: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked min and argmin: d2_local [B, P, P] f32, onroad [B, Q, P] bool
+    (or uint8, 0 = off-road) -> (dist [B, Q, P] f32, idx [B, Q, P] int32).
+    Any B and Q; P up to `MAX_P`. On CUDA, blocks run over (agent, chunk of
+    8 steps)."""
+    return _rigid_min_launch("rigid_min", d2_local, onroad)
+
+
+def rigid_min_fused(d2_local: torch.Tensor, onroad: torch.Tensor):
+    """The same function as `rigid_min`, bit for bit. On CUDA, one block per
+    agent loads the cache once and sweeps the whole horizon."""
+    return _rigid_min_launch("rigid_min_fused", d2_local, onroad)
+
+
+def rigid_bwd_ref(pts, idx, dist, g) -> torch.Tensor:
+    """Plain version: pts [B, Q, P, 2], idx [B, Q, P] int, dist / g
+    [B, Q, P] -> grad [B, Q, P, 2]."""
+    P = pts.shape[-2]
+    a = g / dist
+    rows = torch.arange(P, device=pts.device)[:, None]
+    onehot = (idx[..., None, :] == rows).to(pts.dtype)  # [B, Q, P(i), P(j)]
+    s_a = torch.einsum("...ij,...j->...i", onehot, a)
+    s_ap = torch.einsum("...ij,...jc->...ic", onehot, a[..., None] * pts)
+    return pts * s_a[..., None] - s_ap
+
+
+def rigid_bwd(pts, idx, dist, g) -> torch.Tensor:
+    """Argmin-routed backward of the rigid min distance: pts [B, Q, P, 2]
+    f32, idx [B, Q, P] int32 and dist [B, Q, P] f32 (the forward's outputs),
+    g [B, Q, P] f32 (the cotangent of dist; zero wherever dist is the
+    self-match of an on-road column) -> grad [B, Q, P, 2] f32. The kernel's
+    sums run in a fixed order: repeated launches agree bit for bit."""
+    dev = pts.device
+    if dev.type == "cpu":
+        return rigid_bwd_ref(pts, idx, dist, g)
+    if dev.type != "cuda":
+        raise ValueError(f"rigid_bwd: unsupported device {dev}")
+    B, Q, P, _ = pts.shape
+    if P > MAX_P:
+        raise ValueError(f"rigid_bwd: P = {P} bbox points exceed the kernel's limit of {MAX_P}")
+    native.require(pts, "pts", torch.float32, (B, Q, P, 2), dev)
+    if pts.data_ptr() % 8:
+        raise ValueError("pts: the kernel reads (x, y) as 8-byte pairs; the storage must be "
+                         "8-byte aligned")
+    native.require(idx, "idx", torch.int32, (B, Q, P), dev)
+    native.require(dist, "dist", torch.float32, (B, Q, P), dev)
+    native.require(g, "g", torch.float32, (B, Q, P), dev)
+    grad = torch.empty((B, Q, P, 2), dtype=torch.float32, device=dev)
+    native.check(native.library().cld_rigid_bwd(
+        pts.data_ptr(), idx.data_ptr(), dist.data_ptr(), g.data_ptr(), grad.data_ptr(),
+        B * Q, P, native.stream_ptr(dev),
+    ), "rigid_bwd")
+    native.count_launch("rigid_bwd")
+    return grad

@@ -1,5 +1,5 @@
 """Policy wrappers: functional combinators over `(obs, rng) -> Action` (port
-of `cld_tpu/policies/wrappers.py`, without `guided_sampling_policy`).
+of `cld_tpu/policies/wrappers.py`).
 
 Randomness: where the JAX package splits its key in two, a wrapper here
 takes `rng` either as a pair (one entry per consumer, explicit noise
@@ -10,10 +10,16 @@ from in order.
 from __future__ import annotations
 
 import functools
-from typing import Callable
+from typing import Callable, Sequence
 
 import torch
 
+from cld_tpu_torch.guidance.losses import GuidanceContext
+from cld_tpu_torch.guidance.perturbation import (
+    GuidanceSpec,
+    choose_best_sample,
+    is_scene_level_spec,
+)
 from cld_tpu_torch.ops.dynamics import angle_diff, convert_state_to_state_and_action
 from cld_tpu_torch.policies.common import Action
 
@@ -78,6 +84,31 @@ def pos2yaw_policy(policy: PolicyFn, dt: float = 0.1, yaw_correction_speed: floa
         return a._replace(yaws=held[..., None])
 
     return wrapped
+
+
+def guided_sampling_policy(
+    sampler: Callable,  # (obs, rng) -> trajectories [B, N, T, 6] descaled
+    specs: Sequence[GuidanceSpec],
+    make_ctx: Callable[[object], GuidanceContext],
+) -> PolicyFn:
+    """Filtration policy: draw N samples, score each with the guidance
+    losses, execute the best (one shared sample per scene when a
+    scene-coupled rule is active)."""
+
+    def policy(obs, rng):
+        trajs = sampler(obs, rng)  # [B, N, T, 6]
+        ctx = make_ctx(obs)
+        with torch.no_grad():
+            total = torch.zeros(trajs.shape[:2], dtype=trajs.dtype, device=trajs.device)
+            for spec in specs:
+                total = total + spec.weight * spec.loss(trajs, ctx, agt_mask=None)
+        best, _ = choose_best_sample(
+            trajs, total, scene_index=ctx.scene_index,
+            scene_level=any(is_scene_level_spec(s) for s in specs),
+        )
+        return Action(positions=best[..., :2], yaws=best[..., 3:4], controls=best[..., 4:6])
+
+    return policy
 
 
 def ou_noise(rng, shape, theta: float = 0.8, sigma=(0.0, 0.1, 0.2), device=None) -> torch.Tensor:

@@ -4,14 +4,17 @@
         --guidance flagship --output rollout_out
     python -m cld_tpu_torch.rollout --device cpu --num-scenes 1 \\
         --agents-per-scene 2 --num-sim-steps 10 --raster-size 64 --diffusion-steps 10
+    python -m cld_tpu_torch.rollout --sampler ddim --ddim-steps 20 --num-action-samples 4
 
 Counterpart of the JAX package's `rollout.py` on what the port has so far:
 synthetic straight-road scenes (`sim.scene.synthetic_scene_pack`), the
 networks at the config of record's widths with seeded random weights or
 weights converted from the JAX package (`--weights`, an .npz written from
-`utils.weights.export_vae_checkpoint` + `export_dm_checkpoint`), the DDPM
-sampler with one sample per agent, and the flagship guidance (agent
-collision + map collision) or none. It runs `sim.env.simulate`, prints
+`utils.weights.export_vae_checkpoint` + `export_dm_checkpoint`), the DDPM or
+DDIM sampler with `--num-action-samples` samples per agent (the one with the
+lowest guidance loss is executed), and the flagship guidance (agent collision
++ map collision) or none, on the schedule the `--guidance-*`, `--perturb-th` and `--guide-*` flags set
+(names and defaults of the JAX package's `rollout.py`). It runs `sim.env.simulate`, prints
 `summarize_metrics` and the throughput as JSON, and writes the world-frame
 trajectory log to `<output>/trajectories.npz`. Runs on the CUDA card unless
 `--device cpu` is given.
@@ -45,6 +48,22 @@ def main(argv=None) -> dict:
     parser.add_argument("--diffusion-steps", type=int, default=100)
     parser.add_argument("--guidance", choices=("flagship", "none"), default="flagship",
                         help="flagship: agent_collision + map_collision, weight 10 each")
+    parser.add_argument("--sampler", choices=("ddpm", "ddim"), default="ddpm")
+    parser.add_argument("--ddim-steps", type=int, default=50)
+    parser.add_argument("--ddim-eta", type=float, default=0.0)
+    parser.add_argument("--num-action-samples", type=int, default=1)
+    parser.add_argument("--guidance-lr", type=float, default=0.3)
+    parser.add_argument("--guidance-steps", type=int, default=1)
+    parser.add_argument("--guidance-stride", type=int, default=1,
+                        help="apply guidance every k-th denoise step")
+    parser.add_argument("--perturb-th", type=float, default=None,
+                        help="clip bound on the cumulative perturbation; default: the "
+                             "posterior sigma at step t; a value decays sigmoidally from ~4 "
+                             "to it over the denoise steps")
+    parser.add_argument("--guide-clean", action="store_true",
+                        help="perturb the clean x0 reconstruction instead of the posterior mean")
+    parser.add_argument("--guide-output", action="store_true",
+                        help="also perturb the final t=0 output step")
     parser.add_argument("--weights", type=str, default=None,
                         help=".npz of converted JAX-package weights (default: random from --seed)")
     parser.add_argument("--seed", type=int, default=0)
@@ -68,8 +87,14 @@ def main(argv=None) -> dict:
     if args.weights:
         with np.load(args.weights) as sd:
             load_state_dicts(models.context, models.decoder, models.unet, dict(sd))
+    options = pipeline.SamplingOptions(
+        num_samp=args.num_action_samples, sampler=args.sampler, ddim_steps=args.ddim_steps,
+        ddim_eta=args.ddim_eta, guidance_lr=args.guidance_lr, guidance_steps=args.guidance_steps,
+        perturb_th=args.perturb_th, guidance_stride=args.guidance_stride,
+        guidance_clean=args.guide_clean, guidance_output=args.guide_output,
+    )
     policy = pipeline.make_dm_policy(models, args.agents_per_scene,
-                                     guided=args.guidance == "flagship")
+                                     guided=args.guidance == "flagship", options=options)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
 
     def sync():

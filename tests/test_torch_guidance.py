@@ -1,7 +1,14 @@
-"""The port's flagship guidance losses and perturbation step against the
-JAX package: `AgentCollisionLoss` (scene blocks of 4, "diff" pairwise form)
-and `MapCollisionLoss` (separable EDT), values and gradients with respect to
-the trajectory, and one Adam `perturb` step.
+"""The port's guidance losses and perturbation step against the JAX
+package: `AgentCollisionLoss` (scene blocks and the flat path, "diff" and
+"dot" pairwise forms, excluded agents, horizon chunks) and `MapCollisionLoss`
+(every `min_dist_impl` / `min_fwd_impl` / `gather_impl`, the chunked paths
+forced by small budgets), values and gradients with respect to the
+trajectory, one Adam or SGD `perturb` step, and sample selection.
+
+The JAX side reaches its Pallas kernels in interpret mode by itself off the
+TPU (`cld_tpu/guidance/losses.py:1155`). Option names: the port's
+"rigid_kernel" is the JAX package's "rigid_pallas"; its gathers "bits",
+"px", "index" are "pallas", "pallas_px", "jnp".
 
 Fixtures use curved, drifting trajectories that straddle the road edge and
 overlap their scene neighbours, so both losses are active and their
@@ -10,6 +17,10 @@ gradients rtol 1e-4 / atol 1e-6 (f32 with another summation order). The
 perturbed latent is held at atol 1e-6: one Adam step from m = v = 0 moves
 each component by lr * g / (|g| + eps), which only agrees when the
 gradients' signs agree; the fixture's gradients are large enough for that.
+The bfloat16 forms are held as the JAX package's own tests hold them against
+f32 (`tests/test_pallas.py:286-320`): loss rtol 2e-3 / atol 1e-2, gradient
+cosine > 0.999; XLA and torch round bf16 intermediates at different places.
+The "dot" pairwise form cancels |a|^2 + |b|^2 - 2ab: rtol 1e-4 / atol 1e-5.
 """
 
 import jax
@@ -143,3 +154,176 @@ def test_guidance_opt_schedule_matches():
                                                 n_timesteps=n, **kw)
             np.testing.assert_allclose(float(lt), float(lj), rtol=1e-6)
             np.testing.assert_allclose(float(tht), float(thj), rtol=1e-6)
+
+
+# (JAX min_dist_impl, min_fwd_impl, gather_impl) -> the port's names
+_MIN_DIST = {"rigid_pallas": "rigid_kernel"}
+_GATHER = {"jnp": "index", "auto": "index", "pallas": "bits", "pallas_px": "px"}
+MAP_CASES = [
+    ("separable", "auto", "jnp"), ("separable", "auto", "auto"),
+    ("separable", "fused", "pallas"),  # min_fwd_impl acts under "rigid" only
+    ("separable_xy", "auto", "pallas"), ("separable_xy", "auto", "jnp"),
+    ("separable_xy_bf16", "auto", "jnp"),
+    ("rigid", "auto", "jnp"), ("rigid", "jnp", "pallas"), ("rigid", "eqmin", "jnp"),
+    ("rigid", "fused", "jnp"), ("rigid", "fused", "pallas_px"), ("rigid", "bf16", "jnp"),
+    ("rigid_pallas", "auto", "jnp"), ("rigid_pallas", "auto", "pallas"),
+    ("pairwise", "auto", "jnp"), ("pairwise", "auto", "pallas_px"),
+]
+
+
+def _map_pair(dist, fwd, gather):
+    return (jlo.MapCollisionLoss(min_dist_impl=dist, min_fwd_impl=fwd, gather_impl=gather),
+            tlo.MapCollisionLoss(min_dist_impl=_MIN_DIST.get(dist, dist), min_fwd_impl=fwd,
+                                 gather_impl=_GATHER[gather]))
+
+
+def _values_and_grads(jloss, tloss, x, jctx, tctx):
+    wts = np.random.default_rng(1).uniform(0.5, 1.5, (x.shape[0], 1)).astype(np.float32)
+    want = np.asarray(jloss(jnp.asarray(x), jctx))
+    gj = np.asarray(jax.grad(lambda v: jnp.sum(jloss(v, jctx) * wts))(jnp.asarray(x)))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    got = tloss(xt, tctx)
+    (got * torch.from_numpy(wts)).sum().backward()
+    assert float(np.abs(want).sum()) > 0 and float(np.abs(gj).max()) > 1e-3
+    return got.detach().numpy(), want, xt.grad.numpy(), gj
+
+
+def _hold(got, want, gt, gj, bf16=False, loss=LOSS, grad=GRAD):
+    if bf16:
+        np.testing.assert_allclose(got, want, rtol=2e-3, atol=1e-2)
+        cos = float(np.dot(gt.ravel(), gj.ravel())
+                    / (np.linalg.norm(gt) * np.linalg.norm(gj) + 1e-12))
+        assert cos > 0.999 and np.isfinite(gt).all(), cos
+    else:
+        np.testing.assert_allclose(got, want, **loss)
+        np.testing.assert_allclose(gt, gj, **grad)
+
+
+@pytest.mark.parametrize("dist,fwd,gather", MAP_CASES)
+@pytest.mark.parametrize("packed", [False, True])
+def test_map_collision_every_impl_matches_jax(dist, fwd, gather, packed):
+    x, jctx, tctx = _scene()
+    if packed:
+        jctx = jlo.prepack_map_bbox(jctx)
+        tctx = tlo.prepack_map_bbox(tlo.prepack_drivable(tctx))
+        np.testing.assert_array_equal(tctx.bbox_d2.numpy(), np.asarray(jctx.bbox_d2))
+    jloss, tloss = _map_pair(dist, fwd, gather)
+    _hold(*_values_and_grads(jloss, tloss, x, jctx, tctx), bf16="bf16" in dist + fwd)
+
+
+@pytest.mark.parametrize("dist", ["rigid", "pairwise"])
+def test_map_collision_chunked_horizon_matches_jax(dist, monkeypatch):
+    """Budgets shrunk on both sides so that T = 12 runs as chunks of 5, 5
+    and 2 steps ("rigid" leaves its full-horizon path too)."""
+    x, jctx, tctx = _scene()
+    per_step = B * 1 * 100 * 100
+    for mod in (jlo, tlo):
+        monkeypatch.setattr(mod, "_CHUNK_BUDGET", 5 * per_step)
+        monkeypatch.setattr(mod, "_FULL_HORIZON_BUDGET", 3 * per_step)
+    assert tlo._time_chunk(T, per_step) == jlo._time_chunk(T, per_step) == 5
+    jloss, tloss = _map_pair(dist, "auto", "jnp")
+    got, want, gt, gj = _values_and_grads(jloss, tloss, x, jctx, tctx)
+    _hold(got, want, gt, gj)
+    full = tlo.MapCollisionLoss(min_dist_impl="separable", gather_impl="index")
+    np.testing.assert_allclose(got, full(torch.from_numpy(x), tctx).numpy(), **LOSS)
+    with pytest.raises(ValueError, match="requires the full-horizon path"):
+        tlo.MapCollisionLoss(min_dist_impl="rigid", min_fwd_impl="fused")(
+            torch.from_numpy(x), tctx)
+    with pytest.raises(ValueError, match="requires the full-horizon path"):
+        jlo.MapCollisionLoss(min_dist_impl="rigid", min_fwd_impl="fused")(jnp.asarray(x), jctx)
+
+
+@pytest.mark.parametrize("T_, per, budget", [(52, 1000, 0), (52, 80000, 400000), (12, 7, 50),
+                                             (100, 3, 100), (5, 10**9, 0)])
+def test_time_chunk_matches_jax(T_, per, budget):
+    assert tlo._time_chunk(T_, per, budget) == jlo._time_chunk(T_, per, budget)
+
+
+def test_map_collision_tie_rules_agree_in_value_and_differ_only_at_ties():
+    """The two families ("rigid" splits a tie, "rigid_kernel" and "fused"
+    give it to the lowest row) agree in values, and in gradients wherever
+    the winner-take-all and the split backward see the same rows."""
+    x, _, tctx = _scene(4)
+    xt = torch.from_numpy(x)
+    vals, grads = {}, {}
+    for name, kw in (("rigid", dict(min_dist_impl="rigid")),
+                     ("kernel", dict(min_dist_impl="rigid_kernel")),
+                     ("fused", dict(min_dist_impl="rigid", min_fwd_impl="fused"))):
+        v = xt.clone().requires_grad_(True)
+        out = tlo.MapCollisionLoss(gather_impl="index", **kw)(v, tctx)
+        out.sum().backward()
+        vals[name], grads[name] = out.detach(), v.grad
+    assert torch.equal(vals["rigid"], vals["kernel"]) and torch.equal(vals["kernel"], vals["fused"])
+    np.testing.assert_allclose(grads["kernel"].numpy(), grads["fused"].numpy(), **GRAD)
+
+
+def test_map_collision_invalid_options_raise_as_in_jax():
+    x, jctx, tctx = _scene()
+    with pytest.raises(ValueError, match="unknown min_fwd_impl"):
+        tlo.MapCollisionLoss(min_fwd_impl="pallas")(torch.from_numpy(x), tctx)
+    with pytest.raises(ValueError, match="unknown min_fwd_impl"):
+        jlo.MapCollisionLoss(min_fwd_impl="pallas")(jnp.asarray(x), jctx)
+    with pytest.raises(ValueError, match="unknown min_dist_impl"):
+        tlo.MapCollisionLoss(min_dist_impl="rigid_pallas")(torch.from_numpy(x), tctx)
+
+
+def test_prepack_map_bbox_grid_and_d2_rules():
+    _, jctx, tctx = _scene()
+    no_d2 = tlo.prepack_map_bbox(tctx, (10, 10), with_d2=False)
+    assert no_d2.bbox_d2 is None and no_d2.bbox_pts.shape == (B, 10, 10, 2)
+    assert tlo.prepack_map_bbox(no_d2, (10, 10), with_d2=False) is no_d2
+    full = tlo.prepack_map_bbox(no_d2, (10, 10))
+    assert full.bbox_d2.shape == (B, 100, 100) and tlo.prepack_map_bbox(full) is full
+    np.testing.assert_array_equal(full.bbox_d2.numpy(),
+                                  np.asarray(jlo.prepack_map_bbox(jctx).bbox_d2))
+    other = tlo.prepack_map_bbox(full, (20, 5))  # same point count, another grid: repacked
+    assert other.bbox_pts.shape == (B, 20, 5, 2) and other is not full
+    # a loss whose grid does not match the context's recomputes its own
+    x = torch.from_numpy(_scene()[0])
+    loss = tlo.MapCollisionLoss(min_dist_impl="rigid", gather_impl="index")
+    assert torch.equal(loss(x, other), loss(x, tctx))
+
+
+AGENT_CASES = {
+    "block_dot": dict(scene_block=A, pairwise_impl="dot"),
+    "block_auto": dict(scene_block=A),  # "auto" is "diff" on the CPU on both sides
+    "flat": dict(),
+    "flat_block_not_dividing": dict(scene_block=3),
+    "block_excluded": dict(scene_block=A, pairwise_impl="diff", excluded_agents=(0, 1, 6)),
+    "flat_excluded": dict(excluded_agents=(0, 1, 6)),
+    "block_dot_excluded": dict(scene_block=A, pairwise_impl="dot", excluded_agents=(4, 5)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(AGENT_CASES))
+@pytest.mark.parametrize("chunked", [False, True])
+def test_agent_collision_every_path_matches_jax(name, chunked, monkeypatch):
+    x, jctx, tctx = _scene()
+    x = np.concatenate([x, x + np.float32(0.3)], axis=1)  # N = 2 samples
+    kw = AGENT_CASES[name]
+    if chunked:  # T = 12 in chunks of 5, 5 and 2 steps
+        per_step = (B // A * A * A if kw.get("scene_block") == A else B * B) * 2 * 25
+        for mod in (jlo, tlo):
+            monkeypatch.setattr(mod, "_CHUNK_BUDGET", 5 * per_step)
+    jloss = jlo.AgentCollisionLoss(num_disks=5, buffer_dist=0.2, **kw)
+    tloss = tlo.AgentCollisionLoss(num_disks=5, buffer_dist=0.2, **kw)
+    dot = kw.get("pairwise_impl") == "dot"
+    _hold(*_values_and_grads(jloss, tloss, x, jctx, tctx),
+          loss=dict(rtol=1e-4, atol=1e-5) if dot else LOSS,
+          grad=dict(rtol=1e-4, atol=1e-5) if dot else GRAD)
+
+
+def test_agent_collision_paths_agree_and_unknown_impl_raises():
+    x, jctx, tctx = _scene()
+    xt = torch.from_numpy(x)
+    block = tlo.AgentCollisionLoss(scene_block=A, pairwise_impl="diff")(xt, tctx)
+    flat = tlo.AgentCollisionLoss()(xt, tctx)
+    dot = tlo.AgentCollisionLoss(scene_block=A, pairwise_impl="dot")(xt, tctx)
+    np.testing.assert_allclose(block.numpy(), flat.numpy(), **LOSS)
+    np.testing.assert_allclose(dot.numpy(), block.numpy(), rtol=1e-4, atol=1e-5)
+    exc = tlo.AgentCollisionLoss(scene_block=A, excluded_agents=(0, 1, 2, 3))(xt, tctx)
+    assert float(exc[:A].abs().sum()) == 0.0 and torch.equal(exc[A:], block[A:])
+    with pytest.raises(ValueError, match="unknown pairwise_impl"):
+        tlo.AgentCollisionLoss(scene_block=A, pairwise_impl="gram")(xt, tctx)
+    with pytest.raises(ValueError, match="unknown pairwise_impl"):
+        jlo.AgentCollisionLoss(scene_block=A, pairwise_impl="gram")(jnp.asarray(x), jctx)

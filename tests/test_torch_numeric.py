@@ -103,8 +103,10 @@ def test_unicycle_clip_tie_gradient_matches_jax():
 def test_schedule_and_posterior_match():
     js = jd.make_schedule(100)
     ts = td.make_schedule(100, device="cpu")
-    for name in ("posterior_log_variance_clipped", "x_t_cof", "noise_cof"):
-        np.testing.assert_array_equal(getattr(ts, name).numpy(), np.asarray(getattr(js, name)))
+    assert set(ts._fields) <= set(js._fields)
+    for name in ts._fields[1:]:
+        np.testing.assert_array_equal(getattr(ts, name).numpy(), np.asarray(getattr(js, name)),
+                                      err_msg=name)
     rng = np.random.default_rng(4)
     x = rng.normal(size=(6, 52, 4)).astype(np.float32)
     eps = rng.normal(size=(6, 52, 4)).astype(np.float32)
@@ -114,6 +116,13 @@ def test_schedule_and_posterior_match():
                                       torch.from_numpy(t))
     np.testing.assert_allclose(mt.numpy(), np.asarray(mj), **ELT)
     np.testing.assert_array_equal(lt.numpy(), np.asarray(lj))
+    x0j = jd.predict_start_from_noise(js, jnp.asarray(x), jnp.asarray(eps), jnp.asarray(t))
+    x0t = td.predict_start_from_noise(ts, torch.from_numpy(x), torch.from_numpy(eps),
+                                      torch.from_numpy(t))
+    np.testing.assert_allclose(x0t.numpy(), np.asarray(x0j), **ELT)
+    np.testing.assert_allclose(
+        td.q_posterior_mean(ts, x0t, torch.from_numpy(x), torch.from_numpy(t)).numpy(),
+        np.asarray(jd.q_posterior_mean(js, x0j, jnp.asarray(x), jnp.asarray(t))), **ELT)
     sigma = np.exp(0.5 * np.asarray(lj))
     np.testing.assert_allclose(
         td.normal_log_prob(torch.from_numpy(x), mt, torch.from_numpy(sigma)).numpy(),

@@ -82,7 +82,9 @@ def test_kernel_library_name_tracks_the_sources():
     path = native.library_path()
     assert path.parent == PKG / "_build" and path.suffix == ".so"
     assert sorted(p.name for p in native.CSRC.glob("*.cu")) == [
-        "bit_gather.cu", "drivable_gather.cu", "lstm.cu", "value_gather.cu"]
+        "bit_gather.cu", "drivable_gather.cu", "lstm.cu", "rigid_bwd.cu", "rigid_min.cu",
+        "value_gather.cu"]
+    assert len(native.KERNELS) == 8
 
 
 def test_rollout_cli_defaults_to_cuda_and_runs_on_the_cpu(tmp_path, capsys):
@@ -110,3 +112,27 @@ def test_rollout_cli_defaults_to_cuda_and_runs_on_the_cpu(tmp_path, capsys):
     if not torch.cuda.is_available():
         with pytest.raises((RuntimeError, AssertionError)):
             rollout.main(argv + ["--output", str(tmp_path / "cuda")])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--sampler", "ddim", "--ddim-steps", "3", "--ddim-eta", "0.5", "--num-action-samples", "2"],
+    ["--guidance-stride", "2", "--guide-clean", "--guide-output", "--guidance-lr", "0.1",
+     "--guidance-steps", "2", "--perturb-th", "0.5", "--num-action-samples", "3"],
+], ids=["ddim_two_samples", "ddpm_stride_clean_output_three_samples"])
+def test_rollout_cli_sampler_and_guidance_flags(flags, tmp_path):
+    """The flags that pick the sampler, the samples per agent and the guidance
+    schedule, on the CPU at a small size:
+    a finite trajectory log, reproducible from the seed."""
+    argv = ["--device", "cpu", "--num-scenes", "1", "--agents-per-scene", "2",
+            "--num-sim-steps", "5", "--raster-size", "64", "--hist-frames", "10",
+            "--diffusion-steps", "4"]
+    runs = []
+    for extra in (flags, flags, flags + ["--guidance", "none"]):
+        out = tmp_path / str(len(runs))
+        rollout.main(argv + extra + ["--output", str(out)])
+        with np.load(out / "trajectories.npz") as f:
+            runs.append(f["trajectories"])
+        assert runs[-1].shape == (5, 2, 4) and np.isfinite(runs[-1]).all()
+    np.testing.assert_array_equal(runs[0], runs[1])
+    np.testing.assert_array_equal(runs[0][:, 1], runs[2][:, 1])  # the replay agent ignores guidance
+    assert (np.diff(runs[0][:, :, 0], axis=0) > 0).all()  # both agents drive on

@@ -1,0 +1,107 @@
+"""The rigid map-distance ops of the port against the JAX package's Pallas
+kernels run in interpret mode: `rigid_min_ref` / `rigid_bwd_ref` and the
+wrappers `rigid_min`, `rigid_min_fused`, `rigid_bwd` on CPU tensors (which
+take the plain versions) against `rigid_min_pallas`,
+`rigid_min_fused_pallas`, `rigid_bwd_pallas` and the jnp references.
+
+Fixtures: random point clouds (no ties) and a regular 4 x 4 grid (exact
+distance ties, which do not depend on the pose), random on-road masks with
+one all-off-road and one all-on-road step forced in. Tolerances: `dist`
+rtol 1e-6 (one sqrt of the same minimum; measured exact), `idx` exactly
+equal (the lowest on-road row wins a tie on both sides), the backward rtol
+1e-4 / atol 1e-5 (f32 sums in another order), as `tests/test_pallas.py`.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cld_tpu.ops import pallas_kernels as jpk
+from cld_tpu_torch.ops import native
+from cld_tpu_torch.ops import rigid_kernels as rk
+
+torch.set_num_threads(2)
+
+SHAPES = {"b3_q13_p24": (3, 13, 24), "b5_q7_p16": (5, 7, 16), "b2_q4_p100": (2, 4, 100),
+          "grid_ties_p16": (3, 9, 16)}
+
+
+def _fixture(name):
+    B, Q, P = SHAPES[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    if name.startswith("grid"):
+        lin = np.arange(4) - 1.5  # spacings exact in f32, so symmetric neighbours tie
+        grid = np.stack(np.meshgrid(lin, lin, indexing="ij"), -1).reshape(-1, 2)
+        local = (grid[None] * rng.integers(1, 4, (B, 1, 2))).astype(np.float32)
+    else:
+        local = rng.normal(0, 2, (B, P, 2)).astype(np.float32)
+    d2 = np.sum((local[:, :, None] - local[:, None]) ** 2, -1)
+    on = rng.random((B, Q, P)) > 0.4
+    on[0, 0] = False  # an all-off-road step: dist = sqrt(1e12), idx = 0
+    on[1, 1] = True  # an all-on-road step: every column matches itself
+    return d2, on, rng
+
+
+@pytest.mark.parametrize("name", sorted(SHAPES))
+@pytest.mark.parametrize("op", ["rigid_min_ref", "rigid_min", "rigid_min_fused"])
+def test_rigid_min_matches_jax_kernels(name, op):
+    d2, on, _ = _fixture(name)
+    B, Q, P = on.shape
+    native.reset_launch_counts()
+    dist, idx = getattr(rk, op)(torch.from_numpy(d2), torch.from_numpy(on))
+    assert native.launch_counts() == {k: 0 for k in native.KERNELS}  # CPU: plain version
+    assert dist.dtype == torch.float32 and idx.dtype == torch.int32
+    assert dist.shape == idx.shape == (B, Q, P)
+    wants = {
+        "jnp": jpk.rigid_min_ref(jnp.asarray(d2), jnp.asarray(on, jnp.float32)),
+        "pallas": jpk.rigid_min_pallas(jnp.asarray(d2), jnp.asarray(on), interpret=True),
+        "fused": jpk.rigid_min_fused_pallas(jnp.asarray(d2), jnp.asarray(on), interpret=True),
+    }
+    for tag, (d_j, i_j) in wants.items():
+        np.testing.assert_allclose(dist.numpy(), np.asarray(d_j), rtol=1e-6, err_msg=tag)
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(i_j), err_msg=tag)
+    assert np.all(dist.numpy()[0, 0] == np.float32(1e6)) and np.all(idx.numpy()[0, 0] == 0)
+    np.testing.assert_array_equal(idx.numpy()[1, 1], np.arange(P))
+    np.testing.assert_allclose(dist.numpy()[1, 1], 1e-6, rtol=1e-6)
+    if name.startswith("grid"):  # the fixture does hold ties
+        masked = np.where(on[..., :, None], d2[:, None], 1e12)
+        assert ((masked == masked.min(-2, keepdims=True)).sum(-2) > 1)[on.any(-1)].any()
+
+
+def test_rigid_min_takes_a_uint8_mask():
+    d2, on, _ = _fixture("b5_q7_p16")
+    a = rk.rigid_min(torch.from_numpy(d2), torch.from_numpy(on))
+    b = rk.rigid_min(torch.from_numpy(d2), torch.from_numpy(on.astype(np.uint8)))
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("name", sorted(SHAPES))
+@pytest.mark.parametrize("op", ["rigid_bwd_ref", "rigid_bwd"])
+def test_rigid_bwd_matches_jax_kernel(name, op):
+    d2, on, rng = _fixture(name)
+    B, Q, P = on.shape
+    dist, idx = rk.rigid_min_ref(torch.from_numpy(d2), torch.from_numpy(on))
+    pts = rng.normal(0, 5, (B, Q, P, 2)).astype(np.float32)
+    g = rng.normal(0, 1, (B, Q, P)).astype(np.float32)
+    # in the loss, cotangents exist only at off-road columns of steps with an
+    # on-road row (an on-road column would hit its own 1e-6 self-match)
+    g = np.where(on | ~on.any(-1, keepdims=True), 0.0, g).astype(np.float32)
+    native.reset_launch_counts()
+    got = getattr(rk, op)(torch.from_numpy(pts), idx, dist, torch.from_numpy(g))
+    assert native.launch_counts() == {k: 0 for k in native.KERNELS}
+    jargs = (jnp.asarray(pts), jnp.asarray(idx.numpy()), jnp.asarray(dist.numpy()), jnp.asarray(g))
+    assert float(np.abs(got.numpy()).max()) > 1e-2  # the fixture routes something
+    for tag, want in (("jnp", jpk.rigid_bwd_ref(*jargs)),
+                      ("pallas", jpk.rigid_bwd_pallas(*jargs, interpret=True))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-5,
+                                   err_msg=tag)
+
+
+def test_rigid_wrappers_raise_off_cpu_and_cuda():
+    m = lambda *s, dtype=torch.float32: torch.empty(*s, dtype=dtype, device="meta")
+    for fn in (rk.rigid_min, rk.rigid_min_fused):
+        with pytest.raises(ValueError, match="unsupported device"):
+            fn(m(2, 4, 4), m(2, 3, 4, dtype=torch.bool))
+    with pytest.raises(ValueError, match="unsupported device"):
+        rk.rigid_bwd(m(2, 3, 4, 2), m(2, 3, 4, dtype=torch.int32), m(2, 3, 4), m(2, 3, 4))
