@@ -59,10 +59,33 @@
    all three within 1e-5 relative.
 12. Runs one closed-loop replan (4 x 8 agents) and the small slice of 5 with
    "rigid_kernel" specs: exact launch counts, a finite plan, card vs CPU.
-13. Prints the card line, one `{"kernels": [...]}` line (`launches_by_path`
-   there holds each main-path run's own count, of 4, 7, 8, 11 and 12, each
-   zeroed before its run and checked exactly; `launches` is their sum), and
-   last `{"ok": true, "device": {...}}`. Any failed check exits non-zero
+13. Holds the two reward kernels against their plain versions on the card:
+   `offroad_count` exactly, at the reward's shape (B=128 maps of 224x224, 52
+   points each), with 5 groups of points per map, and at two odd small
+   shapes; `disk_collision` within rtol 1e-5 / atol 1e-6 at T=52, B=128, D=5
+   (scenes of 4, same-scene off-diagonal pairs, and every off-diagonal pair)
+   and at T/B/D 8/6/4 and 3/5/1, two launches bit-identical. Times each from
+   Python and from a CUDA graph.
+14. Trains at full width on a synthetic batch (B=128, raster 224x224x34, the
+   config of record with `steps_per_epoch` 1 so that the warm-up rate leaves
+   0 after the first step): 2 warm-up and 5 timed `VAETrainer.train_step`s
+   and one `eval_step` (one `lstm2_fwd` launch), then the same of
+   `DMTrainer.train_step` on the trained VAE; losses finite, parameters
+   moved; prints steps/s.
+15. Runs the PPO stage at full width: a buffer of 3,000, 3 `collect_step`s
+   (exactly 3 `lstm2_fwd` and 3 `offroad_count` launches), the
+   `disk_collision` penalty of the last collection's trajectories (scenes of
+   4 agents parked 3 m apart, so that they overlap; held against its plain
+   version and against `AgentCollisionLoss`'s flat path), one update phase at
+   mini-batch 128 cut to 30 iterations, one `test_step` (one more
+   `lstm2_fwd`); prints collect steps/s and update iterations/s.
+16. Holds one VAE step's and one DM step's gradients and one `collect_step`'s
+   trajectories and rewards on the card against the CPU at a small size (the
+   `cld_smoke` widths, B=8), same weights and explicit noise.
+17. Prints the card line, one `{"kernels": [...]}` line (`launches_by_path`
+   there holds each main-path run's own count, of 4, 7, 8, 11, 12, 14 and 15,
+   each zeroed before its run and checked exactly; `launches` is their sum),
+   and last `{"ok": true, "device": {...}}`. Any failed check exits non-zero
    first.
 
 A longer report goes to chiprun_out/chip_smoke.json.
@@ -330,7 +353,8 @@ def run_main_path(models, batch, report):
     launches = native.launch_counts()
     log(f"guided pipeline (first call, {first_s:.2f} s): launches {launches}, "
         f"reward {float(out['reward']):.4f}")
-    want = counts(lstm2_fwd=N_STEPS, lstm2_bwd=N_STEPS - 1, bit_gather=N_STEPS - 1)
+    want = counts(lstm2_fwd=N_STEPS, lstm2_bwd=N_STEPS - 1, bit_gather=N_STEPS - 1,
+                  offroad_count=1)  # the reward's off-road count, once per call
     check(launches == want, f"kernel launches {launches}, expected {want}")
     for k in ("pred_traj", "traj", "reward_per_agent", "cond_feat"):
         check(bool(torch.isfinite(out[k]).all()), f"guided output {k} is not finite")
@@ -348,7 +372,8 @@ def run_main_path(models, batch, report):
 
     guided_s, _ = timed(True, 11)
     unguided_s, uo = timed(False, 12)
-    check(uo["launches"] == counts(lstm2_fwd=1), f"unguided launches {uo['launches']}")
+    check(uo["launches"] == counts(lstm2_fwd=1, offroad_count=1),
+          f"unguided launches {uo['launches']}")
     for k in ("pred_traj", "traj", "reward_per_agent"):
         check(bool(torch.isfinite(uo[k]).all()), f"unguided output {k} is not finite")
     nfe = B * N_STEPS
@@ -420,7 +445,7 @@ def check_small_slice(dev, report, min_dist_impl="separable"):
         grad = guidance_gradient(z.to(where), ctx, specs, decode_fn)
         res[str(where)] = (outs, grad.cpu(), outs[True]["launches"])
     (c_outs, c_grad, _), (g_outs, g_grad, g_launch) = res["cpu"], res[str(dev)]
-    want = counts(lstm2_fwd=steps, lstm2_bwd=steps - 1, bit_gather=steps - 1)
+    want = counts(lstm2_fwd=steps, lstm2_bwd=steps - 1, bit_gather=steps - 1, offroad_count=1)
     if min_dist_impl == "rigid_kernel":
         want.update(rigid_min=steps - 1, rigid_bwd=steps - 1)
     check(g_launch == want, f"small slice ({min_dist_impl}) launches {g_launch}, expected {want}")
@@ -831,7 +856,7 @@ def run_rigid_paths(models, batch, report):
 
     g = torch.Generator(device=batch.image.device)
     n = N_STEPS - 1
-    base = dict(lstm2_fwd=N_STEPS, lstm2_bwd=n, bit_gather=n)
+    base = dict(lstm2_fwd=N_STEPS, lstm2_bwd=n, bit_gather=n, offroad_count=1)
     wants = {"rigid_kernel": counts(rigid_min=n, rigid_bwd=n, **base),
              "fused": counts(rigid_min_fused=n, **base)}
     for name, kw in RIGID_SPECS.items():
@@ -991,6 +1016,410 @@ def check_small_closed_loop(dev, report):
     report["small_closed_loop"] = dict(traj=err)
 
 
+def max_param_change(before, module) -> float:
+    """Largest absolute change of a module's parameters since `before`."""
+    return max(float((p.detach() - b).abs().max()) for p, b in zip(module.parameters(), before))
+
+
+def snapshot(module):
+    return [p.detach().clone() for p in module.parameters()]
+
+
+def scene_pair_mask(Bn, agents_per_scene, dev):
+    """[Bn, Bn] bool: pairs of different agents of one scene."""
+    import torch
+
+    scene = torch.arange(Bn, device=dev) // agents_per_scene
+    return (scene[:, None] == scene[None, :]) & ~torch.eye(Bn, dtype=torch.bool, device=dev)
+
+
+def check_reward_kernels(batch, dev, report):
+    """`offroad_count` and `disk_collision` against their plain versions on
+    the card."""
+    import torch
+
+    from cld_tpu_torch.ops import reward_kernels as rk
+
+    g = torch.Generator().manual_seed(16)
+    drv = batch.drivable_map
+    Hm, W = drv.shape[-2:]
+    maps = {"reward": (drv, (B, T)), "five_samples": (drv, (B, 5, T)),
+            "odd": ((torch.rand((5, 64, 64), generator=g) > 0.4).float().to(dev), (5, 7)),
+            "odd_groups": ((torch.rand((3, 33, 47), generator=g) - 0.4).to(dev), (3, 4, 9))}
+    for name, (m, shape) in maps.items():
+        hm, w = m.shape[-2:]
+        pix = torch.stack([torch.randint(0, w, shape, generator=g),
+                           torch.randint(0, hm, shape, generator=g)], dim=-1)
+        pix = pix.to(torch.int32).to(dev).contiguous()
+        got, again, want = rk.offroad_count(pix, m), rk.offroad_count(pix, m), \
+            rk.offroad_count_ref(pix, m)
+        torch.cuda.synchronize()
+        n_off = int(want.sum())
+        log(f"offroad_count [{name}: pix {tuple(pix.shape)}, map {hm}x{w}]: equal to its plain "
+            f"version: {bool(torch.equal(got, want))} (tolerance 0, exact); {n_off} of "
+            f"{pix[..., 0].numel()} points off-road")
+        check(torch.equal(got, want), f"offroad_count ({name}) disagrees with its plain version")
+        check(torch.equal(got, again), f"offroad_count ({name}) differs between two launches")
+        check(tuple(got.shape) == tuple(shape[:-1]), f"offroad_count ({name}) output shape")
+        check(0 < n_off < pix[..., 0].numel(), "offroad_count fixture is degenerate")
+        if name == "reward":
+            full = (pix, m)
+    pix, m = full
+    ms = cuda_ms(lambda: rk.offroad_count(pix, m), 200)
+    g_ms = graph_ms(lambda: rk.offroad_count(pix, m))
+    plain_ms = cuda_ms(lambda: rk.offroad_count_ref(pix, m), 50)
+    # bytes: the coordinates, the map values under them (distinct ones), one f32 per map
+    flat = (torch.arange(B, device=dev)[:, None] * Hm + pix[..., 1].long()) * W + pix[..., 0].long()
+    needed = 4 * int(torch.unique(flat).numel())
+    b_ms, b_by = bound(8 * B * T + needed + 4 * B, float(B * T))
+    log(f"offroad_count at B={B}, P={T}: {ms:.4f} ms from Python, {g_ms:.5f} ms from a CUDA "
+        f"graph, plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms by {b_by} ({needed} map bytes)")
+    report["offroad_count"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                   bound_by=b_by, library_ms=None, graph_ms=g_ms,
+                                   source_bytes_needed=needed)
+
+    def fixture(Tn, Bn, Dn, mask):
+        cent = (torch.randn((Tn, Bn, Dn, 2), generator=g) * 2.0).to(dev)
+        if Bn == B:  # scenes of 4 on top of each other: scene centre + a small spread
+            centre = torch.randn((1, Bn // AGENTS_PER_SCENE, 1, 1, 2), generator=g) * 50.0
+            spread = torch.randn((Tn, Bn // AGENTS_PER_SCENE, AGENTS_PER_SCENE, Dn, 2),
+                                 generator=g) * 2.0
+            cent = (centre + spread).reshape(Tn, Bn, Dn, 2).to(dev).contiguous()
+        rad = torch.rand((Bn,), generator=g) * 0.4 + 0.8
+        pen = (rad[:, None] + rad[None, :] + 0.2).to(dev)
+        decay = 0.9 ** torch.arange(Tn, dtype=torch.float32)
+        return cent, pen, mask, (decay / decay.sum()).to(dev)
+
+    off_diag = lambda n: ~torch.eye(n, dtype=torch.bool, device=dev)
+    cases = {"ppo": (T, B, 5, scene_pair_mask(B, AGENTS_PER_SCENE, dev)),
+             "all_pairs": (T, B, 5, off_diag(B)), "odd": (8, 6, 4, off_diag(6)),
+             "one_disk": (3, 5, 1, off_diag(5))}
+    worst, timed = 0.0, {}
+    for name, (Tn, Bn, Dn, mask) in cases.items():
+        args = fixture(Tn, Bn, Dn, mask)
+        got, again = rk.disk_collision_penalty(*args), rk.disk_collision_penalty(*args)
+        want = rk.disk_collision_penalty_ref(*args)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        ok = bool(((got - want).abs() <= 1e-5 * want.abs() + 1e-6).all())
+        log(f"disk_collision [{name}: T={Tn}, B={Bn}, D={Dn}, {int(mask.sum())} pairs]: max abs "
+            f"err {err:.3e} (rtol 1e-5, atol 1e-6; max |plain| {float(want.max()):.3g}, "
+            f"{int((want > 0).sum())} agents penalized); repeated launch bit-identical: "
+            f"{bool(torch.equal(got, again))}")
+        check(ok, f"disk_collision ({name}) disagrees with its plain version")
+        check(torch.equal(got, again), f"disk_collision ({name}) differs between two launches")
+        check(float(want.max()) > 0.0, f"disk_collision fixture ({name}) has no collision")
+        worst = max(worst, err)
+        timed[name] = args
+    args = timed["ppo"]
+    ms = cuda_ms(lambda: rk.disk_collision_penalty(*args), 200)
+    g_ms = graph_ms(lambda: rk.disk_collision_penalty(*args))
+    g_all = graph_ms(lambda: rk.disk_collision_penalty(*timed["all_pairs"]))
+    plain_ms = cuda_ms(lambda: rk.disk_collision_penalty_ref(*args), 5)
+    # bytes: every input once, the output once. operations: per unmasked (t, i, j) the
+    # 25 disk pairs (2 subtractions, 2 products, a sum, a min) and ~6 for the penalty;
+    # a masked pair needs none
+    D = 5
+    nbytes = 4 * T * B * D * 2 + 4 * B * B + B * B + 4 * T + 4 * B
+    pair_ops = 6.0 * D * D + 6.0
+    b_ms, b_by = bound(nbytes, T * float(args[2].sum()) * pair_ops)
+    ball_ms, ball_by = bound(nbytes, T * float(B * (B - 1)) * pair_ops)
+    log(f"disk_collision at T={T}, B={B}, D={D}, same-scene pairs: {ms:.4f} ms from Python, "
+        f"{g_ms:.5f} ms from a CUDA graph, plain {plain_ms:.3f} ms, bound {b_ms:.6f} ms by {b_by}; "
+        f"every off-diagonal pair: {g_all:.5f} ms from a graph, bound {ball_ms:.6f} ms by "
+        f"{ball_by}")
+    report["disk_collision"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                    bound_by=b_by, library_ms=None, graph_ms=g_ms,
+                                    graph_ms_all_pairs=g_all, bound_ms_all_pairs=ball_ms,
+                                    bound_by_all_pairs=ball_by)
+
+
+def record_config():
+    """The config of record, with epochs of one step: the warm-up rate is 0
+    for the whole first epoch, so with the record's 1,000-step epochs a short
+    run would move nothing."""
+    from cld_tpu_torch.utils.config import default_config
+
+    cfg = default_config()
+    cfg.train.training.steps_per_epoch = 1
+    return cfg.lock()
+
+
+def run_training(batch, dev, report):
+    """The VAE and DM stages at full width: 2 warm-up + 5 timed train steps
+    each and one eval step. Returns (config, VAE state, DM trainer, DM state)
+    for the PPO phase."""
+    import torch
+
+    from cld_tpu_torch.ops import native
+    from cld_tpu_torch.training.dm import DMTrainer
+    from cld_tpu_torch.training.vae import VAETrainer
+
+    cfg = record_config()
+    gen = torch.Generator(device=dev)
+    WARM, STEPS = 2, 5
+
+    def drive(name, state, step, evaluate, seed):
+        gen.manual_seed(seed)
+        before = snapshot(state.model)
+        native.reset_launch_counts()
+        losses = []
+        for k in range(WARM + STEPS):
+            if k == WARM:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            _, m = step(state, batch, generator=gen)
+            losses.append(m["loss"])
+            check(m["skipped_nonfinite"] == 0.0, f"{name} step {k} skipped a non-finite loss")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        ev = float(evaluate(state)["loss"])
+        launches = native.launch_counts()
+        losses = [float(v) for v in losses]
+        delta = max_param_change(before, state.model)
+        rate = STEPS / secs
+        log(f"{name}: {rate:.2f} train steps/s ({secs / STEPS * 1e3:.1f} ms/step) at B={B}, "
+            f"raster {RASTER}, on {report['card']}; losses {losses[0]:.4f} -> {losses[-1]:.4f}, "
+            f"eval {ev:.4f}; parameters moved by up to {delta:.3e}; launches {launches}")
+        check(all(v == v and abs(v) != float("inf") for v in losses + [ev]),
+              f"{name}: a loss is not finite")
+        check(delta > 0.0, f"{name}: no parameter moved")
+        check(state.step == WARM + STEPS, f"{name}: step count {state.step}")
+        return rate, launches, losses, ev
+
+    vae_tr = VAETrainer(cfg, device=dev)
+    vae_state = vae_tr.init_state(seed=0)
+    rate, launches, losses, ev = drive("vae_train", vae_state, vae_tr.train_step,
+                                       lambda s: vae_tr.eval_step(s, batch), 30)
+    want = counts(lstm2_fwd=1)  # the eval step's deterministic decoder
+    check(launches == want, f"vae_train launches {launches}, expected {want}")
+    report["launches_vae_train"] = launches
+    report["training"] = dict(vae_train_steps_per_sec=rate, vae_losses=losses, vae_eval_loss=ev)
+
+    # the two LSTM stacks of a train step alone (encoder and train-mode decoder run layer by
+    # layer through PyTorch's LSTM operator, cuDNN here, not through the fused kernel)
+    lstmvae = vae_state.model.lstmvae
+    g = torch.Generator().manual_seed(33)
+    cond_dim, hid, lat = (lstmvae.lstm_enc.cond2hidden.in_features, lstmvae.hidden_size,
+                          lstmvae.mu.out_features)
+    x = torch.randn((B, T, 6), generator=g).to(dev)
+    cond = torch.randn((B, cond_dim), generator=g).to(dev)
+    noise = torch.randn((B, T, lat), generator=g).to(dev)
+    masks = tuple((torch.rand((B, T, hid), generator=g) >= 0.2).float().to(dev) for _ in range(2))
+
+    def stacks_fwd_bwd():
+        acts, mu, logvar = lstmvae(x, cond, train=True, noise=noise, keep_masks=masks)
+        (acts.sum() + mu.sum() + logvar.sum()).backward()
+
+    stacks_ms = cuda_ms(stacks_fwd_bwd, 20)
+    vae_state.optimizer.zero_grad(set_to_none=True)
+    with torch.no_grad():
+        enc_ms = cuda_ms(lambda: lstmvae.traj2z(x, cond, noise=noise), 20)
+    log(f"LSTM stacks through PyTorch's LSTM operator at B={B}: encoder + train-mode decoder "
+        f"forward and backward {stacks_ms:.3f} ms; encoder forward alone {enc_ms:.3f} ms")
+    report["training"].update(lstm_stacks_train_fwd_bwd_ms=stacks_ms, lstm_encoder_fwd_ms=enc_ms)
+
+    dm_tr = DMTrainer(cfg, vae_state.model, device=dev)
+    dm_state = dm_tr.init_state(seed=2)
+    rate, launches, losses, ev = drive(
+        "dm_train", dm_state, dm_tr.train_step,
+        lambda s: dm_tr.eval_step(s, batch, generator=gen), 31)
+    check(launches == counts(), f"dm_train launches {launches}, expected none")
+    report["launches_dm_train"] = launches
+    report["training"].update(dm_train_steps_per_sec=rate, dm_losses=losses, dm_eval_loss=ev)
+    return cfg, dm_tr, dm_state
+
+
+def run_ppo(cfg, dm_tr, dm_state, batch, dev, report, kernels):
+    """The PPO stage at full width: 3 collections into a buffer of 3,000, the
+    disk-collision penalty of the collected trajectories, a 30-iteration
+    update phase at mini-batch 128, one test step."""
+    import torch
+
+    from cld_tpu_torch.guidance import losses as gl
+    from cld_tpu_torch.ops import native
+    from cld_tpu_torch.ops import reward_kernels as rk
+    from cld_tpu_torch.ops.geometry import world_from_agent_matrix
+    from cld_tpu_torch.training.ppo import PPOTrainer, buffer_init
+
+    COLLECTS, ITERS = 3, 30
+    algo = cfg.algo
+    ppo = PPOTrainer(cfg, dm_tr)
+    buf = buffer_init(algo.buffer_max, algo.horizon, algo.vae.latent_size, algo.cond_feat_dim,
+                      device=dev)
+    check(buf.capacity == 3000 and ppo.mini_batch == 128, "PPO is not at the record's sizes")
+    gen = torch.Generator(device=dev).manual_seed(32)
+    native.reset_launch_counts()
+    secs = []
+    for k in range(COLLECTS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        buf, out = ppo.collect_step(dm_state, buf, batch, generator=gen)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        check(bool(torch.isfinite(out["reward"])), f"collect step {k}: reward is not finite")
+    traj = out["traj"]
+    check(buf.size == COLLECTS * B and buf.ptr == COLLECTS * B, f"buffer fill {buf.size}")
+    check(tuple(traj.shape) == (B, 1, T, 6) and bool(torch.isfinite(traj).all()),
+          "collected trajectories are not finite [B, 1, T, 6]")
+    for name in ("x0", "x1", "log_p", "reward", "cond_feat"):
+        check(bool(torch.isfinite(getattr(buf, name)[:buf.size]).all()),
+              f"buffer field {name} is not finite")
+    collect_rate = (COLLECTS - 1) / sum(secs[1:])
+    launches = native.launch_counts()
+    want = counts(lstm2_fwd=COLLECTS, offroad_count=COLLECTS)
+    check(launches == want, f"collect launches {launches}, expected {want}")
+
+    # the disk-collision penalty of the collected trajectories: scenes of 4 agents
+    # parked 3 m apart in one lane, so that neighbours' disks overlap from the start
+    lane = (torch.arange(B, device=dev) % AGENTS_PER_SCENE).float()
+    wfa = world_from_agent_matrix(torch.stack([lane * 3.0, torch.zeros_like(lane)], -1),
+                                  torch.zeros_like(lane))
+    scene = torch.arange(B, device=dev) // AGENTS_PER_SCENE
+    ctx = gl.GuidanceContext(batch.drivable_map, batch.raster_from_agent, batch.extent,
+                             batch.curr_speed, wfa, scene)
+    rule = gl.AgentCollisionLoss(num_disks=5, buffer_dist=0.2)
+    cent = gl.disk_centres_world(traj, ctx, rule.num_disks)[:, 0].permute(1, 0, 2, 3).contiguous()
+    rad = batch.extent[:, 1] / 2.0
+    pen_d = rad[:, None] + rad[None, :] + rule.buffer_dist
+    mask = scene_pair_mask(B, AGENTS_PER_SCENE, dev)
+    decay = gl._decay_weights(T, rule.decay_rate, dev)
+    got = rk.disk_collision_penalty(cent, pen_d, mask, decay)
+    torch.cuda.synchronize()
+    ref = rk.disk_collision_penalty_ref(cent, pen_d, mask, decay)
+    flat_rule = rule(traj, ctx)[:, 0]  # the rule's flat path; 0 for agents that stand still
+    moving = batch.curr_speed.abs() > rule.guide_moving_speed_th
+    err = float((got - ref).abs().max())
+    err_rule = float((torch.where(moving, got, torch.zeros(()).to(dev)) - flat_rule).abs().max())
+    log(f"disk_collision on the collected trajectories: max abs err vs plain {err:.3e}, vs "
+        f"AgentCollisionLoss {err_rule:.3e} (rtol 1e-5, atol 1e-6; max penalty "
+        f"{float(ref.max()):.4f}, {int((ref > 0).sum())} of {B} agents penalized)")
+    check(bool(((got - ref).abs() <= 1e-5 * ref.abs() + 1e-6).all()),
+          "disk_collision disagrees with its plain version on the collected trajectories")
+    check(bool(((torch.where(moving, got, torch.zeros(()).to(dev)) - flat_rule).abs()
+                <= 1e-5 * flat_rule.abs() + 1e-6).all()),
+          "disk_collision disagrees with AgentCollisionLoss on the collected trajectories")
+    check(float(ref.max()) > 0.0, "the collected trajectories have no collision")
+    kernels["disk_collision"]["max_abs_err"] = max(kernels["disk_collision"]["max_abs_err"], err)
+
+    before = snapshot(dm_state.model)
+    step0 = dm_state.step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    indices = torch.randint(0, buf.size, (ITERS, ppo.mini_batch), generator=gen, device=dev)
+    _, pm = ppo.ppo_update(dm_state, buf, indices=indices)
+    torch.cuda.synchronize()
+    update_s = time.perf_counter() - t0
+    pm = {k: float(v) for k, v in pm.items()}
+    delta = max_param_change(before, dm_state.model)
+    check(all(v == v for v in pm.values()), f"PPO metrics hold a NaN: {pm}")
+    check(0.0 <= pm["clip_fraction"] <= 1.0, f"clip_fraction {pm['clip_fraction']}")
+    check(dm_state.step == step0 + ITERS, f"PPO update took {dm_state.step - step0} steps")
+    check(delta > 0.0, "the PPO update moved no parameter")
+
+    rates, stats = ppo.test_step(dm_state, batch, generator=gen)
+    torch.cuda.synchronize()
+    rates = {k: float(v) for k, v in rates.items()}
+    check(all(0.0 <= v <= 1.0 for v in rates.values()), f"failure rates {rates}")
+    check(tuple(stats["long_acc_pred"].shape) == (B, T)
+          and all(bool(torch.isfinite(v).all()) for v in stats.values()),
+          "test step statistics are not finite [B, T]")
+    launches = native.launch_counts()
+    want = counts(lstm2_fwd=COLLECTS + 1, offroad_count=COLLECTS, disk_collision=1)
+    check(launches == want, f"PPO launches {launches}, expected {want}")
+    report["launches_ppo"] = launches
+    report["ppo"] = dict(ppo_collect_steps_per_sec=collect_rate, collect_s=secs,
+                         ppo_update_iters_per_sec=ITERS / update_s, update_iters=ITERS,
+                         update_metrics=pm, failure_rates=rates,
+                         mean_reward=float(out["reward"]), disk_penalty_max=float(ref.max()))
+    log(f"ppo: {collect_rate:.3f} collect steps/s ({', '.join(f'{v:.2f}' for v in secs)} s), "
+        f"{ITERS / update_s:.2f} update iterations/s at mini-batch {ppo.mini_batch} ({ITERS} "
+        f"iterations, {update_s:.2f} s; parameters moved by up to {delta:.3e}), on "
+        f"{report['card']}; update metrics {json.dumps(pm)}; failure rates {json.dumps(rates)}; "
+        f"launches {launches}")
+
+
+def check_small_training(dev, report):
+    """One VAE step's and one DM step's gradients, and one collection's
+    trajectories and rewards, on the card against the CPU at the `cld_smoke`
+    widths (B=8, raster 64, 5 diffusion steps): same weights, same explicit
+    noise and dropout masks. Gradients are held over each stage's whole
+    gradient vector: |card - cpu| <= 1e-4 |cpu| + 1e-4 max |cpu| (f32
+    convolutions, BatchNorm over a batch of 8 and two LSTM implementations on
+    two backends); trajectories as the small slice's; rewards within 1e-3."""
+    import torch
+
+    from cld_tpu_torch.algos.dm import dm_loss
+    from cld_tpu_torch.data.synthetic import synthetic_batch
+    from cld_tpu_torch.training.dm import DMTrainer
+    from cld_tpu_torch.training.ppo import PPOTrainer, buffer_init
+    from cld_tpu_torch.training.vae import VAETrainer
+    from cld_tpu_torch.utils.registry import get_registered_experiment_config
+
+    cfg = get_registered_experiment_config("cld_smoke")
+    algo = cfg.algo
+    Bs, Hs, Ls, steps = 8, algo.vae.hidden_size, algo.vae.latent_size, algo.n_diffusion_steps
+    g = torch.Generator().manual_seed(17)
+    noise = torch.randn((Bs, T, Ls), generator=g)
+    masks = tuple((torch.rand((Bs, T, Hs), generator=g) >= 0.2).float() for _ in range(2))
+    t = torch.randint(0, steps, (Bs,), generator=g)
+    eps = torch.randn((Bs, T, Ls), generator=g)
+    x_init = torch.randn((Bs, T, Ls), generator=g)
+    step_noises = torch.randn((steps, Bs, T, Ls), generator=g)
+    res, weights = {}, None
+    for where in ("cpu", dev):
+        batch = synthetic_batch(seed=4, batch_size=Bs, raster_size=64,
+                                hist_frames=algo.history_num_frames, device=where)
+        vs = VAETrainer(cfg, device=where).init_state(seed=5)
+        if weights is None:  # copied now: the train-mode forward moves BatchNorm's statistics
+            vae_weights = {k: v.clone() for k, v in vs.model.state_dict().items()}
+        else:
+            vs.model.load_state_dict(weights[0])
+        mv = lambda v: v.to(where)
+        out = vs.model(batch, 0.05, train=True, noise=mv(noise), keep_masks=tuple(map(mv, masks)))
+        out["loss"].backward()
+        vae_grad = torch.cat([p.grad.flatten().cpu() for p in vs.model.parameters()])
+        dm_tr = DMTrainer(cfg, vs.model, device=where)  # freezes the VAE
+        ds = dm_tr.init_state(seed=6)
+        if weights is None:
+            weights = (vae_weights, ds.model.state_dict())
+        else:
+            ds.model.load_state_dict(weights[1])
+        z0, aux = dm_tr.encode(batch, mv(noise))
+        loss = dm_loss(ds.model, dm_tr.schedule, z0, aux["cond_feat"], mv(t), mv(eps))
+        loss.backward()
+        dm_grad = torch.cat([p.grad.flatten().cpu() for p in ds.model.parameters()])
+        ds.optimizer.zero_grad(set_to_none=True)
+        ppo = PPOTrainer(cfg, dm_tr)
+        buf = buffer_init(algo.buffer_max, algo.horizon, Ls, algo.cond_feat_dim, device=where)
+        buf, col = ppo.collect_step(ds, buf, batch, x_init=mv(x_init), step_noises=mv(step_noises))
+        res[str(where)] = dict(vae_loss=float(out["loss"].detach()), vae_grad=vae_grad,
+                               dm_loss=float(loss.detach()), dm_grad=dm_grad, traj=col["traj"].cpu(),
+                               reward=buf.reward[:Bs].cpu())
+    c, k = res["cpu"], res[str(dev)]
+    summary = {}
+    for name in ("vae_grad", "dm_grad"):
+        a, b = k[name], c[name]
+        err, scale = float((a - b).abs().max()), float(b.abs().max())
+        log(f"small training {name}: card vs CPU max abs diff {err:.3e} (rtol 1e-4, floor 1e-4 "
+            f"of max {scale:.3g}); losses {k[name[:-4] + 'loss']:.6f} vs "
+            f"{c[name[:-4] + 'loss']:.6f}")
+        check(scale > 0.0, f"small training {name} is zero")
+        check(bool(((a - b).abs() <= 1e-4 * b.abs() + 1e-4 * scale).all()),
+              f"small training {name} disagrees between card and CPU")
+        summary[name] = err
+    a, b = k["traj"], c["traj"]
+    err = float((a - b).abs().max())
+    check(bool(((a - b).abs() <= SLICE_RTOL * b.abs() + 1e-6 * float(b.abs().max())).all()),
+          "small collection trajectories disagree between card and CPU")
+    r_err = float((k["reward"] - c["reward"]).abs().max())
+    log(f"small collection: trajectories card vs CPU max abs diff {err:.3e}, rewards {r_err:.3e} "
+        f"(tolerance 1e-3; CPU rewards {[round(v, 3) for v in c['reward'].tolist()]})")
+    check(r_err <= 1e-3, "small collection rewards disagree between card and CPU")
+    summary.update(traj=err, reward=r_err)
+    report["small_training"] = summary
+
+
 def main() -> int:
     import torch
 
@@ -1031,12 +1460,17 @@ def main() -> int:
     check_lstm(models, dev, kernels)
     check_gather(batch, dev, kernels)
     check_rigid(batch, dev, kernels)
+    check_reward_kernels(batch, dev, kernels)
     run_main_path(models, batch, report)
     run_rigid_paths(models, batch, report)
     check_rigid_agreement(models, batch, dev, report)
     check_small_slice(dev, report)
     check_small_slice(dev, report, min_dist_impl="rigid_kernel")
-    del batch
+    cfg, dm_tr, dm_state = run_training(batch, dev, report)
+    run_ppo(cfg, dm_tr, dm_state, batch, dev, report, kernels)
+    check_small_training(dev, report)
+    del batch, dm_tr, dm_state
+    torch.cuda.empty_cache()
 
     pack = synthetic_scene_pack(seed=0, num_scenes=CL_SCENES, agents_per_scene=CL_AGENTS,
                                 world_map_size=WORLD_MAP, sim_steps=CL_STEPS, device=dev)
@@ -1059,10 +1493,16 @@ def main() -> int:
         "rigid_min_fused": ("cld_tpu_torch/csrc/rigid_min.cu",
                             "cld_tpu/ops/pallas_kernels.py:404"),
         "rigid_bwd": ("cld_tpu_torch/csrc/rigid_bwd.cu", "cld_tpu/ops/pallas_kernels.py:541"),
+        "offroad_count": ("cld_tpu_torch/csrc/offroad_count.cu",
+                          "cld_tpu/ops/pallas_kernels.py:41"),
+        "disk_collision": ("cld_tpu_torch/csrc/disk_collision.cu",
+                           "cld_tpu/ops/pallas_kernels.py:617"),
     }
     paths = {"open_loop": "launches", "closed_loop": "launches_closed_loop",
              "px_replan": "launches_px_replan", "rigid_open_loop": "launches_rigid_kernel",
-             "fused_open_loop": "launches_fused", "rigid_replan": "launches_rigid_replan"}
+             "fused_open_loop": "launches_fused", "rigid_replan": "launches_rigid_replan",
+             "vae_train": "launches_vae_train", "dm_train": "launches_dm_train",
+             "ppo": "launches_ppo"}
     line = []
     for name, (src, rep) in replaces.items():
         k = kernels[name]

@@ -1,11 +1,14 @@
 """cld_tpu_torch — the PyTorch + CUDA port of cld_tpu for one NVIDIA H100.
 
 The package runs the guided open-loop latent-diffusion pipeline
-(`pipeline.guided_collect`): context encode, 100-step DDPM sampling of the
+(`pipeline.guided_collect`: context encode, 100-step DDPM sampling of the
 temporal UNet with a per-step Adam perturbation through the frozen LSTM
-decoder and the unicycle dynamics, decode, reward. Three hand-written CUDA
-kernels carry its hot path (`csrc/`): the fused 2-layer LSTM forward, its
-reverse sweep, and the bit-packed drivable-map gather.
+decoder and the unicycle dynamics, decode, reward), the guided closed loop
+(`sim.env.simulate`, `python -m cld_tpu_torch.rollout`) and the three training
+stages (`training`, `python -m cld_tpu_torch.train --mode vae|dm|ppo`). Ten
+hand-written CUDA kernels carry its hot paths (`csrc/`): the fused 2-layer
+LSTM forward and its reverse sweep, the map gathers, the rigid map distance,
+and the reward's off-road count and disk-collision penalty.
 
 Dispatch rule: a kernel wrapper looks at the device of the tensor it is
 given. A CUDA tensor launches the kernel (or the wrapper raises); a CPU

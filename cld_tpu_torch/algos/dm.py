@@ -1,5 +1,5 @@
-"""Latent diffusion sampling: DDPM ancestral sampling and DDIM (port of
-`cld_tpu/algos/dm.py:54-214`).
+"""Latent diffusion: the training loss, DDPM ancestral sampling, DDIM and the
+transition log-probability (port of `cld_tpu/algos/dm.py`).
 
 Both samplers take their randomness explicitly: `x_init` [BN, T, D] and
 `step_noises` [n_steps, BN, T, D], where step k of the loop adds noise index
@@ -23,10 +23,50 @@ from cld_tpu_torch.ops.diffusion import (
     posterior_mean_logvar,
     predict_start_from_noise,
     q_posterior_mean,
+    q_sample,
 )
 
 DenoiseFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 # (x [BN, T, D], cond_feat [BN, C], t [BN]) -> eps_hat [BN, T, D]
+
+
+def dm_loss(
+    denoise_fn: DenoiseFn,
+    schedule: DiffusionSchedule,
+    z0: torch.Tensor,
+    cond_feat: torch.Tensor,
+    t: Optional[torch.Tensor] = None,
+    noise: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """Epsilon-prediction MSE at the timesteps `t` [B] (int64) with the
+    Gaussian `noise` (z0's shape); whatever is not given is drawn from
+    `generator`: t uniformly below the schedule's length."""
+    z0 = z0.to(torch.float32)
+    if t is None:
+        t = torch.randint(0, schedule.n_timesteps, (z0.shape[0],), generator=generator,
+                          device=z0.device)
+    if noise is None:
+        noise = torch.randn(z0.shape, generator=generator, device=z0.device)
+    z_noisy = q_sample(schedule, z0, t, noise)
+    eps_hat = denoise_fn(z_noisy, cond_feat, t).to(torch.float32)
+    return torch.mean((noise - eps_hat) ** 2)
+
+
+def transition_log_prob(
+    denoise_fn: DenoiseFn,
+    schedule: DiffusionSchedule,
+    x_t: torch.Tensor,
+    x_t_minus_1: torch.Tensor,
+    cond_feat: torch.Tensor,
+    t: torch.Tensor,
+) -> torch.Tensor:
+    """log p(x_{t-1} | x_t) under the denoiser, mean over elements -> [B]:
+    the PPO ratio's numerator."""
+    eps_hat = denoise_fn(x_t, cond_feat, t)
+    mean, log_var = posterior_mean_logvar(schedule, x_t, eps_hat, t)
+    sigma = torch.exp(0.5 * log_var)
+    return torch.mean(normal_log_prob(x_t_minus_1, mean, sigma), dim=(1, 2))
 
 
 def guidance_applies(i: int, guidance_stride: int = 1, guidance_output: bool = False) -> bool:

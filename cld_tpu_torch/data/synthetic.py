@@ -68,14 +68,13 @@ def synthetic_batch(
 
     speeds = rng.uniform(3.0, 12.0, B).astype(np.float32)
 
-    # ego future: drawn to keep the generator's draw order (the batch keeps
-    # no ground-truth future; the guided pipeline does not read it)
+    # ego future: gentle acceleration + sinusoidal yaw-rate (the trainers' target)
     acc = rng.normal(0, 0.5, (B, T)).astype(np.float32)
     phase = rng.uniform(0, 2 * np.pi, (B, 1))
     yawvel = 0.05 * np.sin(np.linspace(0, 2 * np.pi, T)[None, :] + phase).astype(np.float32)
     x0 = np.zeros((B, 4), dtype=np.float32)
     x0[:, 2] = speeds
-    _unicycle_rollout(x0, np.stack([acc, yawvel], axis=-1), dt)
+    fut_states = _unicycle_rollout(x0, np.stack([acc, yawvel], axis=-1), dt)
 
     # ego history: integrate backwards at roughly constant speed
     hist_positions = np.zeros((B, Th, 2), dtype=np.float32)
@@ -141,4 +140,8 @@ def synthetic_batch(
         extent=t(extent),
         all_other_agents_future_positions=t(n_fut),
         all_other_agents_future_availability=t(n_fut_avail),
+        history_availabilities=t(hist_avail),
+        target_positions=t(fut_states[..., :2]),
+        target_yaws=t(fut_states[..., 3:4]),
+        target_availabilities=t(np.ones((B, T), dtype=np.float32)),
     )

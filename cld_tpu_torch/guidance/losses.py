@@ -164,6 +164,26 @@ def _chunked_sum(step, T: int, K: int, init: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def disk_centres_world(x: torch.Tensor, ctx: GuidanceContext, num_disks: int) -> torch.Tensor:
+    """World-frame centres of the `num_disks` circles that cover each agent
+    along its length (radius = half its width): trajectories x [B, N, T, 6]
+    -> [B, N, T, D, 2]."""
+    pos_w, yaw_w = _to_world(x, ctx.world_from_agent)
+    agt_rad = ctx.extent[:, 1] / 2.0  # [B]
+    cent_min = -(ctx.extent[:, 0] / 2.0) + agt_rad
+    cent_max = (ctx.extent[:, 0] / 2.0) - agt_rad
+    lin = torch.linspace(0.0, 1.0, num_disks, device=x.device)
+    cent_x = cent_min[:, None] + (cent_max - cent_min)[:, None] * lin[None]  # [B, D]
+    centroids = torch.stack([cent_x, torch.zeros_like(cent_x)], dim=-1)  # [B, D, 2]
+
+    c = torch.cos(yaw_w)  # [B, N, T, 1]
+    s = torch.sin(yaw_w)
+    cent = centroids[:, None, None]  # [B, 1, 1, D, 2]
+    rx = cent[..., 0] * c + cent[..., 1] * (-s)
+    ry = cent[..., 0] * s + cent[..., 1] * c
+    return torch.stack([rx, ry], dim=-1) + pos_w[..., None, :]
+
+
 @dataclasses.dataclass(frozen=True)
 class AgentCollisionLoss:
     """Scene-level pairwise disk-collision penalty: each agent is num_disks
@@ -201,21 +221,8 @@ class AgentCollisionLoss:
         x = _mask_gradient(x, moving)
         if agt_mask is not None:
             x = _mask_gradient(x, agt_mask)
-        pos_w, yaw_w = _to_world(x, ctx.world_from_agent)
-
         agt_rad = ctx.extent[:, 1] / 2.0  # [B]
-        cent_min = -(ctx.extent[:, 0] / 2.0) + agt_rad
-        cent_max = (ctx.extent[:, 0] / 2.0) - agt_rad
-        lin = torch.linspace(0.0, 1.0, self.num_disks, device=dev)
-        cent_x = cent_min[:, None] + (cent_max - cent_min)[:, None] * lin[None]  # [B, D]
-        centroids = torch.stack([cent_x, torch.zeros_like(cent_x)], dim=-1)  # [B, D, 2]
-
-        c = torch.cos(yaw_w)  # [B, N, T, 1]
-        s = torch.sin(yaw_w)
-        cent = centroids[:, None, None]  # [B, 1, 1, D, 2]
-        rx = cent[..., 0] * c + cent[..., 1] * (-s)
-        ry = cent[..., 0] * s + cent[..., 1] * c
-        cent_w = torch.stack([rx, ry], dim=-1) + pos_w[..., None, :]  # [B, N, T, D, 2]
+        cent_w = disk_centres_world(x, ctx, self.num_disks)  # [B, N, T, D, 2]
 
         D = self.num_disks
         w = _decay_weights(T, self.decay_rate, dev)

@@ -1,2 +1,2 @@
-"""Networks of the guided pipeline: context encoder, temporal UNet, LSTM
-decoder."""
+"""Networks: context encoder, temporal UNet, and the LSTM-VAE with its model
+wrapper."""

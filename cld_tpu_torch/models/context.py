@@ -24,8 +24,8 @@ class _MapEncoder(nn.Module):
             {"map_model": ResNet18Encoder(in_channels, feature_dim)}
         )
 
-    def forward(self, image):
-        return self.encoder_heads["map_model"](image)
+    def forward(self, image, train: bool = False):
+        return self.encoder_heads["map_model"](image, train)
 
 
 class ContextEncoder(nn.Module):
@@ -49,9 +49,11 @@ class ContextEncoder(nn.Module):
             normalization=True,
         )
 
-    def forward(self, batch: TrafficBatch) -> Dict[str, torch.Tensor]:
+    def forward(self, batch: TrafficBatch, train: bool = False) -> Dict[str, torch.Tensor]:
+        """`train` picks BatchNorm's batch statistics (and moves the running
+        ones) in the map encoder; nothing else here depends on it."""
         curr_states = get_current_states(batch)  # [B, 4]
         state_feat = self.agent_state_encoder(curr_states)
-        map_feat = self.map_encoder(batch.image)
+        map_feat = self.map_encoder(batch.image, train)
         cond_feat = self.process_cond_mlp(torch.cat([state_feat, map_feat], dim=-1))
         return {"cond_feat": cond_feat, "curr_states": curr_states}

@@ -33,6 +33,9 @@ class DiffusionSchedule(NamedTuple):
     # epsilon-parameterized posterior mean: mu = x_t_cof * x_t - noise_cof * eps
     x_t_cof: torch.Tensor
     noise_cof: torch.Tensor
+    # forward process: x_t = sqrt_alphas_cumprod * x0 + sqrt_one_minus_alphas_cumprod * eps
+    sqrt_alphas_cumprod: torch.Tensor
+    sqrt_one_minus_alphas_cumprod: torch.Tensor
 
 
 def make_schedule(
@@ -61,6 +64,8 @@ def make_schedule(
         ),
         x_t_cof=f32(np.sqrt(1.0 / alphas)),
         noise_cof=f32(betas / np.sqrt(alphas - alphas_cumprod * alphas)),
+        sqrt_alphas_cumprod=f32(np.sqrt(alphas_cumprod)),
+        sqrt_one_minus_alphas_cumprod=f32(np.sqrt(1.0 - alphas_cumprod)),
     )
 
 
@@ -68,6 +73,16 @@ def extract(buf: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
     """buf[t] broadcast to an ndim-rank tensor: [B, 1, ..., 1]."""
     out = buf[t]
     return out.reshape(out.shape + (1,) * (ndim - 1))
+
+
+def q_sample(
+    schedule: DiffusionSchedule, x0: torch.Tensor, t: torch.Tensor, noise: torch.Tensor
+) -> torch.Tensor:
+    """Forward-noise x0 to step t."""
+    return (
+        extract(schedule.sqrt_alphas_cumprod, t, x0.ndim) * x0
+        + extract(schedule.sqrt_one_minus_alphas_cumprod, t, x0.ndim) * noise
+    )
 
 
 def posterior_mean_logvar(

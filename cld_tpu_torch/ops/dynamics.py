@@ -25,6 +25,16 @@ class UnicycleParams(NamedTuple):
     v_lo: float = -10.0
     v_hi: float = 30.0
 
+    @classmethod
+    def from_config(cls, dyn_cfg) -> "UnicycleParams":
+        """From a config's `algo.dynamics` mapping."""
+        return cls(
+            max_steer=float(dyn_cfg["max_steer"]),
+            max_yawvel=float(dyn_cfg["max_yawvel"]),
+            acce_lo=float(dyn_cfg["acce_bound"][0]),
+            acce_hi=float(dyn_cfg["acce_bound"][1]),
+        )
+
 
 # bounds of the config of record (`cld_tpu/utils/config.py` algo.dynamics), which
 # are also the simulator's defaults (`cld_tpu/sim/env.py` SimConfig.dyn)

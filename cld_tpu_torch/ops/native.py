@@ -29,7 +29,7 @@ BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
 
 KERNELS = ("lstm2_fwd", "lstm2_bwd", "bit_gather", "value_gather", "drivable_gather",
-           "rigid_min", "rigid_min_fused", "rigid_bwd")
+           "rigid_min", "rigid_min_fused", "rigid_bwd", "offroad_count", "disk_collision")
 _LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -127,6 +127,10 @@ def library() -> ctypes.CDLL:
             fn.restype = i
         lib.cld_rigid_bwd.argtypes = [p] * 5 + [i, i, p]
         lib.cld_rigid_bwd.restype = i
+        lib.cld_offroad_count.argtypes = [p] * 3 + [i] * 5 + [p]
+        lib.cld_offroad_count.restype = i
+        lib.cld_disk_collision.argtypes = [p] * 5 + [i, i, i, p]
+        lib.cld_disk_collision.restype = i
         _LIB = lib
     return _LIB
 

@@ -4,8 +4,8 @@ The JAX package's flax variables, given as nested dicts of numpy arrays,
 become reference-layout torch state dicts: the same key mapping as
 `cld_tpu/utils/torch_export.py:43-240`, kept here as the port's own copy.
 The port's modules use that layout, so the converted dicts load with
-``strict=True`` (`load_context_encoder`, `load_lstm_decoder`,
-`load_temporal_unet`). Conventions:
+``strict=True`` (`load_vae_model`, `load_context_encoder`,
+`load_lstm_decoder`, `load_temporal_unet`). Conventions:
 
 * Dense kernel [in, out] -> Linear [out, in];
 * flax Conv [k.., in, out] -> Conv1d/2d [out, in, k..]; flax ConvTranspose
@@ -215,6 +215,13 @@ def _load(module: torch.nn.Module, sd: StateDict, prefix: str) -> torch.nn.Modul
     sub = {k: v.to(ref.device) for k, v in sub.items()}
     module.load_state_dict(sub, strict=True)
     return module
+
+
+def load_vae_model(module, vae_variables: Dict[str, Any]):
+    """Load `VaeModel` variables {"params", "batch_stats"} into the port's
+    whole `VaeModel`: context encoder with its BatchNorm statistics, LSTM
+    encoder and decoder, `mu` and `logvar`."""
+    return _load(module, export_vae_checkpoint(vae_variables), "vae.")
 
 
 def load_context_encoder(module, vae_variables: Dict[str, Any]):

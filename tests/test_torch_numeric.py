@@ -133,7 +133,10 @@ def test_synthetic_batch_same_arrays():
     jb = jax_synthetic(seed=3, batch_size=3, raster_size=64)
     tb = synthetic_batch(seed=3, batch_size=3, raster_size=64, device="cpu")
     filled = [name for name in tb._fields if getattr(tb, name) is not None]
-    assert filled == list(tb._fields[:9])  # the rest is the closed-loop renderer's to fill
+    # the pipeline's nine fields, the history mask and the ground-truth future that the
+    # trainers read; the rest is the closed-loop renderer's to fill
+    assert filled == list(tb._fields[:13]) and filled[-3:] == [
+        "target_positions", "target_yaws", "target_availabilities"]
     for name in filled:
         np.testing.assert_array_equal(getattr(tb, name).numpy(), np.asarray(getattr(jb, name)),
                                       err_msg=name)

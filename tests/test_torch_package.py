@@ -4,6 +4,10 @@ wrappers dispatch by tensor device and never fall back quietly."""
 
 import ast
 import inspect
+import json
+import os
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -12,10 +16,13 @@ import torch
 import cld_tpu_torch
 import numpy as np
 
-from cld_tpu_torch import pipeline, rollout
-from cld_tpu_torch.data import synthetic
+from cld_tpu_torch import pipeline, rollout, train
+from cld_tpu_torch.data import loader, synthetic
 from cld_tpu_torch.ops import diffusion, gather_kernels, lstm_kernels, native
 from cld_tpu_torch.sim import scene
+from cld_tpu_torch.training import dm as training_dm
+from cld_tpu_torch.training import ppo as training_ppo
+from cld_tpu_torch.training import vae as training_vae
 
 torch.set_num_threads(2)
 PKG = Path(cld_tpu_torch.__file__).parent
@@ -33,9 +40,15 @@ def _imports(path):
 
 def test_no_jax_or_reference_package_imports():
     files = sorted(PKG.rglob("*.py")) + [PKG.parent / "chip_smoke.py"]
-    assert len(files) > 25
-    names = {f.name for f in files}
-    assert {"env.py", "scene.py", "raster.py", "lanes.py", "wrappers.py", "rollout.py"} <= names
+    assert len(files) > 35
+    names = {str(f.relative_to(PKG.parent)) for f in files}
+    assert {"cld_tpu_torch/sim/env.py", "cld_tpu_torch/ops/raster.py", "cld_tpu_torch/rollout.py",
+            "cld_tpu_torch/train.py", "cld_tpu_torch/training/state.py",
+            "cld_tpu_torch/training/vae.py", "cld_tpu_torch/training/dm.py",
+            "cld_tpu_torch/training/ppo.py", "cld_tpu_torch/training/checkpoints.py",
+            "cld_tpu_torch/data/loader.py", "cld_tpu_torch/utils/config.py",
+            "cld_tpu_torch/utils/registry.py", "cld_tpu_torch/ops/reward_kernels.py",
+            "chip_smoke.py"} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
@@ -43,7 +56,10 @@ def test_no_jax_or_reference_package_imports():
 
 
 @pytest.mark.parametrize("fn", [pipeline.build_models, synthetic.synthetic_batch,
-                                diffusion.make_schedule, scene.synthetic_scene_pack])
+                                diffusion.make_schedule, scene.synthetic_scene_pack,
+                                loader.make_loader, loader.SyntheticLoader.__init__,
+                                training_vae.VAETrainer.__init__, training_dm.DMTrainer.__init__,
+                                training_ppo.buffer_init])
 def test_entry_points_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
@@ -82,9 +98,9 @@ def test_kernel_library_name_tracks_the_sources():
     path = native.library_path()
     assert path.parent == PKG / "_build" and path.suffix == ".so"
     assert sorted(p.name for p in native.CSRC.glob("*.cu")) == [
-        "bit_gather.cu", "drivable_gather.cu", "lstm.cu", "rigid_bwd.cu", "rigid_min.cu",
-        "value_gather.cu"]
-    assert len(native.KERNELS) == 8
+        "bit_gather.cu", "disk_collision.cu", "drivable_gather.cu", "lstm.cu", "offroad_count.cu",
+        "rigid_bwd.cu", "rigid_min.cu", "value_gather.cu"]
+    assert len(native.KERNELS) == 10
 
 
 def test_rollout_cli_defaults_to_cuda_and_runs_on_the_cpu(tmp_path, capsys):
@@ -136,3 +152,65 @@ def test_rollout_cli_sampler_and_guidance_flags(flags, tmp_path):
     np.testing.assert_array_equal(runs[0], runs[1])
     np.testing.assert_array_equal(runs[0][:, 1], runs[2][:, 1])  # the replay agent ignores guidance
     assert (np.diff(runs[0][:, :, 0], axis=0) > 0).all()  # both agents drive on
+
+
+def test_train_cli_runs_every_stage_on_the_cpu_without_jax(tmp_path):
+    """`python -m cld_tpu_torch.train --device cpu` on `cld_smoke` for 2 steps
+    of each stage, each loading the stage before it, then a resumed run, in
+    one subprocess that fails if any JAX-side module got imported."""
+    out = tmp_path / "runs"
+    code = f"""
+import json, sys
+from cld_tpu_torch import train
+base = ["--registered-name", "cld_smoke", "--device", "cpu", "--output", {str(out)!r}]
+train.main(base + ["--mode", "vae", "--steps", "2"])
+vae = ["--vae-ckpt", {str(out / "vae" / "ckpt_final")!r}]
+train.main(base + vae + ["--mode", "dm", "--steps", "2"])
+dm = ["--dm-ckpt", {str(out / "dm" / "ckpt_final")!r}]
+train.main(base + vae + dm + ["--mode", "ppo", "--steps", "2"])
+train.main(base + vae + ["--mode", "dm", "--steps", "4",
+                         "--resume", {str(out / "dm" / "ckpt_final_full")!r}])
+bad = sorted(m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r})
+print("FORBIDDEN_IMPORTED=" + json.dumps(bad))
+"""
+    env = dict(os.environ, PYTHONPATH=str(PKG.parent))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env,
+                         timeout=600, cwd=str(tmp_path))
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert "FORBIDDEN_IMPORTED=[]" in res.stdout, res.stdout[-500:]
+    assert "resumed full train state" in res.stdout and "at step 2" in res.stdout
+    for stage, steps in (("vae", [0, 1]), ("dm", [0, 1, 2, 3]), ("ppo", [0, 1])):
+        files = sorted(p.name for p in (out / stage).iterdir())
+        assert files == ["ckpt_final", "ckpt_final_full", "metrics.jsonl"], files
+        records = [json.loads(line) for line in (out / stage / "metrics.jsonl").read_text()
+                   .splitlines()]
+        assert [r["step"] for r in records] == steps
+        assert all(np.isfinite(v) for r in records for v in r.values())
+    full = torch.load(out / "dm" / "ckpt_final_full", weights_only=True)
+    assert full["step"] == 4 and full["loop_step"] == 4
+    assert sorted(full) == ["loop_step", "opt_state", "params", "step"]
+
+
+def test_train_cli_flags_and_unported_modes(tmp_path):
+    """The JAX CLI's flag names, `--device` defaulting to the card, and the
+    modes and options that wait for later slices raising with their ROADMAP
+    item."""
+    base = ["--registered-name", "cld_smoke", "--device", "cpu", "--output", str(tmp_path)]
+    for mode in ("scene_dm", "zoo", "gan", "ebm", "test"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            train.main(base + ["--mode", mode])
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        train.main(base + ["--mode", "vae", "--precision", "bf16"])
+    cfg = tmp_path / "c.yaml"
+    cfg.write_text("train:\n  data_path: /data/shards\n")
+    with pytest.raises(NotImplementedError, match="shards"):
+        train.main(base + ["--mode", "vae", "--config", str(cfg), "--steps", "1"])
+    src = Path(train.__file__).read_text()
+    for flag in ("--config", "--registered-name", "--mode", "--output", "--steps", "--resume",
+                 "--vae-ckpt", "--dm-ckpt", "--precision", "--device"):
+        assert f'"{flag}"' in src, flag
+    assert 'add_argument("--device", type=str, default="cuda"' in src
+    if not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError)):
+            train.main(["--registered-name", "cld_smoke", "--mode", "vae", "--steps", "1",
+                        "--output", str(tmp_path / "cuda")])
