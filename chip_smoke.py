@@ -64,8 +64,10 @@
    points each), with 5 groups of points per map, and at two odd small
    shapes; `disk_collision` within rtol 1e-5 / atol 1e-6 at T=52, B=128, D=5
    (scenes of 4, same-scene off-diagonal pairs, and every off-diagonal pair)
-   and at T/B/D 8/6/4 and 3/5/1, two launches bit-identical. Times each from
-   Python and from a CUDA graph.
+   and at T/B/D 8/6/4, 3/5/1 and 6/7/9 (more disks than the kernel unrolls,
+   so its runtime-D loop), and the runtime-D loop at D=5 too; two launches
+   bit-identical. Times each from Python and from a CUDA graph, the
+   runtime-D loop beside the unrolled one.
 14. Trains at full width on a synthetic batch (B=128, raster 224x224x34, the
    config of record with `steps_per_epoch` 1 so that the warm-up rate leaves
    0 after the first step): 2 warm-up and 5 timed `VAETrainer.train_step`s
@@ -73,12 +75,14 @@
    `DMTrainer.train_step` on the trained VAE; losses finite, parameters
    moved; prints steps/s.
 15. Runs the PPO stage at full width: a buffer of 3,000, 3 `collect_step`s
-   (exactly 3 `lstm2_fwd` and 3 `offroad_count` launches), the
-   `disk_collision` penalty of the last collection's trajectories (scenes of
-   4 agents parked 3 m apart, so that they overlap; held against its plain
-   version and against `AgentCollisionLoss`'s flat path), one update phase at
-   mini-batch 128 cut to 30 iterations, one `test_step` (one more
-   `lstm2_fwd`); prints collect steps/s and update iterations/s.
+   (exactly 3 `lstm2_fwd` and 3 `offroad_count` launches), one update phase
+   at mini-batch 128 cut to 30 iterations, one `test_step` (one more
+   `lstm2_fwd`); prints collect steps/s and update iterations/s. Then, as a
+   path of its own (`ppo_disk_penalty`: the trainer's entry points never call
+   this op), the `disk_collision` penalty of the last collection's
+   trajectories (scenes of 4 agents parked 3 m apart, so that they overlap;
+   held against its plain version and against `AgentCollisionLoss`'s flat
+   path): exactly 1 launch.
 16. Holds one VAE step's and one DM step's gradients and one `collect_step`'s
    trajectories and rewards on the card against the CPU at a small size (the
    `cld_smoke` widths, B=8), same weights and explicit noise.
@@ -1046,6 +1050,7 @@ def check_reward_kernels(batch, dev, report):
     maps = {"reward": (drv, (B, T)), "five_samples": (drv, (B, 5, T)),
             "odd": ((torch.rand((5, 64, 64), generator=g) > 0.4).float().to(dev), (5, 7)),
             "odd_groups": ((torch.rand((3, 33, 47), generator=g) - 0.4).to(dev), (3, 4, 9))}
+    worst = 0.0
     for name, (m, shape) in maps.items():
         hm, w = m.shape[-2:]
         pix = torch.stack([torch.randint(0, w, shape, generator=g),
@@ -1062,6 +1067,7 @@ def check_reward_kernels(batch, dev, report):
         check(torch.equal(got, again), f"offroad_count ({name}) differs between two launches")
         check(tuple(got.shape) == tuple(shape[:-1]), f"offroad_count ({name}) output shape")
         check(0 < n_off < pix[..., 0].numel(), "offroad_count fixture is degenerate")
+        worst = max(worst, float((got - want).abs().max()))
         if name == "reward":
             full = (pix, m)
     pix, m = full
@@ -1074,7 +1080,7 @@ def check_reward_kernels(batch, dev, report):
     b_ms, b_by = bound(8 * B * T + needed + 4 * B, float(B * T))
     log(f"offroad_count at B={B}, P={T}: {ms:.4f} ms from Python, {g_ms:.5f} ms from a CUDA "
         f"graph, plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms by {b_by} ({needed} map bytes)")
-    report["offroad_count"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+    report["offroad_count"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                    bound_by=b_by, library_ms=None, graph_ms=g_ms,
                                    source_bytes_needed=needed)
 
@@ -1093,7 +1099,7 @@ def check_reward_kernels(batch, dev, report):
     off_diag = lambda n: ~torch.eye(n, dtype=torch.bool, device=dev)
     cases = {"ppo": (T, B, 5, scene_pair_mask(B, AGENTS_PER_SCENE, dev)),
              "all_pairs": (T, B, 5, off_diag(B)), "odd": (8, 6, 4, off_diag(6)),
-             "one_disk": (3, 5, 1, off_diag(5))}
+             "one_disk": (3, 5, 1, off_diag(5)), "nine_disks": (6, 7, 9, off_diag(7))}
     worst, timed = 0.0, {}
     for name, (Tn, Bn, Dn, mask) in cases.items():
         args = fixture(Tn, Bn, Dn, mask)
@@ -1111,10 +1117,19 @@ def check_reward_kernels(batch, dev, report):
         check(float(want.max()) > 0.0, f"disk_collision fixture ({name}) has no collision")
         worst = max(worst, err)
         timed[name] = args
+        if name == "ppo":  # the runtime-D loop (what D > 8 takes) at the timed shape
+            looped = rk.disk_collision_penalty(*args, unrolled=False)
+            err = float((looped - want).abs().max())
+            log(f"disk_collision [{name}, runtime-D loop]: max abs err {err:.3e}")
+            check(bool(((looped - want).abs() <= 1e-5 * want.abs() + 1e-6).all()),
+                  "disk_collision (runtime-D loop) disagrees with its plain version")
+            worst = max(worst, err)
     args = timed["ppo"]
     ms = cuda_ms(lambda: rk.disk_collision_penalty(*args), 200)
     g_ms = graph_ms(lambda: rk.disk_collision_penalty(*args))
     g_all = graph_ms(lambda: rk.disk_collision_penalty(*timed["all_pairs"]))
+    g_loop = graph_ms(lambda: rk.disk_collision_penalty(*args, unrolled=False))
+    g_all_loop = graph_ms(lambda: rk.disk_collision_penalty(*timed["all_pairs"], unrolled=False))
     plain_ms = cuda_ms(lambda: rk.disk_collision_penalty_ref(*args), 5)
     # bytes: every input once, the output once. operations: per unmasked (t, i, j) the
     # 25 disk pairs (2 subtractions, 2 products, a sum, a min) and ~6 for the penalty;
@@ -1127,10 +1142,13 @@ def check_reward_kernels(batch, dev, report):
     log(f"disk_collision at T={T}, B={B}, D={D}, same-scene pairs: {ms:.4f} ms from Python, "
         f"{g_ms:.5f} ms from a CUDA graph, plain {plain_ms:.3f} ms, bound {b_ms:.6f} ms by {b_by}; "
         f"every off-diagonal pair: {g_all:.5f} ms from a graph, bound {ball_ms:.6f} ms by "
-        f"{ball_by}")
+        f"{ball_by}; with the runtime-D loop in place of the unrolled D x D: {g_loop:.5f} ms "
+        f"and {g_all_loop:.5f} ms from a graph")
     report["disk_collision"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                     bound_by=b_by, library_ms=None, graph_ms=g_ms,
-                                    graph_ms_all_pairs=g_all, bound_ms_all_pairs=ball_ms,
+                                    graph_ms_all_pairs=g_all, graph_ms_looped=g_loop,
+                                    graph_ms_all_pairs_looped=g_all_loop,
+                                    bound_ms_all_pairs=ball_ms,
                                     bound_by_all_pairs=ball_by)
 
 
@@ -1230,16 +1248,13 @@ def run_training(batch, dev, report):
     return cfg, dm_tr, dm_state
 
 
-def run_ppo(cfg, dm_tr, dm_state, batch, dev, report, kernels):
-    """The PPO stage at full width: 3 collections into a buffer of 3,000, the
-    disk-collision penalty of the collected trajectories, a 30-iteration
-    update phase at mini-batch 128, one test step."""
+def run_ppo(cfg, dm_tr, dm_state, batch, dev, report):
+    """The PPO stage at full width: 3 collections into a buffer of 3,000, a
+    30-iteration update phase at mini-batch 128, one test step. Returns the
+    last collection's trajectories."""
     import torch
 
-    from cld_tpu_torch.guidance import losses as gl
     from cld_tpu_torch.ops import native
-    from cld_tpu_torch.ops import reward_kernels as rk
-    from cld_tpu_torch.ops.geometry import world_from_agent_matrix
     from cld_tpu_torch.training.ppo import PPOTrainer, buffer_init
 
     COLLECTS, ITERS = 3, 30
@@ -1270,8 +1285,59 @@ def run_ppo(cfg, dm_tr, dm_state, batch, dev, report, kernels):
     want = counts(lstm2_fwd=COLLECTS, offroad_count=COLLECTS)
     check(launches == want, f"collect launches {launches}, expected {want}")
 
-    # the disk-collision penalty of the collected trajectories: scenes of 4 agents
-    # parked 3 m apart in one lane, so that neighbours' disks overlap from the start
+    before = snapshot(dm_state.model)
+    step0 = dm_state.step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    indices = torch.randint(0, buf.size, (ITERS, ppo.mini_batch), generator=gen, device=dev)
+    _, pm = ppo.ppo_update(dm_state, buf, indices=indices)
+    torch.cuda.synchronize()
+    update_s = time.perf_counter() - t0
+    pm = {k: float(v) for k, v in pm.items()}
+    delta = max_param_change(before, dm_state.model)
+    check(all(v == v for v in pm.values()), f"PPO metrics hold a NaN: {pm}")
+    check(0.0 <= pm["clip_fraction"] <= 1.0, f"clip_fraction {pm['clip_fraction']}")
+    check(dm_state.step == step0 + ITERS, f"PPO update took {dm_state.step - step0} steps")
+    check(delta > 0.0, "the PPO update moved no parameter")
+
+    rates, stats = ppo.test_step(dm_state, batch, generator=gen)
+    torch.cuda.synchronize()
+    rates = {k: float(v) for k, v in rates.items()}
+    check(all(0.0 <= v <= 1.0 for v in rates.values()), f"failure rates {rates}")
+    check(tuple(stats["long_acc_pred"].shape) == (B, T)
+          and all(bool(torch.isfinite(v).all()) for v in stats.values()),
+          "test step statistics are not finite [B, T]")
+    launches = native.launch_counts()
+    want = counts(lstm2_fwd=COLLECTS + 1, offroad_count=COLLECTS)
+    check(launches == want, f"PPO launches {launches}, expected {want}")
+    report["launches_ppo"] = launches
+    report["ppo"] = dict(ppo_collect_steps_per_sec=collect_rate, collect_s=secs,
+                         ppo_update_iters_per_sec=ITERS / update_s, update_iters=ITERS,
+                         update_metrics=pm, failure_rates=rates,
+                         mean_reward=float(out["reward"]))
+    log(f"ppo: {collect_rate:.3f} collect steps/s ({', '.join(f'{v:.2f}' for v in secs)} s), "
+        f"{ITERS / update_s:.2f} update iterations/s at mini-batch {ppo.mini_batch} ({ITERS} "
+        f"iterations, {update_s:.2f} s; parameters moved by up to {delta:.3e}), on "
+        f"{report['card']}; update metrics {json.dumps(pm)}; failure rates {json.dumps(rates)}; "
+        f"launches {launches}")
+    return traj
+
+
+def run_ppo_disk_penalty(traj, batch, dev, report, kernels):
+    """The disk-collision penalty of the trajectories that the PPO stage
+    collected. No entry point of the trainer calls this op (it has no
+    gradient and the PPO reward does not use it), so its launch is counted as
+    a path of its own, `ppo_disk_penalty`, and the `ppo` path launches it 0
+    times. The scene poses are this script's: scenes of 4 agents parked 3 m
+    apart in one lane, so that neighbours' disks overlap from the start."""
+    import torch
+
+    from cld_tpu_torch.guidance import losses as gl
+    from cld_tpu_torch.ops import native
+    from cld_tpu_torch.ops import reward_kernels as rk
+    from cld_tpu_torch.ops.geometry import world_from_agent_matrix
+
+    native.reset_launch_counts()
     lane = (torch.arange(B, device=dev) % AGENTS_PER_SCENE).float()
     wfa = world_from_agent_matrix(torch.stack([lane * 3.0, torch.zeros_like(lane)], -1),
                                   torch.zeros_like(lane))
@@ -1301,42 +1367,10 @@ def run_ppo(cfg, dm_tr, dm_state, batch, dev, report, kernels):
           "disk_collision disagrees with AgentCollisionLoss on the collected trajectories")
     check(float(ref.max()) > 0.0, "the collected trajectories have no collision")
     kernels["disk_collision"]["max_abs_err"] = max(kernels["disk_collision"]["max_abs_err"], err)
-
-    before = snapshot(dm_state.model)
-    step0 = dm_state.step
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    indices = torch.randint(0, buf.size, (ITERS, ppo.mini_batch), generator=gen, device=dev)
-    _, pm = ppo.ppo_update(dm_state, buf, indices=indices)
-    torch.cuda.synchronize()
-    update_s = time.perf_counter() - t0
-    pm = {k: float(v) for k, v in pm.items()}
-    delta = max_param_change(before, dm_state.model)
-    check(all(v == v for v in pm.values()), f"PPO metrics hold a NaN: {pm}")
-    check(0.0 <= pm["clip_fraction"] <= 1.0, f"clip_fraction {pm['clip_fraction']}")
-    check(dm_state.step == step0 + ITERS, f"PPO update took {dm_state.step - step0} steps")
-    check(delta > 0.0, "the PPO update moved no parameter")
-
-    rates, stats = ppo.test_step(dm_state, batch, generator=gen)
-    torch.cuda.synchronize()
-    rates = {k: float(v) for k, v in rates.items()}
-    check(all(0.0 <= v <= 1.0 for v in rates.values()), f"failure rates {rates}")
-    check(tuple(stats["long_acc_pred"].shape) == (B, T)
-          and all(bool(torch.isfinite(v).all()) for v in stats.values()),
-          "test step statistics are not finite [B, T]")
     launches = native.launch_counts()
-    want = counts(lstm2_fwd=COLLECTS + 1, offroad_count=COLLECTS, disk_collision=1)
-    check(launches == want, f"PPO launches {launches}, expected {want}")
-    report["launches_ppo"] = launches
-    report["ppo"] = dict(ppo_collect_steps_per_sec=collect_rate, collect_s=secs,
-                         ppo_update_iters_per_sec=ITERS / update_s, update_iters=ITERS,
-                         update_metrics=pm, failure_rates=rates,
-                         mean_reward=float(out["reward"]), disk_penalty_max=float(ref.max()))
-    log(f"ppo: {collect_rate:.3f} collect steps/s ({', '.join(f'{v:.2f}' for v in secs)} s), "
-        f"{ITERS / update_s:.2f} update iterations/s at mini-batch {ppo.mini_batch} ({ITERS} "
-        f"iterations, {update_s:.2f} s; parameters moved by up to {delta:.3e}), on "
-        f"{report['card']}; update metrics {json.dumps(pm)}; failure rates {json.dumps(rates)}; "
-        f"launches {launches}")
+    check(launches == counts(disk_collision=1), f"disk penalty launches {launches}, expected 1")
+    report["launches_ppo_disk_penalty"] = launches
+    report["ppo"]["disk_penalty_max"] = float(ref.max())
 
 
 def check_small_training(dev, report):
@@ -1467,7 +1501,8 @@ def main() -> int:
     check_small_slice(dev, report)
     check_small_slice(dev, report, min_dist_impl="rigid_kernel")
     cfg, dm_tr, dm_state = run_training(batch, dev, report)
-    run_ppo(cfg, dm_tr, dm_state, batch, dev, report, kernels)
+    traj = run_ppo(cfg, dm_tr, dm_state, batch, dev, report)
+    run_ppo_disk_penalty(traj, batch, dev, report, kernels)
     check_small_training(dev, report)
     del batch, dm_tr, dm_state
     torch.cuda.empty_cache()
@@ -1502,7 +1537,7 @@ def main() -> int:
              "px_replan": "launches_px_replan", "rigid_open_loop": "launches_rigid_kernel",
              "fused_open_loop": "launches_fused", "rigid_replan": "launches_rigid_replan",
              "vae_train": "launches_vae_train", "dm_train": "launches_dm_train",
-             "ppo": "launches_ppo"}
+             "ppo": "launches_ppo", "ppo_disk_penalty": "launches_ppo_disk_penalty"}
     line = []
     for name, (src, rep) in replaces.items():
         k = kernels[name]

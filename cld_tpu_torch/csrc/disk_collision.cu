@@ -27,7 +27,10 @@
 // time is no longer one dependent shared-memory read per distance. The first
 // version (every (t, j), runtime-D loops, 256 threads, then 512) took 0.035
 // and 0.0215 ms on the H100 whatever the mask held: the chain of 26 and 13
-// pair evaluations per thread. The sum is taken in a fixed order (each thread
+// pair evaluations per thread. The partner list alone brought the same-scene
+// mask to 0.0048 ms; the unrolling adds 9% there (0.0043 ms) and 1.56x with
+// every pair unmasked (0.0220 -> 0.0141 ms), which is what the switch over D
+// below is for. D > 8 takes the runtime-D loop. The sum is taken in a fixed order (each thread
 // over its own strided pairs, then a tree over the block) with no atomics, so
 // two launches agree bit for bit. The squares and the sum are kept as
 // separate roundings (no fused multiply-add), as the plain version computes
@@ -143,15 +146,17 @@ void launch(const float* cent, const float* pen_dists, const uint8_t* pair_mask,
 extern "C" {
 
 // cent [T, B, D, 2] f32; pen_dists [B, B] f32; pair_mask [B, B] bytes (0 or
-// not); decay [T] f32; out [B] f32. Launches on `stream`; returns
+// not); decay [T] f32; out [B] f32. `unrolled` = 0 takes the runtime-D loop
+// whatever D is (D > 8 always does). Launches on `stream`; returns
 // cudaGetLastError(). (T * D * 8 + B * 9) bytes of dynamic shared memory (the
 // wrapper keeps it under 48 KB).
 int cld_disk_collision(const float* cent, const float* pen_dists, const uint8_t* pair_mask,
-                       const float* decay, float* out, int T, int B, int D, void* stream) {
+                       const float* decay, float* out, int T, int B, int D, int unrolled,
+                       void* stream) {
   if (B == 0) return 0;
   const size_t smem = ((size_t)T * D * 2 + 2 * (size_t)B) * sizeof(float) + (size_t)B;
   cudaStream_t st = (cudaStream_t)stream;
-  switch (D <= kMaxUnrolledD ? D : 0) {
+  switch (unrolled && D <= kMaxUnrolledD ? D : 0) {
     case 1: launch<1>(cent, pen_dists, pair_mask, decay, out, T, B, D, smem, st); break;
     case 2: launch<2>(cent, pen_dists, pair_mask, decay, out, T, B, D, smem, st); break;
     case 3: launch<3>(cent, pen_dists, pair_mask, decay, out, T, B, D, smem, st); break;

@@ -71,7 +71,13 @@ def _lstm_stack(weights: _LSTMWeights, x: torch.Tensor, h0: torch.Tensor,
     and a zero cell state -> [B, T, H]. `keep_mask` [B, T, H] is the
     inter-layer dropout: layer 0's output times the mask over the keep
     probability. Each layer is one call of PyTorch's LSTM operator on the
-    stored weights (cuDNN on the card)."""
+    stored weights (cuDNN on the card): `torch._VF.lstm`, the private
+    function that `nn.LSTM.forward` calls, with that call's positional
+    signature (input, hx, flat weights, has_biases, num_layers, dropout,
+    train, bidirectional, batch_first), checked against torch 2.11 and 2.13.
+    It is used because the `state_dict` keeps the reference's flat
+    `weight_ih_l0 ...` names on a plain module and the mask goes between the
+    layers; the four separate parameters make cuDNN re-pack them per call."""
     hx = (h0[None].contiguous(), torch.zeros_like(h0)[None])
     # the operator's train flag only tells cuDNN to keep what its backward needs
     # (there is no dropout inside a single layer)

@@ -82,11 +82,14 @@ def disk_collision_penalty_ref(centroids, penalty_dists, pair_mask, decay) -> to
     return torch.mean(torch.sum(pen * decay[:, None, None], dim=0), dim=-1)
 
 
-def disk_collision_penalty(centroids, penalty_dists, pair_mask, decay) -> torch.Tensor:
+def disk_collision_penalty(centroids, penalty_dists, pair_mask, decay, *,
+                           unrolled: bool = True) -> torch.Tensor:
     """Per-agent decayed disk-collision penalty: centroids [T, B, D, 2] f32,
     penalty_dists [B, B] f32, pair_mask [B, B] bool, decay [T] f32 -> [B]
     f32. No gradient. The kernel sums in another order than the plain
-    version: they agree to ~1e-6 relative, and two launches bit for bit."""
+    version: they agree to ~1e-6 relative, and two launches bit for bit.
+    `unrolled=False` makes the kernel take its runtime-D loop, which D > 8
+    always takes, at any D (to time and check that loop)."""
     if centroids.device.type == "cpu":
         return disk_collision_penalty_ref(centroids, penalty_dists, pair_mask, decay)
     if centroids.device.type != "cuda":
@@ -104,7 +107,7 @@ def disk_collision_penalty(centroids, penalty_dists, pair_mask, decay) -> torch.
     lib = native.library()
     native.check(lib.cld_disk_collision(
         centroids.data_ptr(), penalty_dists.data_ptr(), pair_mask.data_ptr(), decay.data_ptr(),
-        out.data_ptr(), T, B, D, native.stream_ptr(dev),
+        out.data_ptr(), T, B, D, int(unrolled), native.stream_ptr(dev),
     ), "disk_collision")
     native.count_launch("disk_collision")
     return out
