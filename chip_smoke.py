@@ -10,11 +10,17 @@
    queries per agent on a 224x224 map), with TF32 off: the LSTM forward
    outputs, the LSTM reverse sweep's gate cotangents, the VJP of
    `Lstm2Core` in all five arguments against autograd through the plain
-   forward, and the bit gather (exactly). Times each kernel, its plain
-   version and, where one PyTorch call computes the same function, that
-   call; computes each kernel's bound from its bytes and operations (a
-   gather's bound counts, of its source, only the bytes under this run's
-   queries).
+   forward, and the bit gather (exactly). The two LSTM kernels are also held
+   at B/T/H 32/52/64 (the closed loop), 512/52/64 (two rows per CTA),
+   130/52/64 (a ragged last CTA) and 5/7/16 (small H), two launches of each
+   must agree bit for bit, and their registers and spills per thread are
+   reported. Times each kernel, its plain version and, where one PyTorch call
+   computes the same function, that call (cuDNN's LSTM forward, and its
+   backward beside the port's whole `Lstm2Core` VJP; one `torch.take` for
+   the two map gathers of step 6); the LSTM kernels also from a CUDA graph
+   at B = 32, 128 and 512. Computes each kernel's bound from its bytes and
+   operations (a gather's bound counts, of its source, only the bytes under
+   this run's queries).
 4. Runs `pipeline.guided_collect` at the full width of the config of record
    (ResNet-18 over 224x224x34, cond 256, UNet dim 32 x (2, 4, 8), LSTM H=64,
    100 DDPM steps, agent + map collision guidance) with seeded random
@@ -121,6 +127,9 @@ CL_B = CL_SCENES * CL_AGENTS
 WORLD_MAP = 512
 
 LSTM_REL_TOL = 1e-5  # max |kernel - plain| / max |plain|: f32, other summation order
+# B/T/H at which both LSTM kernels are held: the open and closed loops, two rows
+# per CTA, a ragged last CTA, a small H
+LSTM_SHAPES = ((B, T, H), (CL_B, T, H), (512, T, H), (130, T, H), (5, 7, 16))
 SLICE_RTOL = 1e-4  # small-slice card vs CPU: f32 networks on two backends
 
 
@@ -229,6 +238,51 @@ def gather_pix(g, M, Qn, W, Hm, dev):
     return pix.to(torch.int32).to(dev).contiguous()
 
 
+def lstm_inputs(g, Bn, Tn, Hn, dev):
+    """Random core inputs at one shape, the weights at the init scale
+    1/sqrt(H): ((xg1, h0, Wh1, W2, b2), dy)."""
+    import torch
+
+    k = Hn ** -0.5
+    u = lambda *shape: (torch.rand(shape, generator=g) * 2 - 1) * k
+    xs = (torch.randn((Bn, Tn, 4 * Hn), generator=g), torch.randn((Bn, Hn), generator=g) * 0.5,
+          u(Hn, 4 * Hn), u(2 * Hn, 4 * Hn), u(4 * Hn))
+    return tuple(x.to(dev).contiguous() for x in xs), torch.randn((Bn, Tn, Hn), generator=g).to(dev)
+
+
+def hold_lstm(args, dy):
+    """Both LSTM kernels against their plain versions on one input, and each
+    against a second launch of itself. Returns (the reverse sweep's inputs,
+    {fwd_abs, fwd_rel, bwd_abs, bwd_rel})."""
+    import torch
+
+    from cld_tpu_torch.ops import lstm_kernels as lk
+
+    Bn, Tn, Hn = dy.shape
+    got, again = lk.lstm2_fwd(*args), lk.lstm2_fwd(*args)
+    want = lk.lstm2_core_ref(*args)
+    y, h1s, c1s, c2s = want
+    bargs = (dy, *args, h1s, c1s, y, c2s)
+    dg_k, dg_k2 = lk.lstm2_bwd(*bargs), lk.lstm2_bwd(*bargs)
+    dg_p = lk.lstm2_bwd_ref(*bargs)
+    torch.cuda.synchronize()
+    fe = [rel_err(a, b) for a, b in zip(got, want)]
+    be = [rel_err(a, b) for a, b in zip(dg_k, dg_p)]
+    e = dict(fwd_abs=max(x[0] for x in fe), fwd_rel=max(x[1] for x in fe),
+             bwd_abs=max(x[0] for x in be), bwd_rel=max(x[1] for x in be))
+    shape = f"B/T/H {Bn}/{Tn}/{Hn}"
+    log(f"lstm2_fwd {shape}: max abs err {e['fwd_abs']:.3e}, max rel err {e['fwd_rel']:.3e}; "
+        f"lstm2_bwd: max abs err {e['bwd_abs']:.3e}, max rel err {e['bwd_rel']:.3e} "
+        f"(tolerance {LSTM_REL_TOL:.0e} of max |plain|)")
+    check(e["fwd_rel"] <= LSTM_REL_TOL, f"lstm2_fwd disagrees with its plain version at {shape}")
+    check(e["bwd_rel"] <= LSTM_REL_TOL, f"lstm2_bwd disagrees with its plain version at {shape}")
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"two lstm2_fwd launches differ at {shape}")
+    check(all(torch.equal(a, b) for a, b in zip(dg_k, dg_k2)),
+          f"two lstm2_bwd launches differ at {shape}")
+    return bargs, e
+
+
 def check_lstm(models, dev, report):
     """LSTM forward, reverse sweep and VJP against the plain versions."""
     import torch
@@ -242,29 +296,15 @@ def check_lstm(models, dev, report):
     xg1 = (z @ p.Wx1 + p.b1).contiguous()
     h0 = (cond @ p.Wc + p.bc).contiguous()
     args = (xg1, h0, p.Wh1, p.W2, p.b2)
-
-    got = lk.lstm2_fwd(*args)
-    want = lk.lstm2_core_ref(*args)
-    torch.cuda.synchronize()
-    errs = [rel_err(a, b) for a, b in zip(got, want)]
-    fwd_abs = max(e[0] for e in errs)
-    fwd_rel = max(e[1] for e in errs)
-    log(f"lstm2_fwd: max abs err {fwd_abs:.3e}, max rel err {fwd_rel:.3e} "
-        f"(tolerance {LSTM_REL_TOL:.0e} of max |plain|)")
-    check(fwd_rel <= LSTM_REL_TOL, f"lstm2_fwd disagrees with its plain version: {fwd_rel:.3e}")
-
-    y, h1s, c1s, c2s = want
     dy = torch.randn((B, T, H), generator=g).to(dev)
-    bargs = (dy, *args, h1s, c1s, y, c2s)
-    dg_k = lk.lstm2_bwd(*bargs)
-    dg_p = lk.lstm2_bwd_ref(*bargs)
-    torch.cuda.synchronize()
-    errs = [rel_err(a, b) for a, b in zip(dg_k, dg_p)]
-    bwd_abs = max(e[0] for e in errs)
-    bwd_rel = max(e[1] for e in errs)
-    log(f"lstm2_bwd: max abs err {bwd_abs:.3e}, max rel err {bwd_rel:.3e} "
-        f"(tolerance {LSTM_REL_TOL:.0e} of max |plain|)")
-    check(bwd_rel <= LSTM_REL_TOL, f"lstm2_bwd disagrees with its plain version: {bwd_rel:.3e}")
+    bargs, e128 = hold_lstm(args, dy)  # the decoder's own weights at the open loop's shape
+    held = {(B, T, H): (args, bargs)}
+    errs = {f"{B}/{T}/{H}": e128}
+    for shape in LSTM_SHAPES[1:]:
+        a, d = lstm_inputs(g, *shape, dev)
+        ba, errs["/".join(map(str, shape))] = hold_lstm(a, d)
+        held[shape] = (a, ba)
+    y = bargs[8]  # the plain forward's y
 
     def grads(fn):
         ts = [a.detach().clone().requires_grad_(True) for a in args]
@@ -281,11 +321,30 @@ def check_lstm(models, dev, report):
             f"(tolerance {LSTM_REL_TOL:.0e})")
         check(e_rel <= LSTM_REL_TOL, f"Lstm2Core VJP d{name} disagrees: {e_rel:.3e}")
 
+    # the compiler's verdict on each instantiation at H = 64
+    attrs = {}
+    for which, kname in enumerate(("lstm2_fwd_kernel", "lstm2_bwd_gates_kernel",
+                                   "lstm2_bwd_kernel")):
+        for R in ((1,) if which == 1 else lk.ROWS_PER_CTA):
+            a = lk.kernel_attributes(which, H, R)
+            attrs[f"{kname}<{H},{R}>" if which != 1 else f"{kname}<{H}>"] = a
+            log(f"{kname} H={H} R={R}: {a['registers']} registers, {a['local_bytes']} bytes of "
+                f"local memory per thread{' (spills: reported, not failed)' if a['local_bytes'] else ''}"
+                f", max {a['max_threads']} threads per block")
+
     # timings: kernel, plain version, and cuDNN's LSTM from the same latents
     fwd_ms = cuda_ms(lambda: lk.lstm2_fwd(*args), 50)
     fwd_plain_ms = cuda_ms(lambda: lk.lstm2_core_ref(*args), 5)
     bwd_ms = cuda_ms(lambda: lk.lstm2_bwd(*bargs), 50)
     bwd_plain_ms = cuda_ms(lambda: lk.lstm2_bwd_ref(*bargs), 5)
+    fwd_graph, bwd_graph = {}, {}
+    for Bn in (CL_B, B, 512):
+        a, ba = held[(Bn, T, H)]
+        fwd_graph[Bn] = graph_ms(lambda: lk.lstm2_fwd(*a), launches=20)
+        bwd_graph[Bn] = graph_ms(lambda: lk.lstm2_bwd(*ba), launches=20)
+    log("from a CUDA graph (weight pack included), ms at B=" + ", ".join(
+        f"{Bn}: lstm2_fwd {fwd_graph[Bn]:.4f}, lstm2_bwd {bwd_graph[Bn]:.4f}" for Bn in fwd_graph))
+
     cudnn = torch.nn.LSTM(L, H, num_layers=2, batch_first=True).to(dev)
     with torch.no_grad():
         lstm = models.decoder.lstm
@@ -297,6 +356,24 @@ def check_lstm(models, dev, report):
         e_lib = float((lib_y - y).abs().max())
         log(f"cuDNN nn.LSTM from z vs the plain core: max abs diff {e_lib:.3e}")
         fwd_lib_ms = cuda_ms(lambda: cudnn(z, hc), 50)
+        fwd_lib_graph = graph_ms(lambda: cudnn(z, hc), launches=20)
+
+    # backward yardsticks: cuDNN's (train mode; input, h0 and weights) and the
+    # port's whole Lstm2Core VJP (kernel + batched matmuls), each as forward +
+    # backward minus the same forward
+    zr = z.clone().requires_grad_(True)
+    h0r = hc[0].clone().requires_grad_(True)
+    lib_in = (zr, h0r, *cudnn.parameters())
+    lib_fwd = lambda: cudnn(zr, (h0r, hc[1]))[0]
+    lib_train_fwd_ms = cuda_ms(lib_fwd, 50)
+    bwd_lib_ms = cuda_ms(lambda: torch.autograd.grad(lib_fwd(), lib_in, dy), 50) - lib_train_fwd_ms
+    core_in = [a.detach().clone().requires_grad_(True) for a in args]
+    core_fwd = lambda: lk.lstm2_core(*core_in)
+    core_fwd_ms = cuda_ms(core_fwd, 50)
+    vjp_ms = cuda_ms(lambda: torch.autograd.grad(core_fwd(), core_in, dy), 50) - core_fwd_ms
+    log(f"lstm2_fwd {fwd_ms:.4f} ms from Python ({fwd_graph[B]:.4f} from a graph) vs cuDNN "
+        f"nn.LSTM forward {fwd_lib_ms:.4f} ({fwd_lib_graph:.4f}); lstm2_bwd {bwd_ms:.4f} ms, "
+        f"Lstm2Core VJP {vjp_ms:.4f} vs cuDNN backward {bwd_lib_ms:.4f} (B={B})")
 
     f32 = 4
     w_bytes = f32 * (H * 4 * H + 2 * H * 4 * H + 4 * H)
@@ -305,12 +382,21 @@ def check_lstm(models, dev, report):
     bwd_b, bwd_by = bound(
         f32 * (B * T * H + B * T * 4 * H + B * H + 4 * B * T * H + 2 * B * T * 4 * H) + w_bytes,
         2.0 * B * T * (H * 4 * H + 2 * H * 4 * H + 4 * H * 2 * H + 4 * H * H))
-    report["lstm2_fwd"] = dict(max_abs_err=fwd_abs, max_rel_err=fwd_rel, ms=fwd_ms,
-                               plain_ms=fwd_plain_ms, bound_ms=fwd_b, bound_by=fwd_by,
-                               library_ms=fwd_lib_ms)
-    report["lstm2_bwd"] = dict(max_abs_err=bwd_abs, max_rel_err=bwd_rel, ms=bwd_ms,
-                               plain_ms=bwd_plain_ms, bound_ms=bwd_b, bound_by=bwd_by,
-                               library_ms=None)
+    report["lstm2_fwd"] = dict(max_abs_err=e128["fwd_abs"], max_rel_err=e128["fwd_rel"],
+                               ms=fwd_ms, plain_ms=fwd_plain_ms, bound_ms=fwd_b, bound_by=fwd_by,
+                               library_ms=fwd_lib_ms, library_graph_ms=fwd_lib_graph,
+                               graph_ms={str(k): v for k, v in fwd_graph.items()},
+                               held={k: dict(abs=e["fwd_abs"], rel=e["fwd_rel"])
+                                     for k, e in errs.items()},
+                               attributes={k: v for k, v in attrs.items() if "fwd" in k})
+    report["lstm2_bwd"] = dict(max_abs_err=e128["bwd_abs"], max_rel_err=e128["bwd_rel"],
+                               ms=bwd_ms, plain_ms=bwd_plain_ms, bound_ms=bwd_b, bound_by=bwd_by,
+                               library_ms=bwd_lib_ms, library_train_fwd_ms=lib_train_fwd_ms,
+                               lstm2core_vjp_ms=vjp_ms,
+                               graph_ms={str(k): v for k, v in bwd_graph.items()},
+                               held={k: dict(abs=e["bwd_abs"], rel=e["bwd_rel"])
+                                     for k, e in errs.items()},
+                               attributes={k: v for k, v in attrs.items() if "bwd" in k})
 
 
 def check_gather(batch, dev, report):
@@ -504,8 +590,15 @@ def check_map_gathers(dev, report):
     b_ms, b_by, needed = gather_bound(pix, WIN, WIN, C, 4 * C)
     log(f"value_gather bound counts {needed} of {M * WIN * WIN * C} window bytes "
         "(those under a query)")
+    # yardstick: one torch.take on a flat index made outside the timed region
+    flat = ((torch.arange(M, device=dev)[:, None] * WIN + pix[..., 1].long()) * WIN
+            + pix[..., 0].long())[..., None] * C + torch.arange(C, device=dev)
+    check(torch.equal(torch.take(wins, flat).float(), want), "torch.take misses value_gather")
+    lib_ms = graph_ms(lambda: torch.take(wins, flat))
+    log(f"value_gather {ms:.4f} ms from Python, {graph_ms(lambda: gk.value_gather(pix, wins)):.4f}"
+        f" from a graph; torch.take {lib_ms:.4f} from a graph")
     report["value_gather"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                                  bound_by=b_by, library_ms=None, source_bytes_needed=needed)
+                                  bound_by=b_by, library_ms=lib_ms, source_bytes_needed=needed)
 
     drv = (torch.rand((CL_B, RASTER, RASTER), generator=g) < 0.6)
     pix = gather_pix(g, CL_B, Q, RASTER, RASTER, dev)
@@ -528,8 +621,16 @@ def check_map_gathers(dev, report):
     b_ms, b_by, needed = gather_bound(pix, RASTER, RASTER, 1, 4)
     log(f"drivable_gather bound counts {needed} of {CL_B * RASTER * RASTER} map bytes "
         "(those under a query)")
+    flat = ((torch.arange(CL_B, device=dev)[:, None] * RASTER + pix[..., 1].long()) * RASTER
+            + pix[..., 0].long())
+    check(torch.equal(torch.take(m8, flat).float(), gk.drivable_gather_ref(pix, m8)),
+          "torch.take misses drivable_gather")
+    lib_ms = graph_ms(lambda: torch.take(m8, flat))
+    log(f"drivable_gather {ms:.4f} ms from Python, "
+        f"{graph_ms(lambda: gk.drivable_gather(pix, m8)):.4f} from a graph; torch.take "
+        f"{lib_ms:.4f} from a graph")
     report["drivable_gather"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                                     bound_by=b_by, library_ms=None, source_bytes_needed=needed)
+                                     bound_by=b_by, library_ms=lib_ms, source_bytes_needed=needed)
 
 
 def check_warp(pack, dev, report):

@@ -20,10 +20,17 @@ Dispatch is by the device of the tensors: CUDA tensors launch the kernels
 (or the wrapper raises), CPU tensors take the plain PyTorch versions
 `lstm2_core_ref` / `lstm2_bwd_ref`, which compute the same functions.
 Storage and math are float32.
+
+The kernels keep each thread's weights in registers, in an order of their
+own: `pack_weights` lays Wh1 and W2 out that way before each launch (one
+gather), `unpack_weights` inverts it. They take H a multiple of 8 in [8, 64] (`check_hidden`) and run
+`rows_per_cta` batch rows in each CTA.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import NamedTuple, Tuple
 
 import torch
@@ -150,13 +157,116 @@ def lstm2_bwd_ref(dy, xg1, h0, Wh1, W2, b2, h1s, c1s, ys, c2s):
 
 
 # ---------------------------------------------------------------------------
+# the kernels' weight layout, hidden sizes and grid
+# ---------------------------------------------------------------------------
+
+LANES = 8  # lanes of one warp that own a hidden unit (`kLanes` in csrc/lstm.cu)
+H_RANGE = range(8, 65, 8)  # hidden sizes the kernels are built for
+COEF_PLANES = 13  # reverse-sweep coefficients per (b, t, unit) (`kPlanes`)
+
+
+def check_hidden(H: int) -> None:
+    """Raise ValueError unless the CUDA kernels are built for hidden size H."""
+    if H not in H_RANGE:
+        raise ValueError(f"LSTM kernels: hidden size {H} is not supported; they take H a "
+                         f"multiple of 8 in [8, 64]")
+
+
+ROWS_PER_CTA = (1, 2)  # the kernels' instantiations
+
+
+def rows_per_cta(B: int, sms: int) -> int:
+    """Batch rows per CTA of both sweeps: one while the B rows fit the card's
+    `sms` multiprocessors (one CTA each), two beyond. A step's time grows
+    with the rows a CTA carries, nearly in proportion from four rows on, so
+    on an H100 two rows in several waves beat four rows in one."""
+    return 1 if B <= sms else 2
+
+
+def _lane_elems(n: int) -> torch.Tensor:
+    """[LANES, n // LANES]: the indices, into a vector of n, that lane l of a
+    unit reads, in the order the kernels walk them. Lane l's m-th element is
+    (m // v * LANES + l) * v + m % v, with v = 4 (float4 reads) when each lane
+    has a multiple of 4 elements, else 1: the eight lanes read eight
+    consecutive float4s (or floats)."""
+    per = n // LANES
+    v = 4 if per % 4 == 0 else 1
+    m = torch.arange(per)
+    return ((m // v) * LANES + torch.arange(LANES)[:, None]) * v + m % v
+
+
+@functools.lru_cache(maxsize=None)
+def weight_index(kind: str, H: int, device: torch.device = torch.device("cpu")) -> torch.Tensor:
+    """Packed weight order of one kernel as indices into
+    cat(Wh1.flatten(), W2.flatten()); shape [3, H // 8, 8H, 4], thread
+    t = 8k + l (unit k, lane l) of the kernel at [:, :, t].
+
+    "fwd": parts Wh1, W2[:H], W2[H:]; entry [p, m, t, g] is row e of the
+    part (e = lane l's m-th element of the H inputs) at gate column g*H + k.
+    "bwd": parts W2[k], W2[H + k], Wh1[k] (rows); entry [p, m, t, c] is
+    column (m*8 + l)*4 + c of that row."""
+    G, K = 4 * H, H // LANES
+    k = torch.arange(H)
+    if kind == "fwd":
+        rows = _lane_elems(H).t()  # [K, LANES]
+        base = torch.tensor([0, H * G, 2 * H * G])
+        idx = (base[:, None, None, None, None] + rows[None, :, None, :, None] * G
+               + (torch.arange(4) * H)[None, None, None, None, :] + k[None, None, :, None, None])
+    elif kind == "bwd":
+        cols = _lane_elems(G).reshape(LANES, K, 4).permute(1, 0, 2)  # [K, LANES, 4]
+        rows = torch.stack([H + k, 2 * H + k, k])  # W2[k], W2[H + k], Wh1[k] as rows of the cat
+        idx = rows[:, None, :, None, None] * G + cols[None, :, None, :, :]
+    else:
+        raise ValueError(f"weight_index: kind {kind!r}, expected 'fwd' or 'bwd'")
+    return idx.reshape(3, K, LANES * H, 4).to(device)
+
+
+def pack_weights(kind: str, Wh1: torch.Tensor, W2: torch.Tensor) -> torch.Tensor:
+    """Wh1 [H, 4H], W2 [2H, 4H] -> one kernel's weight layout ("fwd" or
+    "bwd", see `weight_index`), [3, H/8, 8H, 4]."""
+    flat = torch.cat((Wh1.reshape(-1), W2.reshape(-1)))
+    return flat.take(weight_index(kind, Wh1.shape[0], flat.device))
+
+
+def unpack_weights(kind: str, packed: torch.Tensor, H: int):
+    """Inverse of `pack_weights` -> (Wh1, W2)."""
+    flat = torch.empty(12 * H * H, dtype=packed.dtype, device=packed.device)
+    flat[weight_index(kind, H, packed.device).reshape(-1)] = packed.reshape(-1)
+    return flat[: 4 * H * H].reshape(H, 4 * H), flat[4 * H * H:].reshape(2 * H, 4 * H)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def kernel_attributes(which: int, H: int, R: int = 1) -> dict:
+    """The compiler's verdict on one instantiation (which: 0 the forward, 1
+    the reverse sweep's gates kernel, 2 its chain): registers and local
+    memory bytes (spills) per thread, max threads per block."""
+    out = (ctypes.c_int * 3)()
+    native.check(native.library().cld_lstm2_attributes(which, H, R, ctypes.addressof(out)),
+                 "lstm2 attributes")
+    return dict(registers=out[0], local_bytes=out[1], max_threads=out[2])
+
+
+# ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
 
 def _shapes(xg1, h0):
     B, T, H4 = xg1.shape
-    return B, T, H4 // 4
+    H = H4 // 4
+    check_hidden(H)
+    return B, T, H
+
+
+def _require_aligned(**tensors) -> None:
+    """The kernels read these as float4: 16-byte aligned storage."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: storage must be 16-byte aligned for the LSTM kernels")
 
 
 def lstm2_fwd(xg1, h0, Wh1, W2, b2):
@@ -172,20 +282,22 @@ def lstm2_fwd(xg1, h0, Wh1, W2, b2):
                            ("Wh1", Wh1, (H, 4 * H)), ("W2", W2, (2 * H, 4 * H)),
                            ("b2", b2, (4 * H,))):
         native.require(t, name, f32, shape, dev)
-    y, h1s, c1s, c2s = (torch.empty((B, T, H), dtype=f32, device=dev) for _ in range(4))
+    y, h1s, c1s, c2s = torch.empty((4, B, T, H), dtype=f32, device=dev).unbind(0)
+    wpk = pack_weights("fwd", Wh1, W2)
     lib = native.library()
     native.check(lib.cld_lstm2_fwd(
-        xg1.data_ptr(), h0.data_ptr(), Wh1.data_ptr(), W2.data_ptr(), b2.data_ptr(),
+        xg1.data_ptr(), h0.data_ptr(), wpk.data_ptr(), b2.data_ptr(),
         y.data_ptr(), h1s.data_ptr(), c1s.data_ptr(), c2s.data_ptr(), B, T, H,
-        native.stream_ptr(dev),
+        rows_per_cta(B, _sm_count(dev)), native.stream_ptr(dev),
     ), "lstm2_fwd")
     native.count_launch("lstm2_fwd")
     return y, h1s, c1s, c2s
 
 
 def lstm2_bwd(dy, xg1, h0, Wh1, W2, b2, h1s, c1s, ys, c2s):
-    """Reverse sweep -> (dg1, dg2). CUDA tensors launch `lstm2_bwd_kernel`;
-    CPU tensors take `lstm2_bwd_ref`."""
+    """Reverse sweep -> (dg1, dg2). CUDA tensors launch the gates kernel into
+    a scratch buffer and then `lstm2_bwd_kernel` (one launch counted); CPU
+    tensors take `lstm2_bwd_ref`."""
     if xg1.device.type == "cpu":
         return lstm2_bwd_ref(dy, xg1, h0, Wh1, W2, b2, h1s, c1s, ys, c2s)
     if xg1.device.type != "cuda":
@@ -198,13 +310,17 @@ def lstm2_bwd(dy, xg1, h0, Wh1, W2, b2, h1s, c1s, ys, c2s):
                            ("b2", b2, (4 * H,)), ("h1s", h1s, seq), ("c1s", c1s, seq),
                            ("ys", ys, seq), ("c2s", c2s, seq)):
         native.require(t, name, f32, shape, dev)
+    _require_aligned(xg1=xg1, Wh1=Wh1, W2=W2, b2=b2)
     dg1 = torch.empty((B, T, 4 * H), dtype=f32, device=dev)
     dg2 = torch.empty_like(dg1)
+    coef = torch.empty((B, T, COEF_PLANES, H), dtype=f32, device=dev)
+    wpk = pack_weights("bwd", Wh1, W2)
     lib = native.library()
     native.check(lib.cld_lstm2_bwd(
         dy.data_ptr(), xg1.data_ptr(), h0.data_ptr(), Wh1.data_ptr(), W2.data_ptr(),
         b2.data_ptr(), h1s.data_ptr(), c1s.data_ptr(), ys.data_ptr(), c2s.data_ptr(),
-        dg1.data_ptr(), dg2.data_ptr(), B, T, H, native.stream_ptr(dev),
+        wpk.data_ptr(), coef.data_ptr(), dg1.data_ptr(), dg2.data_ptr(), B, T, H,
+        rows_per_cta(B, _sm_count(dev)), native.stream_ptr(dev),
     ), "lstm2_bwd")
     native.count_launch("lstm2_bwd")
     return dg1, dg2

@@ -111,10 +111,12 @@ def library() -> ctypes.CDLL:
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.cld_lstm2_fwd.argtypes = [p] * 9 + [i, i, i, p]
+        lib.cld_lstm2_fwd.argtypes = [p] * 8 + [i] * 4 + [p]
         lib.cld_lstm2_fwd.restype = i
-        lib.cld_lstm2_bwd.argtypes = [p] * 12 + [i, i, i, p]
+        lib.cld_lstm2_bwd.argtypes = [p] * 14 + [i] * 4 + [p]
         lib.cld_lstm2_bwd.restype = i
+        lib.cld_lstm2_attributes.argtypes = [i, i, i, p]
+        lib.cld_lstm2_attributes.restype = i
         lib.cld_bit_gather.argtypes = [p] * 3 + [i, i, i, i, p]
         lib.cld_bit_gather.restype = i
         lib.cld_value_gather.argtypes = [p] * 3 + [i, i, i, i, i, p]

@@ -159,3 +159,95 @@ def test_decoder_params_match_jax_extraction(vae_pair):
     for name in want._fields:
         np.testing.assert_array_equal(getattr(got, name).detach().numpy(),
                                       np.asarray(getattr(want, name)), err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels' weight layout, grid and hidden sizes (host side)
+# ---------------------------------------------------------------------------
+
+
+def _packed_fwd_matvec(packed, part, h):
+    """h [B, H] through part p of the forward layout, walked as the kernel
+    does: lane l of unit k sums h[e] * W[e, g*H + k] over its elements, then
+    the eight lanes' partial sums add up -> [B, 4H] in gate order."""
+    H = h.shape[-1]
+    rows = tl._lane_elems(H)  # [8, K]
+    w = packed[part].reshape(H // tl.LANES, H, tl.LANES, 4)  # [m, k, l, g]
+    partial = torch.einsum("blm,mklg->bklg", h[:, rows], w)
+    return partial.sum(dim=2).permute(0, 2, 1).reshape(h.shape[0], 4 * H)
+
+
+def _packed_bwd_matvec(packed, part, d):
+    """d [B, 4H] through part p of the reverse sweep's layout: lane l of unit
+    k sums d[j] * row_k[j] over its gate columns -> [B, H]."""
+    H = d.shape[-1] // 4
+    cols = tl._lane_elems(4 * H)  # [8, H/2]
+    w = packed[part].reshape(H // tl.LANES, H, tl.LANES, 4).permute(1, 2, 0, 3)
+    partial = torch.einsum("blj,klj->bkl", d[:, cols], w.reshape(H, tl.LANES, H // 2))
+    return partial.sum(dim=2)
+
+
+@pytest.mark.parametrize("kind", ["fwd", "bwd"])
+@pytest.mark.parametrize("H", [8, 16, 64])
+def test_weight_packing_is_a_permutation(kind, H):
+    idx = tl.weight_index(kind, H)
+    assert idx.shape == (3, H // 8, 8 * H, 4)
+    assert torch.equal(idx.reshape(-1).sort().values, torch.arange(12 * H * H))
+    _, _, Wh1, W2, _ = map(torch.from_numpy, _core_inputs(8, 2, 3, H))
+    back = tl.unpack_weights(kind, tl.pack_weights(kind, Wh1, W2), H)
+    assert torch.equal(back[0], Wh1) and torch.equal(back[1], W2)
+
+
+@pytest.mark.parametrize("H", [8, 16, 64])
+def test_packed_layouts_give_the_jax_reference_gates(H):
+    """A plain matvec in each packed layout, against h @ Wh1, [h1, h2] @ W2
+    and their transposes, and one cell step from the packed products against
+    the JAX package's `lstm2_core_ref` states."""
+    B, T = 3, 4
+    args = _core_inputs(9, B, T, H)
+    y, h1s, c1s, c2s = (torch.from_numpy(np.array(a))
+                        for a in jl.lstm2_core_ref(*map(jnp.asarray, args)))
+    xg1, _, Wh1, W2, b2 = map(torch.from_numpy, args)
+    fwd = tl.pack_weights("fwd", Wh1, W2)
+    t = 2
+    h1p, h1t, h2p = h1s[:, t - 1], h1s[:, t], y[:, t - 1]
+    np.testing.assert_allclose(_packed_fwd_matvec(fwd, 0, h1p), h1p @ Wh1, **VAL)
+    in2 = torch.cat([h1t, h2p], -1)
+    pre2 = _packed_fwd_matvec(fwd, 1, h1t) + _packed_fwd_matvec(fwd, 2, h2p)
+    np.testing.assert_allclose(pre2, in2 @ W2, **VAL)
+    for pre, c_prev, h_want, c_want in (
+            (xg1[:, t] + _packed_fwd_matvec(fwd, 0, h1p), c1s[:, t - 1], h1t, c1s[:, t]),
+            (pre2 + b2, c2s[:, t - 1], y[:, t], c2s[:, t])):
+        i, f, g, o = tl._gate_act(pre, H)
+        c = f * c_prev + i * g
+        np.testing.assert_allclose(c, c_want, **VAL)
+        np.testing.assert_allclose(o * torch.tanh(c), h_want, **VAL)
+
+    bwd = tl.pack_weights("bwd", Wh1, W2)
+    d = torch.from_numpy(np.random.default_rng(10).normal(size=(B, 4 * H)).astype(np.float32))
+    np.testing.assert_allclose(_packed_bwd_matvec(bwd, 0, d), d @ W2[:H].T, **VAL)
+    np.testing.assert_allclose(_packed_bwd_matvec(bwd, 1, d), d @ W2[H:].T, **VAL)
+    np.testing.assert_allclose(_packed_bwd_matvec(bwd, 2, d), d @ Wh1.T, **VAL)
+
+
+@pytest.mark.parametrize("B", [1, 5, 130, 132, 133, 264, 265, 512])
+def test_rows_per_cta_covers_every_row_once(B):
+    sms = 132
+    R = tl.rows_per_cta(B, sms)
+    assert R in tl.ROWS_PER_CTA
+    if B <= sms:
+        assert R == 1
+    grid = (B + R - 1) // R
+    rows = torch.arange(grid)[:, None] * R + torch.arange(R)
+    rows = rows[rows < B]
+    assert torch.equal(rows, torch.arange(B))
+    assert grid <= sms or R == max(tl.ROWS_PER_CTA)
+
+
+@pytest.mark.parametrize("H", [8, 16, 24, 64, 0, 4, 12, 63, 72, 128])
+def test_check_hidden_names_the_kernels_range(H):
+    if H in (8, 16, 24, 64):
+        tl.check_hidden(H)
+    else:
+        with pytest.raises(ValueError, match=r"multiple of 8 in \[8, 64\]"):
+            tl.check_hidden(H)
