@@ -31,9 +31,12 @@
    the results against each other.
 6. Holds the two map-gather kernels of the closed loop against their plain
    versions, exactly, at the closed loop's shapes: `value_gather` (64
-   windows of 256x256x3 int8, 25,088 queries each) and `drivable_gather`
-   (32 maps of 224x224, 5,200 queries each; int8 and float32 maps); and the
-   banded `warp_scene_maps` against the exact one for the 32-agent pack.
+   windows of 256x256x3 int8, 25,088 queries each; also with Q % 4 != 0,
+   C = 1, 4 and 5, one window, and pix 8 bytes off a 16-byte boundary, with
+   its registers and spills, and its time from a CUDA graph beside one
+   `torch.take`) and `drivable_gather` (32 maps of 224x224, 5,200 queries
+   each; int8 and float32 maps); and the banded `warp_scene_maps` against
+   the exact one for the 32-agent pack.
 7. Runs the guided closed loop `sim.env.simulate` at full width: 4 scenes x
    8 agents, raster 224x224x34, world maps 512x512x3, 100 frames, a replan
    every 5 frames, each replan one guided 100-step DDPM call. Launch counts
@@ -54,7 +57,10 @@
    an all-off-road and an all-on-road step forced) and at two ragged shapes:
    `rigid_min` and `rigid_min_fused` give `dist` within 1e-6 relative and
    `idx` exactly, and equal each other bit for bit; `rigid_bwd` agrees
-   within rtol 1e-4 / atol 1e-5 and repeats itself bit for bit. Times each.
+   within rtol 1e-4 / atol 1e-5 and repeats itself bit for bit, there and at
+   P = 1, P = 33 and with every column routed to one row (P = 100 and 224).
+   Times each, from a CUDA graph at B = 128 and 32, with `rigid_bwd`'s
+   registers and spills at P = 1, 33, 100 and 224.
 11. Runs `pipeline.guided_collect` at full width with
    `MapCollisionLoss(min_dist_impl="rigid_kernel")` (99 `rigid_min`, 99
    `rigid_bwd`, no `rigid_min_fused`) and with `min_dist_impl="rigid",
@@ -565,7 +571,9 @@ def check_small_slice(dev, report, min_dist_impl="separable"):
 
 def check_map_gathers(dev, report):
     """`value_gather` and `drivable_gather` against their plain versions at
-    the closed loop's shapes, exactly."""
+    the closed loop's shapes, exactly; `value_gather` also at ragged shapes,
+    with its registers and spills and its time from a CUDA graph beside one
+    `torch.take`."""
     import torch
 
     from cld_tpu_torch.ops import gather_kernels as gk
@@ -585,20 +593,57 @@ def check_map_gathers(dev, report):
     check(err == 0.0, "value_gather disagrees with its plain version")
     check(float(want.min()) == -128.0 and float(want.max()) == 127.0,
           "value_gather fixture misses the byte range's ends")
+    # ragged shapes: Q % 4 != 0 and pix 8 bytes off a 16-byte boundary (the
+    # kernel's scalar path), C = 1, 4 and 5 (its runtime-C loop), one window
+    held = {}
+    for name, (Mn, Qn, Hn, Wn, Cn, shift) in {
+            "q_ragged_c1": (5, 1027, 40, 48, 1, 0), "c4": (3, 4096, 64, 64, 4, 0),
+            "m1_q_ragged_c4": (1, Qb - 1, WIN, WIN, 4, 0), "m1_c3": (1, 1029, 33, 17, 3, 0),
+            "c5": (2, 300, 20, 30, 5, 0), "pix_off16": (4, 2048, 64, 64, 3, 1)}.items():
+        w = torch.randint(-128, 128, (Mn, Hn, Wn, Cn), generator=g, dtype=torch.int8).to(dev)
+        p = gather_pix(g, Mn, Qn, Wn, Hn, dev)
+        if shift:
+            p = torch.cat([torch.zeros(2, dtype=torch.int32, device=dev), p.reshape(-1)])[2:]
+            p = p.view(Mn, Qn, 2)
+            check(p.data_ptr() % 16 == 8, "value_gather fixture: pix not 8 bytes off")
+        a, b = gk.value_gather(p, w), gk.value_gather_ref(p, w)
+        torch.cuda.synchronize()
+        held[name] = float((a - b).abs().max())
+        log(f"value_gather [{name}: M={Mn}, Q={Qn}, {Hn}x{Wn}x{Cn}]: max abs err {held[name]} "
+            "(exact)")
+        check(held[name] == 0.0, f"value_gather ({name}) disagrees with its plain version")
+    attrs = {name: gk.value_gather_attributes(Cn, v)
+             for name, Cn, v in (("C=3,vector", 3, True), ("C=3,scalar", 3, False),
+                                 ("any other C", 1, False))}
+    for k, a in attrs.items():
+        log(f"value_gather_kernel {k}: {a['registers']} registers, {a['local_bytes']} bytes of "
+            f"local memory per thread{' (spills: reported, not failed)' if a['local_bytes'] else ''}")
     ms = cuda_ms(lambda: gk.value_gather(pix, wins), 100)
     plain_ms = cuda_ms(lambda: gk.value_gather_ref(pix, wins), 20)
     b_ms, b_by, needed = gather_bound(pix, WIN, WIN, C, 4 * C)
+    # the same bound with the windows read in whole 32-byte sectors, as the
+    # memory system moves them
+    byte = (((torch.arange(M, device=dev)[:, None] * WIN + pix[..., 1].long()) * WIN
+             + pix[..., 0].long()) * C)[..., None] + torch.arange(C, device=dev)
+    sectors = int(torch.unique(byte // 32).numel())
+    sector_ms = bound(8 * M * Qb + 32 * sectors + 4 * C * M * Qb, 0.0)[0]
     log(f"value_gather bound counts {needed} of {M * WIN * WIN * C} window bytes "
-        "(those under a query)")
+        f"(those under a query); in 32-byte sectors {32 * sectors} bytes, bound {sector_ms:.5f}")
     # yardstick: one torch.take on a flat index made outside the timed region
     flat = ((torch.arange(M, device=dev)[:, None] * WIN + pix[..., 1].long()) * WIN
             + pix[..., 0].long())[..., None] * C + torch.arange(C, device=dev)
     check(torch.equal(torch.take(wins, flat).float(), want), "torch.take misses value_gather")
-    lib_ms = graph_ms(lambda: torch.take(wins, flat))
-    log(f"value_gather {ms:.4f} ms from Python, {graph_ms(lambda: gk.value_gather(pix, wins)):.4f}"
-        f" from a graph; torch.take {lib_ms:.4f} from a graph")
+    # `ms` and `library_ms` both from Python, the graph times beside them
+    lib_ms = cuda_ms(lambda: torch.take(wins, flat), 100)
+    lib_graph = graph_ms(lambda: torch.take(wins, flat))
+    k_graph = graph_ms(lambda: gk.value_gather(pix, wins))
+    log(f"value_gather {ms:.4f} ms from Python, {k_graph:.5f} from a graph; torch.take "
+        f"{lib_ms:.4f} from Python, {lib_graph:.5f} from a graph; bound {b_ms:.5f} ({b_by})")
     report["value_gather"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                                  bound_by=b_by, library_ms=lib_ms, source_bytes_needed=needed)
+                                  bound_by=b_by, library_ms=lib_ms, source_bytes_needed=needed,
+                                  source_sector_bytes=32 * sectors, sector_bound_ms=sector_ms,
+                                  graph_ms=k_graph, library_graph_ms=lib_graph, held=held,
+                                  attributes=attrs)
 
     drv = (torch.rand((CL_B, RASTER, RASTER), generator=g) < 0.6)
     pix = gather_pix(g, CL_B, Q, RASTER, RASTER, dev)
@@ -625,12 +670,14 @@ def check_map_gathers(dev, report):
             + pix[..., 0].long())
     check(torch.equal(torch.take(m8, flat).float(), gk.drivable_gather_ref(pix, m8)),
           "torch.take misses drivable_gather")
-    lib_ms = graph_ms(lambda: torch.take(m8, flat))
-    log(f"drivable_gather {ms:.4f} ms from Python, "
-        f"{graph_ms(lambda: gk.drivable_gather(pix, m8)):.4f} from a graph; torch.take "
-        f"{lib_ms:.4f} from a graph")
+    lib_ms = cuda_ms(lambda: torch.take(m8, flat), 200)
+    lib_graph = graph_ms(lambda: torch.take(m8, flat))
+    k_graph = graph_ms(lambda: gk.drivable_gather(pix, m8))
+    log(f"drivable_gather {ms:.4f} ms from Python, {k_graph:.5f} from a graph; torch.take "
+        f"{lib_ms:.4f} from Python, {lib_graph:.5f} from a graph")
     report["drivable_gather"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                                     bound_by=b_by, library_ms=lib_ms, source_bytes_needed=needed)
+                                     bound_by=b_by, library_ms=lib_ms, source_bytes_needed=needed,
+                                     graph_ms=k_graph, library_graph_ms=lib_graph)
 
 
 def check_warp(pack, dev, report):
@@ -908,6 +955,35 @@ def check_rigid(batch, dev, report):
         if name == "open_loop":
             full = (d2, on, pts, gout, want_d, want_i)
 
+    # the backward alone where its grouping of a warp's columns by row is
+    # edge-prone: one column, one column past a chunk of 32, every column
+    # routed to one row (groups of 32)
+    for name, (Bn, Qn, Pn, row) in {"p1": (4, 5, 1, None), "p33": (4, 5, 33, None),
+                                    "one_row": (4, 5, P, 37),
+                                    "one_row_max_p": (2, 3, rk.MAX_P, 0)}.items():
+        pts = (torch.randn((Bn, Qn, Pn, 2), generator=g) * 5.0).to(dev)
+        idx = (torch.randint(0, Pn, (Bn, Qn, Pn), generator=g) if row is None
+               else torch.full((Bn, Qn, Pn), row)).to(torch.int32).to(dev)
+        dist = (torch.rand((Bn, Qn, Pn), generator=g) * 1.5 + 0.5).to(dev)
+        gout = torch.randn((Bn, Qn, Pn), generator=g).to(dev)
+        got = rk.rigid_bwd(pts, idx, dist, gout)
+        again = rk.rigid_bwd(pts, idx, dist, gout)
+        ref = rk.rigid_bwd_ref(pts, idx, dist, gout)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        log(f"rigid_bwd [{name}: B={Bn}, Q={Qn}, P={Pn}]: max abs err {err:.3e} (rtol 1e-4, "
+            f"atol 1e-5; max |plain| {float(ref.abs().max()):.3g}); repeated launch "
+            f"bit-identical: {bool(torch.equal(got, again))}")
+        check(bool(((got - ref).abs() <= 1e-4 * ref.abs() + 1e-5).all()),
+              f"rigid_bwd ({name}) disagrees with its plain version")
+        check(torch.equal(got, again), f"rigid_bwd ({name}) differs between two launches")
+        # one point can only route to itself: p a - a p, zero up to rounding
+        check(Pn == 1 or float(ref.abs().max()) > 0.0, "rigid_bwd fixture routes nothing")
+        if row is not None:
+            check(not bool(torch.cat([got[:, :, :row], got[:, :, row + 1:]], 2).any()),
+                  f"rigid_bwd ({name}) routes to a row other than {row}")
+        worst["rigid_bwd"] = max(worst["rigid_bwd"], err)
+
     d2, on, pts, gout, dist, idx = full
     ms = {
         "rigid_min": cuda_ms(lambda: rk.rigid_min(d2, on), 200),
@@ -926,24 +1002,38 @@ def check_rigid(batch, dev, report):
     }
     gms32 = {k: graph_ms(lambda: getattr(rk, k)(d2s, ons))
              for k in ("rigid_min", "rigid_min_fused")}
+    bwd32 = [t[:CL_B].contiguous() for t in (pts, idx, dist, gout)]
+    gms32["rigid_bwd"] = graph_ms(lambda: rk.rigid_bwd(*bwd32))
+    bwd_attrs = {Pn: rk.rigid_bwd_attributes(Pn) for Pn in (1, 33, P, rk.MAX_P)}
+    for Pn, a in bwd_attrs.items():
+        log(f"rigid_bwd_kernel P={Pn}: {a['registers']} registers, {a['local_bytes']} bytes of "
+            f"local memory per thread{' (spills: reported, not failed)' if a['local_bytes'] else ''}")
     log(f"rigid kernels at B={B}, back to back from Python: "
         + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
         + f"; plain min {plain_min:.3f} ms, plain bwd {plain_bwd:.3f} ms")
     log(f"rigid kernels from a CUDA graph: at B={B} "
         + ", ".join(f"{k} {v:.5f} ms" for k, v in gms.items()) + f"; at B={CL_B} "
         + ", ".join(f"{k} {v:.5f} ms" for k, v in gms32.items()))
-    # bytes: every input read once, every output written once; operations: one
-    # compare and one select per (b, q, i, j)
+    # bytes: every input read once, every output written once; operations: the
+    # min's one compare and one select per (b, q, i, j); the backward's division,
+    # two products and three sums per column and two products and two
+    # differences per row
     n = B * T * P
     min_b, min_by = bound(4 * B * P * P + n + 8 * n, 2.0 * n * P)
-    bwd_b, bwd_by = bound(8 * n + 3 * 4 * n + 8 * n, 2.0 * n * P)
+    bwd_b, bwd_by = bound(8 * n + 3 * 4 * n + 8 * n, 10.0 * n)
     for k in ("rigid_min", "rigid_min_fused"):
         report[k] = dict(max_abs_err=worst[k], ms=ms[k], plain_ms=plain_min, bound_ms=min_b,
                          bound_by=min_by, library_ms=None, graph_ms=gms[k],
                          graph_ms_at_b32=gms32[k])
+    n32 = CL_B * T * P
+    bwd32_b = bound(8 * n32 + 3 * 4 * n32 + 8 * n32, 10.0 * n32)[0]
+    log(f"rigid_bwd from a graph: {gms['rigid_bwd']:.5f} ms at B={B} (bound {bwd_b:.5f}), "
+        f"{gms32['rigid_bwd']:.5f} at B={CL_B} (bound {bwd32_b:.5f})")
     report["rigid_bwd"] = dict(max_abs_err=worst["rigid_bwd"], ms=ms["rigid_bwd"],
                                plain_ms=plain_bwd, bound_ms=bwd_b, bound_by=bwd_by,
-                               library_ms=None, graph_ms=gms["rigid_bwd"])
+                               library_ms=None, graph_ms=gms["rigid_bwd"],
+                               graph_ms_at_b32=gms32["rigid_bwd"], bound_ms_at_b32=bwd32_b,
+                               attributes={str(k): v for k, v in bwd_attrs.items()})
 
 
 RIGID_SPECS = {"rigid_kernel": dict(min_dist_impl="rigid_kernel"),

@@ -11,52 +11,150 @@
 // float2.
 //
 // What bounds it on the H100: bytes. At B = 128, Q = 52, P = 100 it moves
-// 18.6 MB (pts and grad 5.3 MB each, idx, dist and g 2.7 MB each), 5.6 us at
-// the memory rate, against B*Q*P*P = 67 M compares.
+// 18.6 MB (pts and grad 5.3 MB each, idx, dist and g 2.7 MB each), 0.00556 ms
+// at the memory rate. The routing itself is P adds per (b, q).
 //
-// What the design does about it: one block per (b, q) stages a_j, a_j p_j and
-// idx_j in shared memory; thread i then walks j in ascending order and sums
-// the columns whose argmin is row i. A gather, not a scatter with atomics:
-// the order of every sum is fixed, so the gradient is the same bit for bit on
-// every launch. All threads read the same shared address at each j (a
-// broadcast), so the walk is conflict-free.
+// The first design (0.0405 ms from a CUDA graph on an H100 at 700 W, 7.3x its
+// bound) ran one block of 128 threads per (b, q): after a barrier every
+// thread walked all P staged columns with a compare and a branch each, P^2 =
+// 10,000 steps per (b, q) for P useful adds, so it was bound by issue.
+//
+// What this design does about it: one warp per (b, q), `kWarps` per block,
+// and O(P) routing with no block barrier:
+// 1. Lane l loads columns j = 32k + l, k < kChunks = ceil(P / 32), a template
+//    parameter so that the columns stay in registers (coalesced; pts as
+//    float2), all loads first, then a_j = g_j / dist_j.
+// 2. Chunk by chunk in ascending j, `__match_any_sync` groups the chunk's
+//    lanes by row; each group reads its row's running sums from the warp's
+//    slice of shared memory, adds its members' a_j, a_j x_j and a_j y_j in
+//    ascending lane order (shuffles from each member), and its lowest lane
+//    writes them back.
+// 3. Row i (the lane that loaded column i, so p_i is in its registers) reads
+//    its sums and stores grad_i.
+// Every sum runs in ascending j from 0, the order of the first design, with
+// no atomics: the gradient is the same bit for bit on every launch, and as
+// the first design's. Measured slower in probe runs on the card (their
+// scripts are not kept): a counting sort of the columns by row (histogram,
+// scan, placement, then a walk of each row's segment), which computes the
+// same sums in the same order; all chunks' matches issued before the first
+// sum; 4 or 8 warps per block. The approximate division (`__fdividef`) was
+// faster, but its 2 ulp in a_j cost more than rtol 1e-4 against the plain
+// version where the two terms of grad_i nearly cancel.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int MAX_P = 256;  // shared arrays' size; the wrapper keeps P below it
+constexpr int kWarps = 2;  // (b, q) per block
+constexpr unsigned kFull = 0xffffffffu;
 
-__global__ void rigid_bwd_kernel(const float2* __restrict__ pts, const int* __restrict__ idx,
-                                 const float* __restrict__ dist, const float* __restrict__ g,
-                                 float2* __restrict__ grad, int P) {
-  __shared__ float sa[MAX_P];
-  __shared__ float sax[MAX_P];
-  __shared__ float say[MAX_P];
-  __shared__ int sidx[MAX_P];
-  const size_t base = (size_t)blockIdx.x * P;
-  const int i = threadIdx.x;
-  float2 p = make_float2(0.f, 0.f);
-  if (i < P) {
-    p = pts[base + i];
-    const float a = g[base + i] / dist[base + i];
-    sa[i] = a;
-    sax[i] = a * p.x;
-    say[i] = a * p.y;
-    sidx[i] = idx[base + i];
-  }
-  __syncthreads();
-  if (i >= P) return;
-  float s_a = 0.f, s_ax = 0.f, s_ay = 0.f;
-  for (int j = 0; j < P; ++j) {
-    if (sidx[j] == i) {
-      s_a += sa[j];
-      s_ax += sax[j];
-      s_ay += say[j];
+template <int kChunks>
+__global__ void __launch_bounds__(32 * kWarps)
+rigid_bwd_kernel(const float2* __restrict__ pts, const int* __restrict__ idx,
+                 const float* __restrict__ dist, const float* __restrict__ g,
+                 float2* __restrict__ grad, int BQ, int P) {
+  extern __shared__ float smem[];  // per warp: sums of a, a x, a y by row [3][P]
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const int bq = blockIdx.x * kWarps + w;
+  if (bq >= BQ) return;  // the whole warp: no lane of it syncs below
+  float* sum = smem + (size_t)w * 3 * P;
+  const size_t base = (size_t)bq * P;
+  const unsigned lower = (1u << lane) - 1u;
+
+  // 1. loads, every chunk's before the first division (IEEE division may
+  // branch to a slow path, which would hold back the loads after it); a
+  // column whose row is out of range routes nowhere, as in the plain
+  // version, and so does a lane past P
+  float2 p[kChunks];
+  float a[kChunks], d[kChunks];
+  int row[kChunks];
+#pragma unroll
+  for (int k = 0; k < kChunks; ++k) {
+    const int j = 32 * k + lane;
+    p[k] = make_float2(0.f, 0.f);
+    a[k] = 0.f;
+    d[k] = 1.f;
+    row[k] = -1;
+    if (j < P) {
+      p[k] = pts[base + j];
+      a[k] = g[base + j];
+      d[k] = dist[base + j];
+      const int r = idx[base + j];
+      row[k] = (unsigned)r < (unsigned)P ? r : -1;
     }
   }
-  grad[base + i] = make_float2(p.x * s_a - s_ax, p.y * s_a - s_ay);
+#pragma unroll
+  for (int k = 0; k < kChunks; ++k) a[k] /= d[k];
+  for (int i = lane; i < 3 * P; i += 32) sum[i] = 0.f;
+  __syncwarp();
+
+  // 2. running sums, chunk by chunk in ascending j: `__match_any_sync` groups
+  // the chunk's lanes by row; every lane of a group adds the same members in
+  // ascending lane order to its row's sums so far, the lowest one writes
+#pragma unroll
+  for (int k = 0; k < kChunks; ++k) {
+    const int r = row[k];
+    const unsigned same = __match_any_sync(kFull, r);
+    const int most = __reduce_max_sync(kFull, r >= 0 ? __popc(same) : 0);
+    float s_a = 0.f, s_x = 0.f, s_y = 0.f;
+    if (r >= 0) {
+      s_a = sum[r];
+      s_x = sum[P + r];
+      s_y = sum[2 * P + r];
+    }
+    const float ax = a[k] * p[k].x, ay = a[k] * p[k].y;
+    unsigned members = r >= 0 ? same : 0u;
+    for (int t = 0; t < most; ++t) {
+      const int src = members ? __ffs(members) - 1 : lane;
+      const float va = __shfl_sync(kFull, a[k], src);
+      const float vx = __shfl_sync(kFull, ax, src);
+      const float vy = __shfl_sync(kFull, ay, src);
+      if (members) {
+        s_a += va;
+        s_x += vx;
+        s_y += vy;
+        members &= members - 1u;
+      }
+    }
+    __syncwarp();
+    if (r >= 0 && (same & lower) == 0) {
+      sum[r] = s_a;
+      sum[P + r] = s_x;
+      sum[2 * P + r] = s_y;
+    }
+    __syncwarp();
+  }
+
+  // 3. row i's gradient
+#pragma unroll
+  for (int k = 0; k < kChunks; ++k) {
+    const int i = 32 * k + lane;
+    if (i < P)
+      grad[base + i] =
+          make_float2(p[k].x * sum[i] - sum[P + i], p[k].y * sum[i] - sum[2 * P + i]);
+  }
+}
+
+template <int kChunks>
+const void* kernel_for() {
+  return (const void*)rigid_bwd_kernel<kChunks>;
+}
+
+// The instantiation for P columns: ceil(P / 32) chunks, P up to 224
+// (`rigid_kernels.MAX_P`).
+const void* kernel_for(int P) {
+  switch ((P + 31) / 32) {
+    case 1: return kernel_for<1>();
+    case 2: return kernel_for<2>();
+    case 3: return kernel_for<3>();
+    case 4: return kernel_for<4>();
+    case 5: return kernel_for<5>();
+    case 6: return kernel_for<6>();
+    case 7: return kernel_for<7>();
+    default: return nullptr;
+  }
 }
 
 }  // namespace
@@ -64,16 +162,32 @@ __global__ void rigid_bwd_kernel(const float2* __restrict__ pts, const int* __re
 extern "C" {
 
 // pts [B, Q, P, 2] f32 (8-byte aligned); idx [B, Q, P] int32; dist, g
-// [B, Q, P] f32; grad [B, Q, P, 2] f32; BQ = B * Q. Launches on `stream`;
-// returns cudaGetLastError().
+// [B, Q, P] f32; grad [B, Q, P, 2] f32; BQ = B * Q. One warp per (b, q), two
+// per block. Launches on `stream`; returns cudaGetLastError().
 int cld_rigid_bwd(const float* pts, const int* idx, const float* dist, const float* g,
                   float* grad, int BQ, int P, void* stream) {
   if (BQ == 0 || P == 0) return 0;
-  if (P > MAX_P) return (int)cudaErrorInvalidValue;
-  const int threads = ((P + 31) / 32) * 32;
-  rigid_bwd_kernel<<<(unsigned)BQ, threads, 0, (cudaStream_t)stream>>>(
-      reinterpret_cast<const float2*>(pts), idx, dist, g, reinterpret_cast<float2*>(grad), P);
-  return (int)cudaGetLastError();
+  const void* kernel = kernel_for(P);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  void* args[] = {&pts, &idx, &dist, &g, &grad, &BQ, &P};
+  const cudaError_t err = cudaLaunchKernel(
+      kernel, dim3((BQ + kWarps - 1) / kWarps), dim3(32 * kWarps), args,
+      (size_t)kWarps * 3 * P * sizeof(float), (cudaStream_t)stream);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+// The compiler's verdict on the instantiation for P columns: registers and
+// local memory bytes (spills) per thread, max threads per block.
+int cld_rigid_bwd_attributes(int P, int* out) {
+  const void* kernel = kernel_for(P);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = a.maxThreadsPerBlock;
+  return 0;
 }
 
 }  // extern "C"

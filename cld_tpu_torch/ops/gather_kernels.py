@@ -139,6 +139,16 @@ def value_gather_ref(pix: torch.Tensor, wins: torch.Tensor) -> torch.Tensor:
     return wins[m, row, col].to(torch.float32)
 
 
+def value_gather_attributes(C: int, vec: bool) -> dict:
+    """The compiler's verdict on the kernel's instantiation for C channels
+    (C = 3 unrolled, any other C in a loop), on its 16-byte path (C = 3, Q a
+    multiple of 4, pix and out 16-byte aligned) or its scalar one: registers
+    and local memory bytes (spills) per thread, max threads per block."""
+    regs, local, threads = native.attributes(
+        native.library().cld_value_gather_attributes, C, int(vec))
+    return dict(registers=regs, local_bytes=local, max_threads=threads)
+
+
 def value_gather(pix: torch.Tensor, wins: torch.Tensor) -> torch.Tensor:
     """Channel bytes per query point: pix [M, Q, 2] int32 (col, row),
     pre-clamped into the window by the caller; wins [M, H, W, C] int8

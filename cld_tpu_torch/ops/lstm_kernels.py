@@ -29,7 +29,6 @@ gather), `unpack_weights` inverts it. They take H a multiple of 8 in [8, 64] (`c
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import NamedTuple, Tuple
 
@@ -244,10 +243,8 @@ def kernel_attributes(which: int, H: int, R: int = 1) -> dict:
     """The compiler's verdict on one instantiation (which: 0 the forward, 1
     the reverse sweep's gates kernel, 2 its chain): registers and local
     memory bytes (spills) per thread, max threads per block."""
-    out = (ctypes.c_int * 3)()
-    native.check(native.library().cld_lstm2_attributes(which, H, R, ctypes.addressof(out)),
-                 "lstm2 attributes")
-    return dict(registers=out[0], local_bytes=out[1], max_threads=out[2])
+    regs, local, threads = native.attributes(native.library().cld_lstm2_attributes, which, H, R)
+    return dict(registers=regs, local_bytes=local, max_threads=threads)
 
 
 # ---------------------------------------------------------------------------

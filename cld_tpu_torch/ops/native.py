@@ -121,6 +121,8 @@ def library() -> ctypes.CDLL:
         lib.cld_bit_gather.restype = i
         lib.cld_value_gather.argtypes = [p] * 3 + [i, i, i, i, i, p]
         lib.cld_value_gather.restype = i
+        lib.cld_value_gather_attributes.argtypes = [i, i, p]
+        lib.cld_value_gather_attributes.restype = i
         for fn in (lib.cld_drivable_gather_i8, lib.cld_drivable_gather_f32):
             fn.argtypes = [p] * 3 + [i, i, i, i, p]
             fn.restype = i
@@ -129,6 +131,8 @@ def library() -> ctypes.CDLL:
             fn.restype = i
         lib.cld_rigid_bwd.argtypes = [p] * 5 + [i, i, p]
         lib.cld_rigid_bwd.restype = i
+        lib.cld_rigid_bwd_attributes.argtypes = [i, p]
+        lib.cld_rigid_bwd_attributes.restype = i
         lib.cld_offroad_count.argtypes = [p] * 3 + [i] * 5 + [p]
         lib.cld_offroad_count.restype = i
         lib.cld_disk_collision.argtypes = [p] * 5 + [i, i, i, i, p]
@@ -144,6 +148,14 @@ def check(err: int, name: str) -> None:
 
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def attributes(fn, *args) -> list:
+    """What a `cld_*_attributes` query writes: registers and local memory
+    bytes (spills) per thread, max threads per block."""
+    out = (ctypes.c_int * 3)()
+    check(fn(*args, ctypes.addressof(out)), "kernel attributes")
+    return list(out)
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape, device) -> None:

@@ -14,7 +14,8 @@ so a step with no on-road point gives dist 1e6 and idx 0. `rigid_min` and
 `rigid_min_fused` compute the same function under two schedules
 (`csrc/rigid_min.cu`): blocks over (agent, chunk of steps), or one block per
 agent that sweeps the horizon with the cache loaded once. The backward
-(`csrc/rigid_bwd.cu`) routes column j's `a_j = g_j / dist_j` to row `idx_j`:
+(`csrc/rigid_bwd.cu`, one warp per agent and step) routes column j's
+`a_j = g_j / dist_j` to row `idx_j`:
 
     grad_i = p_i * sum_{j: idx_j = i} a_j - sum_{j: idx_j = i} a_j p_j
 
@@ -32,7 +33,8 @@ from cld_tpu_torch.ops import native
 
 BIG_D2 = 1e12  # squared distance of a masked (off-road) row
 # the forward kernels keep the [P, P] cache in one block's shared memory
-# (4 P^2 bytes + the mask chunk, of 227 KB); the backward's arrays hold 256
+# (4 P^2 bytes + the mask chunk, of 227 KB); the backward's lanes hold up to 7
+# columns each
 MAX_P = 224
 
 
@@ -99,12 +101,21 @@ def rigid_bwd_ref(pts, idx, dist, g) -> torch.Tensor:
     return pts * s_a[..., None] - s_ap
 
 
+def rigid_bwd_attributes(P: int) -> dict:
+    """The compiler's verdict on the backward kernel's instantiation for P
+    columns: registers and local memory bytes (spills) per thread, max
+    threads per block."""
+    regs, local, threads = native.attributes(native.library().cld_rigid_bwd_attributes, P)
+    return dict(registers=regs, local_bytes=local, max_threads=threads)
+
+
 def rigid_bwd(pts, idx, dist, g) -> torch.Tensor:
     """Argmin-routed backward of the rigid min distance: pts [B, Q, P, 2]
     f32, idx [B, Q, P] int32 and dist [B, Q, P] f32 (the forward's outputs),
     g [B, Q, P] f32 (the cotangent of dist; zero wherever dist is the
-    self-match of an on-road column) -> grad [B, Q, P, 2] f32. The kernel's
-    sums run in a fixed order: repeated launches agree bit for bit."""
+    self-match of an on-road column) -> grad [B, Q, P, 2] f32. On CUDA one
+    warp per (b, q) groups its columns by row and sums each row's in
+    ascending column order: repeated launches agree bit for bit."""
     dev = pts.device
     if dev.type == "cpu":
         return rigid_bwd_ref(pts, idx, dist, g)

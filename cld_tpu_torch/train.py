@@ -74,10 +74,11 @@ class MetricLogger:
 
 
 def _batches(cfg, device, start_step: int):
-    """The training stream, advanced past the `start_step` batches that a
-    resumed run has already seen."""
+    """The training stream as the JAX CLI draws it: one batch drawn for
+    init and dropped, then the `start_step` batches that a resumed run has
+    already trained on, so that step s trains on the stream's batch s + 1."""
     it = iter(make_loader(cfg, "train", device=device))
-    for _ in range(start_step):
+    for _ in range(1 + start_step):
         next(it)
     return it
 
@@ -96,6 +97,7 @@ def _run_stage(cfg, args, stage: str, state, step_fn) -> None:
         if args.resume:
             state, start_step = restore_train_state(args.resume, state)
             print(f"resumed full train state from {args.resume} at step {start_step}")
+        # step s, resumed or not, trains on the batch of the JAX CLI's step s
         it = _batches(cfg, args.device, start_step)
         num_steps = args.steps or cfg.train.training.num_steps
         t0 = time.time()
@@ -182,7 +184,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     parser.add_argument("--dm-ckpt", type=str, default=None)
     parser.add_argument("--resume", type=str, default=None,
                         help="full-state checkpoint (ckpt_*_full) to resume mid-training: "
-                             "parameters, optimizer moments and step counters")
+                             "parameters, optimizer moments and step counters; the batch "
+                             "stream skips to the step, as the JAX CLI's does")
     parser.add_argument("--precision", type=str, default=None,
                         help="network compute dtype: auto or fp32 (bf16 is not ported yet)")
     parser.add_argument("--device", type=str, default="cuda",

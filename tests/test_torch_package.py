@@ -214,3 +214,40 @@ def test_train_cli_flags_and_unported_modes(tmp_path):
         with pytest.raises((RuntimeError, AssertionError)):
             train.main(["--registered-name", "cld_smoke", "--mode", "vae", "--steps", "1",
                         "--output", str(tmp_path / "cuda")])
+
+
+@pytest.mark.parametrize("start_step", [0, 3])
+def test_train_cli_batch_stream_matches_the_jax_cli(start_step):
+    """The port's train stream at step `start_step` (a fresh run, and a run
+    resumed there) is the JAX CLI's: `make_loader(cfg, "train")`, one batch
+    drawn for init, then `start_step` skipped. Field by field, exactly."""
+    from cld_tpu.data.loader import make_loader as jax_make_loader
+    from cld_tpu.utils.registry import get_registered_experiment_config as jax_config
+    from cld_tpu_torch.utils.registry import get_registered_experiment_config
+
+    it = iter(jax_make_loader(jax_config("cld_smoke"), "train"))
+    for _ in range(1 + start_step):
+        next(it)
+    ours = train._batches(get_registered_experiment_config("cld_smoke"), "cpu", start_step)
+    for _ in range(2):  # the step's batch and the next
+        want, got = next(it), next(ours)
+        assert set(got._fields) == set(want._fields)
+        compared = 0
+        for name in want._fields:
+            w, g = getattr(want, name), getattr(got, name)
+            if w is not None and g is not None:
+                np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
+                compared += 1
+        assert compared >= 9
+
+
+@pytest.mark.parametrize("script", ["chip_smoke.py", "cld_tpu_torch/kernel_ab.py"])
+def test_measurement_scripts_fail_without_a_card(script):
+    """On a host without CUDA the scripts that time the card exit non-zero
+    and print no result; they never fall back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card: the script would run in full")
+    res = subprocess.run([sys.executable, str(PKG.parent / script)], capture_output=True,
+                         text=True, timeout=300, cwd=str(PKG.parent))
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout and "{" not in res.stdout, res.stdout[-500:]

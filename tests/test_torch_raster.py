@@ -34,7 +34,11 @@ def _pix(rng, M, Q, W, H):
     return pix.astype(np.int32)
 
 
-@pytest.mark.parametrize("M,H,W,C,Q", [(3, 16, 24, 3, 70), (9, 32, 32, 1, 40)])
+# Q not a multiple of the CUDA kernel's group of 4 (its scalar path), C = 1,
+# 3 and 4, one window
+@pytest.mark.parametrize("M,H,W,C,Q", [(3, 16, 24, 3, 70), (9, 32, 32, 1, 40),
+                                       (2, 8, 12, 1, 37), (1, 10, 9, 4, 45),
+                                       (4, 16, 16, 4, 64), (1, 12, 20, 3, 1027)])
 def test_value_gather_matches_pallas_exactly(M, H, W, C, Q):
     rng = np.random.default_rng(0)
     wins = rng.integers(-128, 128, (M, H, W, C)).astype(np.int8)

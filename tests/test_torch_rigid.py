@@ -105,3 +105,31 @@ def test_rigid_wrappers_raise_off_cpu_and_cuda():
             fn(m(2, 4, 4), m(2, 3, 4, dtype=torch.bool))
     with pytest.raises(ValueError, match="unsupported device"):
         rk.rigid_bwd(m(2, 3, 4, 2), m(2, 3, 4, dtype=torch.int32), m(2, 3, 4), m(2, 3, 4))
+
+
+# (B, Q, P, the row every column routes to, or None for random rows)
+EDGE_BWD = {"p1": (2, 3, 1, None), "p33": (2, 3, 33, None), "p224": (2, 3, rk.MAX_P, None),
+            "one_row_p100": (2, 3, 100, 37), "one_row_p224": (1, 2, rk.MAX_P, 0)}
+
+
+@pytest.mark.parametrize("name", sorted(EDGE_BWD))
+def test_rigid_bwd_matches_jax_kernel_at_edge_shapes(name):
+    """The shapes where the CUDA backward's grouping of a warp's columns by
+    row is edge-prone: one column (one lane of one chunk), one column past a
+    chunk of 32, the largest P (seven chunks), and every column routed to one
+    row (groups of 32 in every chunk)."""
+    B, Q, P, row = EDGE_BWD[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    pts = rng.normal(0, 5, (B, Q, P, 2)).astype(np.float32)
+    idx = (rng.integers(0, P, (B, Q, P)) if row is None else np.full((B, Q, P), row)
+           ).astype(np.int32)
+    dist = rng.uniform(0.5, 2.0, (B, Q, P)).astype(np.float32)
+    g = rng.normal(0, 1, (B, Q, P)).astype(np.float32)
+    got = rk.rigid_bwd(*map(torch.from_numpy, (pts, idx, dist, g))).numpy()
+    jargs = tuple(map(jnp.asarray, (pts, idx, dist, g)))
+    for tag, want in (("jnp", jpk.rigid_bwd_ref(*jargs)),
+                      ("pallas", jpk.rigid_bwd_pallas(*jargs, interpret=True))):
+        np.testing.assert_allclose(got, np.asarray(want), rtol=1e-4, atol=1e-5, err_msg=tag)
+    if row is not None:  # only the one row receives anything
+        assert np.abs(got[:, :, row]).max() > 1.0
+        assert not np.delete(got, row, axis=2).any()
