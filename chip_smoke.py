@@ -55,12 +55,14 @@
    points; the distance cache from `prepack_map_bbox` on the synthetic batch,
    the on-road mask from the batch's own map with random bits mixed in and
    an all-off-road and an all-on-road step forced) and at two ragged shapes:
-   `rigid_min` and `rigid_min_fused` give `dist` within 1e-6 relative and
-   `idx` exactly, and equal each other bit for bit; `rigid_bwd` agrees
-   within rtol 1e-4 / atol 1e-5 and repeats itself bit for bit, there and at
-   P = 1, P = 33 and with every column routed to one row (P = 100 and 224).
-   Times each, from a CUDA graph at B = 128 and 32, with `rigid_bwd`'s
-   registers and spills at P = 1, 33, 100 and 224.
+   `rigid_min` and `rigid_min_fused` give `dist` and `idx` equal to the
+   plain version's bit for bit, and so to each other, there and at 14 edge
+   shapes on lattice caches (P = 1, 31, 32, 33, 65, 224; Q = 1, 3, 5, 7, 9,
+   17, 53, 65; B = 1, 133); `rigid_bwd` agrees within rtol 1e-4 / atol 1e-5
+   and repeats itself bit for bit, there and at P = 1, P = 33 and with every
+   column routed to one row (P = 100 and 224). Times each, from a CUDA graph
+   at B = 128 and 32 beside its bound at both, with the forward kernels'
+   registers and spills and `rigid_bwd`'s at P = 1, 33, 100 and 224.
 11. Runs `pipeline.guided_collect` at full width with
    `MapCollisionLoss(min_dist_impl="rigid_kernel")` (99 `rigid_min`, 99
    `rigid_bwd`, no `rigid_min_fused`) and with `min_dist_impl="rigid",
@@ -889,6 +891,80 @@ def rigid_fixture(g, Bn, Qn, P, dev, d2=None, on=None):
     return d2, on.contiguous(), pts, gout.contiguous()
 
 
+def hold_rigid_min(name, outs, want_d, want_i, worst):
+    """Both forward kernels' (dist, idx) equal to the plain version's bit for
+    bit (compare-selects and one IEEE sqrt: no tolerance), and so to each
+    other."""
+    import torch
+
+    for kname, (got_d, got_i) in outs.items():
+        err = float((got_d - want_d).abs().max())
+        rel_each = float(((got_d - want_d).abs() / want_d).max())
+        exact = bool(torch.equal(got_d, want_d))
+        Bn, Qn, Pn = want_d.shape
+        log(f"{kname} [{name}: B={Bn}, Q={Qn}, P={Pn}]: dist max rel err {rel_each:.3e} "
+            f"(bit for bit: {exact}), idx equal: {bool(torch.equal(got_i, want_i))}")
+        check(exact, f"{kname} ({name}) dist differs from its plain version")
+        check(torch.equal(got_i, want_i), f"{kname} ({name}) idx disagrees")
+        worst[kname] = max(worst[kname], err)
+    check(torch.equal(outs["rigid_min"][0], outs["rigid_min_fused"][0])
+          and torch.equal(outs["rigid_min"][1], outs["rigid_min_fused"][1]),
+          f"rigid_min_fused differs from rigid_min ({name})")
+
+
+# (B, Q, P) where the forward kernels' bit-packed mask and step tiles are
+# edge-prone: P at and around a mask word of 32 rows, up to MAX_P's 7 words;
+# Q at one step, around `rigid_min`'s tile of 4 and the fused tile of 8, past
+# `rigid_min`'s block of 16 steps and the fused sweep of 64; B = 1 and past
+# the card's 132 SMs
+RIGID_MIN_EDGES = {
+    "p1": (4, 5, 1), "p31": (3, 9, 31), "p32": (3, 7, 32), "p33": (3, 17, 33),
+    "p65": (2, 65, 65), "max_p": (2, 53, 224), "q1": (3, 1, 100), "q3": (3, 3, 100),
+    "q5": (3, 5, 100), "q7": (3, 7, 100), "q9": (3, 9, 100), "q53": (2, 53, 100),
+    "b1": (1, 52, 100), "b133": (133, 52, 100),
+}
+
+
+def lattice_d2(g, Bn, P, dev):
+    """[Bn, P, P] squared distances of an R x C bbox lattice (R * C = P, R the
+    largest divisor up to sqrt(P)) scaled by random extents, as
+    `prepack_map_bbox` builds the cache: full of exactly tied distances."""
+    import torch
+
+    from cld_tpu_torch.guidance import losses as gl
+
+    R = max(r for r in range(1, int(P ** 0.5) + 1) if P % r == 0)
+    ext = torch.rand((Bn, 1, 2), generator=g) * 3.0 + 1.0
+    pts = gl.bbox_local_grid((R, P // R), "cpu")[None] * ext
+    return ((pts[:, :, None] - pts[:, None]) ** 2).sum(-1).to(dev).contiguous()
+
+
+def check_rigid_min_edges(g, dev, worst):
+    """`rigid_min` and `rigid_min_fused` at RIGID_MIN_EDGES on lattice caches,
+    random masks (60% on-road) with an all-off-road and an all-on-road step
+    forced in where there are two steps."""
+    import torch
+
+    from cld_tpu_torch.ops import rigid_kernels as rk
+
+    for name, (Bn, Qn, Pn) in RIGID_MIN_EDGES.items():
+        d2 = lattice_d2(g, Bn, Pn, dev)
+        on = torch.rand((Bn, Qn, Pn), generator=g) < 0.6
+        if Bn * Qn > 1:
+            on.view(Bn * Qn, Pn)[0] = False
+            on.view(Bn * Qn, Pn)[-1] = True
+        on = on.to(dev)
+        want_d, want_i = rk.rigid_min_ref(d2, on)
+        outs = {"rigid_min": rk.rigid_min(d2, on), "rigid_min_fused": rk.rigid_min_fused(d2, on)}
+        torch.cuda.synchronize()
+        hold_rigid_min(name, outs, want_d, want_i, worst)
+        if Bn * Qn > 1:
+            check(bool((want_d[0, 0] == 1e6).all()) and bool((want_i[0, 0] == 0).all()),
+                  "all-off-road step: expected dist 1e6, idx 0")
+            check(torch.equal(want_i[-1, -1].long(), torch.arange(Pn, device=dev)),
+                  "all-on-road step: every column should match itself")
+
+
 def check_rigid(batch, dev, report):
     """`rigid_min`, `rigid_min_fused` and `rigid_bwd` against their plain
     versions on the card."""
@@ -920,18 +996,7 @@ def check_rigid(batch, dev, report):
         want_d, want_i = rk.rigid_min_ref(d2, on)
         outs = {"rigid_min": rk.rigid_min(d2, on), "rigid_min_fused": rk.rigid_min_fused(d2, on)}
         torch.cuda.synchronize()
-        for kname, (got_d, got_i) in outs.items():
-            err, rel = rel_err(got_d, want_d)
-            rel_each = float(((got_d - want_d).abs() / want_d).max())
-            exact = bool(torch.equal(got_d, want_d))
-            log(f"{kname} [{name}: B={Bn}, Q={Qn}, P={Pn}]: dist max rel err {rel_each:.3e} "
-                f"(tolerance 1e-6; exact: {exact}), idx equal: {bool(torch.equal(got_i, want_i))}")
-            check(rel_each <= 1e-6, f"{kname} ({name}) dist disagrees with its plain version")
-            check(torch.equal(got_i, want_i), f"{kname} ({name}) idx disagrees")
-            worst[kname] = max(worst[kname], err)
-        check(torch.equal(outs["rigid_min"][0], outs["rigid_min_fused"][0])
-              and torch.equal(outs["rigid_min"][1], outs["rigid_min_fused"][1]),
-              f"rigid_min_fused differs from rigid_min ({name})")
+        hold_rigid_min(name, outs, want_d, want_i, worst)
         check(bool((want_d[0, 0] == 1e6).all()) and bool((want_i[0, 0] == 0).all()),
               "all-off-road step: expected dist 1e6, idx 0")
         check(torch.equal(want_i[1, 1].long(), torch.arange(Pn, device=dev)),
@@ -954,6 +1019,8 @@ def check_rigid(batch, dev, report):
         worst["rigid_bwd"] = max(worst["rigid_bwd"], err)
         if name == "open_loop":
             full = (d2, on, pts, gout, want_d, want_i)
+
+    check_rigid_min_edges(g, dev, worst)
 
     # the backward alone where its grouping of a warp's columns by row is
     # edge-prone: one column, one column past a chunk of 32, every column
@@ -1004,6 +1071,10 @@ def check_rigid(batch, dev, report):
              for k in ("rigid_min", "rigid_min_fused")}
     bwd32 = [t[:CL_B].contiguous() for t in (pts, idx, dist, gout)]
     gms32["rigid_bwd"] = graph_ms(lambda: rk.rigid_bwd(*bwd32))
+    min_attrs = {k: rk.rigid_min_attributes(k) for k in ("rigid_min", "rigid_min_fused")}
+    for k, a in min_attrs.items():
+        log(f"{k}_kernel: {a['registers']} registers, {a['local_bytes']} bytes of local memory "
+            f"per thread{' (spills: reported, not failed)' if a['local_bytes'] else ''}")
     bwd_attrs = {Pn: rk.rigid_bwd_attributes(Pn) for Pn in (1, 33, P, rk.MAX_P)}
     for Pn, a in bwd_attrs.items():
         log(f"rigid_bwd_kernel P={Pn}: {a['registers']} registers, {a['local_bytes']} bytes of "
@@ -1021,11 +1092,15 @@ def check_rigid(batch, dev, report):
     n = B * T * P
     min_b, min_by = bound(4 * B * P * P + n + 8 * n, 2.0 * n * P)
     bwd_b, bwd_by = bound(8 * n + 3 * 4 * n + 8 * n, 10.0 * n)
+    n32 = CL_B * T * P
+    min32_b = bound(4 * CL_B * P * P + n32 + 8 * n32, 2.0 * n32 * P)[0]
+    log(f"rigid min from a graph: bound {min_b:.5f} ms at B={B} ({min_by}), {min32_b:.5f} at "
+        f"B={CL_B}")
     for k in ("rigid_min", "rigid_min_fused"):
         report[k] = dict(max_abs_err=worst[k], ms=ms[k], plain_ms=plain_min, bound_ms=min_b,
                          bound_by=min_by, library_ms=None, graph_ms=gms[k],
-                         graph_ms_at_b32=gms32[k])
-    n32 = CL_B * T * P
+                         graph_ms_at_b32=gms32[k], bound_ms_at_b32=min32_b,
+                         attributes=min_attrs[k])
     bwd32_b = bound(8 * n32 + 3 * 4 * n32 + 8 * n32, 10.0 * n32)[0]
     log(f"rigid_bwd from a graph: {gms['rigid_bwd']:.5f} ms at B={B} (bound {bwd_b:.5f}), "
         f"{gms32['rigid_bwd']:.5f} at B={CL_B} (bound {bwd32_b:.5f})")

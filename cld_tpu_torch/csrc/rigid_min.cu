@@ -11,99 +11,396 @@
 // The TPU kernels flatten to [BB*QB*P, P] tiles, pad the horizon to a multiple
 // of 8, take the mask as f32 and mask the last axis, leaning on d2 being
 // symmetric; all of that is the TPU compiler's tiling. Here the rows (axis
-// -2) are masked as the plain version does, the mask is one byte per row, and
-// nothing is padded.
+// -2) are masked as the plain version does, and nothing is padded.
 //
 // What bounds it on the H100: at the guided path's shapes (B = 128, Q = 52,
 // P = 100) it must move 11 MB (the cache 5.1 MB, the mask 0.7 MB, two outputs
-// 5.3 MB), 3.3 us at the memory rate, and do B*Q*P*P = 67 M compare-selects,
-// 2 us at the f32 rate: bytes, narrowly. In practice the inner loop's
-// shared-memory reads and the launch path set its time.
+// 5.3 MB), 3.3 us at the memory rate, and do B*Q*P*P = 67 M compare-selects.
+// A masked compare-select with its argmin is no single f32 operation: the
+// first design spent ~6.5 instructions on each (compares, selects, a mask
+// test) and two shared-memory loads (the cache word and the mask byte), and
+// staged the cache 7 times per agent. Instruction issue and shared-memory
+// delivery bound it, not the bytes.
 //
-// What the design does about it: a block stages d2[b] (P*P floats, 40 KB at
-// P = 100) in dynamic shared memory, and a chunk of steps' mask bytes beside
-// it. One thread per (q, j) walks the rows i in ascending order: it reads the
-// mask byte (the same address across a warp's threads of one step: a
-// broadcast) and d2[i*P + j] (neighbouring threads on neighbouring j:
-// conflict-free), and keeps the running minimum with a strict <, so the
-// lowest row wins a tie. No arithmetic touches the values before the final
-// add and the IEEE sqrtf, so the result equals the plain version's bit for
-// bit.
+// What the design does about it:
+// - Two passes. The first keeps only running minima: a thread owns a tile of
+//   QT = 2 steps x 4 columns, loads each cache row's 4 words once (one
+//   16-byte load, neighbouring threads on neighbouring column groups) and
+//   folds it in with an FADD of the step's row penalty (0 on-road, +inf
+//   off-road: the sum is the word itself or +inf, exactly) and an FMNMX: two
+//   instructions per compare-select, no select, no argmin. Every RB = 4 rows
+//   it notes, per minimum, whether it went down in that block.
+// - The second pass finds each argmin in its noted block alone: the minimum
+//   went down there last, so its first on-road occurrence there is its first
+//   anywhere, and rows walk in ascending order, so the lowest row wins a tie
+//   (the bbox grid is a lattice, full of tied distances). Its loads issue
+//   whatever the minimum, so that they overlap.
+// - The mask is staged once per chunk of steps as those penalties and,
+//   bit-packed by `__ballot_sync`, as 32-row words for the second pass and
+//   each step's first off-road row. Off-road rows all weigh 1e12, so of them
+//   only the first can win, and it is merged once per output: (1e12, first
+//   off-road row) wins if the on-road minimum exceeds 1e12, or ties it with a
+//   lower row. No arithmetic touches a value before the final add and the
+//   IEEE sqrtf, so the result equals the plain version's bit for bit.
+// - The cache (P x S floats, S = P rounded up to 4: 40 KB at P = 100) is
+//   staged with 16-byte `cp.async` (4-byte where P % 4 != 0), one commit
+//   group per 32 rows; the first pass waits for a group just before it walks
+//   those rows, so the staging overlaps the first rows' work.
 //
-// `rigid_min_kernel`: grid (B, ceil(Q / RIGID_QB)); every block loads the
-// cache again for its chunk of steps (from L2 after the first), and B*Q/8
-// blocks fill the card. `rigid_min_fused_kernel`: one block per agent loads
-// the cache once and sweeps the whole horizon in chunks; B blocks of 1024
-// threads, which at B < 132 leaves SMs idle.
+// What still bounds it is not visible without a per-pipe profiler: from a
+// CUDA graph on an H100 at 700 W it takes ~0.0185 ms at B = 128, 5.6x its
+// byte bound (`cld_tpu_torch/kernel_ab.py`, `chip_smoke.py`; PERF.md).
+//
+// `rigid_min_kernel`: grid (B, ceil(Q / qb)), qb steps a block from the
+// caller (`ops/rigid_kernels.py:rigid_min_steps_per_block`: about two blocks
+// an SM, so 26 steps and 256 blocks at B = 128, 8 steps and 224 blocks at
+// B = 32): the cache is staged twice per agent at B = 128.
+// `rigid_min_fused_kernel`: one block per agent stages the cache once and
+// sweeps the horizon in chunks of up to 64 steps (650 first-pass threads at
+// Q = 52, P = 100); one SM carries an agent's whole horizon, so it is no
+// faster at B = 32 than at B = 128.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int RIGID_QB = 8;         // steps per block of rigid_min_kernel
-constexpr int RIGID_THREADS = 256;  // threads per block of rigid_min_kernel
-constexpr int FUSED_QB = 10;        // steps per sweep of rigid_min_fused_kernel
-constexpr int FUSED_THREADS = 1024;
+constexpr int QT = 2;          // steps per thread tile
+constexpr int FUSED_QB = 64;   // most steps a block stages at once
+constexpr int MAX_THREADS = 1024;
+constexpr int MAX_WORDS = 7;  // mask words per step at P = 224
 constexpr float BIG_D2 = 1e12f;
 
-__device__ __forceinline__ void stage_cache(float* d2s, const float* __restrict__ d2b, int PP) {
-  for (int k = threadIdx.x; k < PP; k += blockDim.x) d2s[k] = d2b[k];
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
 }
 
-// Steps [q0, q0 + nq) of agent b: stage their mask bytes, then one thread per
-// (q, j). The caller has staged d2s; ends with the block in step.
-__device__ __forceinline__ void min_chunk(const float* d2s, uint8_t* ms,
-                                          const uint8_t* __restrict__ onroad,
-                                          float* __restrict__ dist, int* __restrict__ idx,
-                                          size_t base, int nq, int P) {
-  const int n = nq * P;
-  for (int k = threadIdx.x; k < n; k += blockDim.x) ms[k] = onroad[base + k];
-  __syncthreads();
-  for (int k = threadIdx.x; k < n; k += blockDim.x) {
-    const int ql = k / P;
-    const int j = k - ql * P;
-    const uint8_t* m = ms + ql * P;
-    float best = m[0] ? d2s[j] : BIG_D2;
-    int arg = 0;
-    for (int i = 1; i < P; ++i) {
-      const float v = m[i] ? d2s[i * P + j] : BIG_D2;
-      if (v < best) {
-        best = v;
-        arg = i;
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most `pending` of this thread's commit groups are in flight.
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  switch (pending) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    case 3: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+    case 4: asm volatile("cp.async.wait_group 4;\n" ::: "memory"); break;
+    case 5: asm volatile("cp.async.wait_group 5;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 6;\n" ::: "memory"); break;
+  }
+}
+
+// Start copying d2b [P, P] into d2s [P, S] (S = P rounded up to 4 floats, so
+// that every row starts 16-byte aligned): one commit group per word of 32
+// rows (W groups, some maybe empty for a thread), in row order. 16-byte
+// copies where S == P and d2b is 16-byte aligned, else 4-byte ones.
+__device__ __forceinline__ void stage_cache(float* d2s, const float* __restrict__ d2b, int P,
+                                            int S, int W) {
+  const bool vec = S == P && (reinterpret_cast<uintptr_t>(d2b) & 15) == 0;
+  for (int w = 0; w < W; ++w) {
+    const int lo = w * 32 * P;  // a multiple of 4: 16-byte aligned in d2s when S == P
+    const int hi = min(P, (w + 1) * 32) * P;
+    if (vec) {
+      for (int k = lo + 4 * threadIdx.x; k < hi; k += 4 * blockDim.x) cp_async16(d2s + k, d2b + k);
+    } else {
+      for (int k = lo + threadIdx.x; k < hi; k += blockDim.x) {
+        const int i = k / P;
+        cp_async4(d2s + i * S + (k - i * P), d2b + k);
       }
     }
-    dist[base + k] = sqrtf(best + 1e-12f);
-    idx[base + k] = arg;
+    cp_async_commit();
   }
+}
+
+// The mask of nq steps (on: [nq, P] bytes) as penalties pen [qr, S] (0 for
+// an on-road row, +inf for an off-road one; rows nq..qr-1, the last tile's
+// steps past the chunk, all +inf), every load issued before any is waited
+// for (one latency, not one per step).
+__device__ __forceinline__ void load_mask(float* pen, const uint8_t* __restrict__ on, int nq,
+                                          int qr, int P, int S) {
+  const float inf = __int_as_float(0x7f800000);
+  const int n = nq * P;
+  int k = threadIdx.x;
+  for (; k + 3 * (int)blockDim.x < n; k += 4 * blockDim.x) {
+    uint8_t v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) v[u] = on[k + u * blockDim.x];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int kk = k + u * blockDim.x, q = kk / P;
+      pen[q * S + kk - q * P] = v[u] ? 0.0f : inf;
+    }
+  }
+  for (; k < n; k += blockDim.x) {
+    const int q = k / P;
+    pen[q * S + k - q * P] = on[k] ? 0.0f : inf;
+  }
+  for (k = nq * S + threadIdx.x; k < qr * S; k += blockDim.x) pen[k] = inf;
+}
+
+// Bit-pack the staged penalties of nq steps into mb [nq, W] words (row i of a
+// step at bit i % 32 of word i / 32: on-road) and note each step's first
+// off-road row in foff (P if none). One warp per step.
+__device__ __forceinline__ void pack_mask(uint32_t* mb, int* foff, const float* pen, int nq,
+                                          int P, int S, int W) {
+  const int lane = threadIdx.x & 31;
+  for (int q = threadIdx.x >> 5; q < nq; q += blockDim.x >> 5) {
+    int first = P;
+    for (int w = 0; w < W; ++w) {
+      const int i = w * 32 + lane;
+      const uint32_t word = __ballot_sync(0xffffffffu, i < P && pen[q * S + i] == 0.0f);
+      const int rows = min(32, P - w * 32);
+      const uint32_t off = ~word & (rows == 32 ? 0xffffffffu : (1u << rows) - 1u);
+      if (first == P && off != 0u) first = w * 32 + __ffs(off) - 1;
+      if (lane == 0) mb[q * W + w] = word;
+    }
+    if (lane == 0) foff[q] = first;
+  }
+}
+
+constexpr int RB = 4;  // rows per block of the first pass's record
+
+__device__ __forceinline__ float lane_of(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// best = min(best, v + pen) for a tile's QT steps x 4 columns: an FADD (the
+// FMA pipe) and an FMNMX each, no select. pen is 0 or +inf, so the sum is v
+// itself or +inf, exactly.
+__device__ __forceinline__ void fold_row(float (*best)[4], const float4& v, const float* pen) {
+#pragma unroll
+  for (int k = 0; k < QT; ++k) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) best[k][e] = fminf(best[k][e], lane_of(v, e) + pen[k]);
+  }
+}
+
+// Note, for each running minimum, whether it went down since the last note
+// (prev): if so, rows up to `row` hold its first occurrence in block row / RB.
+__device__ __forceinline__ void note_block(float (*best)[4], float (*prev)[4], int (*blk)[4],
+                                           int row) {
+#pragma unroll
+  for (int k = 0; k < QT; ++k) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (best[k][e] < prev[k][e]) blk[k][e] = row / RB;
+      prev[k][e] = best[k][e];
+    }
+  }
+}
+
+// First pass over one word of 32 cache rows i0.. of four columns (c[r * S]:
+// row i0 + r of them, 16-byte aligned; pq[k * S + r]: row i0 + r's penalty
+// at the tile's step k): 4 rows of penalties per LDS.128, a note per block
+// of RB = 4 rows.
+__device__ __forceinline__ void fold_word(const float* c, const float* pq, int S, int i0,
+                                          float (*best)[4], float (*prev)[4], int (*blk)[4]) {
+#pragma unroll
+  for (int r4 = 0; r4 < 32; r4 += 4) {
+    float4 p4[QT];
+#pragma unroll
+    for (int k = 0; k < QT; ++k) p4[k] = *reinterpret_cast<const float4*>(pq + k * S + r4);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      float pen[QT];
+#pragma unroll
+      for (int k = 0; k < QT; ++k) pen[k] = lane_of(p4[k], u);
+      fold_row(best, *reinterpret_cast<const float4*>(c + (r4 + u) * S), pen);
+    }
+    note_block(best, prev, blk, i0 + r4 + 3);  // RB = 4: a note per group of 4 rows
+  }
+}
+
+// Second pass for one output: the lowest on-road row of block `b` whose
+// cache word equals the minimum mn (c: column j of the cache, mbq: the
+// step's mask words). The first pass saw the minimum go down last in that
+// block, so its first on-road occurrence there is its first anywhere.
+__device__ __forceinline__ int first_row(const float* c, const uint32_t* mbq, int S, int P,
+                                         int b, float mn) {
+  const int i0 = b * RB;
+  const uint32_t bits = (mbq[i0 >> 5] >> (i0 & 31)) & ((1u << RB) - 1u);
+  uint32_t eq = 0u;
+#pragma unroll
+  for (int r = 0; r < RB; ++r)
+    if (i0 + r < P && c[(i0 + r) * S] == mn) eq |= 1u << r;
+  return i0 + __ffs(eq & bits) - 1;
+}
+
+// Shared memory of a block: the cache [P, S]; for qb steps (a multiple of
+// QT), the penalties [qb, S], the mask words [qb, W] and the first off-road
+// rows [qb].
+struct Smem {
+  float* d2s;
+  float* pen;
+  uint32_t* mb;
+  int* foff;
+};
+
+__device__ __forceinline__ Smem carve(float* smem, int P, int S, int W, int qb) {
+  Smem m;
+  m.d2s = smem;
+  m.pen = smem + P * S;  // 16-byte aligned: S is a multiple of 4
+  m.mb = reinterpret_cast<uint32_t*>(m.pen + qb * S);
+  m.foff = reinterpret_cast<int*>(m.mb + qb * W);
+  return m;
+}
+
+// Steps [0, nq) of the staged chunk of agent steps at out0 (outputs dist/idx
+// + out0 + q * P + j): one item per (tile of QT steps, group of 4 columns),
+// in rounds of blockDim.x. With `pending`, the cache's W commit groups are
+// still in flight: every thread (with an item or not) waits for each word's
+// rows, then the block syncs, before anyone walks them.
+__device__ __forceinline__ void sweep(const Smem& m, int nq, int P, int S, int W, bool pending,
+                                      float* __restrict__ dist, int* __restrict__ idx,
+                                      size_t out0) {
+  const float inf = __int_as_float(0x7f800000);
+  const int G = S / 4;
+  const int nitems = (nq + QT - 1) / QT * G;
+  // 16-byte stores where every row of outputs starts 16-byte aligned
+  const bool vec = S == P && ((reinterpret_cast<uintptr_t>(dist + out0) |
+                               reinterpret_cast<uintptr_t>(idx + out0)) & 15) == 0;
+  for (int base = 0; base < nitems; base += blockDim.x) {  // uniform over the block
+    const int item = base + threadIdx.x;
+    const bool live = item < nitems;
+    const int t = live ? item / G : 0;
+    const int j0 = live ? 4 * (item - t * G) : 0;
+    const float* pt = m.pen + t * QT * S;  // the tile's penalty rows
+    float best[QT][4], prev[QT][4];
+    int blk[QT][4];
+#pragma unroll
+    for (int k = 0; k < QT; ++k) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        best[k][e] = inf;  // only on-road rows enter
+        prev[k][e] = inf;
+        blk[k][e] = 0;
+      }
+    }
+    for (int w = 0; w < W; ++w) {
+      if (pending) {
+        cp_async_wait(W - 1 - w);
+        __syncthreads();
+      }
+      if (!live) continue;
+      const int i0 = w * 32;
+      const float* c = m.d2s + i0 * S + j0;
+      const int rows = min(32, P - i0);
+      if (rows == 32) {
+        fold_word(c, pt + i0, S, i0, best, prev, blk);
+      } else {
+        for (int r = 0; r < rows; ++r) {  // a partial word: a note per row
+          float p[QT];
+#pragma unroll
+          for (int k = 0; k < QT; ++k) p[k] = pt[k * S + i0 + r];
+          fold_row(best, *reinterpret_cast<const float4*>(c + r * S), p);
+          note_block(best, prev, blk, i0 + r);
+        }
+      }
+    }
+    pending = false;
+    if (!live) continue;
+#pragma unroll
+    for (int k = 0; k < QT; ++k) {
+      const int q = t * QT + k;
+      if (q >= nq) break;
+      const int f = m.foff[q];
+      float d[4];
+      int a[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float mn = best[k][e];
+        // taken whatever mn, so that its loads issue with the others';
+        // +inf: no on-road row below +inf, so row 0 ties at +inf (all
+        // on-road) or the first off-road row wins below
+        const int fr = first_row(m.d2s + j0 + e, m.mb + q * W, S, P, blk[k][e], mn);
+        a[e] = mn < inf ? fr : 0;
+        if (f < P) {  // the off-road rows weigh 1e12; the first of them is the lowest
+          if (BIG_D2 < mn) {
+            mn = BIG_D2;
+            a[e] = f;
+          } else if (BIG_D2 == mn) {
+            a[e] = min(a[e], f);
+          }
+        }
+        d[e] = sqrtf(mn + 1e-12f);
+      }
+      const size_t o = out0 + (size_t)q * P + j0;
+      if (vec) {
+        *reinterpret_cast<float4*>(dist + o) = make_float4(d[0], d[1], d[2], d[3]);
+        *reinterpret_cast<int4*>(idx + o) = make_int4(a[0], a[1], a[2], a[3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (j0 + e < P) {
+            dist[o + e] = d[e];
+            idx[o + e] = a[e];
+          }
+        }
+      }
+    }
+  }
+}
+
+size_t smem_bytes(int P, int qb) {
+  const int S = (P + 3) & ~3, W = (P + 31) / 32;
+  return (size_t)P * S * sizeof(float) +
+         (size_t)qb * (S * sizeof(float) + W * sizeof(uint32_t) + sizeof(int));
+}
+
+// The most steps a block stages at once: FUSED_QB, or 16 where the cache
+// leaves too little shared memory for FUSED_QB steps' penalties.
+int max_qb(int P) { return P <= 160 ? FUSED_QB : 16; }
+
+// Stage the steps [q0, q0 + nq) of agent b and sweep them.
+__device__ __forceinline__ void chunk(const Smem& m, const uint8_t* __restrict__ onroad,
+                                      float* __restrict__ dist, int* __restrict__ idx, int b,
+                                      int Q, int P, int S, int W, int q0, int nq, bool pending) {
+  const size_t base = ((size_t)b * Q + q0) * P;
+  load_mask(m.pen, onroad + base, nq, (nq + QT - 1) / QT * QT, P, S);
   __syncthreads();
+  pack_mask(m.mb, m.foff, m.pen, nq, P, S, W);
+  __syncthreads();
+  sweep(m, nq, P, S, W, pending, dist, idx, base);
 }
 
-__global__ void __launch_bounds__(RIGID_THREADS)
+__global__ void __launch_bounds__(MAX_THREADS)
 rigid_min_kernel(const float* __restrict__ d2, const uint8_t* __restrict__ onroad,
-                 float* __restrict__ dist, int* __restrict__ idx, int Q, int P) {
-  extern __shared__ float smem[];
-  float* d2s = smem;
-  uint8_t* ms = reinterpret_cast<uint8_t*>(smem + P * P);
-  const int b = blockIdx.x;
-  const int q0 = blockIdx.y * RIGID_QB;
-  stage_cache(d2s, d2 + (size_t)b * P * P, P * P);
-  min_chunk(d2s, ms, onroad, dist, idx, ((size_t)b * Q + q0) * P, min(RIGID_QB, Q - q0), P);
+                 float* __restrict__ dist, int* __restrict__ idx, int Q, int P, int qb) {
+  extern __shared__ __align__(16) float smem[];
+  const int S = (P + 3) & ~3, W = (P + 31) / 32;
+  const Smem m = carve(smem, P, S, W, qb);
+  const int q0 = blockIdx.y * qb;
+  stage_cache(m.d2s, d2 + (size_t)blockIdx.x * P * P, P, S, W);
+  chunk(m, onroad, dist, idx, blockIdx.x, Q, P, S, W, q0, min(qb, Q - q0), true);
 }
 
-__global__ void __launch_bounds__(FUSED_THREADS)
+__global__ void __launch_bounds__(MAX_THREADS)
 rigid_min_fused_kernel(const float* __restrict__ d2, const uint8_t* __restrict__ onroad,
-                       float* __restrict__ dist, int* __restrict__ idx, int Q, int P) {
-  extern __shared__ float smem[];
-  float* d2s = smem;
-  uint8_t* ms = reinterpret_cast<uint8_t*>(smem + P * P);
-  const int b = blockIdx.x;
-  stage_cache(d2s, d2 + (size_t)b * P * P, P * P);
-  for (int q0 = 0; q0 < Q; q0 += FUSED_QB)
-    min_chunk(d2s, ms, onroad, dist, idx, ((size_t)b * Q + q0) * P, min(FUSED_QB, Q - q0), P);
+                       float* __restrict__ dist, int* __restrict__ idx, int Q, int P, int qb) {
+  extern __shared__ __align__(16) float smem[];
+  const int S = (P + 3) & ~3, W = (P + 31) / 32;
+  const Smem m = carve(smem, P, S, W, qb);
+  stage_cache(m.d2s, d2 + (size_t)blockIdx.x * P * P, P, S, W);
+  for (int q0 = 0; q0 < Q; q0 += qb) {
+    if (q0 > 0) __syncthreads();  // the last chunk's shared memory is read
+    chunk(m, onroad, dist, idx, blockIdx.x, Q, P, S, W, q0, min(qb, Q - q0), q0 == 0);
+  }
 }
 
-size_t smem_bytes(int P, int qb) { return (size_t)P * P * sizeof(float) + (size_t)qb * P; }
+// One thread per (tile, group of 4 columns) of a block's first chunk, in
+// whole warps, at most MAX_THREADS.
+int threads_for(int Q, int P, int qb) {
+  const int items = (min(Q, qb) + QT - 1) / QT * ((P + 3) / 4);
+  return min(MAX_THREADS, (items + 31) / 32 * 32);
+}
 
 constexpr int MAX_DEVICES = 64;
 
@@ -126,31 +423,50 @@ cudaError_t allow_smem(K kernel, size_t smem, size_t* raised) {
 extern "C" {
 
 // d2 [B, P, P] f32; onroad [B, Q, P] one byte per row (0 = off-road);
-// dist [B, Q, P] f32; idx [B, Q, P] int32. Launches on `stream`; returns
-// cudaGetLastError() (or the error of raising the shared-memory limit).
+// dist [B, Q, P] f32; idx [B, Q, P] int32; P <= 32 * MAX_WORDS; qb steps a
+// block of rigid_min_kernel, a multiple of QT (cut to max_qb(P)). Launches on
+// `stream`; returns cudaGetLastError() (or the error of raising the
+// shared-memory limit).
 int cld_rigid_min(const float* d2, const uint8_t* onroad, float* dist, int* idx, int B, int Q,
-                  int P, void* stream) {
+                  int P, int qb, void* stream) {
   if (B == 0 || Q == 0 || P == 0) return 0;
+  if (P > 32 * MAX_WORDS || qb <= 0 || qb % QT != 0) return (int)cudaErrorInvalidValue;
+  qb = min(qb, max_qb(P));
   static size_t raised[MAX_DEVICES] = {};
-  const size_t smem = smem_bytes(P, RIGID_QB);
+  const size_t smem = smem_bytes(P, qb);
   cudaError_t err = allow_smem(rigid_min_kernel, smem, raised);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)B, (unsigned)((Q + RIGID_QB - 1) / RIGID_QB));
-  rigid_min_kernel<<<grid, RIGID_THREADS, smem, (cudaStream_t)stream>>>(d2, onroad, dist, idx, Q,
-                                                                        P);
+  const dim3 grid((unsigned)B, (unsigned)((Q + qb - 1) / qb));
+  rigid_min_kernel<<<grid, threads_for(Q, P, qb), smem, (cudaStream_t)stream>>>(
+      d2, onroad, dist, idx, Q, P, qb);
   return (int)cudaGetLastError();
 }
 
 int cld_rigid_min_fused(const float* d2, const uint8_t* onroad, float* dist, int* idx, int B,
                         int Q, int P, void* stream) {
   if (B == 0 || Q == 0 || P == 0) return 0;
+  if (P > 32 * MAX_WORDS) return (int)cudaErrorInvalidValue;
   static size_t raised[MAX_DEVICES] = {};
-  const size_t smem = smem_bytes(P, FUSED_QB);
+  const int qb = max_qb(P);
+  const size_t smem = smem_bytes(P, qb);
   cudaError_t err = allow_smem(rigid_min_fused_kernel, smem, raised);
   if (err != cudaSuccess) return (int)err;
-  rigid_min_fused_kernel<<<(unsigned)B, FUSED_THREADS, smem, (cudaStream_t)stream>>>(
-      d2, onroad, dist, idx, Q, P);
+  rigid_min_fused_kernel<<<(unsigned)B, threads_for(Q, P, qb), smem,
+                           (cudaStream_t)stream>>>(d2, onroad, dist, idx, Q, P, qb);
   return (int)cudaGetLastError();
+}
+
+// Registers, local memory bytes (spills) per thread and max threads per
+// block of rigid_min_kernel (fused = 0) or rigid_min_fused_kernel (fused = 1).
+int cld_rigid_min_attributes(int fused, int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(
+      &a, fused ? (const void*)rigid_min_fused_kernel : (const void*)rigid_min_kernel);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = a.maxThreadsPerBlock;
+  return 0;
 }
 
 }  // extern "C"

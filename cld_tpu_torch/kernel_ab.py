@@ -1,5 +1,5 @@
-"""Device time of the map-warp gather and the rigid backward, for comparing
-two versions of the port's kernels on one card.
+"""Device time of the map-warp gather and the rigid map-distance kernels,
+for comparing two versions of the port's kernels on one card.
 
     python cld_tpu_torch/kernel_ab.py [--root DIR] [--label NAME]
 
@@ -14,13 +14,22 @@ back from Python a launch reads ~25 us):
   (the closed loop's banded warp at 4 x 8 agents), with uniformly random
   queries (as `chip_smoke.py` holds them) and with rotated raster bands (as
   the warp makes them), beside one `torch.take` on a precomputed flat index;
+- `rigid_min` and `rigid_min_fused`: B = 128 and 32 agents (the open loop's
+  batch and the first 32 of it, as the closed loop's), Q = 52 steps, P =
+  100 points, on the lattice cache of `prepack_map_bbox` (`ctx.bbox_d2`:
+  the 10 x 10 bbox grid scaled by each agent's extent, full of tied
+  distances) of `synthetic_batch(seed=0)`, and the open loop's mask mix of
+  `chip_smoke.py:check_rigid`: the batch's own drivable bits under random
+  pixels, 10% of them replaced by random bits, an all-off-road and an
+  all-on-road step forced in;
 - `rigid_bwd`: B = 128 and 32 agents, Q = 52 steps, P = 100 points, the
   rows from `rigid_min_ref` over random point clouds and on-road masks.
-Each kernel is first held against its plain version (exact for the gather,
-rtol 1e-4 / atol 1e-5 for the backward); the backward's gradient is also
-hashed, so that two versions can be compared bit for bit. Prints one JSON
-line with the card and appends it to chiprun_out/kernel_ab.jsonl. Fails
-without a CUDA card.
+Each kernel is first held against its plain version (exact for the gather
+and the rigid min, `dist` bit for bit and `idx` equal; rtol 1e-4 / atol 1e-5
+for the backward); the rigid min's `dist` and `idx` and the backward's
+gradient are also hashed, so that two versions can be compared bit for bit.
+Prints one JSON line with the card and appends it to
+chiprun_out/kernel_ab.jsonl. Fails without a CUDA card.
 """
 
 from __future__ import annotations
@@ -70,6 +79,35 @@ def band_pix(g, M, BH, W, WIN):
     return pix.reshape(M, BH * W, 2)
 
 
+def rigid_min_inputs(dev, Bn: int, T: int, P: int):
+    """(d2 [Bn, P, P], on [Bn, T, P] bool) as `chip_smoke.py:check_rigid`
+    builds the open loop's: the lattice cache of the synthetic batch and its
+    drivable bits under random pixels with 10% random bits mixed in."""
+    import torch
+
+    from cld_tpu_torch.data.synthetic import synthetic_batch
+    from cld_tpu_torch.guidance import losses as gl
+    from cld_tpu_torch.ops import gather_kernels as gk
+
+    batch = synthetic_batch(seed=0, batch_size=Bn, raster_size=224, device=dev)
+    ctx = gl.prepack_map_bbox(gl.GuidanceContext(
+        batch.drivable_map, batch.raster_from_agent, batch.extent, batch.curr_speed,
+        torch.eye(3, device=dev).expand(Bn, 3, 3), torch.zeros((Bn,), dtype=torch.long,
+                                                                device=dev)))
+    g = torch.Generator().manual_seed(14)
+    Hm, W = batch.drivable_map.shape[-2:]
+    pix = torch.stack([torch.randint(0, W, (Bn, T * P), generator=g),
+                       torch.randint(0, Hm, (Bn, T * P), generator=g)], -1)
+    pix = pix.to(torch.int32).to(dev).contiguous()
+    on_map = gk.drivable_bit_gather_ref(pix, gk.pack_drivable_bits(batch.drivable_map)) > 0
+    flip = (torch.rand((Bn, T * P), generator=g) < 0.1).to(dev)
+    rand = (torch.rand((Bn, T * P), generator=g) < 0.5).to(dev)
+    on = torch.where(flip, rand, on_map).reshape(Bn, T, P).clone()
+    on[0, 0] = False
+    on[1, 1] = True
+    return ctx.bbox_d2.contiguous(), on.contiguous()
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", type=str, default=str(HERE.parent))
@@ -110,6 +148,17 @@ def main(argv=None) -> int:
         res[f"torch_take_{name}_ms"] = graph_ms(lambda: torch.take(wins, flat))
 
     T, P = 52, 100
+    d2, on = rigid_min_inputs(dev, 128, T, P)
+    for Bn in (128, 32):
+        a = (d2[:Bn].contiguous(), on[:Bn].contiguous())
+        want = rk.rigid_min_ref(*a)
+        for kname in ("rigid_min", "rigid_min_fused"):
+            got = getattr(rk, kname)(*a)
+            if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                raise RuntimeError(f"{kname} (B={Bn}) disagrees with its plain version")
+            res[f"{kname}_b{Bn}_ms"] = graph_ms(lambda: getattr(rk, kname)(*a))
+            res[f"{kname}_b{Bn}_sha256"] = hashlib.sha256(
+                got[0].cpu().numpy().tobytes() + got[1].cpu().numpy().tobytes()).hexdigest()
     for Bn in (128, 32):
         local = torch.randn((Bn, P, 2), generator=g) * 2.0
         d2 = ((local[:, :, None] - local[:, None]) ** 2).sum(-1)

@@ -126,9 +126,12 @@ def library() -> ctypes.CDLL:
         for fn in (lib.cld_drivable_gather_i8, lib.cld_drivable_gather_f32):
             fn.argtypes = [p] * 3 + [i, i, i, i, p]
             fn.restype = i
-        for fn in (lib.cld_rigid_min, lib.cld_rigid_min_fused):
-            fn.argtypes = [p] * 4 + [i, i, i, p]
-            fn.restype = i
+        lib.cld_rigid_min.argtypes = [p] * 4 + [i, i, i, i, p]
+        lib.cld_rigid_min.restype = i
+        lib.cld_rigid_min_fused.argtypes = [p] * 4 + [i, i, i, p]
+        lib.cld_rigid_min_fused.restype = i
+        lib.cld_rigid_min_attributes.argtypes = [i, p]
+        lib.cld_rigid_min_attributes.restype = i
         lib.cld_rigid_bwd.argtypes = [p] * 5 + [i, i, p]
         lib.cld_rigid_bwd.restype = i
         lib.cld_rigid_bwd_attributes.argtypes = [i, p]

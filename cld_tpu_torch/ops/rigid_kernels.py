@@ -12,8 +12,11 @@ on-road rows i of `d2_local[b, i, j]`, returns `dist = sqrt(min + 1e-12)` and
 `idx`, the lowest row that attains the minimum; off-road rows count as 1e12,
 so a step with no on-road point gives dist 1e6 and idx 0. `rigid_min` and
 `rigid_min_fused` compute the same function under two schedules
-(`csrc/rigid_min.cu`): blocks over (agent, chunk of steps), or one block per
-agent that sweeps the horizon with the cache loaded once. The backward
+(`csrc/rigid_min.cu`): blocks over (agent, chunk of steps), or one block
+per agent that sweeps the horizon with the cache loaded once. In both, a
+thread walks 4 columns for a tile of 2 steps, reading each cache row's 16
+bytes once for the whole tile, then finds each minimum's lowest row in the
+block of 4 rows where it last went down. The backward
 (`csrc/rigid_bwd.cu`, one warp per agent and step) routes column j's
 `a_j = g_j / dist_j` to row `idx_j`:
 
@@ -51,6 +54,21 @@ def rigid_min_ref(d2_local: torch.Tensor, onroad: torch.Tensor):
     return torch.sqrt(m + 1e-12), idx.to(torch.int32)
 
 
+RIGID_MIN_TILE = 2  # steps a thread of the forward kernels walks together
+
+
+def rigid_min_steps_per_block(B: int, Q: int, sms: int) -> int:
+    """Steps per block of the `rigid_min` kernel: enough blocks over (agent,
+    chunk of steps) for about two per SM of the card's `sms`, each staging
+    the cache once, as few as that allows; a multiple of the step tile, at
+    most 64 (the kernel stages at most that many steps' mask at once, and
+    cuts the count to 16 where P > 160)."""
+    chunks = max(1, round(2 * sms / max(B, 1)))
+    steps = -(-Q // chunks)
+    steps = -(-steps // RIGID_MIN_TILE) * RIGID_MIN_TILE
+    return max(RIGID_MIN_TILE, min(64, steps))
+
+
 def _rigid_min_launch(name: str, d2_local: torch.Tensor, onroad: torch.Tensor):
     dev = d2_local.device
     if dev.type == "cpu":
@@ -68,9 +86,15 @@ def _rigid_min_launch(name: str, d2_local: torch.Tensor, onroad: torch.Tensor):
     native.require(onroad, "onroad", onroad.dtype, (B, Q, P), dev)
     dist = torch.empty((B, Q, P), dtype=torch.float32, device=dev)
     idx = torch.empty((B, Q, P), dtype=torch.int32, device=dev)
-    fn = getattr(native.library(), f"cld_{name}")
-    native.check(fn(d2_local.data_ptr(), onroad.data_ptr(), dist.data_ptr(), idx.data_ptr(),
-                    B, Q, P, native.stream_ptr(dev)), name)
+    lib = native.library()
+    args = (d2_local.data_ptr(), onroad.data_ptr(), dist.data_ptr(), idx.data_ptr(), B, Q, P)
+    if name == "rigid_min":
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        err = lib.cld_rigid_min(*args, rigid_min_steps_per_block(B, Q, sms),
+                                native.stream_ptr(dev))
+    else:
+        err = lib.cld_rigid_min_fused(*args, native.stream_ptr(dev))
+    native.check(err, name)
     native.count_launch(name)
     return dist, idx
 
@@ -79,14 +103,27 @@ def rigid_min(d2_local: torch.Tensor, onroad: torch.Tensor) -> Tuple[torch.Tenso
     """Masked min and argmin: d2_local [B, P, P] f32, onroad [B, Q, P] bool
     (or uint8, 0 = off-road) -> (dist [B, Q, P] f32, idx [B, Q, P] int32).
     Any B and Q; P up to `MAX_P`. On CUDA, blocks run over (agent, chunk of
-    8 steps)."""
+    steps), the chunk from `rigid_min_steps_per_block`, and a thread walks 4
+    columns for a tile of 2 steps."""
     return _rigid_min_launch("rigid_min", d2_local, onroad)
 
 
 def rigid_min_fused(d2_local: torch.Tensor, onroad: torch.Tensor):
     """The same function as `rigid_min`, bit for bit. On CUDA, one block per
-    agent loads the cache once and sweeps the whole horizon."""
+    agent loads the cache once and sweeps the whole horizon, a thread walking
+    4 columns for a tile of 2 steps."""
     return _rigid_min_launch("rigid_min_fused", d2_local, onroad)
+
+
+def rigid_min_attributes(name: str) -> dict:
+    """The compiler's verdict on the forward kernel of `name` ("rigid_min" or
+    "rigid_min_fused"): registers and local memory bytes (spills) per
+    thread, max threads per block."""
+    if name not in ("rigid_min", "rigid_min_fused"):
+        raise ValueError(f"rigid_min_attributes: unknown kernel {name!r}")
+    regs, local, threads = native.attributes(native.library().cld_rigid_min_attributes,
+                                             int(name == "rigid_min_fused"))
+    return dict(registers=regs, local_bytes=local, max_threads=threads)
 
 
 def rigid_bwd_ref(pts, idx, dist, g) -> torch.Tensor:

@@ -4,13 +4,17 @@ wrappers `rigid_min`, `rigid_min_fused`, `rigid_bwd` on CPU tensors (which
 take the plain versions) against `rigid_min_pallas`,
 `rigid_min_fused_pallas`, `rigid_bwd_pallas` and the jnp references.
 
-Fixtures: random point clouds (no ties) and a regular 4 x 4 grid (exact
-distance ties, which do not depend on the pose), random on-road masks with
-one all-off-road and one all-on-road step forced in. Tolerances: `dist`
+Fixtures: random point clouds (no ties), a regular 4 x 4 grid (exact
+distance ties, which do not depend on the pose) and, at the shapes where the
+CUDA forward kernels' packed mask and step tiles are edge-prone (`EDGE_MIN`),
+R x C lattices of the bbox grid; random on-road masks with one all-off-road
+and one all-on-road step forced in (where there are two steps). Tolerances: `dist`
 rtol 1e-6 (one sqrt of the same minimum; measured exact), `idx` exactly
 equal (the lowest on-road row wins a tie on both sides), the backward rtol
 1e-4 / atol 1e-5 (f32 sums in another order), as `tests/test_pallas.py`.
 """
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -25,25 +29,60 @@ torch.set_num_threads(2)
 
 SHAPES = {"b3_q13_p24": (3, 13, 24), "b5_q7_p16": (5, 7, 16), "b2_q4_p100": (2, 4, 100),
           "grid_ties_p16": (3, 9, 16)}
+# where the CUDA forward kernels' bit-packed mask (32 rows a word, up to 7 at
+# MAX_P) and step tiles (2 steps; blocks of 16, sweeps of 64) are edge-prone,
+# on R x C lattices of the bbox grid (full of exact ties), at small B
+EDGE_MIN = {"lattice_p1": (2, 3, 1), "lattice_p31_q5": (2, 5, 31), "lattice_p32": (2, 2, 32),
+            "lattice_p33_q17": (1, 17, 33), "lattice_p65": (2, 3, 65),
+            "lattice_max_p": (1, 3, rk.MAX_P), "lattice_b1_q1": (1, 1, 20),
+            "lattice_q65": (1, 65, 8)}
+
+
+def _lattice(B, P, rng):
+    """[B, P, 2] R x C lattices (R the largest divisor of P up to sqrt(P)) of
+    the unit bbox grid, scaled per agent, as `prepack_map_bbox` builds them."""
+    R = max(r for r in range(1, int(P ** 0.5) + 1) if P % r == 0)
+    lw = np.linspace(-0.5, 0.5, R), np.linspace(-0.5, 0.5, P // R)
+    grid = np.stack(np.meshgrid(*lw, indexing="ij"), -1).reshape(-1, 2)
+    return (grid[None] * rng.uniform(1.0, 4.0, (B, 1, 2))).astype(np.float32)
+
+
+def _on_step(B, Q):
+    """The step forced all on-road: (1, 1), or the last one of a smaller grid."""
+    return (1, 1) if B > 1 and Q > 1 else (B - 1, Q - 1)
 
 
 def _fixture(name):
-    B, Q, P = SHAPES[name]
+    B, Q, P = {**SHAPES, **EDGE_MIN}[name]
     rng = np.random.default_rng(sum(map(ord, name)))
     if name.startswith("grid"):
         lin = np.arange(4) - 1.5  # spacings exact in f32, so symmetric neighbours tie
         grid = np.stack(np.meshgrid(lin, lin, indexing="ij"), -1).reshape(-1, 2)
         local = (grid[None] * rng.integers(1, 4, (B, 1, 2))).astype(np.float32)
+    elif name.startswith("lattice"):
+        local = _lattice(B, P, rng)
     else:
         local = rng.normal(0, 2, (B, P, 2)).astype(np.float32)
     d2 = np.sum((local[:, :, None] - local[:, None]) ** 2, -1)
     on = rng.random((B, Q, P)) > 0.4
-    on[0, 0] = False  # an all-off-road step: dist = sqrt(1e12), idx = 0
-    on[1, 1] = True  # an all-on-road step: every column matches itself
+    if B * Q > 1:
+        on[0, 0] = False  # an all-off-road step: dist = sqrt(1e12), idx = 0
+    on[_on_step(B, Q)] = True  # an all-on-road step: every column matches itself
     return d2, on, rng
 
 
-@pytest.mark.parametrize("name", sorted(SHAPES))
+@functools.lru_cache(maxsize=None)
+def _jax_rigid_min(name):
+    """The JAX package's three forms on the fixture, once per fixture."""
+    d2, on, _ = _fixture(name)
+    return {
+        "jnp": jpk.rigid_min_ref(jnp.asarray(d2), jnp.asarray(on, jnp.float32)),
+        "pallas": jpk.rigid_min_pallas(jnp.asarray(d2), jnp.asarray(on), interpret=True),
+        "fused": jpk.rigid_min_fused_pallas(jnp.asarray(d2), jnp.asarray(on), interpret=True),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(SHAPES) + sorted(EDGE_MIN))
 @pytest.mark.parametrize("op", ["rigid_min_ref", "rigid_min", "rigid_min_fused"])
 def test_rigid_min_matches_jax_kernels(name, op):
     d2, on, _ = _fixture(name)
@@ -53,18 +92,14 @@ def test_rigid_min_matches_jax_kernels(name, op):
     assert native.launch_counts() == {k: 0 for k in native.KERNELS}  # CPU: plain version
     assert dist.dtype == torch.float32 and idx.dtype == torch.int32
     assert dist.shape == idx.shape == (B, Q, P)
-    wants = {
-        "jnp": jpk.rigid_min_ref(jnp.asarray(d2), jnp.asarray(on, jnp.float32)),
-        "pallas": jpk.rigid_min_pallas(jnp.asarray(d2), jnp.asarray(on), interpret=True),
-        "fused": jpk.rigid_min_fused_pallas(jnp.asarray(d2), jnp.asarray(on), interpret=True),
-    }
-    for tag, (d_j, i_j) in wants.items():
+    for tag, (d_j, i_j) in _jax_rigid_min(name).items():
         np.testing.assert_allclose(dist.numpy(), np.asarray(d_j), rtol=1e-6, err_msg=tag)
         np.testing.assert_array_equal(idx.numpy(), np.asarray(i_j), err_msg=tag)
-    assert np.all(dist.numpy()[0, 0] == np.float32(1e6)) and np.all(idx.numpy()[0, 0] == 0)
-    np.testing.assert_array_equal(idx.numpy()[1, 1], np.arange(P))
-    np.testing.assert_allclose(dist.numpy()[1, 1], 1e-6, rtol=1e-6)
-    if name.startswith("grid"):  # the fixture does hold ties
+    if B * Q > 1:
+        assert np.all(dist.numpy()[0, 0] == np.float32(1e6)) and np.all(idx.numpy()[0, 0] == 0)
+    np.testing.assert_array_equal(idx.numpy()[_on_step(B, Q)], np.arange(P))
+    np.testing.assert_allclose(dist.numpy()[_on_step(B, Q)], 1e-6, rtol=1e-6)
+    if name.startswith("grid") or (name.startswith("lattice") and B * Q > 1 and P > 1):
         masked = np.where(on[..., :, None], d2[:, None], 1e12)
         assert ((masked == masked.min(-2, keepdims=True)).sum(-2) > 1)[on.any(-1)].any()
 
@@ -133,3 +168,16 @@ def test_rigid_bwd_matches_jax_kernel_at_edge_shapes(name):
     if row is not None:  # only the one row receives anything
         assert np.abs(got[:, :, row]).max() > 1.0
         assert not np.delete(got, row, axis=2).any()
+
+
+@pytest.mark.parametrize("B,Q,want", [(128, 52, 26), (32, 52, 8), (1, 52, 2), (133, 52, 26),
+                                      (600, 52, 52), (600, 200, 64), (4, 1, 2)])
+def test_rigid_min_steps_per_block(B, Q, want):
+    """The `rigid_min` kernel's steps per block: a multiple of the step tile,
+    at most 64, about two blocks per SM of an H100 (132) where the horizon
+    allows."""
+    got = rk.rigid_min_steps_per_block(B, Q, 132)
+    assert got == want
+    assert got % rk.RIGID_MIN_TILE == 0 and got <= 64
+    if rk.RIGID_MIN_TILE < got < min(Q, 64):
+        assert 132 <= B * -(-Q // got) <= 4 * 132  # enough blocks to fill the card, not more
