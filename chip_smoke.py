@@ -35,8 +35,12 @@
    C = 1, 4 and 5, one window, and pix 8 bytes off a 16-byte boundary, with
    its registers and spills, and its time from a CUDA graph beside one
    `torch.take`) and `drivable_gather` (32 maps of 224x224, 5,200 queries
-   each; int8 and float32 maps); and the banded `warp_scene_maps` against
-   the exact one for the 32-agent pack.
+   each; int8 and float32 maps; also at `DRIVABLE_GATHER_EDGES`, B 1/32/33
+   and Q 1/3/4/5/5,199/5,200/5,201, with coordinates outside the map, and
+   through a pix view 8 bytes off a 16-byte boundary, so on its 16-byte and
+   its scalar path, two launches bit for bit; its registers and spills and
+   its time from a CUDA graph beside one `torch.take`); and the banded
+   `warp_scene_maps` against the exact one for the 32-agent pack.
 7. Runs the guided closed loop `sim.env.simulate` at full width: 4 scenes x
    8 agents, raster 224x224x34, world maps 512x512x3, 100 frames, a replan
    every 5 frames, each replan one guided 100-step DDPM call. Launch counts
@@ -75,11 +79,14 @@
    "rigid_kernel" specs: exact launch counts, a finite plan, card vs CPU.
 13. Holds the two reward kernels against their plain versions on the card:
    `offroad_count` exactly, at the reward's shape (B=128 maps of 224x224, 52
-   points each), with 5 groups of points per map, and at two odd small
-   shapes; `disk_collision` within rtol 1e-5 / atol 1e-6 at T=52, B=128, D=5
-   (scenes of 4, same-scene off-diagonal pairs, and every off-diagonal pair)
-   and at T/B/D 8/6/4, 3/5/1 and 6/7/9 (more disks than the kernel unrolls,
-   so its runtime-D loop), and the runtime-D loop at D=5 too; two launches
+   points each), with 5 groups of points per map, at two odd small shapes
+   and at every combination of `OFFROAD_EDGES` (P 1/31/32/33/52/64/65/
+   127/128/129/200, G 1/3/5, B 1/128/129, coordinates outside the map), two
+   launches bit for bit, with its registers and spills; `disk_collision`
+   within rtol 1e-5 / atol 1e-6 at T=52, B=128, D=5 (scenes of 4,
+   same-scene off-diagonal pairs, and every off-diagonal pair) and at T/B/D
+   8/6/4, 3/5/1 and 6/7/9 (more disks than the kernel unrolls, so its
+   runtime-D loop), and the runtime-D loop at D=5 too; two launches
    bit-identical. Times each from Python and from a CUDA graph, the
    runtime-D loop beside the unrolled one.
 14. Trains at full width on a synthetic batch (B=128, raster 224x224x34, the
@@ -100,11 +107,14 @@
 16. Holds one VAE step's and one DM step's gradients and one `collect_step`'s
    trajectories and rewards on the card against the CPU at a small size (the
    `cld_smoke` widths, B=8), same weights and explicit noise.
-17. Prints the card line, one `{"kernels": [...]}` line (`launches_by_path`
+17. Times the launch floor: `torch.cuda._sleep(0)` (one thread that exits
+   at once) from a CUDA graph, as every kernel's graph time is taken.
+18. Prints the card line, one `{"kernels": [...]}` line (`launches_by_path`
    there holds each main-path run's own count, of 4, 7, 8, 11, 12, 14 and 15,
-   each zeroed before its run and checked exactly; `launches` is their sum),
-   and last `{"ok": true, "device": {...}}`. Any failed check exits non-zero
-   first.
+   each zeroed before its run and checked exactly; `launches` is their sum;
+   `graph_ms` is each kernel's time from a CUDA graph at the main path's
+   shape, B=128 for the LSTM kernels, beside `launch_floor_ms`), and last
+   `{"ok": true, "device": {...}}`. Any failed check exits non-zero first.
 
 A longer report goes to chiprun_out/chip_smoke.json.
 """
@@ -184,10 +194,13 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def graph_ms(fn, launches: int = 100, replays: int = 20) -> float:
+def graph_ms(fn, launches: int = 100, replays: int = 20, windows: int = 1) -> float:
     """Device ms per call of fn, from replays of a CUDA graph of `launches`
-    calls: back-to-back launches from Python read the host's launch path
+    calls (the median over `windows` timed runs of `replays` replays each):
+    back-to-back launches from Python read the host's launch path
     (~0.02-0.03 ms) for any kernel shorter than that, the graph takes it out."""
+    import statistics
+
     import torch
 
     fn()
@@ -198,13 +211,16 @@ def graph_ms(fn, launches: int = 100, replays: int = 20) -> float:
             fn()
     graph.replay()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (launches * replays)
+    times = []
+    for _ in range(windows):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(replays):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / (launches * replays))
+    return statistics.median(times)
 
 
 def bound(nbytes: float, flops: float):
@@ -428,9 +444,12 @@ def check_gather(batch, dev, report):
     ms = cuda_ms(lambda: gk.drivable_bit_gather(pix, packed), 200)
     plain_ms = cuda_ms(lambda: gk.drivable_bit_gather_ref(pix, packed), 50)
     b_ms, b_by, needed = gather_bound(pix, Hm, W8, 1, 4, col_shift=3)
-    log(f"bit_gather bound counts {needed} of {B * Hm * W8} map bytes (those under a query)")
+    g_ms = graph_ms(lambda: gk.drivable_bit_gather(pix, packed))
+    log(f"bit_gather bound counts {needed} of {B * Hm * W8} map bytes (those under a query); "
+        f"{ms:.4f} ms from Python, {g_ms:.5f} from a graph")
     report["bit_gather"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                                bound_by=b_by, library_ms=None, source_bytes_needed=needed)
+                                bound_by=b_by, library_ms=None, source_bytes_needed=needed,
+                                graph_ms=g_ms)
 
 
 def run_main_path(models, batch, report):
@@ -662,6 +681,13 @@ def check_map_gathers(dev, report):
         check(err == 0.0, f"drivable_gather ({name}) disagrees with its plain version")
         check(0 < n_on < CL_B * Q, "drivable_gather fixture is degenerate")
         worst = max(worst, err)
+    held, attrs = check_drivable_gather_edges(g, dev), {}
+    for dt, dtype in (("int8", torch.int8), ("float32", torch.float32)):
+        for path in ("vector", "scalar"):
+            a = attrs[f"{dt},{path}"] = gk.drivable_gather_attributes(dtype, path == "vector")
+            spills = " (spills: reported, not failed)" if a["local_bytes"] else ""
+            log(f"drivable_gather_kernel {dt} {path}: {a['registers']} registers, "
+                f"{a['local_bytes']} bytes of local memory per thread{spills}")
     m8 = drv.to(torch.int8).to(dev)
     ms = cuda_ms(lambda: gk.drivable_gather(pix, m8), 200)
     plain_ms = cuda_ms(lambda: gk.drivable_gather_ref(pix, m8), 50)
@@ -676,10 +702,58 @@ def check_map_gathers(dev, report):
     lib_graph = graph_ms(lambda: torch.take(m8, flat))
     k_graph = graph_ms(lambda: gk.drivable_gather(pix, m8))
     log(f"drivable_gather {ms:.4f} ms from Python, {k_graph:.5f} from a graph; torch.take "
-        f"{lib_ms:.4f} from Python, {lib_graph:.5f} from a graph")
+        f"{lib_ms:.4f} from Python, {lib_graph:.5f} from a graph; bound {b_ms:.6f} ({b_by})")
     report["drivable_gather"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                      bound_by=b_by, library_ms=lib_ms, source_bytes_needed=needed,
-                                     graph_ms=k_graph, library_graph_ms=lib_graph)
+                                     graph_ms=k_graph, library_graph_ms=lib_graph, held=held,
+                                     attributes=attrs)
+
+
+# (B, Q) at which `drivable_gather` is held: one query, ragged groups of 3, 4
+# and 5, the "px" replan's Q = 5,200 and its neighbours, B one past the
+# replan's 32
+DRIVABLE_GATHER_EDGES = ((1, 1), (1, 3), (1, 4), (1, 5), (32, 5199), (32, 5200), (32, 5201),
+                         (33, 5), (33, 5200), (33, 5201))
+
+
+def check_drivable_gather_edges(g, dev) -> dict:
+    """`drivable_gather` on int8 and float32 maps at `DRIVABLE_GATHER_EDGES`,
+    with coordinates up to 8 pixels outside the map (clamped), and at the
+    replan's shape through a pix view 8 bytes off a 16-byte boundary: equal
+    to its plain version (tolerance 0) and to a second launch bit for bit.
+    Both the 16-byte and the scalar path are reached for both map types."""
+    import torch
+
+    from cld_tpu_torch.ops import gather_kernels as gk
+
+    R, held, paths = RASTER, {}, set()
+    maps = (torch.rand((33, R, R), generator=g) < 0.6)
+    maps = {"int8": (maps.to(torch.int8) * 3 - 1).to(dev),
+            "float32": torch.where(maps, torch.rand(maps.shape, generator=g) + 0.1,
+                                   torch.zeros(())).to(dev)}
+    for Bn, Qn, off16 in [(*e, False) for e in DRIVABLE_GATHER_EDGES] + [(CL_B, Q, True)]:
+        pix = torch.stack([torch.randint(-8, R + 8, (Bn, Qn), generator=g),
+                           torch.randint(-8, R + 8, (Bn, Qn), generator=g)], -1).to(torch.int32)
+        pix = pix.to(dev).contiguous()
+        if off16:  # the same queries in storage 8 bytes off a 16-byte boundary
+            pix = torch.cat([torch.zeros(2, dtype=torch.int32, device=dev),
+                             pix.reshape(-1)])[2:].view(Bn, Qn, 2)
+            check(pix.data_ptr() % 16 == 8, "drivable_gather fixture: pix not 8 bytes off")
+        for dt, m in maps.items():
+            m = m[:Bn].contiguous()
+            got, again = gk.drivable_gather(pix, m), gk.drivable_gather(pix, m)
+            want = gk.drivable_gather_ref(pix, m)
+            vec = gk.drivable_gather_vector(pix, got)
+            torch.cuda.synchronize()
+            key = f"{dt},B={Bn},Q={Qn}{',pix_off16' if off16 else ''}"
+            held[key] = float((got - want).abs().max())
+            paths.add((dt, vec))
+            log(f"drivable_gather [{key}, {'vector' if vec else 'scalar'} path]: max abs err "
+                f"{held[key]} (tolerance 0, exact)")
+            check(held[key] == 0.0, f"drivable_gather ({key}) disagrees with its plain version")
+            check(torch.equal(got, again), f"drivable_gather ({key}) differs between two launches")
+    check(len(paths) == 4, f"drivable_gather edges reach only {sorted(paths)}")
+    return held
 
 
 def check_warp(pack, dev, report):
@@ -1303,6 +1377,49 @@ def scene_pair_mask(Bn, agents_per_scene, dev):
     return (scene[:, None] == scene[None, :]) & ~torch.eye(Bn, dtype=torch.bool, device=dev)
 
 
+# P, G and B at which `offroad_count` is held, every combination: one point,
+# a warp's 32 lanes, 64 and a pass of 128 (4 points a lane) and one point
+# either side, the reward's 52, two passes; the reward's one group and the
+# samples' several; one map, the reward's 128 and one past a block of 4 warps
+OFFROAD_EDGES = dict(P=(1, 31, 32, 33, 52, 64, 65, 127, 128, 129, 200), G=(1, 3, 5),
+                     B=(1, 128, 129))
+
+
+def check_offroad_edges(g, dev) -> dict:
+    """`offroad_count` at every combination of `OFFROAD_EDGES` on 224 x 224
+    f32 maps (a fifth of them exact zeros, which count as off-road), with
+    coordinates up to 8 pixels outside the map (clamped): equal to its plain
+    version (tolerance 0) and to a second launch bit for bit."""
+    import torch
+
+    from cld_tpu_torch.ops import reward_kernels as rk
+
+    R, held = RASTER, {}
+    maps = torch.rand((max(OFFROAD_EDGES["B"]), R, R), generator=g) - 0.4
+    maps = torch.where(maps > 0.4, torch.zeros(()), maps).to(dev)
+    for Bn in OFFROAD_EDGES["B"]:
+        m = maps[:Bn].contiguous()
+        for Gn in OFFROAD_EDGES["G"]:
+            for Pn in OFFROAD_EDGES["P"]:
+                shape = (Bn, Gn, Pn) if Gn > 1 else (Bn, Pn)
+                pix = torch.stack([torch.randint(-8, R + 8, shape, generator=g),
+                                   torch.randint(-8, R + 8, shape, generator=g)], -1)
+                pix = pix.to(torch.int32).to(dev).contiguous()
+                got, again = rk.offroad_count(pix, m), rk.offroad_count(pix, m)
+                want = rk.offroad_count_ref(pix, m)
+                torch.cuda.synchronize()
+                key = f"B={Bn},G={Gn},P={Pn}"
+                held[key] = float((got - want).abs().max())
+                check(torch.equal(got, want), f"offroad_count ({key}) disagrees with its plain "
+                      "version")
+                check(torch.equal(got, again), f"offroad_count ({key}) differs between two "
+                      "launches")
+    log(f"offroad_count at {len(held)} edge shapes (P {OFFROAD_EDGES['P']}, G "
+        f"{OFFROAD_EDGES['G']}, B {OFFROAD_EDGES['B']}): equal to its plain version and to a "
+        "second launch (tolerance 0, exact)")
+    return held
+
+
 def check_reward_kernels(batch, dev, report):
     """`offroad_count` and `disk_collision` against their plain versions on
     the card."""
@@ -1336,6 +1453,11 @@ def check_reward_kernels(batch, dev, report):
         worst = max(worst, float((got - want).abs().max()))
         if name == "reward":
             full = (pix, m)
+    held = check_offroad_edges(g, dev)
+    attrs = rk.offroad_count_attributes()
+    spills = " (spills: reported, not failed)" if attrs["local_bytes"] else ""
+    log(f"offroad_count_kernel: {attrs['registers']} registers, {attrs['local_bytes']} bytes of "
+        f"local memory per thread{spills}")
     pix, m = full
     ms = cuda_ms(lambda: rk.offroad_count(pix, m), 200)
     g_ms = graph_ms(lambda: rk.offroad_count(pix, m))
@@ -1348,7 +1470,7 @@ def check_reward_kernels(batch, dev, report):
         f"graph, plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms by {b_by} ({needed} map bytes)")
     report["offroad_count"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                    bound_by=b_by, library_ms=None, graph_ms=g_ms,
-                                   source_bytes_needed=needed)
+                                   source_bytes_needed=needed, held=held, attributes=attrs)
 
     def fixture(Tn, Bn, Dn, mask):
         cent = (torch.randn((Tn, Bn, Dn, 2), generator=g) * 2.0).to(dev)
@@ -1804,9 +1926,15 @@ def main() -> int:
              "fused_open_loop": "launches_fused", "rigid_replan": "launches_rigid_replan",
              "vae_train": "launches_vae_train", "dm_train": "launches_dm_train",
              "ppo": "launches_ppo", "ppo_disk_penalty": "launches_ppo_disk_penalty"}
+    # the launch floor: one kernel node of a graph that does nothing (one
+    # thread that exits at once), timed as every kernel's graph_ms is
+    floor_ms = graph_ms(lambda: torch.cuda._sleep(0))
+    report["launch_floor_ms"] = floor_ms
+    log(f"launch floor (torch.cuda._sleep(0) from a CUDA graph): {floor_ms:.5f} ms")
     line = []
     for name, (src, rep) in replaces.items():
         k = kernels[name]
+        k_graph = k["graph_ms"][str(B)] if isinstance(k["graph_ms"], dict) else k["graph_ms"]
         line.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": sum(report[p][name] for p in paths.values()),
@@ -1814,6 +1942,7 @@ def main() -> int:
             "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
+            "graph_ms": k_graph, "launch_floor_ms": floor_ms,
         })
     report["kernels"] = kernels
     check(len(line) == len(native.KERNELS), "a kernel is missing from the kernels line")

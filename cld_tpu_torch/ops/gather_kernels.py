@@ -98,6 +98,25 @@ def drivable_gather_ref(pix: torch.Tensor, drivable: torch.Tensor) -> torch.Tens
     return drivable[b, row, col].to(torch.float32)
 
 
+def drivable_gather_vector(pix: torch.Tensor, out: torch.Tensor) -> bool:
+    """Whether `drivable_gather`'s kernel takes its 16-byte path for pix
+    [B, Q, 2] and out [B, Q]: Q a multiple of its group of 4 queries, and
+    pix and out 16-byte aligned, so that every group starts aligned. Else it
+    takes the scalar path (8-byte pix loads, scalar stores)."""
+    return pix.shape[1] % 4 == 0 and pix.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+
+
+def drivable_gather_attributes(dtype: torch.dtype, vec: bool) -> dict:
+    """The compiler's verdict on the kernel's instantiation for an int8 or
+    float32 map, on its 16-byte path or its scalar one: registers and local
+    memory bytes (spills) per thread, max threads per block."""
+    if dtype not in (torch.int8, torch.float32):
+        raise TypeError(f"drivable: dtype {dtype}, expected int8 or float32")
+    regs, local, threads = native.attributes(
+        native.library().cld_drivable_gather_attributes, int(dtype == torch.float32), int(vec))
+    return dict(registers=regs, local_bytes=local, max_threads=threads)
+
+
 def drivable_gather(pix: torch.Tensor, drivable: torch.Tensor) -> torch.Tensor:
     """Map value per query point: pix [B, Q, 2] int32 (col, row), drivable
     [B, H, W] int8 or float32 -> [B, Q] f32. An int8 map's values come back
@@ -122,7 +141,8 @@ def drivable_gather(pix: torch.Tensor, drivable: torch.Tensor) -> torch.Tensor:
     native.require(drivable, "drivable", drivable.dtype, (B, Hm, W), pix.device)
     out = torch.empty((B, Q), dtype=torch.float32, device=pix.device)
     native.check(fn(pix.data_ptr(), drivable.data_ptr(), out.data_ptr(), B, Q, Hm, W,
-                    native.stream_ptr(pix.device)), "drivable_gather")
+                    int(drivable_gather_vector(pix, out)), native.stream_ptr(pix.device)),
+                 "drivable_gather")
     native.count_launch("drivable_gather")
     return out
 

@@ -124,8 +124,10 @@ def library() -> ctypes.CDLL:
         lib.cld_value_gather_attributes.argtypes = [i, i, p]
         lib.cld_value_gather_attributes.restype = i
         for fn in (lib.cld_drivable_gather_i8, lib.cld_drivable_gather_f32):
-            fn.argtypes = [p] * 3 + [i, i, i, i, p]
+            fn.argtypes = [p] * 3 + [i] * 5 + [p]
             fn.restype = i
+        lib.cld_drivable_gather_attributes.argtypes = [i, i, p]
+        lib.cld_drivable_gather_attributes.restype = i
         lib.cld_rigid_min.argtypes = [p] * 4 + [i, i, i, i, p]
         lib.cld_rigid_min.restype = i
         lib.cld_rigid_min_fused.argtypes = [p] * 4 + [i, i, i, p]
@@ -138,6 +140,8 @@ def library() -> ctypes.CDLL:
         lib.cld_rigid_bwd_attributes.restype = i
         lib.cld_offroad_count.argtypes = [p] * 3 + [i] * 5 + [p]
         lib.cld_offroad_count.restype = i
+        lib.cld_offroad_count_attributes.argtypes = [p]
+        lib.cld_offroad_count_attributes.restype = i
         lib.cld_disk_collision.argtypes = [p] * 5 + [i, i, i, i, p]
         lib.cld_disk_collision.restype = i
         _LIB = lib

@@ -40,6 +40,13 @@ def offroad_count_ref(pix: torch.Tensor, drivable: torch.Tensor) -> torch.Tensor
     return torch.sum(drivable[b, row, col] <= 0, dim=-1).to(torch.float32)
 
 
+def offroad_count_attributes() -> dict:
+    """The compiler's verdict on the off-road kernel: registers and local
+    memory bytes (spills) per thread, max threads per block."""
+    regs, local, threads = native.attributes(native.library().cld_offroad_count_attributes)
+    return dict(registers=regs, local_bytes=local, max_threads=threads)
+
+
 def offroad_count(pix: torch.Tensor, drivable: torch.Tensor) -> torch.Tensor:
     """Off-road points per group: pix [B, P, 2] int32 (col, row) with a
     float32 map drivable [B, H, W] -> [B] f32; or pix [B, G, P, 2], G groups

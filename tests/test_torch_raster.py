@@ -73,6 +73,43 @@ def test_drivable_gather_matches_pallas_exactly(kind, B, H, W, Q):
     np.testing.assert_array_equal(got, drv[b, pix[..., 1], pix[..., 0]].astype(np.float32))
 
 
+# the CUDA kernel's edges: one query, ragged groups of 3 and 5 (its scalar
+# path), one agent and three
+@pytest.mark.parametrize("kind", ["int8", "float01"])
+@pytest.mark.parametrize("B,Q", [(1, 1), (1, 3), (1, 5), (3, 1), (3, 3), (3, 5)])
+def test_drivable_gather_edges_match_pallas_exactly(kind, B, Q):
+    rng = np.random.default_rng(B * 10 + Q)
+    H, W = 13, 17
+    if kind == "int8":
+        drv = rng.integers(-3, 4, (B, H, W)).astype(np.int8)
+    else:
+        drv = (rng.random((B, H, W)) < 0.5).astype(np.float32)
+    pix = np.stack([rng.integers(0, W, (B, Q)), rng.integers(0, H, (B, Q))], -1).astype(np.int32)
+    pix[:, 0] = [W - 1, H - 1]  # the last pixel
+    want = np.asarray(drivable_gather_pallas(jnp.asarray(pix), jnp.asarray(drv), interpret=True))
+    native.reset_launch_counts()
+    got = gk.drivable_gather(T(pix), T(drv)).numpy()
+    assert got.dtype == np.float32 and got.shape == (B, Q)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(gk.drivable_gather_ref(T(pix), T(drv)).numpy(), want)
+    assert native.launch_counts()["drivable_gather"] == 0  # CPU tensors: plain version
+
+
+@pytest.mark.parametrize("Q,offset,vector", [(5200, 0, True), (5201, 0, False), (5200, 2, False)])
+def test_drivable_gather_path_chooser(Q, offset, vector):
+    """The kernel's 16-byte path needs Q % 4 == 0 and pix and out 16-byte
+    aligned; a pix view 8 bytes off a 16-byte boundary takes the scalar
+    path."""
+    B = 2
+    store = torch.zeros(B * Q * 2 + 2, dtype=torch.int32)
+    pix = store[offset:offset + B * Q * 2].view(B, Q, 2)
+    out = torch.empty((B, Q), dtype=torch.float32)
+    assert store.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    assert pix.data_ptr() % 16 == (8 if offset else 0)
+    assert gk.drivable_gather_vector(pix, out) is vector
+    assert not gk.drivable_gather_vector(pix, out[:, 1:])  # out 4 bytes off
+
+
 def test_gathers_clamp_out_of_range_queries_like_their_plain_versions():
     wins = T(np.arange(2 * 4 * 5 * 2, dtype=np.int8).reshape(2, 4, 5, 2))
     pix = T(np.array([[[-3, 0], [9, 9], [2, -1]]] * 2, np.int32))

@@ -42,6 +42,34 @@ def test_offroad_count_ref_matches_jax_ref_and_pallas(B, P, H, W):
     assert got.dtype == np.float32 and 0 < got.sum() < B * P
 
 
+# the CUDA kernel's edges: one point; 33, one past a warp's 32 lanes; 65,
+# one past 2 points a lane; 129, one past a pass of 4 points a lane (so a
+# second pass); one group per map (the Pallas kernel's form) and three, held
+# against the JAX oracle on the groups laid out as maps
+@pytest.mark.parametrize("G", [1, 3])
+@pytest.mark.parametrize("P", [1, 33, 65, 129])
+def test_offroad_count_edges_match_jax(P, G):
+    rng = np.random.default_rng(P * 10 + G)
+    B, H, W = 2, 13, 17
+    drivable = (rng.random((B, H, W)) - 0.4).astype(np.float32)
+    drivable[drivable > 0.3] = 0.0  # exact zeros count as off-road
+    pix = np.stack([rng.integers(0, W, (B, G, P)), rng.integers(0, H, (B, G, P))],
+                   -1).astype(np.int32)
+    pix[0, 0, 0] = [W - 1, H - 1]  # the last pixel
+    flat_pix = jnp.asarray(pix.reshape(B * G, P, 2))
+    flat_maps = jnp.asarray(np.repeat(drivable, G, axis=0))
+    want = np.asarray(pk.offroad_count_ref(flat_pix, flat_maps)).reshape(B, G)
+    native.reset_launch_counts()
+    got = rk.offroad_count(torch.from_numpy(pix if G > 1 else pix[:, 0]),
+                           torch.from_numpy(drivable)).numpy()
+    assert got.dtype == np.float32 and got.shape == ((B, G) if G > 1 else (B,))
+    np.testing.assert_array_equal(got.reshape(B, G), want)
+    if G == 1:
+        kernel = np.asarray(pk.offroad_count_pallas(flat_pix, flat_maps, interpret=True))
+        np.testing.assert_array_equal(got, kernel)
+    assert native.launch_counts()["offroad_count"] == 0  # CPU tensors: the plain version
+
+
 def test_offroad_count_groups_are_per_group_counts():
     rng = np.random.default_rng(1)
     B, G, P, H, W = 3, 4, 9, 20, 31
