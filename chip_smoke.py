@@ -84,11 +84,13 @@
    127/128/129/200, G 1/3/5, B 1/128/129, coordinates outside the map), two
    launches bit for bit, with its registers and spills; `disk_collision`
    within rtol 1e-5 / atol 1e-6 at T=52, B=128, D=5 (scenes of 4,
-   same-scene off-diagonal pairs, and every off-diagonal pair) and at T/B/D
+   same-scene off-diagonal pairs, and every off-diagonal pair), at T/B/D
    8/6/4, 3/5/1 and 6/7/9 (more disks than the kernel unrolls, so its
-   runtime-D loop), and the runtime-D loop at D=5 too; two launches
-   bit-identical. Times each from Python and from a CUDA graph, the
-   runtime-D loop beside the unrolled one.
+   runtime-D loop), at B=1 (an agent paired with itself), B=33 (one past a
+   warp of mask columns), with an empty mask (exactly 0) and at D=9 under
+   the same-scene mask, and the runtime-D loop at D=5 too; two launches
+   bit-identical. Times each from Python and from a CUDA graph (both
+   masks), the runtime-D loop beside the unrolled one.
 14. Trains at full width on a synthetic batch (B=128, raster 224x224x34, the
    config of record with `steps_per_epoch` 1 so that the warm-up rate leaves
    0 after the first step): 2 warm-up and 5 timed `VAETrainer.train_step`s
@@ -107,10 +109,21 @@
 16. Holds one VAE step's and one DM step's gradients and one `collect_step`'s
    trajectories and rewards on the card against the CPU at a small size (the
    `cld_smoke` widths, B=8), same weights and explicit noise.
-17. Times the launch floor: `torch.cuda._sleep(0)` (one thread that exits
+17. Runs the guidance rule library through the rollout CLI
+   (`rollout.main`) at the closed loop's width (4 scenes x 8 agents, raster
+   224, 100 DDPM steps), cut to 20 frames (4 replans), with `--editing-source
+   config,heuristic`: `RULE_CONFIGS` and `RULE_HEURISTICS` instantiate all 15
+   rule classes. Launch counts zeroed before and read after, exact: per
+   replan 100 `lstm2_fwd`, 99 `lstm2_bwd`, 99 `bit_gather`, 1 `value_gather`,
+   and 1 `bit_gather` for the satisfaction report's map rule; the trajectory
+   log and the guidance-satisfaction report must be finite. Then one guided
+   replan's guidance gradient under the same rules at 2 x 4 agents on the
+   card and on the CPU: a finite loss within 1e-5 relative, the gradient
+   within 1e-4 relative (plus 1e-5 of its largest entry).
+18. Times the launch floor: `torch.cuda._sleep(0)` (one thread that exits
    at once) from a CUDA graph, as every kernel's graph time is taken.
-18. Prints the card line, one `{"kernels": [...]}` line (`launches_by_path`
-   there holds each main-path run's own count, of 4, 7, 8, 11, 12, 14 and 15,
+19. Prints the card line, one `{"kernels": [...]}` line (`launches_by_path`
+   there holds each main-path run's own count, of 4, 7, 8, 11, 12, 14, 15 and 17,
    each zeroed before its run and checked exactly; `launches` is their sum;
    `graph_ms` is each kernel's time from a CUDA graph at the main path's
    shape, B=128 for the LSTM kernels, beside `launch_floor_ms`), and last
@@ -1360,6 +1373,147 @@ def check_small_closed_loop(dev, report):
     report["small_closed_loop"] = dict(traj=err)
 
 
+# the rules path: --guidance configs and --heuristics that, together,
+# instantiate every one of the 15 rule classes (the agent-indexed ones by
+# config, since the heuristics' pair and group pickers may find none)
+RULE_CONFIGS = json.dumps([
+    {"name": "acc_limit", "params": {"acc_limit": 2.0}, "weight": 1.0},
+    {"name": "keep_distance", "weight": 1.0,
+     "params": {"target_ind": 0, "ref_ind": 1, "min_distance": 4.0, "max_distance": 12.0}},
+    {"name": "collision_attack", "weight": 1.0,
+     "params": {"attacker_ind": 2, "victim_ind": 3, "time_lo": 5, "time_hi": 40}},
+    {"name": "social_group", "params": {"group": [4, 5]}, "weight": 1.0},
+])
+RULE_HEURISTICS = ("target_speed,agent_collision,map_collision,speed_limit,lane_following,"
+                   "global_target_pos,stop_sign,social_group,target_pos,target_pos_at_time,"
+                   "global_target_pos_at_time,global_stop_sign,gptcollision,gptkeepdistance")
+RULE_CLASSES = 15
+RULES_STEPS = 20  # frames of the rules path: 4 replans
+
+
+def rules_argv(scenes, agents, frames, raster, steps, device, output):
+    return ["--num-scenes", str(scenes), "--agents-per-scene", str(agents),
+            "--num-sim-steps", str(frames), "--raster-size", str(raster),
+            "--diffusion-steps", str(steps), "--device", str(device), "--output", str(output),
+            "--editing-source", "config,heuristic", "--guidance", RULE_CONFIGS,
+            "--heuristics", RULE_HEURISTICS]
+
+
+def run_rules_path(report):
+    """The guidance rule library through the rollout CLI at the closed
+    loop's width (4 scenes x 8 agents, raster 224, 100 DDPM steps), cut to
+    20 frames (4 replans), with `--editing-source config,heuristic`: every
+    rule class at least once; launch counts zeroed before and read after,
+    exact (per replan 100 `lstm2_fwd`, 99 `lstm2_bwd`, 99 `bit_gather` for
+    the one map-collision rule, 1 `value_gather`; 1 more `bit_gather` for the
+    map-collision rule of the satisfaction report); a finite trajectory log
+    and a finite satisfaction report."""
+    import numpy as np
+
+    from cld_tpu_torch import rollout
+    from cld_tpu_torch.ops import native
+
+    out = ROOT / "chiprun_out" / "rules_rollout"
+    native.reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = rollout.main(rules_argv(CL_SCENES, CL_AGENTS, RULES_STEPS, RASTER, N_STEPS, "cuda",
+                                  out))
+    wall = time.perf_counter() - t0
+    launches = native.launch_counts()
+    n = RULES_STEPS // CL_N_STEP
+    episode = counts(lstm2_fwd=N_STEPS * n, lstm2_bwd=(N_STEPS - 1) * n,
+                     bit_gather=(N_STEPS - 1) * n, value_gather=n)
+    want = {**episode, "bit_gather": episode["bit_gather"] + 1}
+    classes = sorted(set(rep["rules"]))
+    log(f"rules path ({CL_SCENES} x {CL_AGENTS} agents, {RULES_STEPS} frames, {n} replans, "
+        f"{wall:.1f} s with the set-up): {len(rep['rules'])} rules of {len(classes)} classes; "
+        f"launches {launches} (episode {rep['launches']})")
+    log(f"guidance satisfaction: {json.dumps(rep['guidance_satisfaction'])}")
+    check(len(classes) == RULE_CLASSES, f"the rules path built {classes}, not all 15 classes")
+    check(rep["launches"] == episode, f"rules path episode launches {rep['launches']}, "
+          f"expected {episode}")
+    check(launches == want, f"rules path launches {launches}, expected {want}")
+    with np.load(out / "trajectories.npz") as f:
+        traj = f["trajectories"]
+    check(traj.shape == (RULES_STEPS, CL_B, 4) and bool(np.isfinite(traj).all()),
+          "the rules path's trajectory log is not finite or has the wrong shape")
+    check(all(np.isfinite(v) for v in rep["guidance_satisfaction"].values()),
+          "the guidance-satisfaction report is not finite")
+    report["launches_rules"] = launches
+    report["rules"] = dict(wall_s=wall, rules=rep["rules"], agent_steps_per_s=rep[
+        "agent_steps_per_s"], satisfaction=rep["guidance_satisfaction"])
+
+
+def check_rules_replan(dev, report):
+    """One guided replan's guidance gradient under every rule class, on the
+    card and on the CPU, at a small size (2 scenes x 4 agents, raster 64,
+    the rules path's configs and heuristics on the first observation), same
+    weights and latent; the pack's maps rounded to multiples of 1/255 (where
+    the card's banded warp and the CPU's exact one agree). The total loss
+    must be finite and equal within 1e-5 relative; the gradient within
+    |card - cpu| <= 1e-4 |cpu| + 1e-5 max |cpu| (Adam's sign amplifies
+    differences of the latents, not of the gradient)."""
+    import torch
+
+    from cld_tpu_torch import pipeline, rollout
+    from cld_tpu_torch.guidance import losses as gl
+    from cld_tpu_torch.guidance.perturbation import compute_guidance_loss, guidance_gradient
+    from cld_tpu_torch.sim import env
+    from cld_tpu_torch.sim.scene import synthetic_scene_pack
+
+    S, A, R = 2, 4, 64
+    argv = rules_argv(S, A, 10, R, 10, "cpu", ROOT / "chiprun_out" / "rules_small")
+    g = torch.Generator().manual_seed(17)
+    z = torch.randn((S * A, T, L), generator=g)
+    res = {}
+    for where in ("cpu", dev):
+        args = rollout.parse_args(argv)
+        cfg = env.SimConfig(num_simulation_steps=10, n_step_action=5,
+                            hist_frames=args.hist_frames, raster_size=R)
+        pack = synthetic_scene_pack(seed=3, num_scenes=S, agents_per_scene=A,
+                                    world_map_size=256, sim_steps=10, device=where)
+        pack = pack._replace(world_map=torch.round(pack.world_map * 255.0) * (1.0 / 255.0))
+        specs = rollout.build_guidance_specs(args, pack, cfg, pack.num_agents)
+        m = pipeline.build_models(seed=5, device=where, n_diffusion_steps=10,
+                                  raster_channels=args.hist_frames + 1 + pack.world_map.shape[-1])
+        obs = env.render_observation(pack, env.init_sim_state(pack, cfg), cfg)
+        aux = m.context(obs)
+        ctx = gl.prepack_map_bbox(gl.prepack_drivable(gl.GuidanceContext(
+            obs.drivable_map, obs.raster_from_agent, obs.extent, obs.curr_speed,
+            obs.world_from_agent, obs.scene_index,
+            **pipeline.observation_context_fields(obs))), with_d2=False)
+
+        def decode_fn(v):
+            acts = pipeline.decode_actions(m.decoder, v, aux["cond_feat"])
+            return pipeline.convert_action_to_state_and_action(
+                acts, aux["curr_states"], m.dyn, pipeline.TrajNormalizer(),
+                descaled_output=True)[:, None]
+
+        zz = z.to(where)
+        with torch.no_grad():
+            total, _ = compute_guidance_loss(decode_fn(zz), ctx, specs)
+        grad = guidance_gradient(zz, ctx, specs, decode_fn)
+        res[str(where)] = (float(total), grad.cpu(), len({type(s.loss) for s in specs}))
+    (c_loss, c_grad, c_n), (g_loss, g_grad, g_n) = res["cpu"], res[str(dev)]
+    err = float((g_grad - c_grad).abs().max())
+    scale = float(c_grad.abs().max())
+    log(f"rules replan ({S} x {A} agents, {c_n} rule classes): loss card {g_loss:.6g}, CPU "
+        f"{c_loss:.6g}; guidance gradient card vs CPU max abs diff {err:.3e} (max |cpu| "
+        f"{scale:.3g})")
+    check(c_n == RULE_CLASSES and g_n == RULE_CLASSES, f"the small rules replan built {c_n} "
+          "rule classes")
+    check(all(map(lambda v: v == v and abs(v) < float("inf"), (c_loss, g_loss))),
+          "the rules replan's guidance loss is not finite")
+    check(bool(torch.isfinite(g_grad).all()) and bool(torch.isfinite(c_grad).all()),
+          "the rules replan's guidance gradient is not finite")
+    check(abs(g_loss - c_loss) <= 1e-5 * abs(c_loss), "the rules replan's loss differs between "
+          "card and CPU")
+    check(bool(((g_grad - c_grad).abs() <= 1e-4 * c_grad.abs() + 1e-5 * scale).all()),
+          "the rules replan's guidance gradient differs between card and CPU")
+    report["rules_replan"] = dict(loss_cpu=c_loss, loss_card=g_loss, grad_err=err,
+                                  grad_max=scale)
+
+
 def max_param_change(before, module) -> float:
     """Largest absolute change of a module's parameters since `before`."""
     return max(float((p.detach() - b).abs().max()) for p, b in zip(module.parameters(), before))
@@ -1420,6 +1574,25 @@ def check_offroad_edges(g, dev) -> dict:
     return held
 
 
+def disk_fixture(g, Tn, Bn, Dn, mask, dev):
+    """(centroids [Tn, Bn, Dn, 2], penalty distances [Bn, Bn], mask, decay
+    [Tn]) of the disk-collision kernel: random disk centres; at Bn = B,
+    scenes of 4 agents on top of each other (a scene centre 50 m scale, a
+    spread of 2 m), so that same-scene pairs collide and others do not."""
+    import torch
+
+    cent = (torch.randn((Tn, Bn, Dn, 2), generator=g) * 2.0).to(dev)
+    if Bn == B:
+        centre = torch.randn((1, Bn // AGENTS_PER_SCENE, 1, 1, 2), generator=g) * 50.0
+        spread = torch.randn((Tn, Bn // AGENTS_PER_SCENE, AGENTS_PER_SCENE, Dn, 2),
+                             generator=g) * 2.0
+        cent = (centre + spread).reshape(Tn, Bn, Dn, 2).to(dev).contiguous()
+    rad = torch.rand((Bn,), generator=g) * 0.4 + 0.8
+    pen = (rad[:, None] + rad[None, :] + 0.2).to(dev)
+    decay = 0.9 ** torch.arange(Tn, dtype=torch.float32)
+    return cent, pen, mask, (decay / decay.sum()).to(dev)
+
+
 def check_reward_kernels(batch, dev, report):
     """`offroad_count` and `disk_collision` against their plain versions on
     the card."""
@@ -1472,25 +1645,17 @@ def check_reward_kernels(batch, dev, report):
                                    bound_by=b_by, library_ms=None, graph_ms=g_ms,
                                    source_bytes_needed=needed, held=held, attributes=attrs)
 
-    def fixture(Tn, Bn, Dn, mask):
-        cent = (torch.randn((Tn, Bn, Dn, 2), generator=g) * 2.0).to(dev)
-        if Bn == B:  # scenes of 4 on top of each other: scene centre + a small spread
-            centre = torch.randn((1, Bn // AGENTS_PER_SCENE, 1, 1, 2), generator=g) * 50.0
-            spread = torch.randn((Tn, Bn // AGENTS_PER_SCENE, AGENTS_PER_SCENE, Dn, 2),
-                                 generator=g) * 2.0
-            cent = (centre + spread).reshape(Tn, Bn, Dn, 2).to(dev).contiguous()
-        rad = torch.rand((Bn,), generator=g) * 0.4 + 0.8
-        pen = (rad[:, None] + rad[None, :] + 0.2).to(dev)
-        decay = 0.9 ** torch.arange(Tn, dtype=torch.float32)
-        return cent, pen, mask, (decay / decay.sum()).to(dev)
-
     off_diag = lambda n: ~torch.eye(n, dtype=torch.bool, device=dev)
     cases = {"ppo": (T, B, 5, scene_pair_mask(B, AGENTS_PER_SCENE, dev)),
              "all_pairs": (T, B, 5, off_diag(B)), "odd": (8, 6, 4, off_diag(6)),
-             "one_disk": (3, 5, 1, off_diag(5)), "nine_disks": (6, 7, 9, off_diag(7))}
+             "one_disk": (3, 5, 1, off_diag(5)), "nine_disks": (6, 7, 9, off_diag(7)),
+             "one_agent": (T, 1, 5, torch.ones((1, 1), dtype=torch.bool, device=dev)),
+             "b33": (T, 33, 5, off_diag(33)),
+             "empty_mask": (T, B, 5, torch.zeros((B, B), dtype=torch.bool, device=dev)),
+             "nine_disks_ppo": (T, B, 9, scene_pair_mask(B, AGENTS_PER_SCENE, dev))}
     worst, timed = 0.0, {}
     for name, (Tn, Bn, Dn, mask) in cases.items():
-        args = fixture(Tn, Bn, Dn, mask)
+        args = disk_fixture(g, Tn, Bn, Dn, mask, dev)
         got, again = rk.disk_collision_penalty(*args), rk.disk_collision_penalty(*args)
         want = rk.disk_collision_penalty_ref(*args)
         torch.cuda.synchronize()
@@ -1502,7 +1667,10 @@ def check_reward_kernels(batch, dev, report):
             f"{bool(torch.equal(got, again))}")
         check(ok, f"disk_collision ({name}) disagrees with its plain version")
         check(torch.equal(got, again), f"disk_collision ({name}) differs between two launches")
-        check(float(want.max()) > 0.0, f"disk_collision fixture ({name}) has no collision")
+        if name == "empty_mask":
+            check(float(got.abs().max()) == 0.0, "disk_collision with an empty mask is not 0")
+        else:
+            check(float(want.max()) > 0.0, f"disk_collision fixture ({name}) has no collision")
         worst = max(worst, err)
         timed[name] = args
         if name == "ppo":  # the runtime-D loop (what D > 8 takes) at the timed shape
@@ -1903,6 +2071,9 @@ def main() -> int:
     run_px_replan(models, pack, report)
     run_rigid_replan(models, pack, report)
     check_small_closed_loop(dev, report)
+    del pack
+    run_rules_path(report)
+    check_rules_replan(dev, report)
 
     replaces = {
         "lstm2_fwd": ("cld_tpu_torch/csrc/lstm.cu", "cld_tpu/ops/lstm_pallas.py:169"),
@@ -1925,7 +2096,8 @@ def main() -> int:
              "px_replan": "launches_px_replan", "rigid_open_loop": "launches_rigid_kernel",
              "fused_open_loop": "launches_fused", "rigid_replan": "launches_rigid_replan",
              "vae_train": "launches_vae_train", "dm_train": "launches_dm_train",
-             "ppo": "launches_ppo", "ppo_disk_penalty": "launches_ppo_disk_penalty"}
+             "ppo": "launches_ppo", "ppo_disk_penalty": "launches_ppo_disk_penalty",
+             "rules": "launches_rules"}
     # the launch floor: one kernel node of a graph that does nothing (one
     # thread that exits at once), timed as every kernel's graph_ms is
     floor_ms = graph_ms(lambda: torch.cuda._sleep(0))

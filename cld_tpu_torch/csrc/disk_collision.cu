@@ -13,44 +13,61 @@
 // sqrt(. + 1e-12) is monotone, so the min is taken over the squared distances
 // and one sqrt follows.
 //
-// What bounds it on the H100: operations, barely. At T = 52, B = 128, D = 5
-// it is 52 * 128 * 128 pairs of 25 disk distances, ~130 MFLOP (2 us at the
-// f32 peak), over 0.33 MB of input.
+// The design (the first one took 4.34 us at the same-scene mask and 14.09
+// us with every pair unmasked from a CUDA graph on the H100):
+// - one block of 1,024 threads per agent;
+// - warp 0 compacts the partner list with one `__ballot_sync` and `__popc`
+//   per 32 mask columns, the mask bytes of up to 128 columns loaded at once
+//   (the first design counted the partners before each column one shared
+//   byte at a time, up to B - 1 loads on the critical path), while the other
+//   warps stage the agent's own disk centres; one barrier covers both;
+// - threads stride over the (step, partner) items of the agent, two items in
+//   flight per thread, the (step, partner) pair advanced by additions; a
+//   partner's disks are read as (x, y) pairs; the D x D distances are
+//   unrolled from registers for D <= 8 as D independent min chains (D > 8,
+//   or `unrolled` = 0, takes a runtime-D loop);
+// - the squares and the sum stay separate roundings (no fused multiply-add),
+//   as the plain version computes them;
+// - the sum is reduced by warp shuffles and one barrier, in a fixed order,
+//   so two launches agree bit for bit.
 //
-// What the design does about it: one block per agent i, with its T * D disk
-// centres, its row of penalty distances and the list of its unmasked partners
-// staged in shared memory once. Threads stride over (t, partner), so a masked
-// pair costs nothing and the work of a sparse mask spreads over the block
-// (striding over every (t, j) left a same-scene mask's work to the 12 threads
-// whose j was a scene-mate). The D x D distances of a pair are independent of
-// each other; for D <= 8 they are fully unrolled from registers, so a thread's
-// time is no longer one dependent shared-memory read per distance. The first
-// version (every (t, j), runtime-D loops, 256 threads, then 512) took 0.035
-// and 0.0215 ms on the H100 whatever the mask held: the chain of 26 and 13
-// pair evaluations per thread. The partner list alone brought the same-scene
-// mask to 0.0048 ms; the unrolling adds 9% there (0.0043 ms) and 1.56x with
-// every pair unmasked (0.0220 -> 0.0141 ms), which is what the switch over D
-// below is for. D > 8 takes the runtime-D loop. The sum is taken in a fixed order (each thread
-// over its own strided pairs, then a tree over the block) with no atomics, so
-// two launches agree bit for bit. The squares and the sum are kept as
-// separate roundings (no fused multiply-add), as the plain version computes
-// them.
+// What bounds it on the H100. Same-scene mask (T = 52, B = 128, D = 5,
+// scenes of 4, 156 items an agent): latency, about 2.2 us above the launch
+// floor: the mask row's round trip, the barrier, the partners' disks' round
+// trip, an IEEE sqrt and divide, and the reduction. Every pair unmasked
+// (6,604 items an agent): each block reads every partner's disks at every
+// step, 266 KB an agent, 34 MB from L2 in all, which this design neither
+// reuses across agents nor halves by symmetry (it computes each symmetric
+// pair twice, once for i, once for j); its instruction issue alone would
+// be ~3.9 us (6 instructions a disk distance, 845,312 pairs of 25, on 128 of
+// the 132 SMs). Tried and dropped (`kernel_ab.py --sweep` on two
+// intermediate versions of this file): a cluster
+// of 2 or 4 blocks per agent splitting the steps, summed through distributed
+// shared memory (slower at both masks: the cluster launch and barriers),
+// and staging every agent's disks in shared memory step-chunk by
+// step-chunk (2x slower with every pair: the same 34 MB through shared
+// memory, and two barriers a chunk).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 512;
+constexpr int kMaxThreads = 1024;
 constexpr int kMaxUnrolledD = 8;
+constexpr int kMaskBatch = 4;  // 32-column mask chunks whose loads warp 0 keeps in flight
 
-// min over (di, dj) of |ci[di] - cj[dj]|^2; D_ > 0 unrolls from registers
+// min over (di, dj) of |ci[di] - cj[dj]|^2, cj read as (x, y) pairs; D_ > 0
+// unrolls from registers as D_ independent chains, one per partner disk,
+// then a tree
 template <int D_>
 __device__ __forceinline__ float min_d2(const float* __restrict__ ci,
-                                        const float* __restrict__ cj, int D) {
-  float best = 3.4e38f;
+                                        const float2* __restrict__ cj, int D) {
   if constexpr (D_ > 0) {
-    float xi[D_], yi[D_];
+    float xi[D_], yi[D_], m[D_];
+    float2 c[D_];
+#pragma unroll
+    for (int d = 0; d < D_; ++d) c[d] = cj[d];
 #pragma unroll
     for (int d = 0; d < D_; ++d) {
       xi[d] = ci[2 * d];
@@ -58,87 +75,146 @@ __device__ __forceinline__ float min_d2(const float* __restrict__ ci,
     }
 #pragma unroll
     for (int dj = 0; dj < D_; ++dj) {
-      const float xj = cj[2 * dj], yj = cj[2 * dj + 1];
+      float best = 3.4e38f;
 #pragma unroll
       for (int di = 0; di < D_; ++di) {
-        const float dx = xi[di] - xj, dy = yi[di] - yj;
+        const float dx = xi[di] - c[dj].x, dy = yi[di] - c[dj].y;
         best = fminf(best, __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)));
       }
+      m[dj] = best;
     }
+#pragma unroll
+    for (int s = 1; s < D_; s *= 2) {
+#pragma unroll
+      for (int d = 0; d + s < D_; d += 2 * s) m[d] = fminf(m[d], m[d + s]);
+    }
+    return m[0];
   } else {
+    float best = 3.4e38f;
     for (int dj = 0; dj < D; ++dj) {
-      const float xj = cj[2 * dj], yj = cj[2 * dj + 1];
+      const float2 c = cj[dj];
       for (int di = 0; di < D; ++di) {
-        const float dx = ci[2 * di] - xj, dy = ci[2 * di + 1] - yj;
+        const float dx = ci[2 * di] - c.x, dy = ci[2 * di + 1] - c.y;
         best = fminf(best, __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)));
       }
     }
+    return best;
   }
-  return best;
 }
 
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) v += __shfl_down_sync(0xffffffffu, v, s);
+  return v;  // lane 0 holds the sum
+}
+
+// one (step, partner) item: decay[t] * (1 - pair / pd) where pair <= pd
 template <int D_>
-__global__ void disk_collision_kernel(const float* __restrict__ cent,
-                                      const float* __restrict__ pen_dists,
-                                      const uint8_t* __restrict__ pair_mask,
-                                      const float* __restrict__ decay, float* __restrict__ out,
-                                      int T, int B, int D) {
-  // agent i's disk centres [T, D, 2], its penalty distances [B], its unmasked
-  // partners in ascending order [B] (ints), its mask row [B] (bytes)
+__device__ __forceinline__ float item(const float* own_t, const float2* cj,
+                                      const float* __restrict__ pd_row,
+                                      const float* __restrict__ decay, int t, int j, int D) {
+  const float best = min_d2<D_>(own_t, cj, D);
+  const float pair = sqrtf(best + 1e-12f);
+  const float pd = __ldg(pd_row + j);
+  return pair <= pd ? __ldg(decay + t) * (1.0f - pair / pd) : 0.0f;
+}
+
+// sum over items k = tid, tid + nthreads, ... < nt * np of item (step t =
+// k / np, partner p = k % np), partner disks read from c2 [T, B, D] pairs;
+// two items in flight, (step, partner) advanced by additions
+template <int D_>
+__device__ __forceinline__ float sweep(const float* own, const int* partners,
+                                       const float* __restrict__ pd_row,
+                                       const float* __restrict__ decay,
+                                       const float2* __restrict__ c2, int nt, int np, int B,
+                                       int D) {
+  const int tid = threadIdx.x, nthreads = blockDim.x, D2 = 2 * D;
+  const int n = nt * np;
+  float acc = 0.0f;
+  if (tid >= n) return acc;
+  const int q1 = nthreads / np, r1 = nthreads - q1 * np;
+  int ta = tid / np, pa = tid - ta * np;  // item a: relative step and partner
+  for (int k = tid; k < n; k += 2 * nthreads) {
+    int tb = ta + q1, pb = pa + r1;  // item b = k + nthreads
+    if (pb >= np) { pb -= np; ++tb; }
+    const int ja = partners[pa];
+    const float va = item<D_>(own + ta * D2, c2 + ((size_t)ta * B + ja) * D, pd_row, decay, ta,
+                              ja, D);
+    float vb = 0.0f;
+    if (k + nthreads < n) {
+      const int jb = partners[pb];
+      vb = item<D_>(own + tb * D2, c2 + ((size_t)tb * B + jb) * D, pd_row, decay, tb, jb, D);
+    }
+    acc += va;
+    acc += vb;
+    ta = tb + q1;  // item a of the next round = b + nthreads
+    pa = pb + r1;
+    if (pa >= np) { pa -= np; ++ta; }
+  }
+  return acc;
+}
+
+// one block per agent i. Dynamic shared memory: own disk centres [T, D, 2],
+// then the partner list [B] (ints)
+template <int D_>
+__global__ void __launch_bounds__(kMaxThreads)
+    disk_collision_kernel(const float* __restrict__ cent, const float* __restrict__ pen_dists,
+                          const uint8_t* __restrict__ pair_mask,
+                          const float* __restrict__ decay, float* __restrict__ out, int T,
+                          int B, int D) {
   extern __shared__ float smem[];
-  __shared__ float partial[kThreads];
+  __shared__ float partial[kMaxThreads / 32];
   __shared__ int n_partners;
   const int i = blockIdx.x;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nthreads = blockDim.x, nwarps = nthreads >> 5;
   const int D2 = 2 * D;
   float* own = smem;
-  float* pd_i = smem + T * D2;
-  int* partners = reinterpret_cast<int*>(pd_i + B);
-  uint8_t* mask_i = reinterpret_cast<uint8_t*>(partners + B);
-  for (int k = tid; k < T * D2; k += kThreads) {
-    const int t = k / D2;
-    own[k] = cent[((size_t)t * B + i) * D2 + (k - t * D2)];
+  int* partners = reinterpret_cast<int*>(own + T * D2);
+
+  if (warp == 0) {
+    // partners in ascending order: one ballot per 32 columns, kMaskBatch
+    // chunks' loads in flight at a time
+    const uint8_t* row = pair_mask + (size_t)i * B;
+    int base = 0;
+    for (int c0 = 0; c0 < B; c0 += 32 * kMaskBatch) {
+      uint8_t v[kMaskBatch];
+#pragma unroll
+      for (int u = 0; u < kMaskBatch; ++u) {
+        const int j = c0 + 32 * u + lane;
+        v[u] = j < B ? __ldg(row + j) : 0;
+      }
+#pragma unroll
+      for (int u = 0; u < kMaskBatch; ++u) {
+        const unsigned bits = __ballot_sync(0xffffffffu, v[u] != 0);
+        if (v[u]) partners[base + __popc(bits & ((1u << lane) - 1u))] = c0 + 32 * u + lane;
+        base += __popc(bits);
+      }
+    }
+    if (lane == 0) n_partners = base;
   }
-  for (int j = tid; j < B; j += kThreads) {
-    pd_i[j] = pen_dists[(size_t)i * B + j];
-    mask_i[j] = pair_mask[(size_t)i * B + j] ? 1 : 0;
-  }
-  __syncthreads();
-  // partner j goes to the slot that counts the unmasked partners before it
-  for (int j = tid; j < B; j += kThreads) {
-    int before = 0;
-    for (int q = 0; q < j; ++q) before += mask_i[q];
-    if (mask_i[j]) partners[before] = j;
-    if (j == B - 1) n_partners = before + mask_i[j];
+  // the other warps (all of a one-warp block) stage the agent's own disks
+  const int helpers = nthreads > 32 ? nthreads - 32 : 32;
+  if (nthreads == 32 || warp > 0) {
+    for (int k = (nthreads > 32 ? tid - 32 : tid); k < T * D2; k += helpers) {
+      const int t = k / D2;
+      own[k] = cent[((size_t)t * B + i) * D2 + (k - t * D2)];
+    }
   }
   __syncthreads();
 
-  float acc = 0.0f;
   const int np = n_partners;
-  const int n = T * np;
-  for (int k = tid; k < n; k += kThreads) {
-    const int t = k / np;
-    const int j = partners[k - t * np];
-    const float best = min_d2<D_>(own + t * D2, cent + ((size_t)t * B + j) * D2, D);
-    const float pair = sqrtf(best + 1e-12f);
-    const float pd = pd_i[j];
-    if (pair <= pd) acc += decay[t] * (1.0f - pair / pd);
-  }
-  partial[tid] = acc;
+  const float* pd_row = pen_dists + (size_t)i * B;
+  float acc = sweep<D_>(own, partners, pd_row, decay, reinterpret_cast<const float2*>(cent), T,
+                        np, B, D);
+  acc = warp_sum(acc);
+  if (lane == 0) partial[warp] = acc;
   __syncthreads();
-  for (int s = kThreads / 2; s > 0; s >>= 1) {
-    if (tid < s) partial[tid] += partial[tid + s];
-    __syncthreads();
+  if (warp == 0) {
+    float v = lane < nwarps ? partial[lane] : 0.0f;
+    v = warp_sum(v);
+    if (lane == 0) out[i] = v / (float)B;
   }
-  if (tid == 0) out[i] = partial[0] / (float)B;
-}
-
-template <int D_>
-void launch(const float* cent, const float* pen_dists, const uint8_t* pair_mask,
-            const float* decay, float* out, int T, int B, int D, size_t smem,
-            cudaStream_t stream) {
-  disk_collision_kernel<D_><<<(unsigned int)B, kThreads, smem, stream>>>(
-      cent, pen_dists, pair_mask, decay, out, T, B, D);
 }
 
 }  // namespace
@@ -146,27 +222,36 @@ void launch(const float* cent, const float* pen_dists, const uint8_t* pair_mask,
 extern "C" {
 
 // cent [T, B, D, 2] f32; pen_dists [B, B] f32; pair_mask [B, B] bytes (0 or
-// not); decay [T] f32; out [B] f32. `unrolled` = 0 takes the runtime-D loop
-// whatever D is (D > 8 always does). Launches on `stream`; returns
-// cudaGetLastError(). (T * D * 8 + B * 9) bytes of dynamic shared memory (the
-// wrapper keeps it under 48 KB).
+// not); decay [T] f32; out [B] f32. One block of `threads` threads (a
+// multiple of 32, at most 1024) per agent, with T * D * 8 + B * 4 bytes of
+// dynamic shared memory (the wrapper keeps it under 48 KB). `unrolled` = 0
+// takes the runtime-D loop whatever D is (D > 8 always does). Launches on
+// `stream`; returns cudaGetLastError().
 int cld_disk_collision(const float* cent, const float* pen_dists, const uint8_t* pair_mask,
                        const float* decay, float* out, int T, int B, int D, int unrolled,
-                       void* stream) {
+                       int threads, void* stream) {
   if (B == 0) return 0;
-  const size_t smem = ((size_t)T * D * 2 + 2 * (size_t)B) * sizeof(float) + (size_t)B;
+  if (threads < 32 || threads > kMaxThreads || threads % 32) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  const unsigned int grid = (unsigned int)B;
+  const size_t sm = ((size_t)T * D * 2 + (size_t)B) * 4;
+#define CLD_DISK_CASE(d)                                                                     \
+  case d:                                                                                    \
+    disk_collision_kernel<d><<<grid, threads, sm, st>>>(cent, pen_dists, pair_mask, decay,   \
+                                                        out, T, B, D);                       \
+    break;
   switch (unrolled && D <= kMaxUnrolledD ? D : 0) {
-    case 1: launch<1>(cent, pen_dists, pair_mask, decay, out, T, B, D, smem, st); break;
-    case 2: launch<2>(cent, pen_dists, pair_mask, decay, out, T, B, D, smem, st); break;
-    case 3: launch<3>(cent, pen_dists, pair_mask, decay, out, T, B, D, smem, st); break;
-    case 4: launch<4>(cent, pen_dists, pair_mask, decay, out, T, B, D, smem, st); break;
-    case 5: launch<5>(cent, pen_dists, pair_mask, decay, out, T, B, D, smem, st); break;
-    case 6: launch<6>(cent, pen_dists, pair_mask, decay, out, T, B, D, smem, st); break;
-    case 7: launch<7>(cent, pen_dists, pair_mask, decay, out, T, B, D, smem, st); break;
-    case 8: launch<8>(cent, pen_dists, pair_mask, decay, out, T, B, D, smem, st); break;
-    default: launch<0>(cent, pen_dists, pair_mask, decay, out, T, B, D, smem, st); break;
+    CLD_DISK_CASE(1)
+    CLD_DISK_CASE(2)
+    CLD_DISK_CASE(3)
+    CLD_DISK_CASE(4)
+    CLD_DISK_CASE(5)
+    CLD_DISK_CASE(6)
+    CLD_DISK_CASE(7)
+    CLD_DISK_CASE(8)
+    CLD_DISK_CASE(0)
   }
+#undef CLD_DISK_CASE
   return (int)cudaGetLastError();
 }
 

@@ -1,8 +1,13 @@
-"""Guidance losses of the guided sampler (port of the map- and
-agent-collision parts of `cld_tpu/guidance/losses.py`).
+"""The guidance rule library (port of `cld_tpu/guidance/losses.py`).
 
 Every loss maps (x [B, N, T, 6] descaled (x, y, vel, yaw, acc, yawvel),
-ctx, agt_mask [B]) -> [B, N].
+ctx, agt_mask [B]) -> [B, N]. `GUIDANCE_LOSS_MAP` names the 15 rule classes
+(and the reference's two aliases); `make_guidance_losses` builds them from
+config dicts. The world-frame rules read the context's optional fields
+(`agent_from_world`, `global_t`, `agent_hist_world`), `LaneFollowingLoss` its
+lane points. Where a rule takes a norm, a hard min or an index, it computes
+them as the JAX package does (`_norm`, `torch.amin` / `torch.amax`,
+`_jnp_take`), so that values and gradients agree, ties and NaNs included.
 
 `AgentCollisionLoss`: the scene-block path ([S, A, A] blocks) and the flat
 [B, B] path, `excluded_agents`, and the "diff" / "dot" / "auto" pairwise
@@ -32,7 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -43,6 +48,7 @@ from cld_tpu_torch.ops.gather_kernels import (
     drivable_gather,
     pack_drivable_bits,
 )
+from cld_tpu_torch.ops.dynamics import angle_diff
 from cld_tpu_torch.ops.geometry import transform_points
 from cld_tpu_torch.ops.rigid_kernels import rigid_bwd, rigid_min, rigid_min_fused
 
@@ -56,6 +62,15 @@ class GuidanceContext(NamedTuple):
     curr_speed: torch.Tensor  # [B]
     world_from_agent: torch.Tensor  # [B, 3, 3]
     scene_index: torch.Tensor  # [B] int: which scene each agent belongs to
+    # lane_following's closest lane points [B, L, 3] (x, y, yaw) in the agent
+    # frame, masked by lane_avail [B, L]
+    lane_points: Optional[torch.Tensor] = None
+    lane_avail: Optional[torch.Tensor] = None
+    # the world-frame rules' fields; None falls back to the inverse of
+    # world_from_agent / frame 0 / no stop latch
+    agent_from_world: Optional[torch.Tensor] = None  # [B, 3, 3]
+    global_t: Optional[object] = None  # current sim frame: a Python int or a 0-d int tensor
+    agent_hist_world: Optional[torch.Tensor] = None  # [B, Th, 4] world (x, y, v, yaw)
     # bit-packed drivable map [B, H, ceil(W/8)] int8 (`prepack_drivable`)
     drivable_packed: Optional[torch.Tensor] = None
     # MapCollisionLoss bbox invariants (`prepack_map_bbox`): the extent-scaled
@@ -797,3 +812,449 @@ class MapCollisionLoss:
         loss = _chunked_sum(step, T, _time_chunk(T, B * N * P * P),
                             torch.zeros((B, N), dtype=x.dtype, device=dev))
         return torch.where(moving[:, None], loss, zero)
+
+
+# --- the rest of the rule library ---------------------------------------------------------
+
+
+def _as_tensor(v, x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """A rule's static parameter (number, sequence, numpy array or tensor) as
+    a tensor on x's device."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=x.device, dtype=dtype)
+    return torch.as_tensor(np.asarray(v), dtype=dtype, device=x.device)
+
+
+def _per_agent(v, B: int, x: torch.Tensor) -> torch.Tensor:
+    """A scalar or [B] parameter broadcast to [B] f32."""
+    return torch.broadcast_to(_as_tensor(v, x), (B,))
+
+
+def _norm(v: torch.Tensor) -> torch.Tensor:
+    """Euclidean norm over the last axis, computed as `jnp.linalg.norm`
+    computes it: its gradient at 0 is NaN there and here, where
+    `torch.linalg.vector_norm`'s is 0."""
+    return torch.sqrt(torch.sum(v * v, dim=-1))
+
+
+def _jnp_take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x[b, :, idx[b]] for x [B, N, T, ...] and idx [B], as jnp indexing
+    takes it: a negative index counts from the end, an index still outside
+    [0, T) reads the clamped step and passes it no gradient (XLA's gather
+    clamps, its transposed scatter drops)."""
+    T = x.shape[2]
+    idx = torch.where(idx < 0, idx + T, idx)
+    out = x[torch.arange(x.shape[0], device=x.device), :, torch.clamp(idx, 0, T - 1)]
+    outside = ((idx < 0) | (idx >= T)).reshape((-1,) + (1,) * (out.ndim - 1))
+    return torch.where(outside, out.detach(), out)
+
+
+def _global_t(ctx: GuidanceContext, device):
+    """The current sim frame: ctx.global_t (a Python int or a 0-d tensor),
+    0 when unset."""
+    if ctx.global_t is None:
+        return 0
+    if isinstance(ctx.global_t, torch.Tensor):
+        return ctx.global_t.to(device=device, dtype=torch.long)
+    return int(ctx.global_t)
+
+
+def _set_rows(x: torch.Tensor, rows, values: torch.Tensor) -> torch.Tensor:
+    """[B, N] zeros with rows[k] set to values[k] (differentiable in values)."""
+    B = x.shape[0]
+    idx = torch.as_tensor(np.asarray(rows, np.int64) % B, device=x.device)
+    zeros = torch.zeros(x.shape[:2], dtype=x.dtype, device=x.device)
+    return zeros.index_put((idx,), values.to(x.dtype))
+
+
+@dataclasses.dataclass(frozen=True)
+class TargetSpeedLoss:
+    """Follow a per-agent target speed. `target_speed` [B] is one target per
+    agent over the whole plan; [B, T_fut] is a profile over global frames,
+    cut at ctx.global_t: frames beyond the profile are masked and the mean
+    runs over the frames left (none left: loss 0)."""
+
+    target_speed: object  # [B] or [B, T_fut]
+    dt: float = 0.1
+
+    def __call__(self, x, ctx: GuidanceContext, agt_mask=None) -> torch.Tensor:
+        tgt = _as_tensor(self.target_speed, x)
+        T = x.shape[2]
+        if tgt.ndim == 1:
+            dev = torch.abs(x[..., 2] - tgt[:, None, None])  # [B, N, T]
+            return torch.mean(torch.nan_to_num(dev), dim=-1)
+        T_fut = tgt.shape[1]
+        idx = _global_t(ctx, x.device) + torch.arange(T, device=x.device)  # the plan's frames
+        valid = idx < T_fut
+        prof = tgt[:, torch.clamp(idx, 0, T_fut - 1)]  # [B, T]
+        dev = torch.nan_to_num(torch.abs(x[..., 2] - prof[:, None, :]))
+        dev = dev * valid.to(dev.dtype)[None, None, :]
+        cnt = torch.clamp(torch.sum(valid.to(torch.float32)), min=1.0)
+        return torch.sum(dev, dim=-1) / cnt
+
+
+@dataclasses.dataclass(frozen=True)
+class TargetPosAtTimeLoss:
+    """Reach `target_pos` [B, 2] (agent frame) at plan step `target_time` [B]
+    (read as jnp reads it, `_jnp_take`)."""
+
+    target_pos: object
+    target_time: object
+
+    def __call__(self, x, ctx: GuidanceContext, agt_mask=None) -> torch.Tensor:
+        tgt = _as_tensor(self.target_pos, x)
+        x_at = _jnp_take(x[..., :2], _as_tensor(self.target_time, x, torch.long))  # [B, N, 2]
+        return _norm(x_at - tgt[:, None])
+
+
+@dataclasses.dataclass(frozen=True)
+class TargetPosLoss:
+    """Pass near `target_pos` [B, 2] (agent frame) at any step from
+    `min_target_time` (a fraction of the plan) on, softmin-weighted."""
+
+    target_pos: object
+    min_target_time: float = 0.0
+
+    def __call__(self, x, ctx: GuidanceContext, agt_mask=None) -> torch.Tensor:
+        min_t = int(self.min_target_time * x.shape[2])
+        pos = x[:, :, min_t:, :2]
+        tgt = _as_tensor(self.target_pos, x)[:, None, None]
+        weight = torch.softmax(-_norm(pos - tgt), dim=-1)
+        return torch.mean(weight * torch.sum((pos - tgt) ** 2, dim=-1), dim=-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class GlobalTargetPosLoss:
+    """Progress toward a world-frame goal beyond the horizon: cover at least
+    max(urgency * T * dt * pref_speed, min_progress_dist) of the distance."""
+
+    target_pos_world: object  # [B, 2]
+    urgency: object = 0.5  # scalar or [B]
+    pref_speed: object = 1.42  # scalar or [B]
+    dt: float = 0.1
+    min_progress_dist: float = 0.5
+
+    def __call__(self, x, ctx: GuidanceContext, agt_mask=None) -> torch.Tensor:
+        B = x.shape[0]
+        pos_w, _ = _to_world(x, ctx.world_from_agent)
+        tgt = _as_tensor(self.target_pos_world, x)
+        urgency, pref = _per_agent(self.urgency, B, x), _per_agent(self.pref_speed, B, x)
+        final_dist = _norm(pos_w[:, :, -1] - tgt[:, None])
+        init_dist = _norm(pos_w[:, :, 0] - tgt[:, None])
+        max_horizon_dist = x.shape[2] * self.dt * pref
+        goal_dist = torch.clamp(urgency * max_horizon_dist, min=self.min_progress_dist)
+        return torch.relu(goal_dist[:, None] - (init_dist - final_dist))
+
+
+def _agent_from_world(ctx: GuidanceContext) -> torch.Tensor:
+    if ctx.agent_from_world is not None:
+        return ctx.agent_from_world
+    return torch.linalg.inv(ctx.world_from_agent)
+
+
+@dataclasses.dataclass(frozen=True)
+class GlobalTargetPosAtTimeLoss:
+    """Reach a world-frame waypoint at global frame `target_time` [B]. While
+    that frame lies beyond the plan, a progress loss (cover the straight
+    distance left, shortened by urgency); once inside, the distance at the
+    plan step target_time - global_t. With `target_tolerance`, an agent
+    already within that distance of the waypoint has loss 0 (re-evaluated
+    each call from its current world position)."""
+
+    target_pos_world: object  # [B, 2]
+    target_time: object  # [B] int global frames
+    urgency: object = 0.5
+    pref_speed: object = 1.42
+    dt: float = 0.1
+    target_tolerance: Optional[float] = 2.0
+
+    def __call__(self, x, ctx: GuidanceContext, agt_mask=None) -> torch.Tensor:
+        B, N, T, _ = x.shape
+        tgt_w = _as_tensor(self.target_pos_world, x)
+        tt = _as_tensor(self.target_time, x, torch.long)
+        urgency = _per_agent(self.urgency, B, x)
+        local_tgt = transform_points(tgt_w[:, None], _agent_from_world(ctx))[:, 0]
+        local_tt = tt - _global_t(ctx, x.device)  # [B]
+        exact = (local_tt >= 0) & (local_tt < T)
+        prog = (local_tt >= 0) & ~exact
+        idx = torch.clamp(local_tt, 0, T - 1)
+        x_at = x[torch.arange(B, device=x.device), :, idx, :2]  # [B, N, 2]
+        exact_loss = _norm(x_at - local_tgt[:, None])
+        final_dist = _norm(x[:, :, -1, :2] - local_tgt[:, None])
+        goal_dist = local_tt.to(torch.float32) * self.dt * _per_agent(self.pref_speed, B, x)
+        goal_dist = goal_dist * (1.0 - urgency)
+        prog_loss = torch.relu(final_dist - goal_dist[:, None])
+        zero = torch.zeros((), dtype=x.dtype, device=x.device)
+        loss = torch.where(exact[:, None], exact_loss,
+                           torch.where(prog[:, None], prog_loss, zero))
+        if self.target_tolerance is not None:
+            reached = _norm(ctx.world_from_agent[:, :2, 2] - tgt_w) < self.target_tolerance
+            loss = torch.where(reached[:, None], zero, loss)
+        return loss
+
+
+_STL_BIG = 1e6
+
+
+def _stl_minish(r, dim, scale):
+    """Soft min at temperature `scale` (-logsumexp(-scale r) / scale), the
+    hard min at scale <= 0 (`torch.amin`, which splits a tie's gradient
+    evenly, as `jnp.min` does)."""
+    if scale > 0:
+        return -torch.logsumexp(-scale * r, dim=dim) / scale
+    return torch.amin(r, dim=dim)
+
+
+def _stl_maxish(r, dim, scale):
+    if scale > 0:
+        return torch.logsumexp(scale * r, dim=dim) / scale
+    return torch.amax(r, dim=dim)
+
+
+def _stop_sign_robustness(pos, speed, center, half, *, scale, horizon_length,
+                          time_step_to_start, num_time_steps_to_stop, low_speed_th):
+    """Robustness at the trace's start of the stop-sign formula
+        Always(Implies(in_box, Eventually_[t0, H](Always_[0, k](in_box & slow))))
+        Or (out_box And not slow)
+    with And / Or / Always / Eventually as soft min / max at `scale` (hard at
+    <= 0); bounded windows truncate at the trace's end; Always_[0, k] spans
+    k + 1 frames. pos [B, N, T, 2] in the frame of center / half [B, 2];
+    speed [B, N, T]."""
+    T = pos.shape[-2]
+    lo_m = pos - (center - half)[:, None, None]  # [B, N, T, 2]
+    hi_m = (center + half)[:, None, None] - pos
+    inside_r = _stl_minish(torch.cat([lo_m, hi_m], dim=-1), -1, scale)  # [B, N, T]
+    low_r = _stl_minish(torch.stack([speed + low_speed_th, low_speed_th - speed], -1), -1, scale)
+    both = _stl_minish(torch.stack([inside_r, low_r], -1), -1, scale)
+    kk = min(num_time_steps_to_stop + 1, T)
+    pad = torch.full(both.shape[:-1] + (kk - 1,), _STL_BIG, dtype=both.dtype,
+                     device=both.device)
+    both_p = torch.cat([both, pad], dim=-1)
+    win_r = _stl_minish(torch.stack([both_p[..., i:T + i] for i in range(kk)], -1), -1, scale)
+    t_idx = torch.arange(T, device=pos.device)[:, None]  # anchor t
+    s_idx = torch.arange(T, device=pos.device)[None, :]  # window start s
+    valid = (s_idx >= t_idx + time_step_to_start) & (s_idx <= t_idx + horizon_length)
+    masked = torch.where(valid, win_r[..., None, :], both.new_tensor(-_STL_BIG))
+    ev_r = _stl_maxish(masked, -1, scale)  # [B, N, T] per anchor t
+    imp = _stl_maxish(torch.stack([-inside_r, ev_r], -1), -1, scale)
+    a_term = _stl_minish(imp, -1, scale)  # [B, N]
+    b_term = _stl_minish(torch.stack([-inside_r[..., 0], -low_r[..., 0]], -1), -1, scale)
+    return _stl_maxish(torch.stack([a_term, b_term], -1), -1, scale)
+
+
+@dataclasses.dataclass(frozen=True)
+class GlobalStopSignLoss:
+    """World-frame stop-sign rule: loss relu(-robustness) of
+    `_stop_sign_robustness`, zero for an agent whose stop is latched. The
+    latch is re-derived each call from ctx.agent_hist_world: latched when
+    some `action_num`-frame window of the history counts at least
+    `num_time_steps_to_stop` slow in-box frames and the agent has stayed in
+    the box from that window's end to the present."""
+
+    stop_sign_pos: object  # [B, 2] world-frame box centres
+    stop_box_dim: object  # [B, 2] full box dims
+    scale: float = 20.0
+    horizon_length: int = 52
+    time_step_to_start: int = 0
+    num_time_steps_to_stop: int = 3
+    action_num: int = 5
+    low_speed_th: float = 0.5
+
+    def __call__(self, x, ctx: GuidanceContext, agt_mask=None) -> torch.Tensor:
+        center = _as_tensor(self.stop_sign_pos, x)
+        half = _as_tensor(self.stop_box_dim, x) / 2.0
+        pos_w, _ = _to_world(x, ctx.world_from_agent)
+        robustness = _stop_sign_robustness(
+            pos_w, x[..., 2], center, half, scale=self.scale,
+            horizon_length=self.horizon_length, time_step_to_start=self.time_step_to_start,
+            num_time_steps_to_stop=self.num_time_steps_to_stop, low_speed_th=self.low_speed_th)
+        loss = torch.relu(-robustness)
+        if ctx.agent_hist_world is None:
+            return loss
+        hist = ctx.agent_hist_world  # [B, Th, 4]
+        Th = hist.shape[1]
+        in_box = torch.all(torch.abs(hist[..., :2] - center[:, None]) <= half[:, None], dim=-1)
+        low = torch.abs(hist[..., 2]) < self.low_speed_th
+        # in the box from each frame to the present
+        since_exit = torch.flip(torch.cumprod(torch.flip(in_box, [-1]).to(torch.int32), -1),
+                                [-1]).bool()
+        ok = (low & in_box).to(torch.int32)
+        a = max(1, min(self.action_num, Th))
+        csum0 = torch.cat([torch.zeros_like(ok[:, :1]), torch.cumsum(ok, -1)], dim=-1)
+        start = torch.as_tensor(np.maximum(np.arange(Th) - a + 1, 0), device=x.device)
+        cnt = csum0[..., 1:] - csum0[..., start]  # slow in-box frames of the window ending at j
+        already = torch.any((cnt >= self.num_time_steps_to_stop) & since_exit, dim=-1)
+        return torch.where(already[:, None], torch.zeros((), dtype=x.dtype, device=x.device),
+                           loss)
+
+
+@dataclasses.dataclass(frozen=True)
+class AccLimitLoss:
+    """Penalize |acc| above a limit."""
+
+    acc_limit: float = 2.0
+
+    def __call__(self, x, ctx: GuidanceContext, agt_mask=None) -> torch.Tensor:
+        return torch.mean(torch.relu(torch.abs(x[..., 4]) - self.acc_limit), dim=-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class SpeedLimitLoss:
+    """Penalize |v| above a limit."""
+
+    speed_limit: float = 15.0
+
+    def __call__(self, x, ctx: GuidanceContext, agt_mask=None) -> torch.Tensor:
+        return torch.mean(torch.relu(torch.abs(x[..., 2]) - self.speed_limit), dim=-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class StopSignLoss:
+    """Agent-frame stop-sign rule: relu(-robustness) of
+    `_stop_sign_robustness` on the plan's own positions, no latch.
+    `stop_box_dim` holds full box dims, as `GlobalStopSignLoss`'s."""
+
+    stop_sign_pos: object  # [B, 2] agent-frame box centres
+    stop_box_dim: object  # [B, 2]
+    scale: float = 20.0
+    horizon_length: int = 52
+    time_step_to_start: int = 0
+    num_time_steps_to_stop: int = 3
+    action_num: int = 5  # accepted for config compatibility; unused
+    low_speed_th: float = 0.5
+
+    def __call__(self, x, ctx: GuidanceContext, agt_mask=None) -> torch.Tensor:
+        robustness = _stop_sign_robustness(
+            x[..., :2], x[..., 2], _as_tensor(self.stop_sign_pos, x),
+            _as_tensor(self.stop_box_dim, x) / 2.0, scale=self.scale,
+            horizon_length=self.horizon_length, time_step_to_start=self.time_step_to_start,
+            num_time_steps_to_stop=self.num_time_steps_to_stop, low_speed_th=self.low_speed_th)
+        return torch.relu(-robustness)
+
+
+@dataclasses.dataclass(frozen=True)
+class KeepDistanceLoss:
+    """Keep agent `target_ind` within [min_dist, max_dist] of `ref_ind`."""
+
+    target_ind: int
+    ref_ind: int
+    min_dist: float = 5.0
+    max_dist: float = 15.0
+
+    def __call__(self, x, ctx: GuidanceContext, agt_mask=None) -> torch.Tensor:
+        pos_w, _ = _to_world(x, ctx.world_from_agent)
+        d = _norm(pos_w[self.target_ind] - pos_w[self.ref_ind])  # [N, T]
+        over = torch.relu(d - self.max_dist) + torch.relu(self.min_dist - d)
+        return _set_rows(x, (self.target_ind,), torch.mean(over, dim=-1)[None])
+
+    def affected_agents(self):
+        return (self.target_ind,)
+
+
+@dataclasses.dataclass(frozen=True)
+class CollisionAttackLoss:
+    """Adversarial: the attacker's closest approach to the (fixed) victim
+    over steps [time_lo, time_hi), clamped to the trajectory's length."""
+
+    attacker_ind: int
+    victim_ind: int
+    time_lo: int = 0
+    time_hi: int = 52
+    decay_rate: float = 0.9
+
+    def __call__(self, x, ctx: GuidanceContext, agt_mask=None) -> torch.Tensor:
+        pos_w, _ = _to_world(x, ctx.world_from_agent)
+        victim = pos_w[self.victim_ind].detach()
+        T = x.shape[-2]
+        lo = min(self.time_lo, T - 1)
+        hi = max(min(self.time_hi, T), lo + 1)
+        d = _norm(pos_w[self.attacker_ind, :, lo:hi] - victim[:, lo:hi])  # [N, Tw]
+        return _set_rows(x, (self.attacker_ind,), torch.amin(d, dim=-1)[None])
+
+    def affected_agents(self):
+        return (self.attacker_ind,)
+
+
+@dataclasses.dataclass(frozen=True)
+class SocialGroupLoss:
+    """Members of `group` keep `social_dist` from the group's centroid:
+    cohesion * |distance to centroid - social_dist|, averaged over steps."""
+
+    group: Tuple[int, ...]
+    social_dist: float = 2.0
+    cohesion: float = 0.8
+
+    def __call__(self, x, ctx: GuidanceContext, agt_mask=None) -> torch.Tensor:
+        pos_w, _ = _to_world(x, ctx.world_from_agent)
+        group_pos = pos_w[torch.as_tensor(self.group, device=x.device)]  # [G, N, T, 2]
+        centroid = torch.mean(group_pos, dim=0, keepdim=True)
+        dev = torch.abs(_norm(group_pos - centroid) - self.social_dist) * self.cohesion
+        return _set_rows(x, self.group, torch.mean(dev, dim=-1))
+
+    def affected_agents(self):
+        return self.group
+
+
+@dataclasses.dataclass(frozen=True)
+class LaneFollowingLoss:
+    """Stay near and aligned with the closest lane points of ctx.lane_points:
+    per step, the softmin-weighted distance to the lane points and the
+    heading deviation from their softmin-weighted yaw."""
+
+    pos_weight: float = 1.0
+    yaw_weight: float = 0.5
+    softmin_temp: float = 2.0
+
+    def __call__(self, x, ctx: GuidanceContext, agt_mask=None) -> torch.Tensor:
+        if ctx.lane_points is None:
+            raise ValueError("lane_following needs ctx.lane_points")
+        lanes = ctx.lane_points  # [B, L, 3]
+        avail = (ctx.lane_avail if ctx.lane_avail is not None
+                 else torch.ones(lanes.shape[:2], dtype=torch.bool, device=x.device))
+        pos, yaw = x[..., :2], x[..., 3]
+        d2 = torch.sum((pos[:, :, :, None, :] - lanes[:, None, None, :, :2]) ** 2, dim=-1)
+        d = torch.sqrt(d2 + 1e-9)  # [B, N, T, L]
+        am = avail[:, None, None, :]
+        zero = torch.zeros((), dtype=x.dtype, device=x.device)
+        # masked points get a large finite logit (an infinite one would make
+        # the 0-weight x inf-distance product NaN in the backward pass)
+        w = torch.softmax(-self.softmin_temp * torch.where(am, d, zero + 1e9), dim=-1)
+        pos_dev = torch.sum(w * torch.where(am, d, zero), dim=-1)  # [B, N, T]
+        lane_yaw = torch.sum(w * torch.where(am, lanes[:, None, None, :, 2], zero), dim=-1)
+        yaw_dev = torch.abs(angle_diff(yaw, lane_yaw))
+        per_step = self.pos_weight * pos_dev + self.yaw_weight * yaw_dev
+        has_lane = torch.any(avail, dim=-1)[:, None, None]  # scenes without lanes: 0
+        return torch.mean(per_step * has_lane, dim=-1)
+
+
+GUIDANCE_LOSS_MAP = {
+    "target_speed": TargetSpeedLoss,
+    "agent_collision": AgentCollisionLoss,
+    "map_collision": MapCollisionLoss,
+    "target_pos_at_time": TargetPosAtTimeLoss,
+    "target_pos": TargetPosLoss,
+    "global_target_pos_at_time": GlobalTargetPosAtTimeLoss,
+    "global_target_pos": GlobalTargetPosLoss,
+    "acc_limit": AccLimitLoss,
+    "speed_limit": SpeedLimitLoss,
+    "stop_sign": StopSignLoss,
+    "global_stop_sign": GlobalStopSignLoss,
+    "keep_distance": KeepDistanceLoss,
+    "collision_attack": CollisionAttackLoss,
+    "social_group": SocialGroupLoss,
+    "lane_following": LaneFollowingLoss,
+    # the reference's names of two of them ("gpt", LLM-written losses, is
+    # `guidance.codegen`)
+    "gptcollision": CollisionAttackLoss,
+    "gptkeepdistance": KeepDistanceLoss,
+}
+
+
+def make_guidance_losses(configs: Sequence[Dict]) -> list:
+    """(loss, weight, agents) per config dict {'name', 'weight', 'params',
+    'agents'}."""
+    out = []
+    for cfg in configs:
+        cls = GUIDANCE_LOSS_MAP[cfg["name"]]
+        out.append((cls(**cfg.get("params", {})), cfg.get("weight", 1.0), cfg.get("agents")))
+    return out

@@ -15,15 +15,19 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from cld_tpu_torch.guidance.losses import (
     AgentCollisionLoss,
+    CollisionAttackLoss,
     GuidanceContext,
+    KeepDistanceLoss,
     MapCollisionLoss,
     masked_mean,
     prepack_drivable,
     prepack_map_bbox,
+    SocialGroupLoss,
 )
 
 
@@ -44,14 +48,22 @@ class GuidanceSpec:
 def compute_guidance_loss(
     x_traj: torch.Tensor, ctx: GuidanceContext, specs: Sequence[GuidanceSpec]
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Weighted sum of per-rule masked means over [B, N, T, 6] trajectories."""
-    every = torch.ones((x_traj.shape[0],), dtype=torch.bool, device=x_traj.device)
+    """Weighted sum of per-rule masked means over [B, N, T, 6] trajectories.
+    An agent-indexed rule (one with `affected_agents`: keep distance,
+    collision attack, social group) is meant over its own agents only, as
+    the reference means each rule over the agents it writes: a mean over all
+    B would dilute its gradient by B / n_affected against the other rules."""
+    B = x_traj.shape[0]
     total = torch.zeros((), dtype=x_traj.dtype, device=x_traj.device)
     per_losses: Dict[str, torch.Tensor] = {}
     for i, spec in enumerate(specs):
-        mask = every
-        if spec.agent_mask is not None:
-            mask = torch.as_tensor(spec.agent_mask, dtype=torch.bool, device=x_traj.device)
+        mask = np.ones(B, bool) if spec.agent_mask is None else np.asarray(spec.agent_mask, bool)
+        affected = getattr(spec.loss, "affected_agents", None)
+        if callable(affected):
+            aff = np.zeros(B, bool)
+            aff[np.asarray(affected(), int)] = True
+            mask = mask & aff
+        mask = torch.as_tensor(mask, device=x_traj.device)
         cur = spec.loss(x_traj, ctx, agt_mask=mask)  # [B, N]
         per_losses[f"{type(spec.loss).__name__}_{i}"] = cur
         total = total + masked_mean(cur, mask) * spec.weight
@@ -244,6 +256,7 @@ def choose_best_sample(
 
 def is_scene_level_spec(spec: GuidanceSpec) -> bool:
     """Whether the rule's per-sample loss couples the agents of a scene, so
-    that filtration must share one sample index per scene. Of the JAX
-    package's four such rules the port has `AgentCollisionLoss`."""
-    return isinstance(spec.loss, AgentCollisionLoss)
+    that filtration must share one sample index per scene: agent collision,
+    social group, collision attack and keep distance."""
+    return isinstance(spec.loss, (AgentCollisionLoss, CollisionAttackLoss, KeepDistanceLoss,
+                                  SocialGroupLoss))

@@ -142,7 +142,7 @@ def library() -> ctypes.CDLL:
         lib.cld_offroad_count.restype = i
         lib.cld_offroad_count_attributes.argtypes = [p]
         lib.cld_offroad_count_attributes.restype = i
-        lib.cld_disk_collision.argtypes = [p] * 5 + [i, i, i, i, p]
+        lib.cld_disk_collision.argtypes = [p] * 5 + [i] * 5 + [p]
         lib.cld_disk_collision.restype = i
         _LIB = lib
     return _LIB

@@ -54,7 +54,7 @@ from cld_tpu_torch.models.vae import (
 from cld_tpu_torch.ops import native
 from cld_tpu_torch.ops.diffusion import DiffusionSchedule, make_schedule
 from cld_tpu_torch.ops.dynamics import RECORD_DYNAMICS, UnicycleParams
-from cld_tpu_torch.ops.geometry import world_from_agent_matrix
+from cld_tpu_torch.ops.geometry import transform_points, world_from_agent_matrix
 from cld_tpu_torch.ops.normalization import TrajNormalizer
 from cld_tpu_torch.policies.common import Action, action_from_trajectory
 
@@ -73,7 +73,8 @@ class SamplingOptions:
     cumulative change clipped to `perturb_th` (None: the posterior sigma; a
     number decays sigmoidally from ~4 to it over the denoise steps).
     `guidance_stride`, `guidance_clean` and `guidance_output` are
-    `sample_traj`'s switches (DDPM only)."""
+    `sample_traj`'s switches (DDPM only). `guide_as_filter_only` takes no
+    guidance step: the specs only pick among the samples."""
 
     num_samp: int = 1
     sampler: str = "ddpm"
@@ -85,6 +86,7 @@ class SamplingOptions:
     guidance_stride: int = 1
     guidance_clean: bool = False
     guidance_output: bool = False
+    guide_as_filter_only: bool = False
 
 
 RECORD_SAMPLING = SamplingOptions()
@@ -176,11 +178,13 @@ def sample_plans(
     step_noises: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
     options: SamplingOptions = RECORD_SAMPLING,
+    context_fields: Optional[Dict] = None,
 ) -> Dict[str, torch.Tensor]:
     """Encode the batch, sample `options.num_samp` latents per agent (guided
     by `specs` when given, with the caller's world poses [B, 3, 3] and scene
-    indices [B]) and decode: the sampler's outputs (pred_traj [B*N, T, D],
-    cond_feat, and for DDPM x1 and log_prob_final) plus the decoded
+    indices [B], and `context_fields`, more `GuidanceContext` fields such as
+    `observation_context_fields` gives) and decode: the sampler's outputs
+    (pred_traj [B*N, T, D], cond_feat, and for DDPM x1 and log_prob_final) plus the decoded
     trajectories `traj` [B, N, T, 6] and `best` [B, T, 6], the sample kept
     per agent (`best_index` [B]): with N > 1 and specs the one with the
     lowest total guidance loss, else sample 0."""
@@ -211,13 +215,15 @@ def sample_plans(
             curr_speed=batch.curr_speed,
             world_from_agent=world_from_agent,
             scene_index=scene_index,
+            **(context_fields or {}),
         ))
-        gfn = make_perturbation_guidance(
-            ctx, specs, decode_fn, lr=options.guidance_lr, grad_steps=options.guidance_steps,
-            perturb_th=options.perturb_th,
-            sigma_schedule=torch.exp(0.5 * models.schedule.posterior_log_variance_clipped),
-            n_timesteps=models.schedule.n_timesteps,
-        )
+        if not options.guide_as_filter_only:
+            gfn = make_perturbation_guidance(
+                ctx, specs, decode_fn, lr=options.guidance_lr, grad_steps=options.guidance_steps,
+                perturb_th=options.perturb_th,
+                sigma_schedule=torch.exp(0.5 * models.schedule.posterior_log_variance_clipped),
+                n_timesteps=models.schedule.n_timesteps,
+            )
     common = dict(num_samp=N, guidance_fn=gfn, x_init=x_init, step_noises=step_noises,
                   generator=generator)
     if options.sampler == "ddim":
@@ -285,6 +291,23 @@ def guided_collect(
     return res
 
 
+def observation_context_fields(obs: TrafficBatch) -> Dict:
+    """The guidance context's fields that a closed-loop observation carries:
+    the closest lane points, agent_from_world, the sim frame as `global_t`
+    and the world-frame history (x, y, v, yaw) [B, Th, 4] as
+    `agent_hist_world` (None where the observation lacks them)."""
+    hist_world = None
+    if obs.history_speeds is not None and obs.world_from_agent is not None:
+        wfa = obs.world_from_agent
+        hp_w = transform_points(obs.history_positions, wfa)
+        dyaw = torch.atan2(wfa[:, 1, 0], wfa[:, 0, 0])
+        hist_world = torch.cat([hp_w, obs.history_speeds[..., None],
+                                obs.history_yaws + dyaw[:, None, None]], dim=-1)
+    return dict(lane_points=obs.lane_points, lane_avail=obs.lane_avail,
+                agent_from_world=obs.agent_from_world, global_t=obs.sim_step,
+                agent_hist_world=hist_world)
+
+
 def make_dm_policy(
     models: GuidedModels,
     agents_per_scene: int,
@@ -296,8 +319,9 @@ def make_dm_policy(
     sampling -> the kept sample's decoded plan as an `Action` (its `controls`
     are the [Na, T, 2] (acc, yawvel) the simulator steps with). Guidance
     defaults to the flagship rules over scenes of `agents_per_scene` agents,
-    with the observation's world poses and scene indices. `options` picks the
-    sampler, the samples per agent and the guidance schedule.
+    with the observation's world poses and scene indices and the rest of its
+    context (`observation_context_fields`). `options` picks the sampler, the
+    samples per agent and the guidance schedule.
 
     Per replan the policy's `rng` is explicit noise, a dict with `x_init`
     [Na * N, T, D] and `step_noises` [n_steps, Na * N, T, D] (either may be
@@ -312,6 +336,7 @@ def make_dm_policy(
             models, obs, specs if guided else None, obs.world_from_agent, obs.scene_index,
             x_init=noise.get("x_init"), step_noises=noise.get("step_noises"),
             generator=None if isinstance(rng, dict) else rng, options=options,
+            context_fields=observation_context_fields(obs),
         )
         return action_from_trajectory(out["best"])
 
