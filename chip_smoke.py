@@ -1687,14 +1687,25 @@ def check_reward_kernels(batch, dev, report):
     g_loop = graph_ms(lambda: rk.disk_collision_penalty(*args, unrolled=False))
     g_all_loop = graph_ms(lambda: rk.disk_collision_penalty(*timed["all_pairs"], unrolled=False))
     plain_ms = cuda_ms(lambda: rk.disk_collision_penalty_ref(*args), 5)
-    # bytes: every input once, the output once. operations: per unmasked (t, i, j) the
-    # 25 disk pairs (2 subtractions, 2 products, a sum, a min) and ~6 for the penalty;
-    # a masked pair needs none
+    # bytes: every input once, the output once. operations: the 25 disk pairs (2
+    # subtractions, 2 products, a sum, a min) once per step and unordered pair {i, j}
+    # that either direction's mask holds, since pair[t, i, j] = pair[t, j, i]; ~6 for the
+    # penalty per step and ordered pair in the mask; a masked pair needs none
     D = 5
     nbytes = 4 * T * B * D * 2 + 4 * B * B + B * B + 4 * T + 4 * B
-    pair_ops = 6.0 * D * D + 6.0
-    b_ms, b_by = bound(nbytes, T * float(args[2].sum()) * pair_ops)
-    ball_ms, ball_by = bound(nbytes, T * float(B * (B - 1)) * pair_ops)
+
+    def disk_ops(mask):
+        either = mask | mask.T
+        unordered = (int(either.sum()) + int(either.diagonal().sum())) // 2
+        return T * (6.0 * D * D * unordered + 6.0 * int(mask.sum()))
+
+    b_ms, b_by = bound(nbytes, disk_ops(args[2]))
+    ball_ms, ball_by = bound(nbytes, disk_ops(timed["all_pairs"][2]))
+    disk_attrs = {str(Dn): rk.disk_collision_attributes(Dn) for Dn in range(1, 10)}
+    for Dn, a in disk_attrs.items():
+        log(f"disk_collision_kernel<{Dn if Dn != '9' else '0 (runtime-D loop)'}>: "
+            f"{a['registers']} registers, {a['local_bytes']} bytes of local memory per thread "
+            "(spills: reported, not failed)")
     log(f"disk_collision at T={T}, B={B}, D={D}, same-scene pairs: {ms:.4f} ms from Python, "
         f"{g_ms:.5f} ms from a CUDA graph, plain {plain_ms:.3f} ms, bound {b_ms:.6f} ms by {b_by}; "
         f"every off-diagonal pair: {g_all:.5f} ms from a graph, bound {ball_ms:.6f} ms by "
@@ -1705,7 +1716,7 @@ def check_reward_kernels(batch, dev, report):
                                     graph_ms_all_pairs=g_all, graph_ms_looped=g_loop,
                                     graph_ms_all_pairs_looped=g_all_loop,
                                     bound_ms_all_pairs=ball_ms,
-                                    bound_by_all_pairs=ball_by)
+                                    bound_by_all_pairs=ball_by, attributes=disk_attrs)
 
 
 def record_config():

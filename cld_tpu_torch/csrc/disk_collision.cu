@@ -34,17 +34,21 @@
 // What bounds it on the H100. Same-scene mask (T = 52, B = 128, D = 5,
 // scenes of 4, 156 items an agent): latency, about 2.2 us above the launch
 // floor: the mask row's round trip, the barrier, the partners' disks' round
-// trip, an IEEE sqrt and divide, and the reduction. Every pair unmasked
+// trip, an IEEE sqrt and divide, and the reduction; not spills (42
+// registers at D = 5 and none spilled; of the nine instantiations only D = 4
+// spills, 8 bytes, per `disk_collision_attributes`). Every pair unmasked
 // (6,604 items an agent): each block reads every partner's disks at every
 // step, 266 KB an agent, 34 MB from L2 in all, which this design neither
 // reuses across agents nor halves by symmetry (it computes each symmetric
 // pair twice, once for i, once for j); its instruction issue alone would
 // be ~3.9 us (6 instructions a disk distance, 845,312 pairs of 25, on 128 of
-// the 132 SMs). Tried and dropped (`kernel_ab.py --sweep` on two
-// intermediate versions of this file): a cluster
-// of 2 or 4 blocks per agent splitting the steps, summed through distributed
-// shared memory (slower at both masks: the cluster launch and barriers),
-// and staging every agent's disks in shared memory step-chunk by
+// the 132 SMs), against the function's operation bound of ~1.0 us (each
+// symmetric pair's 25 distances once, the penalty in both directions).
+// Tried on intermediate versions of this file and dropped: blocks of 512
+// threads (slower at both masks), a
+// cluster of 2 or 4 blocks per agent splitting the steps, summed through
+// distributed shared memory (slower at both masks: the cluster launch and
+// barriers), and staging every agent's disks in shared memory step-chunk by
 // step-chunk (2x slower with every pair: the same 34 MB through shared
 // memory, and two barriers a chunk).
 
@@ -53,7 +57,8 @@
 
 namespace {
 
-constexpr int kMaxThreads = 1024;
+constexpr int kThreads = 1024;  // one block per agent
+static_assert(kThreads == 32 * 32, "the final reduction takes one warp's partial per lane");
 constexpr int kMaxUnrolledD = 8;
 constexpr int kMaskBatch = 4;  // 32-column mask chunks whose loads warp 0 keeps in flight
 
@@ -119,7 +124,7 @@ __device__ __forceinline__ float item(const float* own_t, const float2* cj,
   return pair <= pd ? __ldg(decay + t) * (1.0f - pair / pd) : 0.0f;
 }
 
-// sum over items k = tid, tid + nthreads, ... < nt * np of item (step t =
+// sum over items k = tid, tid + kThreads, ... < nt * np of item (step t =
 // k / np, partner p = k % np), partner disks read from c2 [T, B, D] pairs;
 // two items in flight, (step, partner) advanced by additions
 template <int D_>
@@ -128,26 +133,26 @@ __device__ __forceinline__ float sweep(const float* own, const int* partners,
                                        const float* __restrict__ decay,
                                        const float2* __restrict__ c2, int nt, int np, int B,
                                        int D) {
-  const int tid = threadIdx.x, nthreads = blockDim.x, D2 = 2 * D;
+  const int tid = threadIdx.x, D2 = 2 * D;
   const int n = nt * np;
   float acc = 0.0f;
   if (tid >= n) return acc;
-  const int q1 = nthreads / np, r1 = nthreads - q1 * np;
+  const int q1 = kThreads / np, r1 = kThreads - q1 * np;
   int ta = tid / np, pa = tid - ta * np;  // item a: relative step and partner
-  for (int k = tid; k < n; k += 2 * nthreads) {
-    int tb = ta + q1, pb = pa + r1;  // item b = k + nthreads
+  for (int k = tid; k < n; k += 2 * kThreads) {
+    int tb = ta + q1, pb = pa + r1;  // item b = k + kThreads
     if (pb >= np) { pb -= np; ++tb; }
     const int ja = partners[pa];
     const float va = item<D_>(own + ta * D2, c2 + ((size_t)ta * B + ja) * D, pd_row, decay, ta,
                               ja, D);
     float vb = 0.0f;
-    if (k + nthreads < n) {
+    if (k + kThreads < n) {
       const int jb = partners[pb];
       vb = item<D_>(own + tb * D2, c2 + ((size_t)tb * B + jb) * D, pd_row, decay, tb, jb, D);
     }
     acc += va;
     acc += vb;
-    ta = tb + q1;  // item a of the next round = b + nthreads
+    ta = tb + q1;  // item a of the next round = b + kThreads
     pa = pb + r1;
     if (pa >= np) { pa -= np; ++ta; }
   }
@@ -157,17 +162,16 @@ __device__ __forceinline__ float sweep(const float* own, const int* partners,
 // one block per agent i. Dynamic shared memory: own disk centres [T, D, 2],
 // then the partner list [B] (ints)
 template <int D_>
-__global__ void __launch_bounds__(kMaxThreads)
+__global__ void __launch_bounds__(kThreads)
     disk_collision_kernel(const float* __restrict__ cent, const float* __restrict__ pen_dists,
                           const uint8_t* __restrict__ pair_mask,
                           const float* __restrict__ decay, float* __restrict__ out, int T,
                           int B, int D) {
   extern __shared__ float smem[];
-  __shared__ float partial[kMaxThreads / 32];
+  __shared__ float partial[kThreads / 32];
   __shared__ int n_partners;
   const int i = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nthreads = blockDim.x, nwarps = nthreads >> 5;
   const int D2 = 2 * D;
   float* own = smem;
   int* partners = reinterpret_cast<int*>(own + T * D2);
@@ -193,10 +197,9 @@ __global__ void __launch_bounds__(kMaxThreads)
     }
     if (lane == 0) n_partners = base;
   }
-  // the other warps (all of a one-warp block) stage the agent's own disks
-  const int helpers = nthreads > 32 ? nthreads - 32 : 32;
-  if (nthreads == 32 || warp > 0) {
-    for (int k = (nthreads > 32 ? tid - 32 : tid); k < T * D2; k += helpers) {
+  // the other warps stage the agent's own disks
+  if (warp > 0) {
+    for (int k = tid - 32; k < T * D2; k += kThreads - 32) {
       const int t = k / D2;
       own[k] = cent[((size_t)t * B + i) * D2 + (k - t * D2)];
     }
@@ -211,7 +214,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   if (lane == 0) partial[warp] = acc;
   __syncthreads();
   if (warp == 0) {
-    float v = lane < nwarps ? partial[lane] : 0.0f;
+    float v = partial[lane];  // kThreads / 32 = 32 warps
     v = warp_sum(v);
     if (lane == 0) out[i] = v / (float)B;
   }
@@ -222,23 +225,21 @@ __global__ void __launch_bounds__(kMaxThreads)
 extern "C" {
 
 // cent [T, B, D, 2] f32; pen_dists [B, B] f32; pair_mask [B, B] bytes (0 or
-// not); decay [T] f32; out [B] f32. One block of `threads` threads (a
-// multiple of 32, at most 1024) per agent, with T * D * 8 + B * 4 bytes of
-// dynamic shared memory (the wrapper keeps it under 48 KB). `unrolled` = 0
-// takes the runtime-D loop whatever D is (D > 8 always does). Launches on
-// `stream`; returns cudaGetLastError().
+// not); decay [T] f32; out [B] f32. One block of 1,024 threads per agent,
+// with T * D * 8 + B * 4 bytes of dynamic shared memory (the wrapper keeps
+// it under 48 KB). `unrolled` = 0 takes the runtime-D loop whatever D is
+// (D > 8 always does). Launches on `stream`; returns cudaGetLastError().
 int cld_disk_collision(const float* cent, const float* pen_dists, const uint8_t* pair_mask,
                        const float* decay, float* out, int T, int B, int D, int unrolled,
-                       int threads, void* stream) {
+                       void* stream) {
   if (B == 0) return 0;
-  if (threads < 32 || threads > kMaxThreads || threads % 32) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const unsigned int grid = (unsigned int)B;
   const size_t sm = ((size_t)T * D * 2 + (size_t)B) * 4;
 #define CLD_DISK_CASE(d)                                                                     \
   case d:                                                                                    \
-    disk_collision_kernel<d><<<grid, threads, sm, st>>>(cent, pen_dists, pair_mask, decay,   \
-                                                        out, T, B, D);                       \
+    disk_collision_kernel<d><<<grid, kThreads, sm, st>>>(cent, pen_dists, pair_mask, decay,  \
+                                                         out, T, B, D);                      \
     break;
   switch (unrolled && D <= kMaxUnrolledD ? D : 0) {
     CLD_DISK_CASE(1)
@@ -253,6 +254,31 @@ int cld_disk_collision(const float* cent, const float* pen_dists, const uint8_t*
   }
 #undef CLD_DISK_CASE
   return (int)cudaGetLastError();
+}
+
+// The compiler's verdict on the instantiation for D disks (1..8; 0, or any
+// other D, the runtime-D loop): registers and local memory bytes (spills)
+// per thread, max threads per block.
+int cld_disk_collision_attributes(int D, int* out) {
+  const void* fn;
+  switch (D >= 1 && D <= kMaxUnrolledD ? D : 0) {
+    case 1: fn = (const void*)disk_collision_kernel<1>; break;
+    case 2: fn = (const void*)disk_collision_kernel<2>; break;
+    case 3: fn = (const void*)disk_collision_kernel<3>; break;
+    case 4: fn = (const void*)disk_collision_kernel<4>; break;
+    case 5: fn = (const void*)disk_collision_kernel<5>; break;
+    case 6: fn = (const void*)disk_collision_kernel<6>; break;
+    case 7: fn = (const void*)disk_collision_kernel<7>; break;
+    case 8: fn = (const void*)disk_collision_kernel<8>; break;
+    default: fn = (const void*)disk_collision_kernel<0>; break;
+  }
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, fn);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = a.maxThreadsPerBlock;
+  return 0;
 }
 
 }  // extern "C"

@@ -1,7 +1,7 @@
 """Device time of the disk-collision kernel and of the card's launch floor,
 for comparing two versions of the port's kernels on one card.
 
-    python cld_tpu_torch/kernel_ab.py [--root DIR] [--label NAME] [--sweep]
+    python cld_tpu_torch/kernel_ab.py [--root DIR] [--label NAME]
 
 Imports `cld_tpu_torch` from DIR (default: the checkout that holds this
 file), so that one command can time an older checkout's kernels beside this
@@ -23,9 +23,6 @@ timed the same way (a yardstick of one graph kernel node; no path calls it).
 
 Each output is first held against the plain version (rtol 1e-5, atol 1e-6)
 and hashed (sha256), so that two versions can be compared bit for bit.
-`--sweep` (a version whose wrapper takes `threads`) also holds every block
-size of `SWEEP` at the edge shapes B=1, B=33 and D=9 and times it at both
-masks, 2 placements each.
 Prints one JSON line with the card and appends it to
 chiprun_out/kernel_ab.jsonl. Fails without a CUDA card.
 """
@@ -35,15 +32,12 @@ from __future__ import annotations
 import argparse
 import hashlib
 import importlib.util
-import inspect
 import json
 import statistics
 import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
-# threads per block that `--sweep` times
-SWEEP = (256, 512, 1024)
 
 
 def sha256(*tensors) -> str:
@@ -67,7 +61,6 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", type=str, default=str(HERE.parent))
     parser.add_argument("--label", type=str, default=None)
-    parser.add_argument("--sweep", action="store_true")
     args = parser.parse_args(argv)
     import torch
 
@@ -84,12 +77,12 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     res = {"label": args.label or root.name, "root": str(root), "card": cs.card_line()}
 
-    def time_placed(key, fn, *inputs, placements=8):
+    def time_placed(key, fn, *inputs):
         """fn(*inputs) on clones of the inputs, each with its own graph (and
         so its own output buffers): the median over placements is kept, with
         the range."""
         times, keep = [], []
-        for _ in range(placements):
+        for _ in range(8):
             cl = [t.clone() for t in inputs]
             keep.append(cl)  # alive, so that the next clone lies elsewhere
             times.append(cs.graph_ms(lambda: fn(*cl), replays=100, windows=7))
@@ -119,22 +112,6 @@ def main(argv=None) -> int:
         loop = lambda *a: rk.disk_collision_penalty(*a, unrolled=False)
         res[f"disk_collision_{name}_loop_sha256"] = sha256(held(f"{name}, loop", loop, fx))
         time_placed(f"disk_collision_{name}_loop", loop, *fx)
-    if args.sweep:
-        if "threads" not in inspect.signature(rk.disk_collision_penalty).parameters:
-            raise RuntimeError("--sweep: this version's disk_collision_penalty takes no launch "
-                               "shape")
-        edges = {"B=1": cs.disk_fixture(g, T, 1, 5, torch.ones((1, 1), dtype=torch.bool,
-                                                                device=dev), dev),
-                 "B=33": cs.disk_fixture(g, 9, 33, 5, ~torch.eye(33, dtype=torch.bool,
-                                                                  device=dev), dev),
-                 "D=9": cs.disk_fixture(g, T, B, 9, cs.scene_pair_mask(B, 4, dev), dev)}
-        for threads in SWEEP:
-            fn = lambda *a, t=threads: rk.disk_collision_penalty(*a, threads=t)
-            tag = f"t{threads}"
-            for name, fx in {**fixtures, **edges}.items():
-                held(f"{name}, {tag}", fn, fx)
-            for name, fx in fixtures.items():
-                time_placed(f"sweep_{tag}_{name}", fn, *fx, placements=2)
     time_placed("launch_floor", lambda: torch.cuda._sleep(0))  # 8 graphs, no input
 
     line = json.dumps(res)

@@ -142,8 +142,10 @@ def library() -> ctypes.CDLL:
         lib.cld_offroad_count.restype = i
         lib.cld_offroad_count_attributes.argtypes = [p]
         lib.cld_offroad_count_attributes.restype = i
-        lib.cld_disk_collision.argtypes = [p] * 5 + [i] * 5 + [p]
+        lib.cld_disk_collision.argtypes = [p] * 5 + [i] * 4 + [p]
         lib.cld_disk_collision.restype = i
+        lib.cld_disk_collision_attributes.argtypes = [i, p]
+        lib.cld_disk_collision_attributes.restype = i
         _LIB = lib
     return _LIB
 

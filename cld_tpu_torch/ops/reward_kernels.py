@@ -89,34 +89,33 @@ def disk_collision_penalty_ref(centroids, penalty_dists, pair_mask, decay) -> to
     return torch.mean(torch.sum(pen * decay[:, None, None], dim=0), dim=-1)
 
 
-# threads per block of the disk-collision kernel (one block per agent)
-DISK_THREADS = 1024
-
-
-def disk_collision_launch(T: int, B: int, D: int, threads: int = DISK_THREADS) -> dict:
-    """Launch shape of the disk-collision kernel: one block of `threads`
-    threads per agent, whose shared memory holds the agent's own disk
-    centres [T, D, 2] and its partner list (B ints). Raises on a shape the
-    kernel does not take."""
-    if threads % 32 or not 32 <= threads <= 1024:
-        raise ValueError(f"disk_collision_penalty: threads={threads}, expected a multiple of "
-                         "32 in [32, 1024]")
+def disk_collision_smem(T: int, B: int, D: int) -> int:
+    """Dynamic shared memory of a disk-collision block (one block per
+    agent): the agent's own disk centres [T, D, 2] and its partner list (B
+    ints). Raises on a shape that exceeds the kernel's limit."""
     smem = T * D * 8 + B * 4
     if smem > _MAX_SMEM:
         raise ValueError(f"disk_collision_penalty: T * D = {T * D} disk centres per agent and "
                          f"B = {B} agents exceed the kernel's {_MAX_SMEM} bytes of shared memory")
-    return dict(grid=B, threads=threads, smem=smem)
+    return smem
+
+
+def disk_collision_attributes(D: int) -> dict:
+    """The compiler's verdict on the disk-collision kernel for D disks (D > 8
+    names the runtime-D loop): registers and local memory bytes (spills) per
+    thread, max threads per block."""
+    regs, local, threads = native.attributes(native.library().cld_disk_collision_attributes, D)
+    return dict(registers=regs, local_bytes=local, max_threads=threads)
 
 
 def disk_collision_penalty(centroids, penalty_dists, pair_mask, decay, *,
-                           unrolled: bool = True, threads: int = DISK_THREADS) -> torch.Tensor:
+                           unrolled: bool = True) -> torch.Tensor:
     """Per-agent decayed disk-collision penalty: centroids [T, B, D, 2] f32,
     penalty_dists [B, B] f32, pair_mask [B, B] bool, decay [T] f32 -> [B]
     f32. No gradient. The kernel sums in another order than the plain
     version: they agree to ~1e-6 relative, and two launches bit for bit.
     `unrolled=False` makes the kernel take its runtime-D loop, which D > 8
-    always takes, at any D (to time and check that loop); `threads` sets the
-    block size (`disk_collision_launch`)."""
+    always takes, at any D (to time and check that loop)."""
     if centroids.device.type == "cpu":
         return disk_collision_penalty_ref(centroids, penalty_dists, pair_mask, decay)
     if centroids.device.type != "cuda":
@@ -127,12 +126,12 @@ def disk_collision_penalty(centroids, penalty_dists, pair_mask, decay, *,
     native.require(penalty_dists, "penalty_dists", f32, (B, B), dev)
     native.require(pair_mask, "pair_mask", torch.bool, (B, B), dev)
     native.require(decay, "decay", f32, (T,), dev)
-    shape = disk_collision_launch(T, B, D, threads)
+    disk_collision_smem(T, B, D)
     out = torch.empty((B,), dtype=f32, device=dev)
     lib = native.library()
     native.check(lib.cld_disk_collision(
         centroids.data_ptr(), penalty_dists.data_ptr(), pair_mask.data_ptr(), decay.data_ptr(),
-        out.data_ptr(), T, B, D, int(unrolled), shape["threads"], native.stream_ptr(dev),
+        out.data_ptr(), T, B, D, int(unrolled), native.stream_ptr(dev),
     ), "disk_collision")
     native.count_launch("disk_collision")
     return out

@@ -336,7 +336,7 @@ def make_dm_policy(
             models, obs, specs if guided else None, obs.world_from_agent, obs.scene_index,
             x_init=noise.get("x_init"), step_noises=noise.get("step_noises"),
             generator=None if isinstance(rng, dict) else rng, options=options,
-            context_fields=observation_context_fields(obs),
+            context_fields=observation_context_fields(obs) if guided else None,
         )
         return action_from_trajectory(out["best"])
 

@@ -83,61 +83,45 @@ def test_offroad_count_groups_are_per_group_counts():
                                       rk.offroad_count(pix[:, g].contiguous(), drivable).numpy())
 
 
-@pytest.mark.parametrize("T,B,D,spread", [(8, 6, 4, 5.0), (3, 5, 1, 2.0), (4, 3, 2, 100.0)])
-def test_disk_collision_ref_matches_jax_ref_and_pallas(T, B, D, spread):
+# beside the first three: the CUDA kernel's edge shapes, one agent (paired
+# with itself), 33 agents (one past a warp of mask columns), an empty mask,
+# more disks than the kernel unrolls (its runtime-D loop)
+@pytest.mark.parametrize("T,B,D,spread,mask", [
+    (8, 6, 4, 5.0, "excluded"), (3, 5, 1, 2.0, "excluded"), (4, 3, 2, 100.0, "excluded"),
+    (5, 1, 5, 2.0, "self"), (4, 33, 5, 2.0, "off_diag"), (4, 6, 5, 2.0, "empty"),
+    (3, 7, 9, 2.0, "off_diag")])
+def test_disk_collision_ref_matches_jax_ref_and_pallas(T, B, D, spread, mask):
     rng = np.random.default_rng(1)
     cent = rng.normal(0, spread, (T, B, D, 2)).astype(np.float32)
     rad = rng.uniform(0.8, 1.2, B).astype(np.float32)
     pen = rad[:, None] + rad[None, :] + 0.2
-    mask = ~np.eye(B, dtype=bool)
-    mask[0, 1] = False  # an excluded pair
-    decay = (0.9 ** np.arange(T)).astype(np.float32)
-    decay /= decay.sum()
-    got = rk.disk_collision_penalty(*(torch.from_numpy(a) for a in (cent, pen, mask, decay)))
-    args = tuple(jnp.asarray(a) for a in (cent, pen, mask, decay))
-    want = np.asarray(pk.disk_collision_penalty_ref(*args))
-    kernel = np.asarray(pk.disk_collision_penalty_pallas(*args, interpret=True))
-    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
-    np.testing.assert_allclose(got.numpy(), kernel, rtol=1e-5, atol=1e-6)
-    assert (want.max() > 0) == (spread < 50.0)  # far-apart agents: exactly zero
-    if spread >= 50.0:
-        assert float(got.abs().max()) == 0.0
-
-
-# the CUDA kernel's edge shapes: one agent (paired with itself), 33 agents
-# (one past a warp of mask columns), an empty mask, more disks than the
-# kernel unrolls (its runtime-D loop)
-@pytest.mark.parametrize("T,B,D,mask", [(5, 1, 5, "self"), (4, 33, 5, "off_diag"),
-                                        (4, 6, 5, "empty"), (3, 7, 9, "off_diag")])
-def test_disk_collision_edges_match_pallas(T, B, D, mask):
-    rng = np.random.default_rng(B * 10 + D)
-    cent = rng.normal(0, 2.0, (T, B, D, 2)).astype(np.float32)
-    rad = rng.uniform(0.8, 1.2, B).astype(np.float32)
-    pen = rad[:, None] + rad[None, :] + 0.2
-    pair_mask = {"self": np.ones((B, B), bool), "off_diag": ~np.eye(B, dtype=bool),
-                 "empty": np.zeros((B, B), bool)}[mask]
+    pair_mask = {"self": np.ones((B, B), bool), "empty": np.zeros((B, B), bool)}.get(
+        mask, ~np.eye(B, dtype=bool))
+    if mask == "excluded":
+        pair_mask[0, 1] = False  # an excluded pair
     decay = (0.9 ** np.arange(T)).astype(np.float32)
     decay /= decay.sum()
     native.reset_launch_counts()
     got = rk.disk_collision_penalty(*(torch.from_numpy(a) for a in (cent, pen, pair_mask, decay)))
-    args = tuple(jnp.asarray(a) for a in (cent, pen, pair_mask, decay))
-    kernel = np.asarray(pk.disk_collision_penalty_pallas(*args, interpret=True))
-    np.testing.assert_allclose(got.numpy(), kernel, rtol=1e-5, atol=1e-6)
     assert got.shape == (B,) and native.launch_counts()["disk_collision"] == 0
-    assert (float(got.max()) > 0) == (mask != "empty")
+    args = tuple(jnp.asarray(a) for a in (cent, pen, pair_mask, decay))
+    want = np.asarray(pk.disk_collision_penalty_ref(*args))
+    kernel = np.asarray(pk.disk_collision_penalty_pallas(*args, interpret=True))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got.numpy(), kernel, rtol=1e-5, atol=1e-6)
+    # far-apart agents and an empty mask: exactly zero
+    assert (want.max() > 0) == (spread < 50.0 and mask != "empty")
+    if spread >= 50.0 or mask == "empty":
+        assert float(got.abs().max()) == 0.0
 
 
 def test_disk_collision_launch_shape():
-    """One block per agent; shared memory for the agent's disks and its
-    partner list; the block size and the 48 KB limit checked in Python."""
-    assert rk.disk_collision_launch(52, 128, 5) == dict(grid=128, threads=rk.DISK_THREADS,
-                                                        smem=52 * 5 * 8 + 128 * 4)
-    assert rk.disk_collision_launch(6, 7, 9, threads=32)["smem"] == 6 * 9 * 8 + 7 * 4
-    for bad in (0, 48, 1056):
-        with pytest.raises(ValueError, match="threads"):
-            rk.disk_collision_launch(52, 128, 5, threads=bad)
+    """One block per agent, whose shared memory holds the agent's disks and
+    its partner list; the 48 KB limit checked in Python."""
+    assert rk.disk_collision_smem(52, 128, 5) == 52 * 5 * 8 + 128 * 4
+    assert rk.disk_collision_smem(6, 7, 9) == 6 * 9 * 8 + 7 * 4
     with pytest.raises(ValueError, match="shared memory"):
-        rk.disk_collision_launch(1000, 128, 8)
+        rk.disk_collision_smem(1000, 128, 8)
 
 
 @pytest.fixture(scope="module")
