@@ -120,10 +120,29 @@
    replan's guidance gradient under the same rules at 2 x 4 agents on the
    card and on the CPU: a finite loss within 1e-5 relative, the gradient
    within 1e-4 relative (plus 1e-5 of its largest entry).
-18. Times the launch floor: `torch.cuda._sleep(0)` (one thread that exits
+18. Runs the checkpoint path at the full width of the config of record:
+   trains the VAE and then the DM stage through `train.main`, 2 steps each
+   (a JSON config sets one-step epochs, so that the rate leaves 0), writing
+   `ckpt_final` files under chiprun_out/; rolls them out through
+   `rollout.main` with `--registered-name cld_dm_nusc`, `--vae-ckpt`,
+   `--dm-ckpt` and `--cle-report` (4 scenes x 8 agents, raster 224, 100
+   DDPM steps, 20 frames: 4 replans; launch counts zeroed before and exact
+   after, as the rules path's with the flagship rules); `summarize_metrics`,
+   the occupancy metrics and the CLE summary must be finite, and the first
+   replan's plan of the CLI's models must equal, bit for bit, the plan of
+   models loaded straight from the trainers' state dicts with the same
+   generator. Then the same weights as a Lightning-style `.ckpt`
+   (`{"state_dict": {"vae.*", "dm.model.*"}}`) through the same CLI: the
+   same first plan and the same trajectory log, bit for bit. Times the eval
+   layer on the rollout's log (the occupancy report and the CLE summary,
+   host seconds per call). Then `--mode test` on the checkpoints, 2 validation batches of 128: exactly 2
+   `lstm2_fwd` launches, finite failure rates and realism deviation. Prints
+   the phase's seconds and the rollout's agent-steps/s beside the card.
+19. Times the launch floor: `torch.cuda._sleep(0)` (one thread that exits
    at once) from a CUDA graph, as every kernel's graph time is taken.
-19. Prints the card line, one `{"kernels": [...]}` line (`launches_by_path`
-   there holds each main-path run's own count, of 4, 7, 8, 11, 12, 14, 15 and 17,
+20. Prints the card line, one `{"kernels": [...]}` line (`launches_by_path`
+   there holds each main-path run's own count, of 4, 7, 8, 11, 12, 14, 15,
+   17 and 18 (its rollout and its `--mode test`),
    each zeroed before its run and checked exactly; `launches` is their sum;
    `graph_ms` is each kernel's time from a CUDA graph at the main path's
    shape, B=128 for the LSTM kernels, beside `launch_floor_ms`), and last
@@ -135,6 +154,7 @@ A longer report goes to chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -1440,8 +1460,8 @@ def run_rules_path(report):
     check(all(np.isfinite(v) for v in rep["guidance_satisfaction"].values()),
           "the guidance-satisfaction report is not finite")
     report["launches_rules"] = launches
-    report["rules"] = dict(wall_s=wall, rules=rep["rules"], agent_steps_per_s=rep[
-        "agent_steps_per_s"], satisfaction=rep["guidance_satisfaction"])
+    report["rules"] = dict(wall_s=wall, rules=rep["rules"], agent_steps_per_sec=rep[
+        "agent_steps_per_sec"], satisfaction=rep["guidance_satisfaction"])
 
 
 def check_rules_replan(dev, report):
@@ -1468,14 +1488,15 @@ def check_rules_replan(dev, report):
     res = {}
     for where in ("cpu", dev):
         args = rollout.parse_args(argv)
-        cfg = env.SimConfig(num_simulation_steps=10, n_step_action=5,
-                            hist_frames=args.hist_frames, raster_size=R)
+        hist = rollout.experiment_config(args).algo.history_num_frames
+        cfg = env.SimConfig(num_simulation_steps=10, n_step_action=5, hist_frames=hist,
+                            raster_size=R)
         pack = synthetic_scene_pack(seed=3, num_scenes=S, agents_per_scene=A,
                                     world_map_size=256, sim_steps=10, device=where)
         pack = pack._replace(world_map=torch.round(pack.world_map * 255.0) * (1.0 / 255.0))
         specs = rollout.build_guidance_specs(args, pack, cfg, pack.num_agents)
         m = pipeline.build_models(seed=5, device=where, n_diffusion_steps=10,
-                                  raster_channels=args.hist_frames + 1 + pack.world_map.shape[-1])
+                                  raster_channels=hist + 1 + pack.world_map.shape[-1])
         obs = env.render_observation(pack, env.init_sim_state(pack, cfg), cfg)
         aux = m.context(obs)
         ctx = gl.prepack_map_bbox(gl.prepack_drivable(gl.GuidanceContext(
@@ -1512,6 +1533,169 @@ def check_rules_replan(dev, report):
           "the rules replan's guidance gradient differs between card and CPU")
     report["rules_replan"] = dict(loss_cpu=c_loss, loss_card=g_loss, grad_err=err,
                                   grad_max=scale)
+
+
+CKPT_STEPS = 20  # frames of the checkpoint path's rollouts: 4 replans
+
+
+def ckpt_rollout_argv(vae, dm, output):
+    return ["--registered-name", "cld_dm_nusc", "--vae-ckpt", str(vae), "--dm-ckpt", str(dm),
+            "--num-scenes", str(CL_SCENES), "--agents-per-scene", str(CL_AGENTS),
+            "--num-sim-steps", str(CKPT_STEPS), "--cle-report", "--device", "cuda",
+            "--output", str(output)]
+
+
+def first_plan(run, models=None):
+    """The first replan's plan (the kept sample's [Na, T, 2] controls) of the
+    CLI's policy, or of the same policy over other `models`, drawn from a
+    generator seeded as the CLI seeds its own."""
+    import torch
+
+    from cld_tpu_torch import pipeline
+    from cld_tpu_torch.sim import env
+
+    policy = run.policy if models is None else pipeline.make_dm_policy(
+        models, CL_AGENTS, guided=True, specs=run.specs, options=run.options)
+    obs = env.render_observation(run.pack, env.init_sim_state(run.pack, run.sim_cfg),
+                                 run.sim_cfg, world_q8=env.quantize_world_maps_q8(
+                                     run.pack.world_map))
+    return policy(obs, torch.Generator(device=run.device).manual_seed(0)).controls
+
+
+def run_checkpoint_path(report):
+    """Train, roll out and evaluate: the trainers' `ckpt_final` files through
+    the rollout CLI and `--mode test`, and the same weights as a
+    Lightning-style file (see step 18 of the module's docstring)."""
+    import numpy as np
+    import torch
+
+    from cld_tpu_torch import pipeline, rollout, train
+    from cld_tpu_torch.ops import native
+    from cld_tpu_torch.utils.torch_import import submap
+
+    t_phase = time.perf_counter()
+    out = ROOT / "chiprun_out" / "ckpt_path"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "config.json").write_text(json.dumps({"train": {"training": {"steps_per_epoch": 1}}}))
+    base = ["--registered-name", "cld_vae_nusc", "--config", str(out / "config.json"),
+            "--device", "cuda", "--output", str(out / "runs"), "--steps", "2"]
+    vae_ckpt, dm_ckpt = out / "runs" / "vae" / "ckpt_final", out / "runs" / "dm" / "ckpt_final"
+    native.reset_launch_counts()
+    vae_state = train.main(base + ["--mode", "vae"])
+    dm_state = train.main(base + ["--mode", "dm", "--vae-ckpt", str(vae_ckpt)])
+    train_launches = native.launch_counts()
+    check(train_launches == counts(), f"checkpoint training launches {train_launches}")
+    check(vae_state.step == 2 and dm_state.step == 2, "the trainers did not take 2 steps")
+
+    # (b) the trainers' checkpoints through the rollout CLI
+    argv = ckpt_rollout_argv(vae_ckpt, dm_ckpt, out / "rollout")
+    run = rollout.build(rollout.parse_args(argv))
+    check(run.sim_cfg.raster_size == RASTER and run.models.schedule.n_timesteps == N_STEPS,
+          "the checkpoint path is not at the config of record's raster and steps")
+    direct = pipeline.build_models_from_config(run.cfg, device=run.device, seed=0)
+    direct.context.load_state_dict(submap(vae_state.model.state_dict(), "context_encoder"))
+    direct.decoder.load_state_dict(submap(vae_state.model.state_dict(), "lstmvae.lstm_dec"))
+    direct.unet.load_state_dict(dm_state.model.state_dict())
+    fresh = pipeline.build_models_from_config(run.cfg, device=run.device, seed=0)
+    check(any(not torch.equal(a, b) for a, b in zip(fresh.unet.state_dict().values(),
+                                                   run.models.unet.state_dict().values())),
+          "the CLI's denoiser holds the random initial weights, not the trained ones")
+    plan = first_plan(run)
+    plan_direct = first_plan(run, direct)
+    check(tuple(plan.shape) == (CL_B, T, 2) and bool(torch.isfinite(plan).all()),
+          "the checkpoint path's first plan is not finite [Na, T, 2]")
+    check(torch.equal(plan, plan_direct), "the CLI's first plan differs from the plan of the "
+          "models loaded straight from the trainers' state dicts")
+    del direct, fresh
+    native.reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = rollout.main(argv)
+    wall = time.perf_counter() - t0
+    launches = native.launch_counts()
+    n = CKPT_STEPS // CL_N_STEP
+    episode = counts(lstm2_fwd=N_STEPS * n, lstm2_bwd=(N_STEPS - 1) * n,
+                     bit_gather=(N_STEPS - 1) * n, value_gather=n)
+    want = {**episode, "bit_gather": episode["bit_gather"] + 1}  # the report's map rule
+    check(rep["launches"] == episode, f"checkpoint rollout episode launches {rep['launches']}, "
+          f"expected {episode}")
+    check(launches == want, f"checkpoint rollout launches {launches}, expected {want}")
+    numbers = [v for k, v in rep.items() if isinstance(v, (int, float))]
+    numbers += [v for sub in rep["cle"].values() if isinstance(sub, dict) for v in sub.values()]
+    numbers += list(rep["guidance_satisfaction"].values())
+    check(all(np.isfinite(v) for v in numbers) and "occupancy_coverage" in rep,
+          "the checkpoint rollout's report is not finite")
+    with np.load(out / "rollout" / "trajectories.npz") as f:
+        traj = f["trajectories"]
+    check(traj.shape == (CKPT_STEPS, CL_B, 4) and bool(np.isfinite(traj).all()),
+          "the checkpoint rollout's trajectory log is not finite")
+    # the eval layer's host time on this log: the occupancy report and the CLE summary
+    from cld_tpu_torch.eval.cle import cle_report
+
+    log_t = torch.from_numpy(traj).to(run.device)
+    eval_layer_s = {}
+    for name, fn in (("occupancy_report", lambda: rollout.occupancy_report(run.pack, log_t)),
+                     ("cle_report", lambda: cle_report(run.pack, log_t, run.sim_cfg))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        eval_layer_s[name] = (time.perf_counter() - t0) / 5
+    log(f"eval layer on the rollout's log ({CKPT_STEPS} frames x {CL_B} agents, host s per call, "
+        f"mean of 5): {json.dumps(eval_layer_s)} on {report['card']}")
+    del run
+    log(f"checkpoint rollout ({CL_SCENES} x {CL_AGENTS} agents, {CKPT_STEPS} frames, {n} "
+        f"replans): {rep['agent_steps_per_sec']:.2f} agent-steps/s ({rep['wall_clock_s']:.2f} s "
+        f"the episode, {wall:.1f} s with the set-up and reports) on {report['card']}; metrics "
+        f"{json.dumps({k: rep[k] for k in ('offroad_rate', 'collision_rate')})}, occupancy "
+        f"{rep['occupancy_coverage']:.4f}, cle {json.dumps(rep['cle'])}; launches {launches}")
+
+    # (c) the same weights as a Lightning-style file
+    light = out / "reference.ckpt"
+    sd = {f"vae.{k}": v for k, v in vae_state.model.state_dict().items()}
+    sd.update({f"dm.model.{k}": v for k, v in dm_state.model.state_dict().items()})
+    torch.save({"state_dict": sd, "epoch": 0, "global_step": 2}, light)
+    largv = ckpt_rollout_argv(light, light, out / "rollout_lightning")
+    check(torch.equal(first_plan(rollout.build(rollout.parse_args(largv))), plan),
+          "the Lightning file's first plan differs from the trainers' checkpoints'")
+    native.reset_launch_counts()
+    rollout.main(largv)
+    check(native.launch_counts() == want, "the Lightning rollout's launches differ")
+    with np.load(out / "rollout_lightning" / "trajectories.npz") as f:
+        check(np.array_equal(f["trajectories"], traj),
+              "the Lightning file's trajectory log differs from the checkpoints'")
+    log("Lightning-style .ckpt: the same first plan and trajectory log, bit for bit")
+
+    # (d) --mode test on the checkpoints
+    native.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = train.main(["--registered-name", "cld_dm_nusc", "--mode", "test", "--steps", "2",
+                      "--vae-ckpt", str(vae_ckpt), "--dm-ckpt", str(dm_ckpt), "--device", "cuda",
+                      "--output", str(out / "runs")])
+    eval_s = time.perf_counter() - t0
+    eval_launches = native.launch_counts()
+    check(eval_launches == counts(lstm2_fwd=2), f"--mode test launches {eval_launches}, "
+          "expected 2 lstm2_fwd")
+    check(all(np.isfinite(v) for v in res.values()) and "realism_deviation" in res,
+          f"--mode test result is not finite: {res}")
+    # the report directory keeps the small outputs only: the checkpoints hold ~0.4 GB with
+    # their optimizer states
+    shutil.rmtree(out / "runs")
+    light.unlink()
+    secs = time.perf_counter() - t_phase
+    log(f"--mode test (2 batches of 128): {json.dumps(res)} in {eval_s:.1f} s; checkpoint "
+        f"phase {secs:.1f} s in all, on {report['card']}")
+    report["launches_checkpoint_rollout"] = launches
+    report["launches_evaluate"] = eval_launches
+    report["checkpoint_path"] = dict(
+        phase_s=secs, rollout_wall_clock_s=rep["wall_clock_s"],
+        rollout_agent_steps_per_sec=rep["agent_steps_per_sec"], eval_s=eval_s,
+        eval_layer_s=eval_layer_s,
+        evaluate=res, occupancy={k: rep[k] for k in ("occupancy_coverage",
+                                                     "offroad_occupancy_fraction",
+                                                     "occupied_cells")},
+        cle=rep["cle"])
 
 
 def max_param_change(before, module) -> float:
@@ -2085,6 +2269,7 @@ def main() -> int:
     del pack
     run_rules_path(report)
     check_rules_replan(dev, report)
+    run_checkpoint_path(report)
 
     replaces = {
         "lstm2_fwd": ("cld_tpu_torch/csrc/lstm.cu", "cld_tpu/ops/lstm_pallas.py:169"),
@@ -2108,7 +2293,8 @@ def main() -> int:
              "fused_open_loop": "launches_fused", "rigid_replan": "launches_rigid_replan",
              "vae_train": "launches_vae_train", "dm_train": "launches_dm_train",
              "ppo": "launches_ppo", "ppo_disk_penalty": "launches_ppo_disk_penalty",
-             "rules": "launches_rules"}
+             "rules": "launches_rules", "checkpoint_rollout": "launches_checkpoint_rollout",
+             "evaluate": "launches_evaluate"}
     # the launch floor: one kernel node of a graph that does nothing (one
     # thread that exits at once), timed as every kernel's graph_ms is
     floor_ms = graph_ms(lambda: torch.cuda._sleep(0))

@@ -171,9 +171,25 @@ class LSTMVAE(nn.Module):
         return self.decode(z, cond, train, dec_mask, generator), mean, logvar
 
 
-def decode_actions(decoder: LSTMDecoder, z: torch.Tensor, cond_feat: torch.Tensor):
-    """Latents -> scaled actions through the kernel-backed decoder."""
-    return fused_decode_actions(decoder, z, cond_feat)
+DECODE_IMPLS = ("auto", "kernel", "module")
+
+
+def decode_actions(decoder: LSTMDecoder, z: torch.Tensor, cond_feat: torch.Tensor,
+                   impl: str = "auto"):
+    """Latents z [..., T, L] + cond_feat [..., C] -> scaled actions
+    [..., T, 2]. `impl` "kernel" (and "auto") runs the kernel-backed core
+    (`ops.lstm_kernels.fused_decode_actions`), "module" the decoder's
+    layer-by-layer stack through PyTorch's LSTM operator (the JAX package's
+    "pallas" and "flax"). Both are differentiable in z, cond_feat and the
+    weights."""
+    if impl in ("auto", "kernel"):
+        return fused_decode_actions(decoder, z, cond_feat)
+    if impl != "module":
+        raise ValueError(f"unknown decode impl {impl!r} (expected one of {DECODE_IMPLS})")
+    lead, (T, L) = z.shape[:-2], z.shape[-2:]
+    y = _lstm_stack(decoder.lstm, z.reshape(-1, T, L),
+                    decoder.cond2hidden(cond_feat.reshape(-1, cond_feat.shape[-1])))
+    return decoder.hid2act(y).reshape(*lead, T, -1)
 
 
 def convert_action_to_state_and_action(

@@ -74,7 +74,9 @@ class SamplingOptions:
     number decays sigmoidally from ~4 to it over the denoise steps).
     `guidance_stride`, `guidance_clean` and `guidance_output` are
     `sample_traj`'s switches (DDPM only). `guide_as_filter_only` takes no
-    guidance step: the specs only pick among the samples."""
+    guidance step: the specs only pick among the samples. `decode_impl` is
+    `models.vae.decode_actions`'s `impl`: the kernel-backed decoder core
+    ("auto", "kernel") or the decoder's own layer stack ("module")."""
 
     num_samp: int = 1
     sampler: str = "ddpm"
@@ -87,6 +89,7 @@ class SamplingOptions:
     guidance_clean: bool = False
     guidance_output: bool = False
     guide_as_filter_only: bool = False
+    decode_impl: str = "auto"
 
 
 RECORD_SAMPLING = SamplingOptions()
@@ -132,6 +135,47 @@ def build_models(
         m.to(device).eval().requires_grad_(False)
     return GuidedModels(context, decoder, unet, make_schedule(n_diffusion_steps, device=device),
                         horizon=horizon, latent_size=latent_size)
+
+
+def build_models_from_config(cfg, device="cuda", seed: int = 0) -> GuidedModels:
+    """`build_models` with every width from an experiment config (as the
+    trainers build theirs): `cond_feat_dim`, `map_feature_dim`,
+    `curr_state_feat_dim`, `base_dim`, `dim_mults`, `vae.hidden_size`,
+    `vae.latent_size`, `horizon`, `n_diffusion_steps`, the raster channels
+    (`history_num_frames` + 1 + the semantic map layers) and the unicycle's
+    bounds (`algo.dynamics`). The ResNet takes any raster size."""
+    from cld_tpu_torch.training.vae import raster_channels
+
+    algo = cfg.algo
+    models = build_models(
+        seed=seed, device=device, raster_channels=raster_channels(cfg),
+        cond_feat_dim=algo.cond_feat_dim, map_feature_dim=algo.map_feature_dim,
+        curr_state_feat_dim=algo.curr_state_feat_dim, hidden_size=algo.vae.hidden_size,
+        latent_size=algo.vae.latent_size, base_dim=algo.base_dim,
+        dim_mults=tuple(algo.dim_mults), horizon=algo.horizon,
+        n_diffusion_steps=algo.n_diffusion_steps,
+    )
+    return dataclasses.replace(models, dyn=UnicycleParams.from_config(algo.dynamics))
+
+
+def load_checkpoints(models: GuidedModels, vae_ckpt: Optional[str] = None,
+                     dm_ckpt: Optional[str] = None) -> GuidedModels:
+    """Load trained weights into the models, each module ``strict=True``:
+    from `vae_ckpt` the context encoder and the LSTM decoder, from `dm_ckpt`
+    the temporal UNet. Each file is the port's own (a VAE or DM stage's
+    ``ckpt_final`` of ``python -m cld_tpu_torch.train``, or the output of
+    ``python -m cld_tpu_torch.utils.torch_import``) or a reference Lightning
+    ``.ckpt`` with ``vae.`` / ``dm.model.`` keys; one such file may serve as
+    both."""
+    from cld_tpu_torch.utils import torch_import as ti
+
+    if vae_ckpt:
+        sd = ti.read_checkpoint(vae_ckpt, "vae")
+        ti.load_context_encoder(models.context, sd, prefix="")
+        ti.load_lstm_decoder(models.decoder, sd, prefix="")
+    if dm_ckpt:
+        ti.load_temporal_unet(models.unet, ti.read_checkpoint(dm_ckpt, "dm"), prefix="")
+    return models
 
 
 def flagship_guidance_specs(
@@ -200,7 +244,7 @@ def sample_plans(
     curr_rep = curr.repeat_interleave(N, dim=0) if N > 1 else curr
 
     def decode_fn(z):
-        acts = decode_actions(models.decoder, z, cond_rep)
+        acts = decode_actions(models.decoder, z, cond_rep, impl=options.decode_impl)
         traj = convert_action_to_state_and_action(
             acts, curr_rep, models.dyn, normalizer, descaled_output=True
         )

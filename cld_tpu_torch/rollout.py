@@ -1,31 +1,38 @@
 """Closed-loop guided simulation CLI of the port.
 
-    python -m cld_tpu_torch.rollout --num-scenes 4 --agents-per-scene 8 \\
-        --guidance flagship --output rollout_out
-    python -m cld_tpu_torch.rollout --device cpu --num-scenes 1 \\
-        --agents-per-scene 2 --num-sim-steps 10 --raster-size 64 --diffusion-steps 10
+    python -m cld_tpu_torch.rollout --vae-ckpt runs/vae/ckpt_final \
+        --dm-ckpt runs/dm/ckpt_final --num-scenes 4 --agents-per-scene 8 --cle-report
+    python -m cld_tpu_torch.rollout --vae-ckpt reference.ckpt --dm-ckpt reference.ckpt
+    python -m cld_tpu_torch.rollout --device cpu --registered-name cld_smoke \
+        --num-scenes 1 --agents-per-scene 2 --num-sim-steps 10
     python -m cld_tpu_torch.rollout --sampler ddim --ddim-steps 20 --num-action-samples 4
     python -m cld_tpu_torch.rollout --guidance 'speed_limit:15,agent_collision' \
         --editing-source config,heuristic --heuristics stop_sign,social_group
 
 Counterpart of the JAX package's `rollout.py` on what the port has so far:
-synthetic straight-road scenes (`sim.scene.synthetic_scene_pack`), the
-networks at the config of record's widths with seeded random weights or
-weights converted from the JAX package (`--weights`, an .npz written from
-`utils.weights.export_vae_checkpoint` + `export_dm_checkpoint`), the DDPM or
-DDIM sampler with `--num-action-samples` samples per agent (the one with the
-lowest guidance loss is executed), and the guidance rules of the editing
-sources (`build_guidance_specs`): `--guidance` takes `flagship` (agent
-collision + map collision, weight 10 each, the default), `none`, or the JAX
-CLI's grammar (shorthand, inline JSON, `@file`); `--editing-source` adds
-rules built from the scene (`--heuristics`, `--attack-pair`) or read from
-`--ui-edits-file`. The schedule is what the `--guidance-*`, `--perturb-th` and
-`--guide-*` flags set (names and defaults of the JAX package's `rollout.py`).
-It runs `sim.env.simulate`, prints `summarize_metrics`, the throughput, each
-rule's satisfaction on the executed trajectories and the episode's kernel
-launches as JSON, and writes the
-world-frame trajectory log to `<output>/trajectories.npz`. Runs on the CUDA
-card unless `--device cpu` is given.
+synthetic straight-road scenes (`sim.scene.synthetic_scene_pack`) and the
+networks at the widths of the experiment config (`--config`,
+`--registered-name`; the config of record by default), with seeded random
+weights or trained ones: `--vae-ckpt` / `--dm-ckpt` take a VAE / DM stage's
+`ckpt_final` of `python -m cld_tpu_torch.train`, the output of
+`python -m cld_tpu_torch.utils.torch_import`, or a reference Lightning
+`.ckpt` (one file may serve both flags); `--weights` an .npz written from
+`utils.weights.export_vae_checkpoint` + `export_dm_checkpoint`. The DDPM or
+DDIM sampler runs with `--num-action-samples` samples per agent (the one
+with the lowest guidance loss is executed) under the guidance rules of the
+editing sources (`build_guidance_specs`): `--guidance` takes `flagship`
+(agent collision + map collision, weight 10 each, the default), `none`, or
+the JAX CLI's grammar (shorthand, inline JSON, `@file`); `--editing-source`
+adds rules built from the scene (`--heuristics`, `--attack-pair`) or read
+from `--ui-edits-file`. The schedule is what the `--guidance-*`,
+`--perturb-th` and `--guide-*` flags set, `--decode-impl` picks the
+decoder's kernel-backed core or its module (names and defaults of the JAX
+package's `rollout.py`). It runs `sim.env.simulate` and prints as JSON
+`summarize_metrics`, the occupancy-grid metrics, with `--cle-report` the
+closed-loop evaluator's summary, the throughput, each rule's satisfaction
+on the executed trajectories and the episode's kernel launches, and writes
+the world-frame trajectory log to `<output>/trajectories.npz`. Runs on the
+CUDA card unless `--device cpu` is given.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ import argparse
 import json
 import os
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -41,11 +49,14 @@ import torch
 from cld_tpu_torch import pipeline
 from cld_tpu_torch.guidance.losses import GuidanceContext
 from cld_tpu_torch.guidance.parsing import parse_guidance_arg, specs_from_configs
+from cld_tpu_torch.models.vae import DECODE_IMPLS
 from cld_tpu_torch.ops import native
+from cld_tpu_torch.ops.dynamics import UnicycleParams
 from cld_tpu_torch.ops.geometry import world_from_agent_matrix
 from cld_tpu_torch.sim.env import SimConfig, init_sim_state, simulate
 from cld_tpu_torch.sim.metrics import summarize_metrics
 from cld_tpu_torch.sim.scene import synthetic_scene_pack
+from cld_tpu_torch.utils.registry import config_from_flags
 from cld_tpu_torch.utils.weights import load_state_dicts
 
 
@@ -112,6 +123,30 @@ def raster_from_world_per_agent(pack):
     ], dim=1)
 
 
+def occupancy_report(pack, traj):
+    """Occupancy-grid metrics over the executed rollout (`env_metrics.py:977+`),
+    one grid per scene: each scene's positions are splatted against its own
+    map and origin, then each reduction is averaged over the scenes."""
+    from cld_tpu_torch.sim.occupancy import occupancy_init, occupancy_metrics, occupancy_update
+
+    Hw = pack.world_map.shape[1]
+    si = pack.scene_index
+    per_scene = []
+    for s in range(pack.world_map.shape[0]):
+        in_scene = si == s
+        if not bool(in_scene.any()):
+            continue
+        occ = occupancy_init(
+            origin=(float(pack.map_origin[s, 0]), float(pack.map_origin[s, 1])),
+            size=(Hw // 2, Hw // 2), step=2 * pack.map_resolution, sigma=1.0,
+            device=traj.device,
+        )
+        occ = occupancy_update(occ, traj[:, in_scene, :2].reshape(-1, 2))
+        per_scene.append(occupancy_metrics(occ, pack.world_map[s, :, :, 0], pack.map_origin[s],
+                                           pack.map_resolution))
+    return {k: float(np.mean([d[k] for d in per_scene])) for k in per_scene[0]}
+
+
 def guidance_satisfaction_report(pack, traj, sim_cfg, specs):
     """Each rule's satisfaction on the executed world-frame trajectories
     (`guidance.metrics.guidance_metrics`), averaged over its agents: 0 is
@@ -141,13 +176,31 @@ def guidance_satisfaction_report(pack, traj, sim_cfg, specs):
 
 def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(description="cld_tpu_torch closed-loop rollout")
+    parser.add_argument("--config", type=str, default=None,
+                        help="experiment config (YAML or JSON) over the defaults or over "
+                             "--registered-name")
+    parser.add_argument("--registered-name", type=str, default=None,
+                        help="named experiment config (cld_tpu_torch.utils.registry); must match "
+                             "the config the checkpoints were trained with")
+    parser.add_argument("--vae-ckpt", type=str, default=None,
+                        help="VAE weights: a VAE stage's ckpt_final, a torch_import output, or "
+                             "a reference Lightning .ckpt (vae. keys)")
+    parser.add_argument("--dm-ckpt", type=str, default=None,
+                        help="denoiser weights: a DM stage's ckpt_final, a torch_import output, "
+                             "or a reference Lightning .ckpt (dm.model. keys)")
     parser.add_argument("--num-scenes", type=int, default=4)
     parser.add_argument("--agents-per-scene", type=int, default=8)
     parser.add_argument("--num-sim-steps", type=int, default=100)
     parser.add_argument("--n-step-action", type=int, default=5)
-    parser.add_argument("--raster-size", type=int, default=224)
-    parser.add_argument("--hist-frames", type=int, default=30)
-    parser.add_argument("--diffusion-steps", type=int, default=100)
+    parser.add_argument("--raster-size", type=int, default=None,
+                        help="default: the config's env.rasterizer.raster_size")
+    parser.add_argument("--hist-frames", type=int, default=None,
+                        help="default: the config's algo.history_num_frames")
+    parser.add_argument("--diffusion-steps", type=int, default=None,
+                        help="default: the config's algo.n_diffusion_steps")
+    parser.add_argument("--decode-impl", choices=DECODE_IMPLS, default="auto",
+                        help="decoder inside guidance and decode: kernel (auto) is the "
+                             "kernel-backed LSTM core, module the decoder's own layer stack")
     parser.add_argument("--guidance", type=str, default="flagship",
                         help="flagship: agent_collision + map_collision, weight 10 each; none; "
                              "or rules, e.g. 'speed_limit:15,agent_collision', inline JSON "
@@ -185,6 +238,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="perturb the clean x0 reconstruction instead of the posterior mean")
     parser.add_argument("--guide-output", action="store_true",
                         help="also perturb the final t=0 output step")
+    parser.add_argument("--cle-report", action="store_true",
+                        help="add the closed-loop evaluator's summary (range validators and "
+                             "driven-miles composites, cld_tpu_torch.eval.cle) to the report")
     parser.add_argument("--weights", type=str, default=None,
                         help=".npz of converted JAX-package weights (default: random from --seed)")
     parser.add_argument("--seed", type=int, default=0)
@@ -196,21 +252,39 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
-def main(argv=None) -> dict:
-    args = parse_args(argv)
+def experiment_config(args):
+    """The config of `--registered-name` / `--config` (the config of record
+    by default), with `--hist-frames` and `--diffusion-steps` over it."""
+    cfg = config_from_flags(args.registered_name, args.config).unlock()
+    if args.hist_frames is not None:
+        cfg.algo.history_num_frames = args.hist_frames
+    if args.diffusion_steps is not None:
+        cfg.algo.n_diffusion_steps = args.diffusion_steps
+    return cfg.lock()
+
+
+def build(args) -> SimpleNamespace:
+    """Everything a run needs, as the CLI builds it: the config, the
+    simulator's config, the scene pack, the models (trained weights loaded),
+    the guidance specs and the policy."""
     dev = torch.device(args.device)
-    cfg = SimConfig(
+    cfg = experiment_config(args)
+    sim_cfg = SimConfig(
         num_simulation_steps=args.num_sim_steps, n_step_action=args.n_step_action,
-        hist_frames=args.hist_frames, raster_size=args.raster_size,
+        hist_frames=cfg.algo.history_num_frames,
+        raster_size=args.raster_size or cfg.env.rasterizer.raster_size,
+        pixel_size=cfg.env.rasterizer.pixel_size,
+        dyn=UnicycleParams.from_config(cfg.algo.dynamics),
     )
     pack = synthetic_scene_pack(
         seed=args.seed, num_scenes=args.num_scenes, agents_per_scene=args.agents_per_scene,
         sim_steps=args.num_sim_steps, device=dev,
     )
-    models = pipeline.build_models(
-        seed=args.seed, device=dev, raster_channels=args.hist_frames + 1 + pack.world_map.shape[-1],
-        n_diffusion_steps=args.diffusion_steps,
-    )
+    if pack.world_map.shape[-1] != cfg.env.rasterizer.num_sem_layers:
+        raise ValueError(f"the scenes have {pack.world_map.shape[-1]} map layers, the config "
+                         f"{cfg.env.rasterizer.num_sem_layers}")
+    models = pipeline.build_models_from_config(cfg, device=dev, seed=args.seed)
+    pipeline.load_checkpoints(models, args.vae_ckpt, args.dm_ckpt)
     if args.weights:
         with np.load(args.weights) as sd:
             load_state_dicts(models.context, models.decoder, models.unet, dict(sd))
@@ -219,14 +293,22 @@ def main(argv=None) -> dict:
         ddim_eta=args.ddim_eta, guidance_lr=args.guidance_lr, guidance_steps=args.guidance_steps,
         perturb_th=args.perturb_th, guidance_stride=args.guidance_stride,
         guidance_clean=args.guide_clean, guidance_output=args.guide_output,
-        guide_as_filter_only=args.guide_as_filter_only,
+        guide_as_filter_only=args.guide_as_filter_only, decode_impl=args.decode_impl,
     )
-    specs = build_guidance_specs(args, pack, cfg, pack.num_agents)
+    specs = build_guidance_specs(args, pack, sim_cfg, pack.num_agents)
+    policy = pipeline.make_dm_policy(models, args.agents_per_scene, guided=bool(specs),
+                                     specs=specs, options=options)
+    return SimpleNamespace(cfg=cfg, sim_cfg=sim_cfg, pack=pack, models=models, specs=specs,
+                           options=options, policy=policy, device=dev)
+
+
+def main(argv=None) -> dict:
+    args = parse_args(argv)
+    run = build(args)
+    dev, cfg, pack, specs = run.device, run.sim_cfg, run.pack, run.specs
     rules = [type(s.loss).__name__ for s in specs]
     print(f"rollout: {pack.num_agents} agents, {cfg.num_replans} replans x "
           f"{cfg.n_step_action} steps, rules={rules or 'none'}", flush=True)
-    policy = pipeline.make_dm_policy(models, args.agents_per_scene, guided=bool(specs),
-                                     specs=specs, options=options)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
 
     def sync():
@@ -236,15 +318,20 @@ def main(argv=None) -> dict:
     sync()
     before = native.launch_counts()
     t0 = time.perf_counter()
-    state, traj = simulate(pack, policy, cfg, generator=gen)
+    state, traj = simulate(pack, run.policy, cfg, generator=gen)
     sync()
     wall = time.perf_counter() - t0
     after = native.launch_counts()
 
     report = summarize_metrics(pack, state, cfg)
+    report.update(occupancy_report(pack, traj))
+    if args.cle_report:
+        from cld_tpu_torch.eval.cle import cle_report
+
+        report["cle"] = cle_report(pack, traj, cfg)
     report.update(
-        wall_s=wall,
-        agent_steps_per_s=pack.num_agents * cfg.num_simulation_steps / wall,
+        wall_clock_s=wall,
+        agent_steps_per_sec=pack.num_agents * cfg.num_simulation_steps / wall,
         device=torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
         guidance=args.guidance,
         rules=rules,

@@ -71,11 +71,15 @@ class Config(dict):
 
 
 def load_config(path: str, base: Config | None = None) -> Config:
-    """Load YAML (or JSON) over the defaults."""
-    import yaml
-
+    """Load YAML (or JSON) over the defaults. A `.json` file is read without
+    PyYAML, which some hosts lack."""
     with open(path) as f:
-        raw = yaml.safe_load(f)
+        if path.endswith(".json"):
+            raw = json.load(f)
+        else:
+            import yaml
+
+            raw = yaml.safe_load(f)
     cfg = base if base is not None else default_config()
     cfg.unlock()
     cfg.update_deep(raw or {})

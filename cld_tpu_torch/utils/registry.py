@@ -6,9 +6,9 @@ the JAX registry are not ported yet.
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
-from cld_tpu_torch.utils.config import Config, default_config
+from cld_tpu_torch.utils.config import Config, default_config, load_config
 
 EXP_CONFIG_REGISTRY: Dict[str, Callable[[], Config]] = {}
 
@@ -28,6 +28,17 @@ def get_registered_experiment_config(name: str) -> Config:
             f"unknown experiment {name!r}; registered: {sorted(EXP_CONFIG_REGISTRY)}"
         )
     return EXP_CONFIG_REGISTRY[name]().lock()
+
+
+def config_from_flags(registered_name: Optional[str] = None,
+                      config_path: Optional[str] = None) -> Config:
+    """The CLIs' `--registered-name` / `--config`: the registered config with
+    the file over it, the file over the defaults, or the config of record;
+    locked."""
+    if registered_name:
+        cfg = get_registered_experiment_config(registered_name)
+        return load_config(config_path, base=cfg.unlock()) if config_path else cfg
+    return load_config(config_path) if config_path else default_config().lock()
 
 
 @register_experiment("cld_vae_nusc")

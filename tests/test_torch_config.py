@@ -2,6 +2,8 @@
 `default_config()` and the registered trainer configs are equal key for key,
 and `Config` keeps its lock / attribute / deep-update semantics."""
 
+import sys
+
 import pytest
 
 from cld_tpu.utils import config as jax_config
@@ -60,3 +62,24 @@ def test_config_semantics_and_yaml_overlay(tmp_path):
     assert ours.train.training.batch_size == 4 and ours.train.data_path == "synthetic"
     ours.dump_json(str(tmp_path / "c.json"))
     assert '"batch_size": 4' in (tmp_path / "c.json").read_text()
+
+
+def test_json_config_without_pyyaml_and_the_cli_flags(tmp_path, monkeypatch):
+    """A `.json` config is read without PyYAML (absent on some hosts), equal
+    to the JAX package's reading of it; `config_from_flags` resolves the
+    CLIs' `--registered-name` / `--config` as the JAX CLIs do."""
+    path = tmp_path / "c.json"
+    path.write_text('{"train": {"training": {"steps_per_epoch": 1}}, "algo": {"base_dim": 16}}')
+    theirs = jax_config.load_config(str(path))
+    monkeypatch.setitem(sys.modules, "yaml", None)
+    ours = config.load_config(str(path))
+    _walk(ours, theirs)
+    assert ours.train.training.steps_per_epoch == 1 and ours.algo.base_dim == 16
+    smoke = registry.config_from_flags("cld_smoke", str(path))
+    assert smoke.algo.base_dim == 16 and smoke.env.rasterizer.raster_size == 64
+    _walk(registry.config_from_flags("cld_smoke"), jax_registry.get_registered_experiment_config(
+        "cld_smoke"))
+    _walk(registry.config_from_flags(None, str(path)), theirs)
+    _walk(registry.config_from_flags(), jax_config.default_config())
+    with pytest.raises(KeyError):
+        smoke.algo.no_such_key = 1  # locked
