@@ -113,9 +113,11 @@
    (`rollout.main`) at the closed loop's width (4 scenes x 8 agents, raster
    224, 100 DDPM steps), cut to 20 frames (4 replans), with `--editing-source
    config,heuristic`: `RULE_CONFIGS` and `RULE_HEURISTICS` instantiate all 15
-   rule classes. Launch counts zeroed before and read after, exact: per
-   replan 100 `lstm2_fwd`, 99 `lstm2_bwd`, 99 `bit_gather`, 1 `value_gather`,
-   and 1 `bit_gather` for the satisfaction report's map rule; the trajectory
+   rule classes. The CLI runs a warm-up episode and times a second one,
+   whose launches it reports; the counts, zeroed before the call and read
+   after it, are exact: per replan of each episode 100 `lstm2_fwd`, 99
+   `lstm2_bwd`, 99 `bit_gather`, 1 `value_gather`, and 1 `bit_gather` for
+   the satisfaction report's map rule; the trajectory
    log and the guidance-satisfaction report must be finite. Then one guided
    replan's guidance gradient under the same rules at 2 x 4 agents on the
    card and on the CPU: a finite loss within 1e-5 relative, the gradient
@@ -138,11 +140,33 @@
    host seconds per call). Then `--mode test` on the checkpoints, 2 validation batches of 128: exactly 2
    `lstm2_fwd` launches, finite failure rates and realism deviation. Prints
    the phase's seconds and the rollout's agent-steps/s beside the card.
-19. Times the launch floor: `torch.cuda._sleep(0)` (one thread that exits
+19. Runs the data path at full width: writes 2 x 32 synthetic samples at
+   raster 224 with the port's converter into a temporary directory (deleted
+   at the end); the loader's first batch of 128 on the card must equal the
+   host's bit for bit; times the loader per batch of 128 (host gather, copy
+   to the card) beside a VAE step on its batch; trains the VAE and then the
+   DM stage 2 steps each through `train.main` from the shards (finite
+   losses, no kernel launch); runs the rollout CLI on `--scene-data` (4
+   scenes x 8 agents, 20 frames) with `--policy dm --agents-policy
+   gt_replay`, the flagship rules, `--num-action-samples 2 --guide-with-gt`
+   and `--cle-report`: launches exact as the rules path's, a finite log and
+   report with `compile_and_first_run_s`; runs `occupancy_report` twice on
+   its log on the card (grids within rtol 1e-5 / atol 1e-7, every cell clear
+   of the 0.1 threshold, equal metrics); runs `--policy gt_replay`,
+   `lattice`, `mpc` and `contingency` at the same width (no LSTM or bit
+   gather launch, one `value_gather` a replan of each episode; seconds per
+   replan); then
+   card against CPU: the replay with every agent uncontrolled follows the
+   pack's `gt_states` within 1e-5 m; one MPC and one contingency replan on
+   `planner_observation`, each held where it is continuous
+   (`check_planners_card_vs_cpu`: the MPC's controls after 20 iterations,
+   and its final costs after the record's 100).
+20. Times the launch floor: `torch.cuda._sleep(0)` (one thread that exits
    at once) from a CUDA graph, as every kernel's graph time is taken.
-20. Prints the card line, one `{"kernels": [...]}` line (`launches_by_path`
+21. Prints the card line, one `{"kernels": [...]}` line (`launches_by_path`
    there holds each main-path run's own count, of 4, 7, 8, 11, 12, 14, 15,
-   17 and 18 (its rollout and its `--mode test`),
+   17, 18 (its rollout and its `--mode test`) and 19 (its training, its
+   guided rollout and each model-free policy),
    each zeroed before its run and checked exactly; `launches` is their sum;
    `graph_ms` is each kernel's time from a CUDA graph at the main path's
    shape, B=128 for the LSTM kernels, beside `launch_floor_ms`), and last
@@ -182,6 +206,9 @@ LSTM_REL_TOL = 1e-5  # max |kernel - plain| / max |plain|: f32, other summation 
 # per CTA, a ragged last CTA, a small H
 LSTM_SHAPES = ((B, T, H), (CL_B, T, H), (512, T, H), (130, T, H), (5, 7, 16))
 SLICE_RTOL = 1e-4  # small-slice card vs CPU: f32 networks on two backends
+# the MPC's final FTOCP cost per agent after 100 Adam iterations, card vs CPU:
+# 2.4x the largest float32-vs-float64 spread on the CPU (4.2e-2)
+MPC_COST_RTOL = 0.1
 
 
 class CheckFailed(RuntimeError):
@@ -202,6 +229,13 @@ def counts(**launched) -> dict:
     from cld_tpu_torch.ops import native
 
     return {**{k: 0 for k in native.KERNELS}, **launched}
+
+
+def cli_launches(episode: dict, **extra) -> dict:
+    """The process-wide launch counts of one `rollout.main` call: its
+    warm-up and its timed episode (`episode` each, the count the CLI reports
+    for the timed one), plus `extra` (the reports' launches)."""
+    return {k: 2 * v + extra.get(k, 0) for k, v in episode.items()}
 
 
 def card_line() -> str:
@@ -1443,7 +1477,7 @@ def run_rules_path(report):
     n = RULES_STEPS // CL_N_STEP
     episode = counts(lstm2_fwd=N_STEPS * n, lstm2_bwd=(N_STEPS - 1) * n,
                      bit_gather=(N_STEPS - 1) * n, value_gather=n)
-    want = {**episode, "bit_gather": episode["bit_gather"] + 1}
+    want = cli_launches(episode, bit_gather=1)  # the report's map rule
     classes = sorted(set(rep["rules"]))
     log(f"rules path ({CL_SCENES} x {CL_AGENTS} agents, {RULES_STEPS} frames, {n} replans, "
         f"{wall:.1f} s with the set-up): {len(rep['rules'])} rules of {len(classes)} classes; "
@@ -1541,8 +1575,8 @@ CKPT_STEPS = 20  # frames of the checkpoint path's rollouts: 4 replans
 def ckpt_rollout_argv(vae, dm, output):
     return ["--registered-name", "cld_dm_nusc", "--vae-ckpt", str(vae), "--dm-ckpt", str(dm),
             "--num-scenes", str(CL_SCENES), "--agents-per-scene", str(CL_AGENTS),
-            "--num-sim-steps", str(CKPT_STEPS), "--cle-report", "--device", "cuda",
-            "--output", str(output)]
+            "--num-sim-steps", str(CKPT_STEPS), "--cle-report", "--guidance", "flagship",
+            "--device", "cuda", "--output", str(output)]
 
 
 def first_plan(run, models=None):
@@ -1615,7 +1649,7 @@ def run_checkpoint_path(report):
     n = CKPT_STEPS // CL_N_STEP
     episode = counts(lstm2_fwd=N_STEPS * n, lstm2_bwd=(N_STEPS - 1) * n,
                      bit_gather=(N_STEPS - 1) * n, value_gather=n)
-    want = {**episode, "bit_gather": episode["bit_gather"] + 1}  # the report's map rule
+    want = cli_launches(episode, bit_gather=1)  # the report's map rule
     check(rep["launches"] == episode, f"checkpoint rollout episode launches {rep['launches']}, "
           f"expected {episode}")
     check(launches == want, f"checkpoint rollout launches {launches}, expected {want}")
@@ -1696,6 +1730,329 @@ def run_checkpoint_path(report):
                                                      "offroad_occupancy_fraction",
                                                      "occupied_cells")},
         cle=rep["cle"])
+
+
+DATA_BATCHES, DATA_BATCH = 2, 32  # shards of the data path: 64 samples at raster 224
+DATA_STEPS = 20  # frames of the scene-data rollouts: 4 replans
+MODEL_FREE = ("gt_replay", "lattice", "mpc", "contingency")
+OCC_THRESH = 0.1  # occupancy_metrics' occupied_thresh
+
+
+def planner_observation(Bn, dev):
+    """The model-free planners' card-vs-CPU fixture: a synthetic batch at
+    raster 224 with its road and lanes shifted 1.5 m to +y (3 pixel rows),
+    so that the ego is off the road's center line and mirror-image
+    candidates do not tie (as in `tests/test_torch_planners.py`)."""
+    import torch
+
+    from cld_tpu_torch.data.synthetic import synthetic_batch
+
+    b = synthetic_batch(seed=5, batch_size=Bn, raster_size=RASTER, device="cpu")
+    hist = b.history_positions.shape[1]
+    image = b.image.clone()
+    image[..., hist:] = torch.roll(image[..., hist:], 3, dims=1)
+    lanes = b.lane_points.clone()
+    lanes[..., 1] += 1.5
+    b = b._replace(image=image, drivable_map=torch.roll(b.drivable_map, 3, dims=1),
+                   lane_points=lanes)
+    return b._replace(**{k: v.to(dev) for k, v in b._asdict().items() if torch.is_tensor(v)})
+
+
+def check_planners_card_vs_cpu() -> dict:
+    """One MPC and one contingency replan of `CL_B` agents on
+    `planner_observation`, card against CPU. Both planners amplify
+    last-bit differences by design, so each is held where it is continuous:
+    float32 against float64 on the CPU already moves 14 of 32 agents' MPC
+    controls by > 1e-3 after the record's 100 Adam iterations at a fixed
+    rate (0.78 at most; 2.5e-4 after 20), and each agent's final FTOCP
+    cost by 4.2e-2 of itself at most; and it picks another contingency
+    branch for 5 agents (progress saturates, so branches tie to the last
+    bits). Held: the MPC's controls after 20 iterations within 1e-3, and
+    at the record's 100 iterations (`--policy mpc`) each agent's final cost
+    within `MPC_COST_RTOL` of the CPU's (the controls' difference is
+    reported; 20, 50 or 90 iterations, or a rate of 0.1 or 0.25, move
+    8-22 agents' costs by more than 0.1 on the CPU); the contingency
+    planner, on the fixture with every pixel drivable (the off-road cost is
+    a pixel indicator), its root costs within 1e-4 of their largest
+    magnitude, and the branch the card picks optimal within that under the CPU's costs;
+    where both pick the same leaf, the plans within 1e-4 m."""
+    import torch
+
+    from cld_tpu_torch.policies import contingency, mpc
+
+    out = {}
+    for where in ("cpu", "cuda"):
+        obs = planner_observation(CL_B, where)
+        sols = {it: mpc.solve_from_observation(mpc.MPCConfig(iters=it), obs) for it in (20, 100)}
+        ctrl = {it: torch.cat([sol["u0"][:, None], sol["ubr"][:, 0]], dim=1).cpu()
+                for it, sol in sols.items()}
+        ctrl["cost"] = sols[100]["cost"].cpu()
+        plan = contingency.plan_from_observation(contingency.ContingencyConfig(), obs._replace(
+            drivable_map=torch.ones_like(obs.drivable_map)))
+        out[where] = (ctrl, {k: plan[k].cpu() for k in ("branch", "leaf", "plan", "root_cost")})
+    (c_ctrl, c_plan), (g_ctrl, g_plan) = out["cpu"], out["cuda"]
+    err20 = float((g_ctrl[20] - c_ctrl[20]).abs().max())
+    err100 = (g_ctrl[100] - c_ctrl[100]).abs().amax(dim=(1, 2))
+    cost_rel = float(((g_ctrl["cost"] - c_ctrl["cost"]).abs() / c_ctrl["cost"].abs()).max())
+    log(f"one mpc replan ({CL_B} agents), controls card vs CPU: 20 iterations max |diff| "
+        f"{err20:.3e} (tolerance 1e-3); the record's 100: final cost max relative |diff| "
+        f"{cost_rel:.3e} (tolerance {MPC_COST_RTOL:g}), controls {float(err100.max()):.3e}, "
+        f"{int((err100 > 1e-3).sum())} agents above 1e-3 (not held)")
+    check(err20 <= 1e-3, "the mpc replan's controls differ between card and CPU")
+    check(cost_rel <= MPC_COST_RTOL,
+          "the mpc replan's final costs at 100 iterations differ between card and CPU")
+    rc_c, rc_g = c_plan["root_cost"], g_plan["root_cost"]
+    scale = float(rc_c.abs().max())
+    rc_err = float((rc_g - rc_c).abs().max())
+    rows = torch.arange(CL_B)
+    regret = float((rc_c[rows, g_plan["branch"]] - rc_c.amin(dim=-1)).max())
+    same = g_plan["leaf"] == c_plan["leaf"]
+    plan_err = float((g_plan["plan"][same] - c_plan["plan"][same]).abs().max())
+    log(f"one contingency replan ({CL_B} agents, every pixel drivable), card vs CPU: root costs "
+        f"max |diff| {rc_err:.3e} (max |cost| {scale:.3g}), the card's branch {regret:.3e} above "
+        f"the CPU's optimum, the same leaf for {int(same.sum())} agents, their plans max |diff| "
+        f"{plan_err:.3e} m")
+    check(rc_err <= 1e-4 * scale and regret <= 1e-4 * scale and plan_err <= 1e-4,
+          "the contingency replan differs between card and CPU")
+    return dict(mpc_card_vs_cpu_20=err20, mpc_card_vs_cpu_100=float(err100.max()),
+                mpc_cost_rel_err_100=cost_rel,
+                contingency_root_cost_err=rc_err, contingency_regret=regret,
+                contingency_same_leaf=int(same.sum()), contingency_plan_err=plan_err)
+
+
+def check_occupancy_twice(pack, traj, report):
+    """The occupancy splat adds with atomics on the card: two runs on the
+    same log give grids within rtol 1e-5 / atol 1e-7 (float32 sums in
+    another order), every cell clear of the occupied threshold by more than
+    that, so the metrics of the two runs are equal."""
+    import torch
+
+    from cld_tpu_torch import rollout
+    from cld_tpu_torch.sim.occupancy import occupancy_init, occupancy_update
+
+    Hw = pack.world_map.shape[1]
+    worst, clear = 0.0, float("inf")
+    for s in range(pack.world_map.shape[0]):
+        pos = traj[:, pack.scene_index == s, :2].reshape(-1, 2)
+        grids = []
+        for _ in range(2):
+            origin = (float(pack.map_origin[s, 0]), float(pack.map_origin[s, 1]))
+            occ = occupancy_init(origin=origin, size=(Hw // 2, Hw // 2),
+                                 step=2 * pack.map_resolution, sigma=1.0, device=traj.device)
+            grids.append(occupancy_update(occ, pos).grid)
+        a, b = grids
+        check(bool(torch.allclose(a, b, rtol=1e-5, atol=1e-7)),
+              f"scene {s}: two occupancy grids differ beyond rtol 1e-5 / atol 1e-7")
+        worst = max(worst, float((a - b).abs().max()))
+        clear = min(clear, float((a - OCC_THRESH).abs().min()))
+    check(clear > 1e-5 * OCC_THRESH + 1e-7, f"a grid cell lies within the tolerance of the "
+          f"occupied threshold ({clear:.3e}): the metrics' equality would not be meaningful")
+    m1, m2 = rollout.occupancy_report(pack, traj), rollout.occupancy_report(pack, traj)
+    check(m1 == m2, f"two occupancy reports of the same log differ: {m1} vs {m2}")
+    log(f"occupancy grid on the card, twice on the scene-data log: max |diff| {worst:.3e}, "
+        f"nearest cell to the threshold {clear:.3e} away, metrics equal {json.dumps(m1)}")
+    report["occupancy_twice"] = dict(max_abs_diff=worst, clear_of_thresh=clear, metrics=m1)
+
+
+def run_data_path(report):
+    """The data stack and the model-free policies at full width (see step
+    19 of the module's docstring). Writes the shards into a temporary
+    directory outside the checkout and deletes it at the end."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from cld_tpu_torch import rollout, train
+    from cld_tpu_torch.data import convert, packed
+    from cld_tpu_torch.data.loader import make_loader
+    from cld_tpu_torch.ops import native
+    from cld_tpu_torch.policies import contingency, hardcoded, mpc
+    from cld_tpu_torch.sim import env
+    from cld_tpu_torch.sim.scene import scene_pack_from_shards
+    from cld_tpu_torch.training.vae import VAETrainer
+    from cld_tpu_torch.utils.registry import config_from_flags
+
+    t_phase = time.perf_counter()
+    out = ROOT / "chiprun_out" / "data_path"
+    out.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="cld_shards_"))
+    res = {}
+    try:
+        shards = tmp / "shards"
+        t0 = time.perf_counter()
+        convert.convert_synthetic(str(shards), DATA_BATCHES, DATA_BATCH, RASTER, 0)
+        res["write_s"] = time.perf_counter() - t0
+        nbytes = sum(f.stat().st_size for f in shards.iterdir())
+        log(f"wrote {DATA_BATCHES * DATA_BATCH} synthetic samples at raster {RASTER} "
+            f"({nbytes / 1e9:.3f} GB) in {res['write_s']:.1f} s")
+
+        # (a) the loader's order: the first batch on the card is the host's, bit for bit
+        cfg_file = tmp / "config.json"
+        cfg_file.write_text(json.dumps({
+            "train": {"data_path": str(shards), "training": {"steps_per_epoch": 1,
+                                                             "batch_size": B}},
+            "env": {"rasterizer": {"raster_size": RASTER}}}))
+        cfg = config_from_flags("cld_vae_nusc", str(cfg_file))
+        card_b = next(iter(make_loader(cfg, "train", device="cuda")))
+        host_b = next(iter(make_loader(cfg, "train", device="cpu")))
+        same = [k for k, v in host_b._asdict().items() if torch.is_tensor(v)]
+        check(card_b.image.shape[0] == B and all(
+            torch.equal(getattr(card_b, k).cpu(), getattr(host_b, k)) for k in same),
+            "the loader's first batch on the card differs from the host's")
+        log(f"loader: the first batch of {B} on the card equals the host's, {len(same)} fields "
+            "bit for bit")
+        del card_b, host_b
+
+        # (b) the loader's time per batch of 128 (host gather, copy to the card) beside a
+        # VAE step's
+        ldr = packed.PackedShardLoader(str(shards), batch_size=B, device="cuda")
+        rng = np.random.default_rng(1)
+        trainer = VAETrainer(cfg, device="cuda")
+        state = trainer.init_state(0)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        gather_s, copy_s, step_s = [], [], []
+        for i in range(4):
+            t0 = time.perf_counter()
+            raw = ldr.ds.gather(rng.integers(0, ldr.ds.num_samples, B))
+            t1 = time.perf_counter()
+            batch = packed.to_traffic_batch(raw, "cuda")
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            trainer.train_step(state, batch, generator=gen)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            if i:  # the first round warms up
+                gather_s.append(t1 - t0)
+                copy_s.append(t2 - t1)
+                step_s.append(t3 - t2)
+        batch_gb = sum(v.nbytes for v in raw.values()) / 1e9
+        res["loader_ms"] = dict(gather=1e3 * float(np.mean(gather_s)),
+                                copy=1e3 * float(np.mean(copy_s)),
+                                vae_step=1e3 * float(np.mean(step_s)), batch_gb=batch_gb)
+        log(f"loader per batch of {B} ({batch_gb:.3f} GB, mean of 3): host gather "
+            f"{res['loader_ms']['gather']:.1f} ms + copy to the card "
+            f"{res['loader_ms']['copy']:.1f} ms, beside a VAE step's "
+            f"{res['loader_ms']['vae_step']:.1f} ms, on {report['card']}")
+        ldr.ds.close()
+        del trainer, state, batch, raw
+
+        # (c) train the VAE and then the DM stage from the shards, 2 steps each
+        base = ["--registered-name", "cld_vae_nusc", "--config", str(cfg_file), "--device",
+                "cuda", "--output", str(tmp / "runs"), "--steps", "2"]
+        native.reset_launch_counts()
+        t0 = time.perf_counter()
+        vae_state = train.main(base + ["--mode", "vae"])
+        dm_state = train.main(base + ["--mode", "dm", "--vae-ckpt",
+                                      str(tmp / "runs" / "vae" / "ckpt_final")])
+        res["train_s"] = time.perf_counter() - t0
+        train_launches = native.launch_counts()
+        check(train_launches == counts(), f"training from shards launched {train_launches}")
+        check(vae_state.step == 2 and dm_state.step == 2, "the trainers did not take 2 steps")
+        losses = {}
+        for stage in ("vae", "dm"):
+            recs = [json.loads(line) for line in
+                    (tmp / "runs" / stage / "metrics.jsonl").read_text().splitlines()]
+            losses[stage] = [r["train/loss"] for r in recs]
+            check(len(recs) == 2 and all(np.isfinite(v) for r in recs for v in r.values()),
+                  f"the {stage} stage's metrics from the shards are not finite")
+        del vae_state, dm_state
+        log(f"trained from the shards, 2 VAE + 2 DM steps in {res['train_s']:.1f} s: losses "
+            f"{json.dumps(losses)}")
+        report["launches_data_train"] = train_launches
+
+        # (d) the guided rollout on the scene data
+        n = DATA_STEPS // CL_N_STEP
+        scene = ["--scene-data", str(shards), "--num-scenes", str(CL_SCENES),
+                 "--agents-per-scene", str(CL_AGENTS), "--num-sim-steps", str(DATA_STEPS),
+                 "--raster-size", str(RASTER), "--diffusion-steps", str(N_STEPS),
+                 "--device", "cuda"]
+        argv = scene + ["--policy", "dm", "--agents-policy", "gt_replay", "--guidance",
+                        "flagship", "--num-action-samples", "2", "--guide-with-gt",
+                        "--cle-report", "--output", str(out / "scene_rollout")]
+        native.reset_launch_counts()
+        t0 = time.perf_counter()
+        rep = rollout.main(argv)
+        wall = time.perf_counter() - t0
+        launches = native.launch_counts()
+        episode = counts(lstm2_fwd=N_STEPS * n, lstm2_bwd=(N_STEPS - 1) * n,
+                         bit_gather=(N_STEPS - 1) * n, value_gather=n)
+        want = cli_launches(episode, bit_gather=1)  # the report's map rule
+        check(rep["launches"] == episode, f"scene-data rollout episode launches "
+              f"{rep['launches']}, expected {episode}")
+        check(launches == want, f"scene-data rollout launches {launches}, expected {want}")
+        numbers = [v for v in rep.values() if isinstance(v, (int, float))]
+        numbers += [v for sub in rep["cle"].values() if isinstance(sub, dict)
+                    for v in sub.values()]
+        numbers += list(rep["guidance_satisfaction"].values())
+        check(all(np.isfinite(v) for v in numbers) and "compile_and_first_run_s" in rep,
+              "the scene-data rollout's report is not finite or lacks compile_and_first_run_s")
+        with np.load(out / "scene_rollout" / "trajectories.npz") as f:
+            traj = f["trajectories"]
+        check(traj.shape == (DATA_STEPS, CL_B, 4) and bool(np.isfinite(traj).all()),
+              "the scene-data rollout's trajectory log is not finite")
+        log(f"scene-data rollout (dm ego + gt_replay agents, flagship rules, 2 samples, "
+            f"--guide-with-gt; {CL_SCENES} x {CL_AGENTS} agents, {DATA_STEPS} frames, {n} "
+            f"replans): {rep['agent_steps_per_sec']:.2f} agent-steps/s ({rep['wall_clock_s']:.2f} "
+            f"s the timed episode, {rep['compile_and_first_run_s']:.2f} s the first, {wall:.1f} s "
+            f"with the set-up and reports) on {report['card']}; launches {launches}")
+        report["launches_scene_data_rollout"] = launches
+        res["scene_rollout"] = dict(
+            wall_clock_s=rep["wall_clock_s"], agent_steps_per_sec=rep["agent_steps_per_sec"],
+            compile_and_first_run_s=rep["compile_and_first_run_s"],
+            metrics={k: rep[k] for k in ("offroad_rate", "collision_rate", "occupancy_coverage")})
+        pack = scene_pack_from_shards(str(shards), num_scenes=CL_SCENES,
+                                      agents_per_scene=CL_AGENTS, sim_steps=DATA_STEPS,
+                                      device="cuda")
+        check_occupancy_twice(pack, torch.from_numpy(traj).cuda(), res)
+
+        # (e) the model-free policies at the same width: no LSTM launch, one warp a replan
+        res["policies"] = {}
+        for name in MODEL_FREE:
+            native.reset_launch_counts()
+            rep = rollout.main(scene + ["--policy", name, "--output", str(out / name)])
+            launches = native.launch_counts()
+            check(rep["launches"] == counts(value_gather=n) and
+                  launches == cli_launches(counts(value_gather=n)),
+                  f"--policy {name} launched {rep['launches']} in its timed episode, {launches} "
+                  f"in all, expected {counts(value_gather=n)} per episode")
+            with np.load(out / name / "trajectories.npz") as f:
+                check(bool(np.isfinite(f["trajectories"]).all()),
+                      f"--policy {name}'s trajectory log is not finite")
+            per_replan = rep["wall_clock_s"] / n
+            res["policies"][name] = dict(s_per_replan=per_replan,
+                                         first_episode_s=rep["compile_and_first_run_s"],
+                                         offroad_rate=rep["offroad_rate"],
+                                         collision_rate=rep["collision_rate"])
+            report[f"launches_{name}"] = launches
+            log(f"--policy {name}: {per_replan:.3f} s per replan ({CL_B} agents, timed episode), "
+                f"offroad {rep['offroad_rate']:.3f}, collision {rep['collision_rate']:.3f}")
+
+        # (f) card against CPU: the uncontrolled replay follows the dataset, and one MPC and
+        # one contingency replan agree
+        sim_cfg = env.SimConfig(num_simulation_steps=DATA_STEPS, n_step_action=CL_N_STEP,
+                                raster_size=RASTER)
+        for where in ("cpu", "cuda"):
+            p = scene_pack_from_shards(str(shards), num_scenes=CL_SCENES,
+                                       agents_per_scene=CL_AGENTS, sim_steps=DATA_STEPS,
+                                       controlled_mask=np.zeros(CL_B, bool), device=where)
+            _, log_r = env.simulate(p, hardcoded.replay_policy(p.replay_actions), sim_cfg)
+            gt = p.gt_states[:, 1:DATA_STEPS + 1].transpose(0, 1)
+            err = float((log_r[..., :2] - gt[..., :2]).abs().max())
+            scale = float(gt[..., :2].abs().max())
+            log(f"uncontrolled gt_replay on the {where}: log vs gt_states max |diff| {err:.3e} m "
+                f"(coordinates up to {scale:.1f} m; tolerance 1e-5 m)")
+            check(err <= 1e-5, f"the uncontrolled replay on the {where} leaves the dataset by "
+                  f"{err:.3e} m")
+            res[f"replay_err_{where}"] = err
+        # the planners are argmin and fixed-rate Adam: held where they are continuous (see
+        # `planner_observation`)
+        res.update(check_planners_card_vs_cpu())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"data path phase {res['phase_s']:.1f} s in all, on {report['card']}")
+    report["data_path"] = res
 
 
 def max_param_change(before, module) -> float:
@@ -2270,6 +2627,7 @@ def main() -> int:
     run_rules_path(report)
     check_rules_replan(dev, report)
     run_checkpoint_path(report)
+    run_data_path(report)
 
     replaces = {
         "lstm2_fwd": ("cld_tpu_torch/csrc/lstm.cu", "cld_tpu/ops/lstm_pallas.py:169"),
@@ -2294,7 +2652,9 @@ def main() -> int:
              "vae_train": "launches_vae_train", "dm_train": "launches_dm_train",
              "ppo": "launches_ppo", "ppo_disk_penalty": "launches_ppo_disk_penalty",
              "rules": "launches_rules", "checkpoint_rollout": "launches_checkpoint_rollout",
-             "evaluate": "launches_evaluate"}
+             "evaluate": "launches_evaluate", "data_train": "launches_data_train",
+             "scene_data_rollout": "launches_scene_data_rollout",
+             **{f"policy_{p}": f"launches_{p}" for p in MODEL_FREE}}
     # the launch floor: one kernel node of a graph that does nothing (one
     # thread that exits at once), timed as every kernel's graph_ms is
     floor_ms = graph_ms(lambda: torch.cuda._sleep(0))

@@ -1,14 +1,15 @@
-"""Batch iterators (port of the synthetic branch of
-`cld_tpu/data/loader.py`): a small pool of procedurally generated batches,
-cycled. Packed shards are not ported yet (ROADMAP Queue A 11).
+"""Batch iterators (port of `cld_tpu/data/loader.py`): a small pool of
+procedurally generated batches, cycled, or packed shards written by the
+offline converter (`data.convert`), read by `data.packed.PackedShardLoader`.
 """
 
 from __future__ import annotations
 
 import itertools
-from typing import Iterator, List
+from typing import Iterator, List, Union
 
 from cld_tpu_torch.data.batch import TrafficBatch
+from cld_tpu_torch.data.packed import PackedShardLoader
 from cld_tpu_torch.data.synthetic import synthetic_batch
 
 
@@ -41,21 +42,25 @@ class SyntheticLoader:
         return [next(it) for _ in range(n)]
 
 
-def make_loader(config, split: str = "train", device="cuda") -> SyntheticLoader:
+def make_loader(config, split: str = "train",
+                device="cuda") -> Union[SyntheticLoader, PackedShardLoader]:
     """Loader from a config: synthetic batches when `train.data_path` is
-    None or "synthetic"; the validation split draws other seeds."""
+    None or "synthetic", else the packed shards under it (`<path>/<split>`,
+    or a flat dataset at the root). The validation split draws other seeds
+    (10,000 against 0): on a flat dataset equal seeds would replay the
+    training samples."""
     data_path = config.train.get("data_path")
-    if data_path not in (None, "synthetic"):
-        raise NotImplementedError(
-            f"train.data_path {data_path!r}: packed shards are not ported yet (ROADMAP Queue A "
-            "11); use 'synthetic'")
     tr = config.train
     batch_size = tr.training.batch_size if split == "train" else tr.validation.batch_size
+    seed = 0 if split == "train" else 10_000
+    if data_path not in (None, "synthetic"):
+        return PackedShardLoader(data_path, split=split, batch_size=batch_size, seed=seed,
+                                 device=device)
     return SyntheticLoader(
         batch_size=batch_size,
         raster_size=config.env.rasterizer.raster_size,
         hist_frames=config.algo.history_num_frames,
         horizon=config.algo.future_num_frames,
-        seed=0 if split == "train" else 10_000,
+        seed=seed,
         device=device,
     )

@@ -13,6 +13,7 @@ import torch
 
 from cld_tpu_torch.data.batch import TrafficBatch
 from cld_tpu_torch.ops.geometry import raster_from_agent_matrix
+from cld_tpu_torch.ops.lanes import straight_lane_polylines
 
 
 def _unicycle_rollout(x0, actions, dt):
@@ -98,6 +99,7 @@ def synthetic_batch(
     n_hist = np.zeros((B, S, Th, 2), dtype=np.float32)
     n_hist[..., 0] = n_off_x[..., None] + n_speed[..., None] * th_axis[None, None, :]
     n_hist[..., 1] = n_off_y[..., None]
+    n_hist_yaws = np.zeros((B, S, Th, 1), dtype=np.float32)
     n_hist_avail = np.broadcast_to(n_fut_avail[..., :1], (B, S, Th))
 
     rfa = raster_from_agent_matrix(raster_size, pixel_size, (-0.5, 0.0))
@@ -126,6 +128,11 @@ def synthetic_batch(
     del hist_img
     image = np.ascontiguousarray(np.moveaxis(image, 1, -1))  # NHWC
     extent = np.broadcast_to(np.array([4.5, 2.0, 1.7], dtype=np.float32), (B, 3)).copy()
+    # agent-frame lane centerlines matching the painted lane raster layer
+    lane_pts, lane_avail = straight_lane_polylines(
+        (-road_half_width / 2, road_half_width / 2), x_min=-40.0, x_max=88.0, spacing=2.0,
+        max_points=128,
+    )
 
     def t(a):
         return torch.as_tensor(np.ascontiguousarray(a)).to(device)
@@ -144,4 +151,9 @@ def synthetic_batch(
         target_positions=t(fut_states[..., :2]),
         target_yaws=t(fut_states[..., 3:4]),
         target_availabilities=t(np.ones((B, T), dtype=np.float32)),
+        all_other_agents_history_positions=t(n_hist),
+        all_other_agents_history_yaws=t(n_hist_yaws),
+        all_other_agents_history_availability=t(n_hist_avail),
+        lane_points=t(np.broadcast_to(lane_pts, (B,) + lane_pts.shape)),
+        lane_avail=t(np.broadcast_to(lane_avail, (B,) + lane_avail.shape)),
     )

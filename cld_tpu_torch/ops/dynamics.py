@@ -148,3 +148,51 @@ def unicycle_forward_dynamics(
     x = initial_states[..., 0:1] + torch.cumsum(vx * dt, dim=-1)
     y = initial_states[..., 1:2] + torch.cumsum(vy * dt, dim=-1)
     return torch.stack([x, y, v, yaw], dim=-1)
+
+
+def unicycle_forward_dynamics_chain(
+    params: UnicycleParams,
+    initial_states: torch.Tensor,
+    actions: torch.Tensor,
+    dt: float,
+) -> torch.Tensor:
+    """The reference's 'chain' mode: a strict per-step midpoint rollout with
+    per-step bounds (`unicycle_step`), initial_states [..., 4], actions
+    [..., T, 2] -> states [..., T, 4]. The cross-check of the cumsum form."""
+    x = initial_states
+    states = []
+    for t in range(actions.shape[-2]):
+        x = unicycle_step(params, x, actions[..., t, :], dt, bound=True)
+        states.append(x)
+    return torch.stack(states, dim=-2)
+
+
+def unicycle_inverse_dyn(x: torch.Tensor, xp: torch.Tensor, dt: float) -> torch.Tensor:
+    """Actions (acc, yawvel) from consecutive states x -> xp [..., 4]."""
+    return (xp[..., 2:] - x[..., 2:]) / dt
+
+
+def unicycle_calculate_vel(
+    pos: torch.Tensor, yaw: torch.Tensor, dt: float, mask: torch.Tensor
+) -> torch.Tensor:
+    """Masked finite-difference longitudinal velocity: pos [..., T, 2], yaw
+    [..., T, 1], mask [..., T] bool -> vel [..., T, 1]. A step with valid
+    neighbours on both sides averages the two differences, with one only it
+    takes that one, with none it is 0."""
+    vel = (pos[..., 1:, 0:1] - pos[..., :-1, 0:1]) / dt * torch.cos(yaw[..., 1:, :]) + (
+        pos[..., 1:, 1:2] - pos[..., :-1, 1:2]
+    ) / dt * torch.sin(yaw[..., 1:, :])
+    vel_r = torch.cat([vel[..., 0:1, :], vel], dim=-2)
+    vel_l = torch.cat([vel, vel[..., -1:, :]], dim=-2)
+
+    mask_r = torch.roll(mask, 1, dims=-1)
+    mask_r[..., 0] = False
+    mask_r = mask_r & mask
+    mask_l = torch.roll(mask, -1, dims=-1)
+    mask_l[..., -1] = False
+    mask_l = mask_l & mask
+
+    both = (mask_l & mask_r)[..., None]
+    only_l = (mask_l & ~mask_r)[..., None]
+    only_r = (mask_r & ~mask_l)[..., None]
+    return both * (vel_r + vel_l) / 2 + only_l * vel_l + only_r * vel_r

@@ -40,6 +40,7 @@ from cld_tpu_torch.guidance.losses import (
 from cld_tpu_torch.guidance.perturbation import (
     GuidanceSpec,
     choose_best_sample,
+    choose_closest_to_gt,
     is_scene_level_spec,
     make_perturbation_guidance,
     per_sample_guidance_loss,
@@ -74,9 +75,12 @@ class SamplingOptions:
     number decays sigmoidally from ~4 to it over the denoise steps).
     `guidance_stride`, `guidance_clean` and `guidance_output` are
     `sample_traj`'s switches (DDPM only). `guide_as_filter_only` takes no
-    guidance step: the specs only pick among the samples. `decode_impl` is
-    `models.vae.decode_actions`'s `impl`: the kernel-backed decoder core
-    ("auto", "kernel") or the decoder's own layer stack ("module")."""
+    guidance step: the specs only pick among the samples. `guide_with_gt`
+    keeps, of several samples, the one closest to the batch's ground-truth
+    future (`choose_closest_to_gt`) in place of the guidance-loss filtration.
+    `decode_impl` is `models.vae.decode_actions`'s `impl`: the kernel-backed
+    decoder core ("auto", "kernel") or the decoder's own layer stack
+    ("module")."""
 
     num_samp: int = 1
     sampler: str = "ddpm"
@@ -89,6 +93,7 @@ class SamplingOptions:
     guidance_clean: bool = False
     guidance_output: bool = False
     guide_as_filter_only: bool = False
+    guide_with_gt: bool = False
     decode_impl: str = "auto"
 
 
@@ -230,8 +235,9 @@ def sample_plans(
     `observation_context_fields` gives) and decode: the sampler's outputs
     (pred_traj [B*N, T, D], cond_feat, and for DDPM x1 and log_prob_final) plus the decoded
     trajectories `traj` [B, N, T, 6] and `best` [B, T, 6], the sample kept
-    per agent (`best_index` [B]): with N > 1 and specs the one with the
-    lowest total guidance loss, else sample 0."""
+    per agent (`best_index` [B]): with N > 1 and `options.guide_with_gt` the
+    one closest to the batch's ground-truth future, else with N > 1 and specs
+    the one with the lowest total guidance loss, else sample 0."""
     if options.sampler not in ("ddpm", "ddim"):
         raise ValueError(f"unknown sampler {options.sampler!r} (expected ddpm|ddim)")
     normalizer = TrajNormalizer()
@@ -283,7 +289,10 @@ def sample_plans(
         )
     with torch.no_grad():
         traj = decode_fn(out["pred_traj"])
-        if N > 1 and specs:
+        if N > 1 and options.guide_with_gt and batch.target_positions is not None:
+            best, idx = choose_closest_to_gt(traj, traj[..., :2], batch.target_positions,
+                                             batch.target_availabilities)
+        elif N > 1 and specs:
             losses = per_sample_guidance_loss(traj, ctx, specs)  # [B, N]
             best, idx = choose_best_sample(
                 traj, losses, scene_index=scene_index,

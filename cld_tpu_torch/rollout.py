@@ -1,33 +1,52 @@
-"""Closed-loop guided simulation CLI of the port.
+"""Closed-loop simulation CLI of the port.
 
     python -m cld_tpu_torch.rollout --vae-ckpt runs/vae/ckpt_final \
-        --dm-ckpt runs/dm/ckpt_final --num-scenes 4 --agents-per-scene 8 --cle-report
+        --dm-ckpt runs/dm/ckpt_final --num-scenes 4 --agents-per-scene 8 \
+        --guidance flagship --cle-report
     python -m cld_tpu_torch.rollout --vae-ckpt reference.ckpt --dm-ckpt reference.ckpt
     python -m cld_tpu_torch.rollout --device cpu --registered-name cld_smoke \
         --num-scenes 1 --agents-per-scene 2 --num-sim-steps 10
-    python -m cld_tpu_torch.rollout --sampler ddim --ddim-steps 20 --num-action-samples 4
+    python -m cld_tpu_torch.rollout --sampler ddim --ddim-steps 20 --num-action-samples 4 \
+        --guidance flagship
     python -m cld_tpu_torch.rollout --guidance 'speed_limit:15,agent_collision' \
         --editing-source config,heuristic --heuristics stop_sign,social_group
+    python -m cld_tpu_torch.rollout --scene-data data/synthetic_shards --policy dm \
+        --agents-policy gt_replay --guidance flagship --num-action-samples 2 --guide-with-gt
+    python -m cld_tpu_torch.rollout --scene-data data/synthetic_shards --policy mpc
 
-Counterpart of the JAX package's `rollout.py` on what the port has so far:
-synthetic straight-road scenes (`sim.scene.synthetic_scene_pack`) and the
-networks at the widths of the experiment config (`--config`,
-`--registered-name`; the config of record by default), with seeded random
-weights or trained ones: `--vae-ckpt` / `--dm-ckpt` take a VAE / DM stage's
-`ckpt_final` of `python -m cld_tpu_torch.train`, the output of
-`python -m cld_tpu_torch.utils.torch_import`, or a reference Lightning
-`.ckpt` (one file may serve both flags); `--weights` an .npz written from
-`utils.weights.export_vae_checkpoint` + `export_dm_checkpoint`. The DDPM or
-DDIM sampler runs with `--num-action-samples` samples per agent (the one
-with the lowest guidance loss is executed) under the guidance rules of the
-editing sources (`build_guidance_specs`): `--guidance` takes `flagship`
-(agent collision + map collision, weight 10 each, the default), `none`, or
-the JAX CLI's grammar (shorthand, inline JSON, `@file`); `--editing-source`
-adds rules built from the scene (`--heuristics`, `--attack-pair`) or read
-from `--ui-edits-file`. The schedule is what the `--guidance-*`,
-`--perturb-th` and `--guide-*` flags set, `--decode-impl` picks the
-decoder's kernel-backed core or its module (names and defaults of the JAX
-package's `rollout.py`). It runs `sim.env.simulate` and prints as JSON
+Counterpart of the JAX package's `rollout.py`, with its flag names and
+defaults (one scene of 4 agents, no guidance rule). The world is the
+synthetic straight road (`sim.scene.synthetic_scene_pack`) or, with
+`--scene-data`, converted scenes from packed shards
+(`sim.scene.scene_pack_from_shards`, from `--scene-start-index`). The
+policy is `--policy`: `dm`, the latent diffusion policy, or one of the
+model-free `lattice`, `gt_replay`, `mpc` and `contingency`;
+`--agents-policy` gives the agents other than each scene's first (the ego)
+another one. The `dm` policy's networks are at the widths of the experiment
+config (`--config`, `--registered-name`; the config of record by default),
+with seeded random weights or trained ones: `--vae-ckpt` / `--dm-ckpt` take
+a VAE / DM stage's `ckpt_final` of `python -m cld_tpu_torch.train`, the
+output of `python -m cld_tpu_torch.utils.torch_import`, or a reference
+Lightning `.ckpt` (one file may serve both flags); `--weights` an .npz
+written from `utils.weights.export_vae_checkpoint` +
+`export_dm_checkpoint`. The DDPM or DDIM sampler runs with
+`--num-action-samples` samples per agent (kept: the one closest to the
+observation's ground-truth future with `--guide-with-gt`, else the one with
+the lowest guidance loss) under the guidance rules of the editing sources
+(`build_guidance_specs`): `--guidance` takes the JAX CLI's grammar
+(shorthand, inline JSON, `@file`; empty, the default, or `none`: no rule,
+an unguided policy) and `flagship` (agent collision + map collision, weight
+10 each); `--editing-source` adds rules built from the scene
+(`--heuristics`, `--attack-pair`) or read from `--ui-edits-file`. The
+`--guidance-*`, `--perturb-th` and `--guide-*` flags set the schedule,
+`--decode-impl` picks the decoder's kernel-backed core or its module.
+
+As the JAX CLI does, it runs `sim.env.simulate` twice: a warm-up episode
+from a generator seeded `--seed` (its time is `compile_and_first_run_s`),
+then the timed episode from `--seed` + 1, whose `wall_clock_s`,
+`agent_steps_per_sec`, metrics and log are reported. The kernel launch
+counts (`ops.native`) are zeroed before the timed episode, so that after
+`main` they hold that episode and the reports. It prints as JSON
 `summarize_metrics`, the occupancy-grid metrics, with `--cle-report` the
 closed-loop evaluator's summary, the throughput, each rule's satisfaction
 on the executed trajectories and the episode's kernel launches, and writes
@@ -53,11 +72,14 @@ from cld_tpu_torch.models.vae import DECODE_IMPLS
 from cld_tpu_torch.ops import native
 from cld_tpu_torch.ops.dynamics import UnicycleParams
 from cld_tpu_torch.ops.geometry import world_from_agent_matrix
+from cld_tpu_torch.policies.wrappers import masked_policy
 from cld_tpu_torch.sim.env import SimConfig, init_sim_state, simulate
 from cld_tpu_torch.sim.metrics import summarize_metrics
-from cld_tpu_torch.sim.scene import synthetic_scene_pack
+from cld_tpu_torch.sim.scene import scene_pack_from_shards, synthetic_scene_pack
 from cld_tpu_torch.utils.registry import config_from_flags
 from cld_tpu_torch.utils.weights import load_state_dicts
+
+POLICIES = ("dm", "lattice", "gt_replay", "mpc", "contingency")
 
 
 def build_guidance_specs(args, pack, sim_cfg, num_agents):
@@ -65,7 +87,7 @@ def build_guidance_specs(args, pack, sim_cfg, num_agents):
     list):
 
     * config     - the `--guidance` rules, always included: `flagship`,
-                   `none`, shorthand, inline JSON or @file
+                   empty or `none` (no rule), shorthand, inline JSON or @file
     * heuristic  - `--heuristics`: a comma list of names, or @file.json of
                    {name, weight, params} configs in the reference's format;
                    and `--attack-pair`
@@ -188,8 +210,14 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--dm-ckpt", type=str, default=None,
                         help="denoiser weights: a DM stage's ckpt_final, a torch_import output, "
                              "or a reference Lightning .ckpt (dm.model. keys)")
-    parser.add_argument("--num-scenes", type=int, default=4)
-    parser.add_argument("--agents-per-scene", type=int, default=8)
+    parser.add_argument("--scene-data", type=str, default=None,
+                        help="packed-shard directory of converted scenes "
+                             "(cld_tpu_torch.data.convert): the world is built from them "
+                             "instead of the synthetic road")
+    parser.add_argument("--scene-start-index", type=int, default=0,
+                        help="first sample of --scene-data to take")
+    parser.add_argument("--num-scenes", type=int, default=1)
+    parser.add_argument("--agents-per-scene", type=int, default=4)
     parser.add_argument("--num-sim-steps", type=int, default=100)
     parser.add_argument("--n-step-action", type=int, default=5)
     parser.add_argument("--raster-size", type=int, default=None,
@@ -201,10 +229,17 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--decode-impl", choices=DECODE_IMPLS, default="auto",
                         help="decoder inside guidance and decode: kernel (auto) is the "
                              "kernel-backed LSTM core, module the decoder's own layer stack")
-    parser.add_argument("--guidance", type=str, default="flagship",
-                        help="flagship: agent_collision + map_collision, weight 10 each; none; "
-                             "or rules, e.g. 'speed_limit:15,agent_collision', inline JSON "
-                             "configs, or @file.json")
+    parser.add_argument("--policy", choices=POLICIES, default="dm",
+                        help="dm: guided latent diffusion; lattice: kinematic lattice planner; "
+                             "gt_replay: replay the dataset's actions; mpc: FTOCP penalty "
+                             "solver; contingency: tree contingency planner")
+    parser.add_argument("--agents-policy", choices=POLICIES, default=None,
+                        help="policy of the agents other than each scene's first (the ego)")
+    parser.add_argument("--guidance", type=str, default="",
+                        help="rules, e.g. 'speed_limit:15,agent_collision', inline JSON "
+                             "configs, or @file.json; flagship: agent_collision + "
+                             "map_collision, weight 10 each; empty (the default) or none: "
+                             "no rule")
     parser.add_argument("--editing-source", type=str, default="config",
                         help="comma list of config|heuristic|ui|none. heuristic: rules built "
                              "from the scene's state (--heuristics); ui: guidance configs read "
@@ -222,6 +257,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--guide-as-filter-only", action="store_true",
                         help="no per-step perturbation; the rules only select among "
                              "--num-action-samples plans")
+    parser.add_argument("--guide-with-gt", action="store_true",
+                        help="with --num-action-samples > 1: keep the sample closest to the "
+                             "observation's ground-truth future instead of the one with the "
+                             "lowest guidance loss")
     parser.add_argument("--sampler", choices=("ddpm", "ddim"), default="ddpm")
     parser.add_argument("--ddim-steps", type=int, default=50)
     parser.add_argument("--ddim-eta", type=float, default=0.0)
@@ -263,10 +302,34 @@ def experiment_config(args):
     return cfg.lock()
 
 
+def build_policy(name, args, cfg, sim_cfg, pack, models, specs, options):
+    """The named policy: `dm` (the latent diffusion policy over `models`,
+    guided by `specs`) or a model-free one."""
+    if name == "lattice":
+        from cld_tpu_torch.policies.planner import LatticePlannerConfig, lattice_planner_policy
+
+        return lattice_planner_policy(LatticePlannerConfig(
+            horizon=cfg.algo.horizon, dt=sim_cfg.dt, dyn=sim_cfg.dyn))
+    if name == "gt_replay":
+        from cld_tpu_torch.policies.hardcoded import replay_policy
+
+        return replay_policy(pack.replay_actions)
+    if name == "mpc":
+        from cld_tpu_torch.policies.mpc import MPCConfig, mpc_policy
+
+        return mpc_policy(MPCConfig(N=max(20, args.n_step_action), dt=sim_cfg.dt))
+    if name == "contingency":
+        from cld_tpu_torch.policies.contingency import ContingencyConfig, contingency_policy
+
+        return contingency_policy(ContingencyConfig(dt=sim_cfg.dt, dyn=sim_cfg.dyn))
+    return pipeline.make_dm_policy(models, args.agents_per_scene, guided=bool(specs),
+                                   specs=specs, options=options)
+
+
 def build(args) -> SimpleNamespace:
     """Everything a run needs, as the CLI builds it: the config, the
-    simulator's config, the scene pack, the models (trained weights loaded),
-    the guidance specs and the policy."""
+    simulator's config, the scene pack, the models (trained weights loaded;
+    None when no policy is `dm`), the guidance specs and the policy."""
     dev = torch.device(args.device)
     cfg = experiment_config(args)
     sim_cfg = SimConfig(
@@ -276,28 +339,42 @@ def build(args) -> SimpleNamespace:
         pixel_size=cfg.env.rasterizer.pixel_size,
         dyn=UnicycleParams.from_config(cfg.algo.dynamics),
     )
-    pack = synthetic_scene_pack(
-        seed=args.seed, num_scenes=args.num_scenes, agents_per_scene=args.agents_per_scene,
-        sim_steps=args.num_sim_steps, device=dev,
-    )
-    if pack.world_map.shape[-1] != cfg.env.rasterizer.num_sem_layers:
-        raise ValueError(f"the scenes have {pack.world_map.shape[-1]} map layers, the config "
-                         f"{cfg.env.rasterizer.num_sem_layers}")
-    models = pipeline.build_models_from_config(cfg, device=dev, seed=args.seed)
-    pipeline.load_checkpoints(models, args.vae_ckpt, args.dm_ckpt)
-    if args.weights:
-        with np.load(args.weights) as sd:
-            load_state_dicts(models.context, models.decoder, models.unet, dict(sd))
+    if args.scene_data:
+        pack = scene_pack_from_shards(
+            args.scene_data, num_scenes=args.num_scenes, agents_per_scene=args.agents_per_scene,
+            sim_steps=args.num_sim_steps, start_index=args.scene_start_index, device=dev,
+        )
+    else:
+        pack = synthetic_scene_pack(
+            seed=args.seed, num_scenes=args.num_scenes, agents_per_scene=args.agents_per_scene,
+            sim_steps=args.num_sim_steps, device=dev,
+        )
+    models = None
+    if "dm" in (args.policy, args.agents_policy):
+        if pack.world_map.shape[-1] != cfg.env.rasterizer.num_sem_layers:
+            raise ValueError(f"the scenes have {pack.world_map.shape[-1]} map layers, the "
+                             f"config {cfg.env.rasterizer.num_sem_layers}")
+        models = pipeline.build_models_from_config(cfg, device=dev, seed=args.seed)
+        pipeline.load_checkpoints(models, args.vae_ckpt, args.dm_ckpt)
+        if args.weights:
+            with np.load(args.weights) as sd:
+                load_state_dicts(models.context, models.decoder, models.unet, dict(sd))
     options = pipeline.SamplingOptions(
         num_samp=args.num_action_samples, sampler=args.sampler, ddim_steps=args.ddim_steps,
         ddim_eta=args.ddim_eta, guidance_lr=args.guidance_lr, guidance_steps=args.guidance_steps,
         perturb_th=args.perturb_th, guidance_stride=args.guidance_stride,
         guidance_clean=args.guide_clean, guidance_output=args.guide_output,
-        guide_as_filter_only=args.guide_as_filter_only, decode_impl=args.decode_impl,
+        guide_as_filter_only=args.guide_as_filter_only, guide_with_gt=args.guide_with_gt,
+        decode_impl=args.decode_impl,
     )
     specs = build_guidance_specs(args, pack, sim_cfg, pack.num_agents)
-    policy = pipeline.make_dm_policy(models, args.agents_per_scene, guided=bool(specs),
-                                     specs=specs, options=options)
+    make = lambda name: build_policy(name, args, cfg, sim_cfg, pack, models, specs, options)
+    policy = make(args.policy)
+    if args.agents_policy and args.agents_policy != args.policy:
+        # ego = first agent of each scene
+        ego_mask = torch.zeros(pack.num_agents, dtype=torch.bool, device=dev)
+        ego_mask[:: args.agents_per_scene] = True
+        policy = masked_policy(ego_mask, policy, make(args.agents_policy))
     return SimpleNamespace(cfg=cfg, sim_cfg=sim_cfg, pack=pack, models=models, specs=specs,
                            options=options, policy=policy, device=dev)
 
@@ -308,19 +385,23 @@ def main(argv=None) -> dict:
     dev, cfg, pack, specs = run.device, run.sim_cfg, run.pack, run.specs
     rules = [type(s.loss).__name__ for s in specs]
     print(f"rollout: {pack.num_agents} agents, {cfg.num_replans} replans x "
-          f"{cfg.n_step_action} steps, rules={rules or 'none'}", flush=True)
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
+          f"{cfg.n_step_action} steps, policy={args.policy}, agents_policy={args.agents_policy}, "
+          f"rules={rules or 'none'}", flush=True)
 
-    def sync():
+    def episode(seed):
+        """One episode from a generator seeded `seed`: (state, log, seconds)."""
+        gen = torch.Generator(device=dev).manual_seed(seed)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        state, traj = simulate(pack, run.policy, cfg, generator=gen)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return state, traj, time.perf_counter() - t0
 
-    sync()
+    first_s = episode(args.seed)[2]  # the warm-up: builds, caches and first calls
     before = native.launch_counts()
-    t0 = time.perf_counter()
-    state, traj = simulate(pack, run.policy, cfg, generator=gen)
-    sync()
-    wall = time.perf_counter() - t0
+    state, traj, wall = episode(args.seed + 1)
     after = native.launch_counts()
 
     report = summarize_metrics(pack, state, cfg)
@@ -332,7 +413,10 @@ def main(argv=None) -> dict:
     report.update(
         wall_clock_s=wall,
         agent_steps_per_sec=pack.num_agents * cfg.num_simulation_steps / wall,
+        compile_and_first_run_s=first_s,
         device=torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+        policy=args.policy,
+        agents_policy=args.agents_policy,
         guidance=args.guidance,
         rules=rules,
         launches={k: after[k] - before[k] for k in after},

@@ -371,7 +371,8 @@ def _jax_report_keys(num_scenes, agents, frames):
     keys |= set(jax_rollout_cli.occupancy_report(jpack, log))
     cle_keys = {k: set(v) if isinstance(v, dict) else None
                 for k, v in jcle.cle_report(jpack, log, jcfg).items()}
-    return keys | {"cle", "wall_clock_s", "agent_steps_per_sec", "guidance_satisfaction"}, \
+    return keys | {"cle", "wall_clock_s", "agent_steps_per_sec", "compile_and_first_run_s",
+                   "guidance_satisfaction"}, \
         cle_keys
 
 
@@ -386,7 +387,7 @@ def test_train_then_roll_out_and_evaluate_the_checkpoints(tmp_path, monkeypatch,
     vae, dm = str(out / "vae" / "ckpt_final"), str(out / "dm" / "ckpt_final")
     train.main(base + ["--mode", "dm", "--steps", "1", "--vae-ckpt", vae])
     roll = ["--registered-name", "cld_smoke", "--device", "cpu", "--num-scenes", "2",
-            "--agents-per-scene", "2", "--num-sim-steps", "10"]
+            "--agents-per-scene", "2", "--num-sim-steps", "10", "--guidance", "flagship"]
     rep = rollout.main(roll + ["--vae-ckpt", vae, "--dm-ckpt", dm, "--cle-report",
                                "--output", str(tmp_path / "a")])
     keys, cle_keys = _jax_report_keys(2, 2, 10)

@@ -17,7 +17,7 @@ import cld_tpu_torch
 import numpy as np
 
 from cld_tpu_torch import pipeline, rollout, train
-from cld_tpu_torch.data import loader, synthetic
+from cld_tpu_torch.data import convert, loader, multihost, packed, synthetic
 from cld_tpu_torch.ops import diffusion, gather_kernels, lstm_kernels, native
 from cld_tpu_torch.sim import scene
 from cld_tpu_torch.training import dm as training_dm
@@ -52,6 +52,11 @@ def test_no_jax_or_reference_package_imports():
             "cld_tpu_torch/eval/cle.py", "cld_tpu_torch/sim/occupancy.py",
             "cld_tpu_torch/rules/stl.py", "cld_tpu_torch/ops/metrics.py",
             "cld_tpu_torch/sim/logger.py", "cld_tpu_torch/test.py",
+            "cld_tpu_torch/data/packed.py", "cld_tpu_torch/data/convert.py",
+            "cld_tpu_torch/data/multihost.py", "cld_tpu_torch/data/validation.py",
+            "cld_tpu_torch/data/scene_batch.py", "cld_tpu_torch/ops/dynamics_extra.py",
+            "cld_tpu_torch/policies/hardcoded.py", "cld_tpu_torch/policies/planner.py",
+            "cld_tpu_torch/policies/mpc.py", "cld_tpu_torch/policies/contingency.py",
             "chip_smoke.py"} <= names
     for f in files:
         for mod in _imports(f):
@@ -62,6 +67,10 @@ def test_no_jax_or_reference_package_imports():
 @pytest.mark.parametrize("fn", [pipeline.build_models, synthetic.synthetic_batch,
                                 diffusion.make_schedule, scene.synthetic_scene_pack,
                                 loader.make_loader, loader.SyntheticLoader.__init__,
+                                packed.PackedShardLoader.__init__,
+                                multihost.DistributedPackedLoader.__init__,
+                                scene.scene_pack_from_batches, scene.scene_pack_from_shards,
+                                convert.parse_raw_batch, convert.convert_nuscenes,
                                 training_vae.VAETrainer.__init__, training_dm.DMTrainer.__init__,
                                 training_ppo.buffer_init])
 def test_entry_points_default_to_cuda(fn):
@@ -147,7 +156,8 @@ def test_rollout_cli_sampler_and_guidance_flags(flags, tmp_path):
             "--num-sim-steps", "5", "--raster-size", "64", "--hist-frames", "10",
             "--diffusion-steps", "4"]
     runs = []
-    for extra in (flags, flags, flags + ["--guidance", "none"]):
+    for extra in (flags + ["--guidance", "flagship"], flags + ["--guidance", "flagship"],
+                  flags + ["--guidance", "none"]):
         out = tmp_path / str(len(runs))
         rollout.main(argv + extra + ["--output", str(out)])
         with np.load(out / "trajectories.npz") as f:
@@ -156,6 +166,64 @@ def test_rollout_cli_sampler_and_guidance_flags(flags, tmp_path):
     np.testing.assert_array_equal(runs[0], runs[1])
     np.testing.assert_array_equal(runs[0][:, 1], runs[2][:, 1])  # the replay agent ignores guidance
     assert (np.diff(runs[0][:, :, 0], axis=0) > 0).all()  # both agents drive on
+
+
+def _jax_rollout_defaults():
+    """{option: default} of the JAX package's `rollout.py` argument parser,
+    read from its source."""
+    tree = ast.parse((PKG.parent / "rollout.py").read_text())
+    out = {}
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Call) and getattr(node.func, "attr", "") == "add_argument"
+                and isinstance(node.args[0], ast.Constant)):
+            kw = {k.arg: k.value for k in node.keywords}
+            out[node.args[0].value] = (ast.literal_eval(kw["default"]) if "default" in kw
+                                       else False if "action" in kw else None)
+    return out
+
+
+def test_rollout_cli_takes_the_jax_defaults_and_times_a_warm_episode(tmp_path, monkeypatch):
+    """Every option the two rollout CLIs share has the JAX CLI's default
+    (one scene of 4 agents, no guidance rule among them). `main` runs a
+    warm-up episode from a generator seeded `--seed`, then the timed one
+    from `--seed` + 1, whose log it writes; its launches are the timed
+    episode's alone, and the process-wide counts are left to add up."""
+    jax_defaults = _jax_rollout_defaults()
+    ours = vars(rollout.parse_args([]))
+    shared = {o for o in jax_defaults if o.lstrip("-").replace("-", "_") in ours}
+    assert {"--num-scenes", "--agents-per-scene", "--guidance", "--policy", "--agents-policy",
+            "--scene-data", "--scene-start-index", "--guide-with-gt", "--seed"} <= shared
+    for opt in shared:
+        assert ours[opt.lstrip("-").replace("-", "_")] == jax_defaults[opt], opt
+    assert (ours["num_scenes"], ours["agents_per_scene"], ours["guidance"]) == (1, 4, "")
+
+    seeds = []
+    simulate = rollout.simulate
+
+    def counted(pack, policy, cfg, generator=None):
+        seeds.append(generator.initial_seed())
+        native.count_launch("value_gather")  # one pretend launch per episode
+        return simulate(pack, policy, cfg, generator=generator)
+
+    monkeypatch.setattr(rollout, "simulate", counted)
+    argv = ["--device", "cpu", "--num-sim-steps", "5", "--raster-size", "64", "--hist-frames",
+            "10", "--diffusion-steps", "3", "--seed", "7", "--output", str(tmp_path)]
+    native.reset_launch_counts()
+    native.count_launch("value_gather")  # counted before the call, and kept
+    rep = rollout.main(argv)
+    assert seeds == [7, 8]
+    assert rep["launches"]["value_gather"] == 1
+    assert native.launch_counts()["value_gather"] == 3
+    assert rep["rules"] == [] and "guidance_satisfaction" not in rep
+    assert rep["compile_and_first_run_s"] > 0 and rep["wall_clock_s"] > 0
+    assert rep["agent_steps_per_sec"] == pytest.approx(4 * 5 / rep["wall_clock_s"])
+    run = rollout.build(rollout.parse_args(argv))
+    _, want = simulate(run.pack, run.policy, run.sim_cfg,
+                       generator=torch.Generator().manual_seed(8))
+    with np.load(tmp_path / "trajectories.npz") as f:
+        assert f["trajectories"].shape == (5, 4, 4)
+        np.testing.assert_array_equal(f["trajectories"], want.numpy())
+    native.reset_launch_counts()
 
 
 def test_train_cli_runs_every_stage_on_the_cpu_without_jax(tmp_path):
@@ -196,18 +264,19 @@ print("FORBIDDEN_IMPORTED=" + json.dumps(bad))
 
 
 def test_train_cli_flags_and_unported_modes(tmp_path):
-    """The JAX CLI's flag names, `--device` defaulting to the card, and the
+    """The JAX CLI's flag names, `--device` defaulting to the card, the
     modes and options that wait for later slices raising with their ROADMAP
-    item."""
+    item, and a data path without shards raising as the JAX loader does."""
     base = ["--registered-name", "cld_smoke", "--device", "cpu", "--output", str(tmp_path)]
     for mode in ("scene_dm", "zoo", "gan", "ebm"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             train.main(base + ["--mode", mode])
     with pytest.raises(NotImplementedError, match="bfloat16"):
         train.main(base + ["--mode", "vae", "--precision", "bf16"])
+    # packed shards are ported: a data path without shards fails as the JAX loader does
     cfg = tmp_path / "c.yaml"
-    cfg.write_text("train:\n  data_path: /data/shards\n")
-    with pytest.raises(NotImplementedError, match="shards"):
+    cfg.write_text(f"train:\n  data_path: {tmp_path / 'no_shards'}\n")
+    with pytest.raises(FileNotFoundError, match="no split 'train'"):
         train.main(base + ["--mode", "vae", "--config", str(cfg), "--steps", "1"])
     src = Path(train.__file__).read_text()
     for flag in ("--config", "--registered-name", "--mode", "--output", "--steps", "--resume",
