@@ -161,12 +161,24 @@
    `planner_observation`, each held where it is continuous
    (`check_planners_card_vs_cpu`: the MPC's controls after 20 iterations,
    and its final costs after the record's 100).
-20. Times the launch floor: `torch.cuda._sleep(0)` (one thread that exits
+20. Runs the model zoo at full width from step 19's shards (the config of
+   record: batch 128, raster 224x224x34, horizon 52, ResNet-18, cond_feat
+   256): each of the eleven algos through `train.main` with
+   `--registered-name nusc_<algo> --mode zoo --steps 3` (ms per step over
+   steps 2 and 3, peak device memory, final loss, `ckpt_final`; finite
+   metrics and no kernel launch); one VAE step with ResNet-50 and with the
+   spatial-softmax head and one DM step with the residual-MLP denoiser
+   (finite, no launch); then each algo's loss and gradients with
+   `train=False` on the card and on the CPU from the same weights and draws
+   at B=4, raster 64 (the loss within 1e-4 relative, each gradient within
+   1e-4 of its largest entry).
+21. Times the launch floor: `torch.cuda._sleep(0)` (one thread that exits
    at once) from a CUDA graph, as every kernel's graph time is taken.
-21. Prints the card line, one `{"kernels": [...]}` line (`launches_by_path`
+22. Prints the card line, one `{"kernels": [...]}` line (`launches_by_path`
    there holds each main-path run's own count, of 4, 7, 8, 11, 12, 14, 15,
-   17, 18 (its rollout and its `--mode test`) and 19 (its training, its
-   guided rollout and each model-free policy),
+   17, 18 (its rollout and its `--mode test`), 19 (its training, its
+   guided rollout and each model-free policy) and 20 (the zoo, 0 of every
+   kernel),
    each zeroed before its run and checked exactly; `launches` is their sum;
    `graph_ms` is each kernel's time from a CUDA graph at the main path's
    shape, B=128 for the LSTM kernels, beside `launch_floor_ms`), and last
@@ -2048,11 +2060,194 @@ def run_data_path(report):
         # the planners are argmin and fixed-rate Adam: held where they are continuous (see
         # `planner_observation`)
         res.update(check_planners_card_vs_cpu())
+        res["phase_s"] = time.perf_counter() - t_phase
+        log(f"data path phase {res['phase_s']:.1f} s in all, on {report['card']}")
+        report["data_path"] = res
+        run_zoo_path(report, shards, tmp)  # the zoo trains from the same shards
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# the zoo path: the eleven baseline algos by their nuScenes registry names
+ZOO_ALGOS = {"nusc_bc": "bc", "nusc_bc_gc": "bc_gc", "nusc_vae": "vae",
+             "nusc_discrete_vae": "discrete_vae", "nusc_transformer": "TransformerPred",
+             "nusc_tree_vae": "tree_vae", "nusc_agent_predictor": "agent_predictor",
+             "nusc_bc_ec": "bc_ec", "nusc_spatial_planner": "spatial_planner",
+             "nusc_occupancy": "occupancy", "nusc_diff": "diff"}
+ZOO_STEPS = 3  # steps 2 and 3 are timed
+ZOO_SMALL_B, ZOO_SMALL_RASTER = 4, 64  # the card-vs-CPU check's width
+ZOO_REL_TOL = 1e-4  # card vs CPU: the loss (relative) and each gradient (of its largest entry)
+
+
+def to_device(batch, dev):
+    import torch
+
+    return batch._replace(**{k: v.to(dev) for k, v in batch._asdict().items()
+                             if torch.is_tensor(v)})
+
+
+def check_zoo_card_vs_cpu() -> dict:
+    """Each algo's loss and gradients with `train=False` (running BatchNorm
+    statistics; the discrete CVAE's argmax mode) on the card and on the CPU
+    from the same weights and the same explicit draws, at B=4, raster 64.
+    Gradients whose exact value is 0 (attention key biases: softmax ignores
+    a shift of all logits) are held against the model's largest gradient."""
+    import copy
+
+    import torch
+
+    from cld_tpu_torch.data.synthetic import synthetic_batch
+    from cld_tpu_torch.training import zoo
+    from cld_tpu_torch.utils.registry import get_registered_experiment_config
+
+    dev = torch.device("cuda", 0)
+    b_cpu = synthetic_batch(seed=2, batch_size=ZOO_SMALL_B, raster_size=ZOO_SMALL_RASTER,
+                            device="cpu")
+    b_dev = to_device(b_cpu, dev)
+    worst = {}
+    for reg, algo in ZOO_ALGOS.items():
+        spec = zoo.algo_factory(get_registered_experiment_config(reg), algo)
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            cpu_model = spec.build()
+        dev_model = copy.deepcopy(cpu_model).to(dev)
+        noise = spec.draw(b_cpu, torch.Generator().manual_seed(3))
+        loss_c = spec.loss_call(cpu_model, b_cpu, False, noise)[0]
+        loss_c.backward()
+        noise_d = {k: v.to(dev) for k, v in noise.items()}
+        loss_d = spec.loss_call(dev_model, b_dev, False, noise_d)[0]
+        loss_d.backward()
+        loss_c, loss_d = loss_c.item(), loss_d.item()
+        loss_err = abs(loss_d - loss_c) / abs(loss_c)
+        grads_c = {k: p.grad for k, p in cpu_model.named_parameters()}
+        scale = max(float(g.abs().max()) for g in grads_c.values())
+        grad_err = 0.0
+        for k, p in dev_model.named_parameters():
+            ref = grads_c[k]
+            denom = scale if k.endswith(("key.bias", "kp_conv.bias")) else float(ref.abs().max())
+            grad_err = max(grad_err, float((p.grad.cpu() - ref).abs().max()) / max(denom, 1e-30))
+        worst[algo] = {"loss_rel_err": loss_err, "grad_err": grad_err}
+        log(f"zoo card vs CPU {algo}: loss {loss_c:.6g}, relative error {loss_err:.2e}; "
+            f"worst gradient error {grad_err:.2e} of its largest entry (tolerance {ZOO_REL_TOL})")
+        check(loss_err <= ZOO_REL_TOL and grad_err <= ZOO_REL_TOL,
+              f"zoo {algo}: card and CPU disagree (loss {loss_err:.2e}, gradients {grad_err:.2e})")
+    return worst
+
+
+def run_zoo_path(report, shards, tmp):
+    """The model zoo at full width (the config of record: batch 128, raster
+    224x224x34, horizon 52, ResNet-18, cond_feat 256) from the data phase's
+    shards: each of the eleven algos through `python -m cld_tpu_torch.train
+    --registered-name nusc_<algo> --mode zoo --steps 3`, with its ms per step
+    (steps 2 and 3, synchronized around `ZooTrainer.train_step`), peak device
+    memory, final loss, `ckpt_final`, and no kernel launch; one VAE step with
+    ResNet-50 and with the spatial-softmax head and one DM step with the
+    residual-MLP denoiser; then each algo's loss and gradients card vs CPU."""
+    import numpy as np
+    import torch
+
+    from cld_tpu_torch import train
+    from cld_tpu_torch.data.loader import make_loader
+    from cld_tpu_torch.ops import native
+    from cld_tpu_torch.training import zoo
+    from cld_tpu_torch.training.dm import DMTrainer
+    from cld_tpu_torch.training.vae import VAETrainer
+    from cld_tpu_torch.utils.registry import config_from_flags
+
+    t_phase = time.perf_counter()
+    cfg_file = tmp / "zoo_config.json"
+    cfg_file.write_text(json.dumps({
+        "train": {"data_path": str(shards), "training": {"batch_size": B, "steps_per_epoch": 1}},
+        "env": {"rasterizer": {"raster_size": RASTER}}}))
+    res, total = {}, counts()
+    step_s = []
+    untimed = zoo.ZooTrainer.train_step
+
+    def timed_step(self, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = untimed(self, *a, **k)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        return out
+
+    zoo.ZooTrainer.train_step = timed_step
+    try:
+        for reg, algo in ZOO_ALGOS.items():
+            step_s.clear()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            native.reset_launch_counts()
+            t0 = time.perf_counter()
+            state = train.main(["--registered-name", reg, "--mode", "zoo", "--config",
+                                str(cfg_file), "--device", "cuda", "--output",
+                                str(tmp / "zoo_runs"), "--steps", str(ZOO_STEPS)])
+            call_s = time.perf_counter() - t0
+            launched = native.launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+            out = tmp / "zoo_runs" / f"zoo_{algo}"
+            recs = [json.loads(line) for line in (out / "metrics.jsonl").read_text().splitlines()]
+            loss = recs[-1]["train/loss"]
+            r = dict(ms_per_step=1e3 * float(np.mean(step_s[1:])), peak_gb=peak / 1e9,
+                     final_loss=loss, call_s=call_s, ckpt_final=(out / "ckpt_final").exists())
+            res[algo] = r
+            log(f"zoo {reg} ({algo}): {r['ms_per_step']:.2f} ms per step (steps 2-3), peak "
+                f"{r['peak_gb']:.3f} GB, final loss {loss:.6g}, ckpt_final written: "
+                f"{r['ckpt_final']}, the CLI call {call_s:.1f} s, on {report['card']}")
+            check(state.step == ZOO_STEPS and len(step_s) == ZOO_STEPS,
+                  f"zoo {algo} did not take {ZOO_STEPS} steps")
+            check(all(np.isfinite(v) for rec in recs for v in rec.values()),
+                  f"zoo {algo}: non-finite metrics")
+            check(r["ckpt_final"] and (out / "ckpt_final_full").exists(),
+                  f"zoo {algo}: no ckpt_final")
+            check(launched == counts(), f"zoo {algo} launched kernels: {launched}")
+            total = {k: total[k] + n for k, n in launched.items()}
+            del state
+    finally:
+        zoo.ZooTrainer.train_step = untimed
+    report["launches_zoo"] = total
+
+    # the other map encoders and the residual-MLP denoiser, one step each
+    base = config_from_flags("cld_vae_nusc", str(cfg_file))
+    batch = next(iter(make_loader(base, "train", device="cuda")))
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    vae_model = None
+    for label, over in (("vae_resnet50", {"map_encoder_model_arch": "resnet50"}),
+                        ("vae_resnet18_spatial_softmax",
+                         {"map_encoder_model_arch": "resnet18_spatial_softmax"}),
+                        ("dm_mlp_res_network", {"diffuser_model_arch": "MLPResNetwork"})):
+        cfg = config_from_flags("cld_vae_nusc", str(cfg_file)).unlock()
+        for k, v in over.items():
+            cfg.algo[k] = v
+        cfg.lock()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        native.reset_launch_counts()
+        if label.startswith("vae"):
+            trainer = VAETrainer(cfg, device="cuda")
+            state = trainer.init_state(0)
+            vae_model = state.model
+        else:
+            trainer = DMTrainer(cfg, vae_model, device="cuda")
+            state = trainer.init_state(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m = trainer.train_step(state, batch, generator=gen)
+        torch.cuda.synchronize()
+        r = dict(ms=1e3 * (time.perf_counter() - t0), loss=float(m["loss"]),
+                 peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        res[label] = r
+        log(f"{label}: one step {r['ms']:.1f} ms (the first, not warmed up), peak "
+            f"{r['peak_gb']:.3f} GB, loss {r['loss']:.6g}, on {report['card']}")
+        check(np.isfinite(r["loss"]) and state.step == 1, f"{label}: no finite step")
+        check(native.launch_counts() == counts(), f"{label} launched kernels")
+        del trainer, state
+    del vae_model, batch
+
+    res["card_vs_cpu"] = check_zoo_card_vs_cpu()
     res["phase_s"] = time.perf_counter() - t_phase
-    log(f"data path phase {res['phase_s']:.1f} s in all, on {report['card']}")
-    report["data_path"] = res
+    log(f"zoo phase {res['phase_s']:.1f} s in all, on {report['card']}")
+    report["zoo"] = res
 
 
 def max_param_change(before, module) -> float:
@@ -2653,7 +2848,7 @@ def main() -> int:
              "ppo": "launches_ppo", "ppo_disk_penalty": "launches_ppo_disk_penalty",
              "rules": "launches_rules", "checkpoint_rollout": "launches_checkpoint_rollout",
              "evaluate": "launches_evaluate", "data_train": "launches_data_train",
-             "scene_data_rollout": "launches_scene_data_rollout",
+             "scene_data_rollout": "launches_scene_data_rollout", "zoo": "launches_zoo",
              **{f"policy_{p}": f"launches_{p}" for p in MODEL_FREE}}
     # the launch floor: one kernel node of a graph that does nothing (one
     # thread that exits at once), timed as every kernel's graph_ms is

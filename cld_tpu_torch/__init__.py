@@ -4,8 +4,9 @@ The package runs the guided open-loop latent-diffusion pipeline
 (`pipeline.guided_collect`: context encode, 100-step DDPM sampling of the
 temporal UNet with a per-step Adam perturbation through the frozen LSTM
 decoder and the unicycle dynamics, decode, reward), the guided closed loop
-(`sim.env.simulate`, `python -m cld_tpu_torch.rollout`) and the three training
-stages (`training`, `python -m cld_tpu_torch.train --mode vae|dm|ppo`). Ten
+(`sim.env.simulate`, `python -m cld_tpu_torch.rollout`), the three training
+stages (`training`, `python -m cld_tpu_torch.train --mode vae|dm|ppo`) and the
+model zoo's eleven baseline algos (`training/zoo.py`, `--mode zoo`). Ten
 hand-written CUDA kernels carry its hot paths (`csrc/`): the fused 2-layer
 LSTM forward and its reverse sweep, the map gathers, the rigid map distance,
 and the reward's off-road count and disk-collision penalty.

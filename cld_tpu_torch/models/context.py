@@ -1,8 +1,10 @@
 """Context encoder: current state + raster stack -> conditioning feature
 (port of `cld_tpu/models/context.py`).
 
-A current-state MLP (4 -> 64), a ResNet-18 map encoder (raster -> 256) and
-a combine MLP (320 -> 256) with LayerNorm. Keys follow the reference
+A current-state MLP (4 -> 64), a ResNet map encoder (raster -> 256) and a
+combine MLP (320 -> 256) with LayerNorm. `map_arch` names the encoder
+(`resnet18`, `resnet34`, `resnet50`); a `_spatial_softmax` suffix puts the
+keypoint head in place of the average pool. Keys follow the reference
 (`map_encoder.encoder_heads.map_model.*` for the trunk)."""
 
 from __future__ import annotations
@@ -14,14 +16,23 @@ from torch import nn
 
 from cld_tpu_torch.data.batch import TrafficBatch, get_current_states
 from cld_tpu_torch.models.nets import MLP
-from cld_tpu_torch.models.resnet import ResNet18Encoder
+from cld_tpu_torch.models.resnet import ResNetEncoder
+
+
+def parse_map_arch(map_arch: str):
+    """"<arch>" or "<arch>_spatial_softmax" -> (arch, pool)."""
+    suffix = "_spatial_softmax"
+    if map_arch.endswith(suffix):
+        return map_arch[: -len(suffix)], "spatial_softmax"
+    return map_arch, "avg"
 
 
 class _MapEncoder(nn.Module):
-    def __init__(self, in_channels: int, feature_dim: int):
+    def __init__(self, in_channels: int, feature_dim: int, map_arch: str = "resnet18"):
         super().__init__()
+        arch, pool = parse_map_arch(map_arch)
         self.encoder_heads = nn.ModuleDict(
-            {"map_model": ResNet18Encoder(in_channels, feature_dim)}
+            {"map_model": ResNetEncoder(arch, in_channels, feature_dim, pool=pool)}
         )
 
     def forward(self, image, train: bool = False):
@@ -35,13 +46,14 @@ class ContextEncoder(nn.Module):
         curr_state_feat_dim: int = 64,
         map_feature_dim: int = 256,
         cond_feat_dim: int = 256,
+        map_arch: str = "resnet18",
     ):
         super().__init__()
         self.agent_state_encoder = MLP(
             4, curr_state_feat_dim, (curr_state_feat_dim, curr_state_feat_dim),
             normalization=True,
         )
-        self.map_encoder = _MapEncoder(in_channels, map_feature_dim)
+        self.map_encoder = _MapEncoder(in_channels, map_feature_dim, map_arch)
         cond_in_dim = curr_state_feat_dim + map_feature_dim
         self.process_cond_mlp = MLP(
             cond_in_dim, cond_feat_dim,

@@ -138,3 +138,48 @@ class Upsample1d(nn.Module):
 
     def forward(self, x):
         return self.conv(x.transpose(1, 2)).transpose(1, 2)
+
+
+class MultiHeadDotProductAttention(nn.Module):
+    """flax's `nn.MultiHeadDotProductAttention` (no dropout): per-head
+    query / key / value projections, softmax(q k^T / sqrt(head_dim)) in
+    float32, and an output projection. A masked logit takes float32's
+    minimum, not -inf, as flax's does, so a query whose keys are all masked
+    averages them uniformly instead of giving NaN. Plain matmuls and
+    softmax, as the JAX package computes it outside any kernel.
+
+    `query`, `key`, `value` are Linear(in, qkv_features) and `out`
+    Linear(qkv_features, out_features); flax's [D, H, hd] and [H, hd, D]
+    kernels flatten onto them head-major."""
+
+    def __init__(self, in_features: int, num_heads: int, qkv_features: int = None,
+                 out_features: int = None, kv_features: int = None):
+        super().__init__()
+        qkv_features = qkv_features or in_features
+        if qkv_features % num_heads:
+            raise ValueError(f"qkv_features {qkv_features} not divisible by {num_heads} heads")
+        self.num_heads = num_heads
+        self.query = nn.Linear(in_features, qkv_features)
+        self.key = nn.Linear(kv_features or in_features, qkv_features)
+        self.value = nn.Linear(kv_features or in_features, qkv_features)
+        self.out = nn.Linear(qkv_features, out_features or in_features)
+
+    def forward(self, inputs_q: torch.Tensor, inputs_kv: torch.Tensor = None,
+                mask: torch.Tensor = None) -> torch.Tensor:
+        """inputs_q [B, Lq, D], inputs_kv [B, Lk, D] (default: inputs_q);
+        mask broadcastable to [B, heads, Lq, Lk], True where attended."""
+        if inputs_kv is None:
+            inputs_kv = inputs_q
+        B, Lq, _ = inputs_q.shape
+        Lk = inputs_kv.shape[1]
+        H = self.num_heads
+        q = self.query(inputs_q).reshape(B, Lq, H, -1)
+        k = self.key(inputs_kv).reshape(B, Lk, H, -1)
+        v = self.value(inputs_kv).reshape(B, Lk, H, -1)
+        q = q / math.sqrt(q.shape[-1])
+        logits = torch.einsum("bqhd,bkhd->bhqk", q, k)
+        if mask is not None:
+            logits = torch.where(mask, logits, torch.finfo(logits.dtype).min)
+        weights = torch.softmax(logits, dim=-1)
+        y = torch.einsum("bhqk,bkhd->bqhd", weights, v).reshape(B, Lq, -1)
+        return self.out(y)

@@ -46,6 +46,7 @@ class _LSTMWeights(nn.Module):
         super().__init__()
         H = hidden_size
         k = H ** -0.5
+        self.num_layers = num_layers
         for n in range(num_layers):
             in_dim = input_size if n == 0 else H
             for name, shape in ((f"weight_ih_l{n}", (4 * H, in_dim)),
@@ -67,10 +68,11 @@ def dropout_keep_mask(shape, generator: Optional[torch.Generator], device) -> to
 
 def _lstm_stack(weights: _LSTMWeights, x: torch.Tensor, h0: torch.Tensor,
                 keep_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Two LSTM layers over x [B, T, I], both starting from hidden h0 [B, H]
-    and a zero cell state -> [B, T, H]. `keep_mask` [B, T, H] is the
-    inter-layer dropout: layer 0's output times the mask over the keep
-    probability. Each layer is one call of PyTorch's LSTM operator on the
+    """The stack's LSTM layers (two, or one for the zoo's trajectory
+    encoders) over x [B, T, I], each starting from hidden h0 [B, H] and a
+    zero cell state -> [B, T, H]. `keep_mask` [B, T, H] is the inter-layer
+    dropout: layer 0's output times the mask over the keep probability.
+    Each layer is one call of PyTorch's LSTM operator on the
     stored weights (cuDNN on the card): `torch._VF.lstm`, the private
     function that `nn.LSTM.forward` calls, with that call's positional
     signature (input, hx, flat weights, has_biases, num_layers, dropout,
@@ -83,7 +85,7 @@ def _lstm_stack(weights: _LSTMWeights, x: torch.Tensor, h0: torch.Tensor,
     # (there is no dropout inside a single layer)
     keep_for_backward = torch.is_grad_enabled()
     y = x
-    for n in range(2):
+    for n in range(weights.num_layers):
         flat = [getattr(weights, f"{k}_l{n}") for k in
                 ("weight_ih", "weight_hh", "bias_ih", "bias_hh")]
         y = torch._VF.lstm(y.contiguous(), hx, flat, True, 1, 0.0, keep_for_backward, False, True)[0]
@@ -95,10 +97,11 @@ def _lstm_stack(weights: _LSTMWeights, x: torch.Tensor, h0: torch.Tensor,
 class LSTMEncoder(nn.Module):
     """Scaled trajectory [B, T, 6] + cond [B, C] -> hidden states [B, T, H]."""
 
-    def __init__(self, input_size: int = 6, hidden_size: int = 64, cond_dim: int = 256):
+    def __init__(self, input_size: int = 6, hidden_size: int = 64, cond_dim: int = 256,
+                 num_layers: int = 2):
         super().__init__()
         self.cond2hidden = nn.Linear(cond_dim, hidden_size)
-        self.lstm = _LSTMWeights(input_size, hidden_size)
+        self.lstm = _LSTMWeights(input_size, hidden_size, num_layers)
 
     def forward(self, x, cond, keep_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         return _lstm_stack(self.lstm, x, self.cond2hidden(cond), keep_mask)
@@ -248,11 +251,11 @@ class VaeModel(nn.Module):
     def __init__(self, raster_channels: int = 34, curr_state_feat_dim: int = 64,
                  map_feature_dim: int = 256, cond_feat_dim: int = 256,
                  vae_hidden_size: int = 64, vae_latent_size: int = 4, horizon: int = 52,
-                 dt: float = 0.1):
+                 dt: float = 0.1, map_arch: str = "resnet18"):
         super().__init__()
         self.horizon, self.dt = horizon, dt
         self.context_encoder = ContextEncoder(raster_channels, curr_state_feat_dim,
-                                              map_feature_dim, cond_feat_dim)
+                                              map_feature_dim, cond_feat_dim, map_arch)
         self.lstmvae = LSTMVAE(6, vae_hidden_size, vae_latent_size, cond_feat_dim, 2)
 
     def pre_vae(self, batch: TrafficBatch, train: bool = False):

@@ -7,6 +7,9 @@ the drivable area's coverage and the share of the mass off the road. The
 splat is one `index_put_(accumulate=True)`: on the card it adds with
 atomics, so the order in which a cell's float32 terms are summed, and with
 it the cell's last bits, is not fixed.
+
+Not `models/occupancy.py`: that is the zoo's learned occupancy network;
+this module measures a rollout's log.
 """
 
 from __future__ import annotations

@@ -1,13 +1,15 @@
-"""Training CLI of the port: the VAE, DM and PPO stages on synthetic data,
-and the open-loop test.
+"""Training CLI of the port: the VAE, DM and PPO stages, the model zoo's
+baseline algos, and the open-loop test.
 
     python -m cld_tpu_torch.train --mode vae
     python -m cld_tpu_torch.train --mode dm --vae-ckpt runs/vae/ckpt_final
     python -m cld_tpu_torch.train --mode ppo --vae-ckpt ... --dm-ckpt ...
+    python -m cld_tpu_torch.train --mode zoo --zoo-algo bc
+    python -m cld_tpu_torch.train --registered-name nusc_vae
     python -m cld_tpu_torch.train --mode test --vae-ckpt ... --dm-ckpt ...
 
 Counterpart of the JAX package's `train.py` (`train_vae`, `train_dm`,
-`train_ppo`, `evaluate`), with its flag names plus `--device` (default
+`train_ppo`, `train_zoo`, `evaluate`), with its flag names plus `--device` (default
 "cuda"; the tests and CPU runs pass "cpu"). One config drives all stages;
 each stage loads the previous stage's checkpoint; metrics stream to stdout
 and to `<output>/<stage>/metrics.jsonl`; checkpoints are single files
@@ -15,8 +17,10 @@ written with `torch.save`: `ckpt_<step>` / `ckpt_final` hold the stage's
 module, `ckpt_<step>_full` / `ckpt_final_full` add the optimizer for
 `--resume`. `--vae-ckpt` / `--dm-ckpt` also take the output of
 `python -m cld_tpu_torch.utils.torch_import` or a reference Lightning
-`.ckpt`. `--mode test` prints the failure rates and the Wasserstein realism
-deviation over `--steps` validation batches as JSON.
+`.ckpt`. `--mode zoo` trains the algo named by `--zoo-algo`, else the
+config's `algo.name`, into `<output>/zoo_<name>/`. `--mode test` prints the
+failure rates and the Wasserstein realism deviation over `--steps`
+validation batches as JSON.
 
 A small run on the CPU:
 
@@ -45,15 +49,15 @@ from cld_tpu_torch.training.checkpoints import (
 from cld_tpu_torch.training.dm import DMTrainer
 from cld_tpu_torch.training.ppo import PPOTrainer, buffer_init
 from cld_tpu_torch.training.vae import VAETrainer
+from cld_tpu_torch.training.zoo import ZooTrainer
 from cld_tpu_torch.utils.registry import config_from_flags
 from cld_tpu_torch.utils.torch_import import read_checkpoint
 
 # modes of the JAX CLI that the port does not have yet, with where they wait
 UNPORTED_MODES = {
-    "scene_dm": "ROADMAP Queue A 12 (training/scene_dm.py)",
-    "zoo": "ROADMAP Queue A 12 (training/zoo.py)",
-    "gan": "ROADMAP Queue A 12 (training/gan.py)",
-    "ebm": "ROADMAP Queue A 12 (training/ebm.py)",
+    "scene_dm": "ROADMAP Queue A 12 part 4 (training/scene_dm.py)",
+    "gan": "ROADMAP Queue A 12 part 3 (training/gan.py)",
+    "ebm": "ROADMAP Queue A 12 part 3 (training/ebm.py)",
 }
 
 
@@ -96,7 +100,7 @@ def _save(out_dir: str, name: str, state, loop_step: int) -> None:
 
 
 def _run_stage(cfg, args, stage: str, state, step_fn):
-    """The loop the three stages share: resume, step, log, checkpoint.
+    """The loop the stages share: resume, step, log, checkpoint.
     Returns the trained state."""
     out_dir = os.path.join(args.output, stage)
     logger = MetricLogger(out_dir, cfg.train.logging.log_every_n_steps)
@@ -178,6 +182,21 @@ def train_ppo(cfg, args):
     return _run_stage(cfg, args, "ppo", dm_state, step_fn)
 
 
+def train_zoo(cfg, args, algo_name: Optional[str] = None):
+    """A baseline algo of the zoo (`training/zoo.py`): the algo named by
+    `algo_name`, else `--zoo-algo`, else the config's `algo.name`, into
+    `<output>/zoo_<name>/`."""
+    name = algo_name or args.zoo_algo or cfg.algo.get("name", "bc")
+    trainer = ZooTrainer(cfg, name, device=args.device)
+    state = trainer.init_state(cfg.seed + 9)
+    gen = torch.Generator(device=args.device).manual_seed(cfg.seed + 10)
+
+    def step_fn(state, batch, step):
+        return trainer.train_step(state, batch, generator=gen)[1]
+
+    return _run_stage(cfg, args, f"zoo_{name}", state, step_fn)
+
+
 def _eval_batches(cfg, device):
     """The validation stream as the JAX CLI's `evaluate` draws it: the
     loader's first batch, drawn before the models are built, is batch 0 (the
@@ -213,14 +232,17 @@ def evaluate(cfg, args, noise: Optional[Callable[[int], Dict]] = None) -> dict:
 
 
 def main(argv: Optional[Sequence[str]] = None):
-    """Runs the mode; returns the trained state of a training stage, or
-    `evaluate`'s result for --mode test."""
+    """Runs the mode; returns the trained state of a training stage (a zoo
+    algo's included), or `evaluate`'s result for --mode test."""
     parser = argparse.ArgumentParser(description="cld_tpu_torch trainer")
     parser.add_argument("--config", type=str, default=None)
     parser.add_argument("--registered-name", type=str, default=None,
                         help="named experiment config (cld_tpu_torch.utils.registry)")
     parser.add_argument("--mode", type=str, default=None,
-                        choices=["vae", "dm", "ppo", "test", *UNPORTED_MODES])
+                        choices=["vae", "dm", "ppo", "zoo", "test", *UNPORTED_MODES])
+    parser.add_argument("--zoo-algo", type=str, default=None,
+                        help="factory algo for --mode zoo (cld_tpu_torch.training.zoo; "
+                             "default: the config's algo.name)")
     parser.add_argument("--output", type=str, default="runs")
     parser.add_argument("--steps", type=int, default=None)
     parser.add_argument("--vae-ckpt", type=str, default=None)
@@ -244,7 +266,8 @@ def main(argv: Optional[Sequence[str]] = None):
     if mode in UNPORTED_MODES:
         raise NotImplementedError(f"--mode {mode} is not ported yet: {UNPORTED_MODES[mode]}")
     print(f"mode={mode} device={args.device}")
-    return {"vae": train_vae, "dm": train_dm, "ppo": train_ppo, "test": evaluate}[mode](cfg, args)
+    return {"vae": train_vae, "dm": train_dm, "ppo": train_ppo, "zoo": train_zoo,
+            "test": evaluate}[mode](cfg, args)
 
 
 if __name__ == "__main__":

@@ -13,6 +13,7 @@ import torch
 
 from cld_tpu_torch.algos.dm import dm_loss, sample_traj, transition_log_prob
 from cld_tpu_torch.data.batch import TrafficBatch
+from cld_tpu_torch.models.dm_mlp import MLPResDenoiser
 from cld_tpu_torch.models.temporal_unet import TemporalMapUnet
 from cld_tpu_torch.models.vae import VaeModel
 from cld_tpu_torch.ops.diffusion import make_schedule
@@ -33,13 +34,9 @@ class DMTrainer:
         algo = config.algo
         tr = config.train.training
         require_f32(tr.get("precision", "auto"))
-        arch = algo.get("diffuser_model_arch", "TemporalMapUnet")
-        if arch == "MLPResNetwork":
-            raise NotImplementedError(
-                "diffuser_model_arch 'MLPResNetwork' is not ported yet (ROADMAP Queue A 12); "
-                "the port has 'TemporalMapUnet'")
-        if arch != "TemporalMapUnet":
-            raise ValueError(f"unknown diffuser_model_arch {arch!r}")
+        self.arch = algo.get("diffuser_model_arch", "TemporalMapUnet")
+        if self.arch not in ("TemporalMapUnet", "MLPResNetwork"):
+            raise ValueError(f"unknown diffuser_model_arch {self.arch!r}")
         self.algo = algo
         self.device = torch.device(device)
         self.vae = vae.to(self.device).requires_grad_(False)
@@ -56,12 +53,18 @@ class DMTrainer:
     # -- state ---------------------------------------------------------
     def init_state(self, seed: int = 0) -> TrainState:
         """A fresh denoiser (torch's default initializers under `seed`) with
-        its optimizer at step 0, and an EMA copy when `algo.ema_decay` is set."""
+        its optimizer at step 0, and an EMA copy when `algo.ema_decay` is set.
+        `algo.diffuser_model_arch` picks the temporal UNet or the residual
+        MLP (`MLPResNetwork`)."""
         algo = self.algo
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
-            unet = TemporalMapUnet(algo.vae.latent_size, algo.vae.latent_size, algo.cond_feat_dim,
-                                   algo.base_dim, tuple(algo.dim_mults)).to(self.device)
+            if self.arch == "TemporalMapUnet":
+                unet = TemporalMapUnet(algo.vae.latent_size, algo.vae.latent_size,
+                                       algo.cond_feat_dim, algo.base_dim, tuple(algo.dim_mults))
+            else:
+                unet = MLPResDenoiser(algo.horizon, algo.vae.latent_size, algo.cond_feat_dim)
+            unet = unet.to(self.device)
         ema = [p.detach().clone() for p in unet.parameters()] if self.ema_decay else None
         return TrainState(unet, make_optimizer(unet.parameters(), self.weight_decay),
                           self.lr_schedule, ema_params=ema)

@@ -12,6 +12,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from cld_tpu_torch.data.batch import TrafficBatch
+from cld_tpu_torch.models.context import parse_map_arch
+from cld_tpu_torch.models.resnet import check_arch
 from cld_tpu_torch.models.vae import VaeModel
 from cld_tpu_torch.training.state import (
     BetaSchedule,
@@ -39,6 +41,7 @@ def build_vae_model(config, device) -> VaeModel:
         vae_latent_size=algo.vae.latent_size,
         horizon=algo.horizon,
         dt=algo.step_time,
+        map_arch=algo.map_encoder_model_arch,
     ).to(device)
 
 
@@ -47,10 +50,7 @@ class VAETrainer:
         algo = config.algo
         tr = config.train.training
         require_f32(tr.get("precision", "auto"))
-        if algo.map_encoder_model_arch != "resnet18":
-            raise NotImplementedError(
-                f"map_encoder_model_arch {algo.map_encoder_model_arch!r}: the port has the "
-                "ResNet-18 map encoder only (ROADMAP Queue A 12)")
+        check_arch(parse_map_arch(algo.map_encoder_model_arch)[0])
         self.config = config
         self.device = torch.device(device)
         opt_cfg = algo.optim_params.vae

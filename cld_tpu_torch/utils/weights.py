@@ -15,6 +15,11 @@ The port's modules use that layout, so the converted dicts load with
   goes to ``bias_ih_l{n}``, ``bias_hh_l{n}`` is zero;
 * ``batch_stats`` -> BatchNorm running stats (+ a zero
   ``num_batches_tracked``).
+
+The zoo's models keep the flax module names instead (`export_flax` /
+`load_flax`): one walk over the port module converts each flax leaf by the
+type of the module it lands in, where attention kernels [D, H, hd] and
+[H, hd, D] flatten head-major onto Linear layers.
 """
 
 from __future__ import annotations
@@ -24,6 +29,13 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+from torch import nn
+
+from cld_tpu_torch.models.context import ContextEncoder
+from cld_tpu_torch.models.nets import MLP
+from cld_tpu_torch.models.resnet import BatchNorm2d, ResNetTrunk
+from cld_tpu_torch.models.temporal_unet import TemporalMapUnet
+from cld_tpu_torch.models.vae import LSTMEncoder
 
 StateDict = Dict[str, np.ndarray]
 
@@ -116,7 +128,8 @@ def export_lstm_vae(params: Dict[str, Any], root: str = "lstmvae") -> StateDict:
 
 
 def export_resnet(params: Dict[str, Any], stats: Dict[str, Any], root: str = "") -> StateDict:
-    """`models.resnet.ResNetEncoder` variables -> torchvision-style keys."""
+    """`models.resnet.ResNetEncoder` variables (any arch, either head) ->
+    torchvision-style keys; also the trunk of `RasterizedMapUNet`."""
     out: StateDict = {}
     _conv2d(params["conv1"], "conv1", out)
     _bn(params["bn1"], stats["bn1"], "bn1", out)
@@ -133,6 +146,12 @@ def export_resnet(params: Dict[str, Any], stats: Dict[str, Any], root: str = "")
         if "downsample_conv" in bp:
             _conv2d(bp["downsample_conv"], f"{troot}.downsample.0", out)
             _bn(bp["downsample_bn"], bs["downsample_bn"], f"{troot}.downsample.1", out)
+    if "spatial_softmax" in params:
+        head = params["spatial_softmax"]
+        if "kp_conv" in head:
+            _conv2d(head["kp_conv"], "spatial_softmax.kp_conv", out)
+        if "log_temperature" in head:
+            out["spatial_softmax.log_temperature"] = _np(head["log_temperature"]).copy()
     if "fc" in params:
         _dense(params["fc"], "fc", out)
     return _prefixed(out, root)
@@ -247,3 +266,85 @@ def load_state_dicts(context, decoder, unet, sd: StateDict):
     _load(context, sd, "vae.context_encoder.")
     _load(decoder, sd, "vae.lstmvae.lstm_dec.")
     _load(unet, sd, "dm.model.")
+
+
+# -- the zoo: one walk over flax-named modules -------------------------------
+
+_TRUNK_CHILDREN = {"conv1", "bn1", "layer1", "layer2", "layer3", "layer4", "fc",
+                   "spatial_softmax"}
+
+
+def _has_state(module: nn.Module) -> bool:
+    return any(True for _ in module.parameters()) or any(True for _ in module.buffers())
+
+
+def _walk(m: nn.Module, p, s, root: str, out: StateDict) -> None:
+    def key(name):
+        return f"{root}.{name}" if root else name
+
+    # modules in the reference's key layout keep their hand mappings
+    if isinstance(m, ContextEncoder):
+        out.update(export_context_encoder(p, s, root))
+        return
+    if isinstance(m, MLP):
+        out.update(export_mlp(p, root))
+        return
+    if isinstance(m, TemporalMapUnet):
+        out.update(export_temporal_unet(p, root))
+        return
+    if isinstance(m, LSTMEncoder):
+        _lstm_stack(p["stack"], root, out)
+        return
+    if isinstance(m, nn.Linear):  # Dense, or an attention DenseGeneral flattened
+        out[key("weight")] = _np(p["kernel"]).reshape(m.in_features, m.out_features).T.copy()
+        if m.bias is not None:
+            out[key("bias")] = _np(p["bias"]).reshape(-1).copy()
+        return
+    if isinstance(m, nn.Conv2d):
+        _conv2d(p, root, out)
+        return
+    if isinstance(m, nn.Conv1d):
+        _conv1d(p, root, out)
+        return
+    if isinstance(m, BatchNorm2d):
+        _bn(p, s, root, out)
+        return
+    if isinstance(m, (nn.LayerNorm, nn.GroupNorm)):
+        _norm_affine(p, root, out)
+        return
+    skip = set()
+    if isinstance(m, ResNetTrunk):  # torchvision keys for the trunk and its head
+        out.update(export_resnet(p, s, root))
+        skip = _TRUNK_CHILDREN
+    for name, param in m.named_parameters(recurse=False):
+        out[key(name)] = _np(p[name]).copy()
+    for name, child in m.named_children():
+        if name in skip or not _has_state(child):
+            continue
+        if isinstance(child, nn.ModuleList):  # a flax setup list: name_0, name_1, ...
+            for i, sub in enumerate(child):
+                _walk(sub, p[f"{name}_{i}"], s.get(f"{name}_{i}", {}), key(f"{name}.{i}"), out)
+        else:
+            _walk(child, p[name], s.get(name, {}), key(name), out)
+
+
+def export_flax(module: nn.Module, params: Dict[str, Any],
+                stats: Dict[str, Any] = None) -> StateDict:
+    """A zoo model's flax `params` / `batch_stats` -> the port module's state
+    dict. The walk follows the port module: a submodule named as the flax
+    one (`Dense_0`, `MLP_0`, `posteriors` for flax's `posteriors_0`, ...)
+    takes that subtree, converted by its type (Dense kernels transposed,
+    attention kernels flattened head-major, Conv HWIO -> OIHW, BatchNorm and
+    LayerNorm / GroupNorm `scale` / `bias` and statistics); the context
+    encoder, MLPs, ResNet trunks, LSTM stacks and the temporal UNet keep the
+    reference layout of the exporters above."""
+    out: StateDict = {}
+    _walk(module, params, stats or {}, "", out)
+    return out
+
+
+def load_flax(module: nn.Module, variables: Dict[str, Any]) -> nn.Module:
+    """Load flax variables {"params", "batch_stats"?} into a zoo model (or
+    `MLPResDenoiser`, or a `ResNetEncoder`), ``strict=True``."""
+    return _load(module, export_flax(module, variables["params"], variables.get("batch_stats")),
+                 "")

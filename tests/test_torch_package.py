@@ -17,12 +17,14 @@ import cld_tpu_torch
 import numpy as np
 
 from cld_tpu_torch import pipeline, rollout, train
+from cld_tpu_torch.algos import diffuser
 from cld_tpu_torch.data import convert, loader, multihost, packed, synthetic
 from cld_tpu_torch.ops import diffusion, gather_kernels, lstm_kernels, native
 from cld_tpu_torch.sim import scene
 from cld_tpu_torch.training import dm as training_dm
 from cld_tpu_torch.training import ppo as training_ppo
 from cld_tpu_torch.training import vae as training_vae
+from cld_tpu_torch.training import zoo as training_zoo
 
 torch.set_num_threads(2)
 PKG = Path(cld_tpu_torch.__file__).parent
@@ -57,6 +59,14 @@ def test_no_jax_or_reference_package_imports():
             "cld_tpu_torch/data/scene_batch.py", "cld_tpu_torch/ops/dynamics_extra.py",
             "cld_tpu_torch/policies/hardcoded.py", "cld_tpu_torch/policies/planner.py",
             "cld_tpu_torch/policies/mpc.py", "cld_tpu_torch/policies/contingency.py",
+            "cld_tpu_torch/training/zoo.py", "cld_tpu_torch/ops/losses.py",
+            "cld_tpu_torch/algos/diffuser.py", "cld_tpu_torch/models/bc.py",
+            "cld_tpu_torch/models/cvae.py", "cld_tpu_torch/models/cvae_nets.py",
+            "cld_tpu_torch/models/discrete_cvae.py", "cld_tpu_torch/models/dm_mlp.py",
+            "cld_tpu_torch/models/transformer_baseline.py", "cld_tpu_torch/models/tree_vae.py",
+            "cld_tpu_torch/models/roi_encoder.py", "cld_tpu_torch/models/agent_predictor.py",
+            "cld_tpu_torch/models/map_unet.py", "cld_tpu_torch/models/spatial_planner.py",
+            "cld_tpu_torch/models/occupancy.py", "cld_tpu_torch/models/spatial_softmax.py",
             "chip_smoke.py"} <= names
     for f in files:
         for mod in _imports(f):
@@ -72,7 +82,8 @@ def test_no_jax_or_reference_package_imports():
                                 scene.scene_pack_from_batches, scene.scene_pack_from_shards,
                                 convert.parse_raw_batch, convert.convert_nuscenes,
                                 training_vae.VAETrainer.__init__, training_dm.DMTrainer.__init__,
-                                training_ppo.buffer_init])
+                                training_ppo.buffer_init, training_zoo.ZooTrainer.__init__,
+                                diffuser.draw_loss_noise])
 def test_entry_points_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
@@ -268,7 +279,7 @@ def test_train_cli_flags_and_unported_modes(tmp_path):
     modes and options that wait for later slices raising with their ROADMAP
     item, and a data path without shards raising as the JAX loader does."""
     base = ["--registered-name", "cld_smoke", "--device", "cpu", "--output", str(tmp_path)]
-    for mode in ("scene_dm", "zoo", "gan", "ebm"):
+    for mode in ("scene_dm", "gan", "ebm"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             train.main(base + ["--mode", mode])
     with pytest.raises(NotImplementedError, match="bfloat16"):
@@ -280,13 +291,14 @@ def test_train_cli_flags_and_unported_modes(tmp_path):
         train.main(base + ["--mode", "vae", "--config", str(cfg), "--steps", "1"])
     src = Path(train.__file__).read_text()
     for flag in ("--config", "--registered-name", "--mode", "--output", "--steps", "--resume",
-                 "--vae-ckpt", "--dm-ckpt", "--precision", "--device"):
+                 "--vae-ckpt", "--dm-ckpt", "--precision", "--device", "--zoo-algo"):
         assert f'"{flag}"' in src, flag
     assert 'add_argument("--device", type=str, default="cuda"' in src
     if not torch.cuda.is_available():
-        with pytest.raises((RuntimeError, AssertionError)):
-            train.main(["--registered-name", "cld_smoke", "--mode", "vae", "--steps", "1",
-                        "--output", str(tmp_path / "cuda")])
+        for mode in (["--mode", "vae"], ["--mode", "zoo", "--zoo-algo", "bc"]):
+            with pytest.raises((RuntimeError, AssertionError)):
+                train.main(["--registered-name", "cld_smoke", *mode, "--steps", "1",
+                            "--output", str(tmp_path / "cuda")])
 
 
 @pytest.mark.parametrize("start_step", [0, 3])

@@ -264,8 +264,12 @@ def test_checkpoint_round_trip_and_resume(setup, tmp_path):
 def test_unported_options_raise(setup):
     _, _, pt, _, _, _ = setup
     cfg = get_registered_experiment_config("cld_smoke").unlock()
-    cfg.algo.diffuser_model_arch = "MLPResNetwork"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    cfg.algo.diffuser_model_arch = "MLPResNetwork"  # ported: the residual-MLP denoiser
+    assert type(DMTrainer(cfg.lock(), pt.vae, device="cpu").init_state(0).model).__name__ == \
+        "MLPResDenoiser"
+    cfg = get_registered_experiment_config("cld_smoke").unlock()
+    cfg.algo.diffuser_model_arch = "TransformerNet"
+    with pytest.raises(ValueError, match="unknown diffuser_model_arch"):
         DMTrainer(cfg.lock(), pt.vae, device="cpu")
     cfg = get_registered_experiment_config("cld_smoke").unlock()
     cfg.train.training.precision = "bf16"

@@ -1,0 +1,138 @@
+"""Shared fixtures of the zoo parity tests (`test_torch_zoo_models.py`,
+`test_torch_zoo_trainer.py`): seeded flax variables without running flax's
+initializers, the paired JAX / port batches, the recorder of the JAX
+package's random draws, and the tolerance checks."""
+
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+
+from cld_tpu.data.synthetic import synthetic_batch as jax_synthetic
+from cld_tpu_torch.data.synthetic import synthetic_batch
+
+RASTER, B, HIST = 40, 3, 8  # raster 40: not a multiple of 32, so the map UNet crops
+CHANNELS = HIST + 1 + 3
+
+
+def np_tree(t):
+    return jax.tree.map(lambda a: None if a is None else np.asarray(a), t)
+
+
+def _leaf(path, shape, rng):
+    names = [getattr(p, "key", str(p)) for p in path]
+    name = names[-1]
+    if names[0] == "batch_stats":
+        return (rng.uniform(0.5, 1.5, shape) if name == "var"
+                else rng.normal(0.0, 0.1, shape)).astype(np.float32)
+    if name == "kernel":
+        attn_qkv = len(shape) == 3 and names[-2] in ("query", "key", "value")
+        fan_in = shape[0] if attn_qkv else math.prod(shape[:-1])
+        return (rng.normal(size=shape) / math.sqrt(fan_in)).astype(np.float32)
+    if name == "scale":
+        return (1.0 + rng.normal(0.0, 0.1, shape)).astype(np.float32)
+    if name == "bias":
+        return rng.normal(0.0, 0.1, shape).astype(np.float32)
+    return rng.normal(0.0, 0.02, shape).astype(np.float32)  # embeddings, queries
+
+
+def random_variables(module, *args, seed=0, rngs=("params",), **kwargs):
+    """Seeded variables in the layout `module.init(*args)` would give (read
+    off `jax.eval_shape`, which traces but computes nothing): kernels
+    normal / sqrt(fan_in), biases normal(0, 0.1), norm scales 1 + normal(0,
+    0.1), BatchNorm statistics mean normal(0, 0.1) and var in [0.5, 1.5]."""
+    keys = {n: jax.random.key(i) for i, n in enumerate(rngs)}
+    shapes = jax.eval_shape(lambda: module.init(keys, *args, **kwargs))
+    rng = np.random.default_rng(seed)
+    return jax.tree_util.tree_map_with_path(lambda p, s: _leaf(p, s.shape, rng), dict(shapes))
+
+
+def batches(seed=3, image_seed=5, batch_size=B, raster=RASTER):
+    """The synthetic batch of both packages with a dense Gaussian raster:
+    on the mostly-zero synthetic raster, train-mode BatchNorm divides by
+    sqrt(var + eps) of near-constant channels and amplifies rounding."""
+    import torch
+
+    image = np.random.default_rng(image_seed).normal(
+        size=(batch_size, raster, raster, CHANNELS)).astype(np.float32)
+    jb = jax_synthetic(seed=seed, batch_size=batch_size, raster_size=raster, hist_frames=HIST)
+    tb = synthetic_batch(seed=seed, batch_size=batch_size, raster_size=raster, hist_frames=HIST,
+                         device="cpu")
+    return jb._replace(image=jnp.asarray(image)), tb._replace(image=torch.from_numpy(image))
+
+
+def to_double(batch):
+    """A port batch with its floating tensors in float64."""
+    import torch
+
+    return batch._replace(**{k: v.double() for k, v in batch._asdict().items()
+                             if torch.is_tensor(v) and v.is_floating_point()})
+
+
+def record_draws(monkeypatch, fn):
+    """The outputs of the `jax.random` samplers that `fn()` calls, by
+    sampler name in call order. `fn` is traced once under `jax.jit` with the
+    samplers wrapped to keep their outputs, which the compiled function
+    returns (XLA drops the rest of `fn`'s work)."""
+    names = ("normal", "uniform", "randint", "bernoulli")
+    seen = []
+
+    def wrap(name, sampler):
+        def wrapped(*a, **k):
+            out = sampler(*a, **k)
+            seen.append((name, out))
+            return out
+        return wrapped
+
+    with monkeypatch.context() as m:
+        for n in names:
+            m.setattr(jax.random, n, wrap(n, getattr(jax.random, n)))
+
+        @jax.jit
+        def draws():
+            seen.clear()
+            fn()
+            return [out for _, out in seen]
+
+        values = draws()
+    out = {n: [] for n in names}
+    for (name, _), val in zip(seen, values):
+        out[name].append(np.asarray(val))
+    return out
+
+
+def assert_close(got, want, rtol=1e-5, floor=1e-5, msg=""):
+    """rtol plus an absolute floor of `floor` times the largest |want|."""
+    got, want = np.asarray(got), np.asarray(want)
+    np.testing.assert_allclose(got, want, rtol=rtol,
+                               atol=floor * max(float(np.abs(want).max()), 1e-3), err_msg=msg)
+
+
+# gradients that are zero in exact arithmetic, so rounding residue on both
+# sides: a bias added to every logit of a softmax (attention keys, the
+# spatial-softmax keypoint conv) does not change it
+ZERO_IN_EXACT = ("key.bias", "kp_conv.bias")
+
+
+def assert_grads_close(model, want: dict, rtol=1e-4, floor=1e-5) -> int:
+    """Each parameter's `.grad` against the converted JAX gradient of the
+    same key, at `rtol` and `floor` of the tensor's largest component. flax
+    has one LSTM bias, exported as `bias_ih`: the port's `bias_hh` gradient
+    must equal its `bias_ih` one. `ZERO_IN_EXACT` gradients are held at
+    `floor` of the model's largest gradient component."""
+    params = dict(model.named_parameters())
+    scale = max(float(np.abs(want[k]).max()) for k in params if k in want)
+    n = 0
+    for k, p in params.items():
+        g = p.grad.numpy()
+        if "bias_hh" in k:
+            np.testing.assert_array_equal(g, params[k.replace("bias_hh", "bias_ih")].grad.numpy())
+            continue
+        if k.endswith(ZERO_IN_EXACT):
+            assert max(np.abs(g).max(), np.abs(want[k]).max()) <= floor * scale, k
+        else:
+            assert_close(g, want[k], rtol, floor, msg=k)
+        n += 1
+    assert n > 0
+    return n
