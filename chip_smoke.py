@@ -172,13 +172,35 @@
    `train=False` on the card and on the CPU from the same weights and draws
    at B=4, raster 64 (the loss within 1e-4 relative, each gradient within
    1e-4 of its largest entry).
-21. Times the launch floor: `torch.cuda._sleep(0)` (one thread that exits
+21. Runs the learned path at full width: from step 19's shards (batch 128,
+   raster 224x224x34, ResNet-18, cond_feat 256) `train.main` 3 steps each
+   of `--registered-name nusc_ebm --mode ebm`, `nusc_gan --mode gan` and
+   `nusc_transformer_gan --mode gan`, and of `trajdata_nusc_scene_diff
+   --mode scene_dm` (16 synthetic scenes x 8 agents, horizon 52, width 128,
+   4 layers): ms per step (steps 2-3), peak memory, finite metrics, no
+   kernel launch; the rollout CLI with `--ebm-ckpt` on the EBM just trained
+   (4 scenes x 8 agents, raster 224, 100 DDPM steps, 20 frames, the
+   flagship rules): the rules path's launches plus one `value_gather` per
+   anchor of the scored log (frames 0 and 10 of 20), finite
+   `ebm_score_mean` / `ebm_score_min`; `sim.env.simulate` with
+   `scene_dm_policy` of the scene model just trained (4 scenes x 8 agents,
+   20 frames, 100 diffusion steps a replan): one `value_gather` a replan
+   and nothing else; `latent_attack` at B=128, z [52, 4], through the
+   frozen H=64 decoder and the unicycle, 50 Adam steps on the rule
+   library's collision attack: 51 `lstm2_fwd` and 50 `lstm2_bwd`, the
+   objective lower at the end; then card vs CPU at the `cld_smoke` widths
+   (B=4, raster 64): the EBM's InfoNCE loss and gradients, each GAN
+   update's (both generators), the scene model's loss and gradients and 10
+   steps of `scene_sample`, `ebm_rollout_scores` on a log of k/255 maps,
+   and one attack step's gradient (within 1e-4).
+22. Times the launch floor: `torch.cuda._sleep(0)` (one thread that exits
    at once) from a CUDA graph, as every kernel's graph time is taken.
-22. Prints the card line, one `{"kernels": [...]}` line (`launches_by_path`
+23. Prints the card line, one `{"kernels": [...]}` line (`launches_by_path`
    there holds each main-path run's own count, of 4, 7, 8, 11, 12, 14, 15,
    17, 18 (its rollout and its `--mode test`), 19 (its training, its
-   guided rollout and each model-free policy) and 20 (the zoo, 0 of every
-   kernel),
+   guided rollout and each model-free policy), 20 (the zoo, 0 of every
+   kernel) and 21 (each trainer, 0 of every kernel; the `--ebm-ckpt`
+   rollout; the scene policy; the latent attack),
    each zeroed before its run and checked exactly; `launches` is their sum;
    `graph_ms` is each kernel's time from a CUDA graph at the main path's
    shape, B=128 for the LSTM kernels, beside `launch_floor_ms`), and last
@@ -189,6 +211,7 @@ A longer report goes to chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import shutil
 import subprocess
@@ -221,6 +244,9 @@ SLICE_RTOL = 1e-4  # small-slice card vs CPU: f32 networks on two backends
 # the MPC's final FTOCP cost per agent after 100 Adam iterations, card vs CPU:
 # 2.4x the largest float32-vs-float64 spread on the CPU (4.2e-2)
 MPC_COST_RTOL = 0.1
+# gradients that are 0 in exact arithmetic (a bias shifting every logit of a
+# softmax), held against the model's largest gradient entry
+ZERO_IN_EXACT = ("key.bias", "kp_conv.bias", "score_net.bias")
 
 
 class CheckFailed(RuntimeError):
@@ -271,6 +297,29 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+@contextlib.contextmanager
+def timed_method(owner, name, sink):
+    """Each call of `owner.name` inside the block, synchronized around it,
+    appends its seconds to `sink`."""
+    import torch
+
+    untimed = getattr(owner, name)
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = untimed(*a, **k)
+        torch.cuda.synchronize()
+        sink.append(time.perf_counter() - t0)
+        return out
+
+    setattr(owner, name, timed)  # on a class, `timed` takes the instance as its first argument
+    try:
+        yield
+    finally:
+        setattr(owner, name, untimed)
 
 
 def graph_ms(fn, launches: int = 100, replays: int = 20, windows: int = 1) -> float:
@@ -2064,6 +2113,7 @@ def run_data_path(report):
         log(f"data path phase {res['phase_s']:.1f} s in all, on {report['card']}")
         report["data_path"] = res
         run_zoo_path(report, shards, tmp)  # the zoo trains from the same shards
+        run_learned_path(report, shards, tmp)  # so do the EBM and the GANs
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2124,7 +2174,7 @@ def check_zoo_card_vs_cpu() -> dict:
         grad_err = 0.0
         for k, p in dev_model.named_parameters():
             ref = grads_c[k]
-            denom = scale if k.endswith(("key.bias", "kp_conv.bias")) else float(ref.abs().max())
+            denom = scale if k.endswith(ZERO_IN_EXACT) else float(ref.abs().max())
             grad_err = max(grad_err, float((p.grad.cpu() - ref).abs().max()) / max(denom, 1e-30))
         worst[algo] = {"loss_rel_err": loss_err, "grad_err": grad_err}
         log(f"zoo card vs CPU {algo}: loss {loss_c:.6g}, relative error {loss_err:.2e}; "
@@ -2161,18 +2211,7 @@ def run_zoo_path(report, shards, tmp):
         "env": {"rasterizer": {"raster_size": RASTER}}}))
     res, total = {}, counts()
     step_s = []
-    untimed = zoo.ZooTrainer.train_step
-
-    def timed_step(self, *a, **k):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = untimed(self, *a, **k)
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-        return out
-
-    zoo.ZooTrainer.train_step = timed_step
-    try:
+    with timed_method(zoo.ZooTrainer, "train_step", step_s):
         for reg, algo in ZOO_ALGOS.items():
             step_s.clear()
             torch.cuda.empty_cache()
@@ -2203,8 +2242,6 @@ def run_zoo_path(report, shards, tmp):
             check(launched == counts(), f"zoo {algo} launched kernels: {launched}")
             total = {k: total[k] + n for k, n in launched.items()}
             del state
-    finally:
-        zoo.ZooTrainer.train_step = untimed
     report["launches_zoo"] = total
 
     # the other map encoders and the residual-MLP denoiser, one step each
@@ -2248,6 +2285,454 @@ def run_zoo_path(report, shards, tmp):
     res["phase_s"] = time.perf_counter() - t_phase
     log(f"zoo phase {res['phase_s']:.1f} s in all, on {report['card']}")
     report["zoo"] = res
+
+
+# the learned path (step 21): the GAN, the EBM learned metric, scene
+# diffusion and the latent attack
+LEARNED_RUNS = (("nusc_ebm", "ebm", "ebm"), ("nusc_gan", "gan", "gan"),
+                ("nusc_transformer_gan", "gan", "transformer_gan"),
+                ("trajdata_nusc_scene_diff", "scene_dm", "scene_dm"))
+LEARNED_STEPS = 3  # steps 2 and 3 are timed
+EBM_STRIDE = 10  # the rollout CLI's anchor stride (`sim.learned_metrics`)
+ATTACK_STEPS = 50
+LEARNED_REL_TOL = 1e-4  # card vs CPU: losses (relative), gradients (of their largest entry)
+
+
+def run_learned_trainers(report, shards, tmp) -> tuple:
+    """The EBM, both GANs and scene diffusion through `train.main` at the
+    config of record's width, 3 steps each: the EBM and the GANs from step
+    19's shards at batch 128, raster 224x224x34, the scene model on 16
+    synthetic scenes x 8 agents (the CLI's `batch_size // 8`), horizon 52,
+    width 128, 4 layers; ms per step (steps 2-3), peak memory, finite
+    metrics, `ckpt_final`, no kernel launch. Returns (results, the
+    `ckpt_final` of each run by label)."""
+    import numpy as np
+    import torch
+
+    from cld_tpu_torch import train
+    from cld_tpu_torch.ops import native
+    from cld_tpu_torch.training.ebm import EBMTrainer
+    from cld_tpu_torch.training.gan import GANTrainer
+    from cld_tpu_torch.training.scene_dm import SceneDMTrainer
+
+    cfg_file = tmp / "learned_config.json"
+    cfg_file.write_text(json.dumps({
+        "train": {"data_path": str(shards), "training": {"batch_size": B, "steps_per_epoch": 1}},
+        "env": {"rasterizer": {"raster_size": RASTER}}}))
+    trainers = {"ebm": EBMTrainer, "gan": GANTrainer, "scene_dm": SceneDMTrainer}
+    res, ckpts = {}, {}
+    for reg, mode, label in LEARNED_RUNS:
+        step_s = []
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        native.reset_launch_counts()
+        t0 = time.perf_counter()
+        with timed_method(trainers[mode], "train_step", step_s):
+            state = train.main(["--registered-name", reg, "--mode", mode, "--config",
+                                str(cfg_file), "--device", "cuda", "--output",
+                                str(tmp / "learned" / label), "--steps", str(LEARNED_STEPS)])
+        call_s = time.perf_counter() - t0
+        launched = native.launch_counts()
+        out = tmp / "learned" / label / mode
+        recs = [json.loads(line) for line in (out / "metrics.jsonl").read_text().splitlines()]
+        r = dict(ms_per_step=1e3 * float(np.mean(step_s[1:])),
+                 peak_gb=torch.cuda.max_memory_allocated() / 1e9, call_s=call_s,
+                 final={k: v for k, v in recs[-1].items() if k != "step"})
+        res[label] = r
+        log(f"{label} ({reg} --mode {mode}): {r['ms_per_step']:.2f} ms per step (steps 2-3), "
+            f"peak {r['peak_gb']:.3f} GB, final {json.dumps(r['final'])}, the CLI call "
+            f"{call_s:.1f} s, on {report['card']}")
+        check(state.step == LEARNED_STEPS and len(step_s) == LEARNED_STEPS,
+              f"{label} did not take {LEARNED_STEPS} steps")
+        check(len(recs) == LEARNED_STEPS and all(np.isfinite(v) for rec in recs
+                                                 for v in rec.values()),
+              f"{label}: non-finite metrics")
+        check((out / "ckpt_final").exists(), f"{label}: no ckpt_final")
+        check(launched == counts(), f"{label} launched kernels: {launched}")
+        report[f"launches_{label}_train"] = launched
+        ckpts[label] = out / "ckpt_final"
+        del state
+    return res, ckpts
+
+
+def run_ebm_rollout(report, ebm_ckpt) -> dict:
+    """The rollout CLI with `--ebm-ckpt` (the EBM just trained) at the
+    closed loop's width (4 scenes x 8 agents, raster 224, 100 DDPM steps),
+    cut to 20 frames, the flagship rules: the launches of the rules path
+    (per replan of each episode 100 `lstm2_fwd`, 99 `lstm2_bwd`, 99
+    `bit_gather`, 1 `value_gather`; 1 `bit_gather` for the satisfaction
+    report) plus one `value_gather` per anchor of the scored log (frames 0,
+    10, ... below its length - 1); finite `ebm_score_mean` /
+    `ebm_score_min`."""
+    import numpy as np
+
+    from cld_tpu_torch import rollout
+    from cld_tpu_torch.ops import native
+
+    out = ROOT / "chiprun_out" / "ebm_rollout"
+    score_s = []
+    native.reset_launch_counts()
+    t0 = time.perf_counter()
+    with timed_method(rollout, "ebm_report", score_s):
+        rep = rollout.main(["--num-scenes", str(CL_SCENES), "--agents-per-scene", str(CL_AGENTS),
+                            "--num-sim-steps", str(RULES_STEPS), "--raster-size", str(RASTER),
+                            "--diffusion-steps", str(N_STEPS), "--guidance", "flagship",
+                            "--ebm-ckpt", str(ebm_ckpt), "--device", "cuda", "--output",
+                            str(out)])
+    wall = time.perf_counter() - t0
+    launches = native.launch_counts()
+    n = RULES_STEPS // CL_N_STEP
+    anchors = len(range(0, max(RULES_STEPS - 1, 1), EBM_STRIDE))
+    episode = counts(lstm2_fwd=N_STEPS * n, lstm2_bwd=(N_STEPS - 1) * n,
+                     bit_gather=(N_STEPS - 1) * n, value_gather=n)
+    want = cli_launches(episode, bit_gather=1, value_gather=anchors)
+    r = dict(ebm_score_mean=rep["ebm_score_mean"], ebm_score_min=rep["ebm_score_min"],
+             anchors=anchors, score_s=score_s[0], wall_s=wall,
+             agent_steps_per_sec=rep["agent_steps_per_sec"])
+    log(f"--ebm-ckpt rollout ({CL_SCENES} x {CL_AGENTS} agents, {RULES_STEPS} frames, {n} "
+        f"replans, flagship rules): ebm_score_mean {r['ebm_score_mean']:.6g}, ebm_score_min "
+        f"{r['ebm_score_min']:.6g} over {anchors} anchors, the scoring {r['score_s']:.3f} s, "
+        f"{wall:.1f} s the call, on {report['card']}; launches {launches}")
+    check(rep["launches"] == episode, f"--ebm-ckpt rollout episode launches {rep['launches']}, "
+          f"expected {episode}")
+    check(launches == want, f"--ebm-ckpt rollout launches {launches}, expected {want}")
+    check(np.isfinite(r["ebm_score_mean"]) and np.isfinite(r["ebm_score_min"]),
+          "the learned metric is not finite")
+    with np.load(out / "trajectories.npz") as f:
+        check(f["trajectories"].shape == (RULES_STEPS, CL_B, 4) and
+              bool(np.isfinite(f["trajectories"]).all()), "the --ebm-ckpt log is not finite")
+    report["launches_ebm_rollout"] = launches
+    return r
+
+
+def run_scene_policy(report, scene_ckpt) -> dict:
+    """`sim.env.simulate` with `scene_dm_policy` of the scene model just
+    trained: 4 scenes x 8 agents, world maps 512x512x3, raster 224, 20
+    frames (4 replans), 100 diffusion steps a replan; after a warm-up
+    episode, counts zeroed and the timed episode: one `value_gather` a
+    replan and nothing else; a finite log."""
+    import torch
+
+    from cld_tpu_torch.ops import native
+    from cld_tpu_torch.policies.scene_policy import scene_dm_policy
+    from cld_tpu_torch.sim import env
+    from cld_tpu_torch.sim.metrics import summarize_metrics
+    from cld_tpu_torch.sim.scene import synthetic_scene_pack
+    from cld_tpu_torch.training.checkpoints import restore_pytree
+    from cld_tpu_torch.training.scene_dm import SceneDMTrainer
+    from cld_tpu_torch.utils.registry import get_registered_experiment_config
+
+    cfg = get_registered_experiment_config("trajdata_nusc_scene_diff")
+    trainer = SceneDMTrainer(cfg, device="cuda")
+    state = trainer.init_state(0)
+    state.model.load_state_dict(restore_pytree(str(scene_ckpt), device="cuda")["params"],
+                                strict=True)
+    pack = synthetic_scene_pack(seed=0, num_scenes=CL_SCENES, agents_per_scene=CL_AGENTS,
+                                world_map_size=WORLD_MAP, sim_steps=RULES_STEPS, device="cuda")
+    sim_cfg = env.SimConfig(num_simulation_steps=RULES_STEPS, n_step_action=CL_N_STEP,
+                            raster_size=RASTER, hist_frames=cfg.algo.history_num_frames)
+    policy = scene_dm_policy(trainer, state, CL_SCENES, CL_AGENTS,
+                             horizon=cfg.algo.future_num_frames)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    env.simulate(pack, policy, sim_cfg, generator=gen)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    native.reset_launch_counts()
+    t0 = time.perf_counter()
+    st, traj = env.simulate(pack, policy, sim_cfg, generator=gen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = native.launch_counts()
+    n = sim_cfg.num_replans
+    metrics = summarize_metrics(pack, st, sim_cfg)
+    r = dict(s_per_replan=wall / n, first_episode_s=first_s,
+             agent_steps_per_sec=CL_B * RULES_STEPS / wall,
+             offroad_rate=metrics["offroad_rate"], collision_rate=metrics["collision_rate"])
+    log(f"scene policy ({CL_SCENES} x {CL_AGENTS} agents, {RULES_STEPS} frames, {n} replans of "
+        f"{cfg.algo.n_diffusion_steps} steps): {r['s_per_replan']:.3f} s per replan, "
+        f"{r['agent_steps_per_sec']:.2f} agent-steps/s ({first_s:.2f} s the first episode), "
+        f"offroad {r['offroad_rate']:.3f}, collision {r['collision_rate']:.3f}, on "
+        f"{report['card']}; launches {launched}")
+    check(launched == counts(value_gather=n),
+          f"scene policy launches {launched}, expected {counts(value_gather=n)}")
+    check(traj.shape == (RULES_STEPS, CL_B, 4) and bool(torch.isfinite(traj).all()),
+          "the scene policy's log is not finite")
+    report["launches_scene_policy"] = launched
+    return r
+
+
+def attack_problem(models, Bn, raster, dev):
+    """The latent attack's decode and objective at Bn agents (scenes of 4)
+    through the frozen VAE decoder (`decode_actions`, the kernel-backed core)
+    and the unicycle: cond from the context encoder on a synthetic batch;
+    world poses where each scene's victim (agent 1) crosses its attacker's
+    (agent 0) path 25 m ahead; the objective is the rule library's
+    `CollisionAttackLoss` of each scene's pair, summed."""
+    import math
+
+    import torch
+
+    from cld_tpu_torch.data.batch import get_current_states
+    from cld_tpu_torch.data.synthetic import synthetic_batch
+    from cld_tpu_torch.guidance.losses import CollisionAttackLoss, GuidanceContext
+    from cld_tpu_torch.models.vae import convert_action_to_state_and_action, decode_actions
+    from cld_tpu_torch.ops.geometry import world_from_agent_matrix
+    from cld_tpu_torch.ops.normalization import TrajNormalizer
+
+    batch = synthetic_batch(seed=4, batch_size=Bn, raster_size=raster, device="cpu")
+    batch = to_device(batch, dev)
+    with torch.no_grad():
+        cond = models.context(batch)["cond_feat"]
+    curr = get_current_states(batch)
+    role = [(0.0, 0.0, 0.0), (25.0, -15.0, math.pi / 2), (0.0, 20.0, 0.0), (0.0, 40.0, 0.0)]
+    poses = torch.tensor([(x, y + 60.0 * (i // 4), yaw) for i in range(Bn)
+                          for x, y, yaw in [role[i % 4]]], dtype=torch.float32, device=dev)
+    ctx = GuidanceContext(None, None, None, None,
+                          world_from_agent=world_from_agent_matrix(poses[:, :2], poses[:, 2]),
+                          scene_index=torch.arange(Bn, device=dev) // 4)
+    attacks = [CollisionAttackLoss(s, s + 1) for s in range(0, Bn, 4)]
+
+    def decode(z):
+        return convert_action_to_state_and_action(decode_actions(models.decoder, z, cond), curr,
+                                                  models.dyn, TrajNormalizer(),
+                                                  descaled_output=True)
+
+    def objective(traj):
+        return sum(torch.sum(a(traj[:, None], ctx)) for a in attacks)
+
+    return decode, objective
+
+
+def run_latent_attack(report) -> dict:
+    """`latent_attack` at full width: B=128, latent [52, 4], the frozen
+    H=64 decoder and the unicycle, 50 Adam steps on the collision-attack
+    objective: one `lstm2_fwd` and one `lstm2_bwd` per step and one
+    `lstm2_fwd` for the objective at the optimum; the objective goes
+    down."""
+    import torch
+
+    from cld_tpu_torch import pipeline
+    from cld_tpu_torch.algos.latent_attack import latent_attack
+    from cld_tpu_torch.ops import native
+
+    dev = torch.device("cuda", 0)
+    decode, objective = attack_problem(pipeline.build_models(seed=0, device=dev), B, RASTER, dev)
+    g = torch.Generator(device="cpu").manual_seed(6)
+    z0 = (0.1 * torch.randn((B, T, L), generator=g)).to(dev)
+    with torch.no_grad():
+        obj0 = float(objective(decode(z0)))
+    native.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    z, info = latent_attack(decode, objective, z0, prior_weight=0.1, lr=0.1, steps=ATTACK_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = native.launch_counts()
+    r = dict(objective_start=obj0, objective=float(info["objective"]),
+             prior_penalty=float(info["prior_penalty"]), wall_s=wall,
+             ms_per_step=1e3 * wall / ATTACK_STEPS)
+    log(f"latent attack (B={B}, z [{T}, {L}], H={H}, {ATTACK_STEPS} Adam steps): objective "
+        f"{obj0:.6g} -> {r['objective']:.6g}, prior penalty {r['prior_penalty']:.6g}, "
+        f"{r['ms_per_step']:.2f} ms per step, on {report['card']}; launches {launched}")
+    want = counts(lstm2_fwd=ATTACK_STEPS + 1, lstm2_bwd=ATTACK_STEPS)
+    check(launched == want, f"latent attack launches {launched}, expected {want}")
+    check(bool(torch.isfinite(z).all()) and r["objective"] < obj0,
+          "the latent attack did not lower its objective")
+    report["launches_latent_attack"] = launched
+    return r
+
+
+def _grad_err(cpu_grads: dict, dev_grads: dict) -> tuple:
+    """(worst |card - cpu| of a gradient over its largest |cpu| entry (over
+    the model's largest for `ZERO_IN_EXACT`), the parameter it is of)."""
+    scale = max(float(g.abs().max()) for g in cpu_grads.values())
+    worst = (-1.0, "")
+    for k, ref in cpu_grads.items():
+        denom = scale if k.endswith(ZERO_IN_EXACT) else max(float(ref.abs().max()), 1e-30)
+        worst = max(worst, (float((dev_grads[k].cpu() - ref).abs().max()) / denom, k))
+    return worst
+
+
+def check_learned_card_vs_cpu() -> dict:
+    """The learned path's functions on the card and on the CPU from the same
+    weights and explicit draws, at the `cld_smoke` widths (B=4, raster 64):
+    the EBM's InfoNCE loss and gradients, each GAN update's loss and
+    gradients (both generators; the other side frozen as the trainer does),
+    the scene model's loss and gradients (2 scenes x 8 agents) and 10 steps
+    of `scene_sample`, `ebm_rollout_scores` on a log of a pack whose maps
+    are multiples of 1/255 (the card's banded warp and the CPU's exact one
+    agree there), and one attack step's gradient through the full-width
+    decoder (the card's LSTM kernels against the CPU's plain sweep). Losses
+    within 1e-4 relative, gradients within 1e-4 of their largest entry,
+    sampled trajectories and scores within 1e-4 relative plus 1e-5 of
+    their largest. Eval mode throughout (train-mode BatchNorm on 4 samples
+    is ill-conditioned in float32)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from cld_tpu_torch import pipeline
+    from cld_tpu_torch.algos.scene_dm import scene_dm_loss, scene_sample
+    from cld_tpu_torch.data.scene_batch import synthetic_scene_batch
+    from cld_tpu_torch.data.synthetic import synthetic_batch
+    from cld_tpu_torch.models.learned_metric import ebm_infonce_loss
+    from cld_tpu_torch.ops.diffusion import make_schedule
+    from cld_tpu_torch.sim import env
+    from cld_tpu_torch.sim.learned_metrics import ebm_rollout_scores
+    from cld_tpu_torch.sim.scene import synthetic_scene_pack
+    from cld_tpu_torch.training import gan
+    from cld_tpu_torch.training.ebm import EBMTrainer
+    from cld_tpu_torch.training.scene_dm import SceneDMTrainer, scene_gt_trajectories
+    from cld_tpu_torch.utils.registry import get_registered_experiment_config
+
+    dev = torch.device("cuda", 0)
+    cfg = get_registered_experiment_config("cld_smoke")
+    hist = cfg.algo.history_num_frames
+    b_cpu = synthetic_batch(seed=2, batch_size=4, raster_size=64, hist_frames=hist, device="cpu")
+    # a dense Gaussian raster, as the CPU parity tests take: on the mostly-zero
+    # synthetic raster a fresh encoder gives every sample nearly the same map
+    # feature, the InfoNCE gradient is a difference of near-equal terms, and
+    # the port's own float32 gradients lie up to 7e-5 from float64 on the CPU
+    image = np.random.default_rng(5).normal(size=tuple(b_cpu.image.shape)).astype(np.float32)
+    b_cpu = b_cpu._replace(image=torch.from_numpy(image))
+    b_dev = to_device(b_cpu, dev)
+    res = {}
+
+    def pair(build, seed):
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            m = build()
+        return m, copy.deepcopy(m).to(dev)
+
+    def held(label, losses, grads):
+        (lc, ld), (gc, gd) = losses, grads
+        loss_err = abs(ld - lc) / abs(lc)
+        grad_err, key = _grad_err(gc, gd)
+        res[label] = dict(loss=lc, loss_rel_err=loss_err, grad_err=grad_err, worst=key)
+        log(f"card vs CPU {label}: loss {lc:.6g}, relative error {loss_err:.2e}; worst gradient "
+            f"error {grad_err:.2e} of its largest entry ({key}; tolerance {LEARNED_REL_TOL})")
+        check(loss_err <= LEARNED_REL_TOL and grad_err <= LEARNED_REL_TOL,
+              f"{label}: card and CPU disagree (loss {loss_err:.2e}, gradients {grad_err:.2e})")
+
+    def grads_of(loss, params):
+        return dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+
+    # the EBM, its score head scaled so that the scores spread over O(1), as a
+    # trained metric's do: at a fresh head's spread of ~1e-2 the InfoNCE
+    # gradient is second order in the spread, and its float32 error alone
+    # reaches 2e-5 of the largest entry on the CPU (1.8e-6 with the scaled head)
+    def spread_ebm():
+        m = EBMTrainer(cfg, device="cpu").build()
+        with torch.no_grad():
+            m.score_net.weight.mul_(30.0)
+        return m
+
+    ebm_c, ebm_d = pair(spread_ebm, 0)
+    out = []
+    for m, b in ((ebm_c, b_cpu), (ebm_d, b_dev)):
+        loss = ebm_infonce_loss(m(b)["scores"])
+        out.append((loss.item(), grads_of(loss, dict(m.named_parameters()))))
+    held("ebm", (out[0][0], out[1][0]), (out[0][1], out[1][1]))
+
+    # each GAN update, both generators
+    z = torch.randn((4, 16), generator=torch.Generator().manual_seed(3))
+    for arch in ("mlp", "transformer"):
+        gcfg = get_registered_experiment_config("cld_smoke").unlock()
+        gcfg.algo.gan_generator_arch = arch
+        trainer = gan.GANTrainer(gcfg.lock(), device="cpu")
+        gan_c, gan_d = pair(trainer.build, 1)
+        for side, name in ((1, "d_loss"), (0, "g_loss")):
+            out = []
+            for m, b, zz in ((gan_c, b_cpu, z), (gan_d, b_dev, z.to(dev))):
+                params = gan.split_params(m)[side]
+                named = {k: p for k, p in m.named_parameters() if any(p is q for q in params)}
+                loss = m(b, zz)[name]
+                out.append((loss.item(), grads_of(loss, named)))
+            held(f"gan_{arch}_{name}", (out[0][0], out[1][0]), (out[0][1], out[1][1]))
+
+    # the scene model: loss and gradients, then 10 sampler steps
+    strainer = SceneDMTrainer(cfg, device="cpu")
+    sdm_c, sdm_d = pair(strainer.build, 2)
+    sb = {w: synthetic_scene_batch(seed=0, batch_size=2, num_agents=8, hist_frames=hist,
+                                   horizon=cfg.algo.future_num_frames, device=w)
+          for w in ("cpu", dev)}
+    shape = (2, 8, cfg.algo.future_num_frames, 6)
+    g = torch.Generator().manual_seed(4)
+    tt, eps = torch.randint(0, 5, (2,), generator=g), torch.randn(shape, generator=g)
+    x_init, step_noises = torch.randn(shape, generator=g), torch.randn((10, *shape), generator=g)
+    out, samples = [], []
+    for m, w in ((sdm_c, "cpu"), (sdm_d, dev)):
+        b = sb[w]
+        loss = scene_dm_loss(m.denoise, make_schedule(5, device=w), scene_gt_trajectories(b),
+                             m.encode_cond(b), b.agent_mask, tt.to(w), eps.to(w))
+        out.append((loss.item(), grads_of(loss, dict(m.named_parameters()))))
+        with torch.no_grad():
+            samples.append(scene_sample(m.denoise, make_schedule(10, device=w), m.encode_cond(b),
+                                        b.agent_mask, x_init.to(w), step_noises.to(w))
+                           ["pred_traj"].cpu())
+    held("scene_dm", (out[0][0], out[1][0]), (out[0][1], out[1][1]))
+    err = float((samples[1] - samples[0]).abs().max())
+    tol = LEARNED_REL_TOL * samples[0].abs() + 1e-5 * float(samples[0].abs().max())
+    res["scene_sample"] = err
+    log(f"card vs CPU scene_sample (10 steps): max abs diff {err:.3e}")
+    check(bool(((samples[1] - samples[0]).abs() <= tol).all()),
+          "scene_sample disagrees between card and CPU")
+
+    # the learned metric on a k/255 log
+    sim_cfg = env.SimConfig(num_simulation_steps=20, n_step_action=5, raster_size=64,
+                            hist_frames=hist)
+
+    def turning(obs, rng):
+        u = torch.zeros((obs.curr_speed.shape[0], T, 2), device=obs.curr_speed.device)
+        u[..., 0], u[..., 1] = 1.0, 0.3
+        return u
+
+    scores = []
+    for m, w in ((ebm_c, "cpu"), (ebm_d, dev)):
+        pack = synthetic_scene_pack(seed=3, num_scenes=2, agents_per_scene=3, world_map_size=256,
+                                    sim_steps=20, device=w)
+        pack = pack._replace(world_map=torch.round(pack.world_map * 255.0) * (1.0 / 255.0))
+        if w == "cpu":
+            log_cpu = env.simulate(pack, turning, sim_cfg)[1]
+        with torch.no_grad():
+            scores.append(ebm_rollout_scores(pack, log_cpu.to(w), m.get_scores, sim_cfg,
+                                             horizon=8, stride=5).cpu())
+    err = float((scores[1] - scores[0]).abs().max())
+    tol = LEARNED_REL_TOL * scores[0].abs() + 1e-5 * float(scores[0].abs().max())
+    res["ebm_rollout_scores"] = err
+    log(f"card vs CPU ebm_rollout_scores ({tuple(scores[0].shape)} anchors x agents): max abs "
+        f"diff {err:.3e}")
+    check(bool(((scores[1] - scores[0]).abs() <= tol).all()),
+          "ebm_rollout_scores disagree between card and CPU")
+
+    # one attack step's gradient through the full-width decoder, B=8
+    zc = 0.1 * torch.randn((8, T, L), generator=torch.Generator().manual_seed(5))
+    out = []
+    for w in ("cpu", dev):
+        decode, objective = attack_problem(pipeline.build_models(seed=0, device=w), 8, 64, w)
+        zr = zc.to(w).requires_grad_(True)
+        total = objective(decode(zr)) + 0.1 * torch.mean(
+            0.5 * torch.sum(zr.reshape(8, -1) ** 2, dim=-1))
+        out.append((total.item(), {"z": torch.autograd.grad(total, zr)[0]}))
+    held("latent_attack_step", (out[0][0], out[1][0]), (out[0][1], out[1][1]))
+    return res
+
+
+def run_learned_path(report, shards, tmp) -> None:
+    """Step 21 of the module's docstring: the GAN, EBM and scene-diffusion
+    trainers, the rollout CLI's `--ebm-ckpt`, the scene policy, the latent
+    attack, and the card-vs-CPU checks."""
+    t_phase = time.perf_counter()
+    res, ckpts = run_learned_trainers(report, shards, tmp)
+    res["ebm_rollout"] = run_ebm_rollout(report, ckpts["ebm"])
+    res["scene_policy"] = run_scene_policy(report, ckpts["scene_dm"])
+    res["latent_attack"] = run_latent_attack(report)
+    res["card_vs_cpu"] = check_learned_card_vs_cpu()
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"learned path phase {res['phase_s']:.1f} s in all, on {report['card']}")
+    report["learned"] = res
 
 
 def max_param_change(before, module) -> float:
@@ -2849,7 +3334,10 @@ def main() -> int:
              "rules": "launches_rules", "checkpoint_rollout": "launches_checkpoint_rollout",
              "evaluate": "launches_evaluate", "data_train": "launches_data_train",
              "scene_data_rollout": "launches_scene_data_rollout", "zoo": "launches_zoo",
-             **{f"policy_{p}": f"launches_{p}" for p in MODEL_FREE}}
+             **{f"policy_{p}": f"launches_{p}" for p in MODEL_FREE},
+             **{f"{label}_train": f"launches_{label}_train" for _, _, label in LEARNED_RUNS},
+             "ebm_rollout": "launches_ebm_rollout", "scene_policy": "launches_scene_policy",
+             "latent_attack": "launches_latent_attack"}
     # the launch floor: one kernel node of a graph that does nothing (one
     # thread that exits at once), timed as every kernel's graph_ms is
     floor_ms = graph_ms(lambda: torch.cuda._sleep(0))

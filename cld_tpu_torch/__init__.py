@@ -5,8 +5,11 @@ The package runs the guided open-loop latent-diffusion pipeline
 temporal UNet with a per-step Adam perturbation through the frozen LSTM
 decoder and the unicycle dynamics, decode, reward), the guided closed loop
 (`sim.env.simulate`, `python -m cld_tpu_torch.rollout`), the three training
-stages (`training`, `python -m cld_tpu_torch.train --mode vae|dm|ppo`) and the
-model zoo's eleven baseline algos (`training/zoo.py`, `--mode zoo`). Ten
+stages (`training`, `python -m cld_tpu_torch.train --mode vae|dm|ppo`), the
+model zoo's eleven baseline algos (`training/zoo.py`, `--mode zoo`), the GAN,
+the EBM learned metric and scene diffusion (`--mode gan|ebm|scene_dm`, the
+rollout CLI's `--ebm-ckpt`, `policies/scene_policy.py`) and the latent attack
+(`algos/latent_attack.py`). Ten
 hand-written CUDA kernels carry its hot paths (`csrc/`): the fused 2-layer
 LSTM forward and its reverse sweep, the map gathers, the rigid map distance,
 and the reward's off-road count and disk-collision penalty.

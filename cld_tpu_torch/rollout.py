@@ -13,6 +13,7 @@
     python -m cld_tpu_torch.rollout --scene-data data/synthetic_shards --policy dm \
         --agents-policy gt_replay --guidance flagship --num-action-samples 2 --guide-with-gt
     python -m cld_tpu_torch.rollout --scene-data data/synthetic_shards --policy mpc
+    python -m cld_tpu_torch.rollout --guidance flagship --ebm-ckpt runs/ebm/ckpt_final
 
 Counterpart of the JAX package's `rollout.py`, with its flag names and
 defaults (one scene of 4 agents, no guidance rule). The world is the
@@ -48,7 +49,9 @@ then the timed episode from `--seed` + 1, whose `wall_clock_s`,
 counts (`ops.native`) are zeroed before the timed episode, so that after
 `main` they hold that episode and the reports. It prints as JSON
 `summarize_metrics`, the occupancy-grid metrics, with `--cle-report` the
-closed-loop evaluator's summary, the throughput, each rule's satisfaction
+closed-loop evaluator's summary, with `--ebm-ckpt` (a `--mode ebm` stage's
+`ckpt_final`) the learned realism metric of the log (`ebm_score_mean`,
+`ebm_score_min`), the throughput, each rule's satisfaction
 on the executed trajectories and the episode's kernel launches, and writes
 the world-frame trajectory log to `<output>/trajectories.npz`. Runs on the
 CUDA card unless `--device cpu` is given.
@@ -196,6 +199,25 @@ def guidance_satisfaction_report(pack, traj, sim_cfg, specs):
     return {k: float(np.nanmean(v)) for k, v in gm.items()}
 
 
+def ebm_report(run, traj, path) -> dict:
+    """The learned realism metric of the executed rollout: the EBM of `path`
+    (a `--mode ebm` stage's `ckpt_final`, at the widths of the run's config)
+    scores the log at every 10th frame over the config's horizon
+    (`sim.learned_metrics`); mean and min over anchors and agents."""
+    from cld_tpu_torch.sim.learned_metrics import ebm_rollout_metric
+    from cld_tpu_torch.training.checkpoints import restore_pytree
+    from cld_tpu_torch.training.ebm import EBMTrainer
+
+    trainer = EBMTrainer(run.cfg, device=run.device)
+    state = trainer.init_state(0)
+    state.model.load_state_dict(restore_pytree(path, device=run.device)["params"], strict=True)
+    with torch.no_grad():
+        em = ebm_rollout_metric(run.pack, traj, trainer.score_fn(state), run.sim_cfg,
+                                horizon=run.cfg.algo.horizon)
+    return {"ebm_score_mean": float(em["ebm_score_mean"]),
+            "ebm_score_min": float(em["ebm_score_min"])}
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(description="cld_tpu_torch closed-loop rollout")
     parser.add_argument("--config", type=str, default=None,
@@ -280,6 +302,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--cle-report", action="store_true",
                         help="add the closed-loop evaluator's summary (range validators and "
                              "driven-miles composites, cld_tpu_torch.eval.cle) to the report")
+    parser.add_argument("--ebm-ckpt", type=str, default=None,
+                        help="trained PermuteEBM checkpoint (the ckpt_final of "
+                             "python -m cld_tpu_torch.train --mode ebm); adds the learned "
+                             "closed-loop realism metric, ebm_score_mean / ebm_score_min, "
+                             "to the report")
     parser.add_argument("--weights", type=str, default=None,
                         help=".npz of converted JAX-package weights (default: random from --seed)")
     parser.add_argument("--seed", type=int, default=0)
@@ -410,6 +437,8 @@ def main(argv=None) -> dict:
         from cld_tpu_torch.eval.cle import cle_report
 
         report["cle"] = cle_report(pack, traj, cfg)
+    if args.ebm_ckpt:
+        report.update(ebm_report(run, traj, args.ebm_ckpt))
     report.update(
         wall_clock_s=wall,
         agent_steps_per_sec=pack.num_agents * cfg.num_simulation_steps / wall,

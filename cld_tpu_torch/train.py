@@ -1,24 +1,32 @@
 """Training CLI of the port: the VAE, DM and PPO stages, the model zoo's
-baseline algos, and the open-loop test.
+baseline algos, the GAN, the EBM learned metric, scene diffusion, and the
+open-loop test.
 
     python -m cld_tpu_torch.train --mode vae
     python -m cld_tpu_torch.train --mode dm --vae-ckpt runs/vae/ckpt_final
     python -m cld_tpu_torch.train --mode ppo --vae-ckpt ... --dm-ckpt ...
     python -m cld_tpu_torch.train --mode zoo --zoo-algo bc
+    python -m cld_tpu_torch.train --registered-name nusc_transformer_gan --mode gan
+    python -m cld_tpu_torch.train --registered-name nusc_ebm --mode ebm
+    python -m cld_tpu_torch.train --registered-name trajdata_nusc_scene_diff --mode scene_dm
     python -m cld_tpu_torch.train --registered-name nusc_vae
     python -m cld_tpu_torch.train --mode test --vae-ckpt ... --dm-ckpt ...
 
 Counterpart of the JAX package's `train.py` (`train_vae`, `train_dm`,
-`train_ppo`, `train_zoo`, `evaluate`), with its flag names plus `--device` (default
+`train_ppo`, `train_zoo`, `train_gan`, `train_ebm`, `train_scene_dm`,
+`evaluate`), with its flag names plus `--device` (default
 "cuda"; the tests and CPU runs pass "cpu"). One config drives all stages;
 each stage loads the previous stage's checkpoint; metrics stream to stdout
 and to `<output>/<stage>/metrics.jsonl`; checkpoints are single files
 written with `torch.save`: `ckpt_<step>` / `ckpt_final` hold the stage's
 module, `ckpt_<step>_full` / `ckpt_final_full` add the optimizer for
-`--resume`. `--vae-ckpt` / `--dm-ckpt` also take the output of
+`--resume` (as in the JAX CLI, `--mode gan` and `--mode scene_dm` write no
+`_full` file and take no `--resume`). `--vae-ckpt` / `--dm-ckpt` also take the output of
 `python -m cld_tpu_torch.utils.torch_import` or a reference Lightning
 `.ckpt`. `--mode zoo` trains the algo named by `--zoo-algo`, else the
-config's `algo.name`, into `<output>/zoo_<name>/`. `--mode test` prints the
+config's `algo.name`, into `<output>/zoo_<name>/`. `--mode scene_dm` trains
+on synthetic scene batches (`data.scene_batch`). `--mode ebm` writes the
+checkpoint that the rollout CLI's `--ebm-ckpt` reads. `--mode test` prints the
 failure rates and the Wasserstein realism deviation over `--steps`
 validation batches as JSON.
 
@@ -31,6 +39,7 @@ A small run on the CPU:
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import time
@@ -40,6 +49,7 @@ import numpy as np
 import torch
 
 from cld_tpu_torch.data.loader import make_loader
+from cld_tpu_torch.data.scene_batch import synthetic_scene_batch
 from cld_tpu_torch.eval.metrics import realism_deviation
 from cld_tpu_torch.training.checkpoints import (
     restore_train_state,
@@ -47,19 +57,14 @@ from cld_tpu_torch.training.checkpoints import (
     save_train_state,
 )
 from cld_tpu_torch.training.dm import DMTrainer
+from cld_tpu_torch.training.ebm import EBMTrainer
+from cld_tpu_torch.training.gan import GANTrainer
 from cld_tpu_torch.training.ppo import PPOTrainer, buffer_init
+from cld_tpu_torch.training.scene_dm import SceneDMTrainer
 from cld_tpu_torch.training.vae import VAETrainer
 from cld_tpu_torch.training.zoo import ZooTrainer
 from cld_tpu_torch.utils.registry import config_from_flags
 from cld_tpu_torch.utils.torch_import import read_checkpoint
-
-# modes of the JAX CLI that the port does not have yet, with where they wait
-UNPORTED_MODES = {
-    "scene_dm": "ROADMAP Queue A 12 part 4 (training/scene_dm.py)",
-    "gan": "ROADMAP Queue A 12 part 3 (training/gan.py)",
-    "ebm": "ROADMAP Queue A 12 part 3 (training/ebm.py)",
-}
-
 
 class MetricLogger:
     """Appends one JSON record per step to `<out_dir>/metrics.jsonl` and
@@ -94,14 +99,19 @@ def _batches(cfg, device, start_step: int):
     return it
 
 
-def _save(out_dir: str, name: str, state, loop_step: int) -> None:
+def _save(out_dir: str, name: str, state, loop_step: int, full: bool) -> None:
     save_pytree(os.path.join(out_dir, name), {"params": state.model.state_dict()})
-    save_train_state(os.path.join(out_dir, f"{name}_full"), state, loop_step=loop_step)
+    if full:
+        save_train_state(os.path.join(out_dir, f"{name}_full"), state, loop_step=loop_step)
 
 
-def _run_stage(cfg, args, stage: str, state, step_fn):
-    """The loop the stages share: resume, step, log, checkpoint.
+def _run_stage(cfg, args, stage: str, state, step_fn, batches=None, full: bool = True):
+    """The loop the stages share: resume, step, log, checkpoint. `batches`
+    is the stage's batch stream (default: the loader's, as the JAX CLI draws
+    it); `full=False` writes no `_full` file and refuses `--resume`.
     Returns the trained state."""
+    if args.resume and not full:
+        raise SystemExit(f"--resume: the {stage} stage writes no full-state checkpoint")
     out_dir = os.path.join(args.output, stage)
     logger = MetricLogger(out_dir, cfg.train.logging.log_every_n_steps)
     try:
@@ -110,15 +120,15 @@ def _run_stage(cfg, args, stage: str, state, step_fn):
             state, start_step = restore_train_state(args.resume, state)
             print(f"resumed full train state from {args.resume} at step {start_step}")
         # step s, resumed or not, trains on the batch of the JAX CLI's step s
-        it = _batches(cfg, args.device, start_step)
+        it = batches if batches is not None else _batches(cfg, args.device, start_step)
         num_steps = args.steps or cfg.train.training.num_steps
         t0 = time.time()
         for step in range(start_step, num_steps):
             metrics = step_fn(state, next(it), step)
             logger.log(step, metrics)
             if cfg.train.save.enabled and (step + 1) % cfg.train.save.every_n_steps == 0:
-                _save(out_dir, f"ckpt_{step + 1}", state, step + 1)
-        _save(out_dir, "ckpt_final", state, num_steps)
+                _save(out_dir, f"ckpt_{step + 1}", state, step + 1, full)
+        _save(out_dir, "ckpt_final", state, num_steps, full)
         print(f"{stage} done: {num_steps} steps in {time.time() - t0:.1f}s -> {out_dir}")
         return state
     finally:
@@ -197,6 +207,50 @@ def train_zoo(cfg, args, algo_name: Optional[str] = None):
     return _run_stage(cfg, args, f"zoo_{name}", state, step_fn)
 
 
+def train_gan(cfg, args):
+    """The trajectory GAN (`training/gan.py`): alternating LSGAN updates,
+    the generator `algo.gan_generator_arch` (default "mlp"); `ckpt_<n>` and
+    `ckpt_final` only, as the JAX CLI writes."""
+    trainer = GANTrainer(cfg, device=args.device)
+    state = trainer.init_state(cfg.seed + 11)
+    gen = torch.Generator(device=args.device).manual_seed(cfg.seed + 12)
+
+    def step_fn(state, batch, step):
+        return trainer.train_step(state, batch, generator=gen)[1]
+
+    return _run_stage(cfg, args, "gan", state, step_fn, full=False)
+
+
+def train_ebm(cfg, args):
+    """The learned-metric EBM (`training/ebm.py`, InfoNCE): the checkpoint
+    that `python -m cld_tpu_torch.rollout --ebm-ckpt` reads. Its step draws
+    nothing (the JAX CLI's key seed + 8 goes unused as well)."""
+    trainer = EBMTrainer(cfg, device=args.device)
+    state = trainer.init_state(cfg.seed + 7)
+    return _run_stage(cfg, args, "ebm", state, lambda state, batch, step:
+                      trainer.train_step(state, batch)[1])
+
+
+def train_scene_dm(cfg, args):
+    """Scene diffusion (`training/scene_dm.py`) on four synthetic scene
+    batches of `max(1, batch_size // 8)` scenes x 8 agents (seeds 0-3),
+    cycled; `ckpt_<n>` and `ckpt_final` only, as the JAX CLI writes."""
+    trainer = SceneDMTrainer(cfg, device=args.device)
+    algo = cfg.algo
+    batches = [synthetic_scene_batch(seed=i, batch_size=max(1, cfg.train.training.batch_size // 8),
+                                     num_agents=8, hist_frames=algo.history_num_frames,
+                                     horizon=algo.future_num_frames, device=args.device)
+               for i in range(4)]
+    state = trainer.init_state(cfg.seed)
+    gen = torch.Generator(device=args.device).manual_seed(cfg.seed + 6)
+
+    def step_fn(state, batch, step):
+        return trainer.train_step(state, batch, generator=gen)[1]
+
+    return _run_stage(cfg, args, "scene_dm", state, step_fn, batches=itertools.cycle(batches),
+                      full=False)
+
+
 def _eval_batches(cfg, device):
     """The validation stream as the JAX CLI's `evaluate` draws it: the
     loader's first batch, drawn before the models are built, is batch 0 (the
@@ -233,13 +287,14 @@ def evaluate(cfg, args, noise: Optional[Callable[[int], Dict]] = None) -> dict:
 
 def main(argv: Optional[Sequence[str]] = None):
     """Runs the mode; returns the trained state of a training stage (a zoo
-    algo's included), or `evaluate`'s result for --mode test."""
+    algo's, the GAN's, the EBM's and the scene model's included), or
+    `evaluate`'s result for --mode test."""
     parser = argparse.ArgumentParser(description="cld_tpu_torch trainer")
     parser.add_argument("--config", type=str, default=None)
     parser.add_argument("--registered-name", type=str, default=None,
                         help="named experiment config (cld_tpu_torch.utils.registry)")
     parser.add_argument("--mode", type=str, default=None,
-                        choices=["vae", "dm", "ppo", "zoo", "test", *UNPORTED_MODES])
+                        choices=["vae", "dm", "ppo", "test", "scene_dm", "ebm", "zoo", "gan"])
     parser.add_argument("--zoo-algo", type=str, default=None,
                         help="factory algo for --mode zoo (cld_tpu_torch.training.zoo; "
                              "default: the config's algo.name)")
@@ -263,11 +318,9 @@ def main(argv: Optional[Sequence[str]] = None):
         cfg.train.training.precision = args.precision
         cfg.lock()
     mode = args.mode or cfg.train.mode
-    if mode in UNPORTED_MODES:
-        raise NotImplementedError(f"--mode {mode} is not ported yet: {UNPORTED_MODES[mode]}")
     print(f"mode={mode} device={args.device}")
-    return {"vae": train_vae, "dm": train_dm, "ppo": train_ppo, "zoo": train_zoo,
-            "test": evaluate}[mode](cfg, args)
+    return {"vae": train_vae, "dm": train_dm, "ppo": train_ppo, "scene_dm": train_scene_dm,
+            "ebm": train_ebm, "zoo": train_zoo, "gan": train_gan, "test": evaluate}[mode](cfg, args)
 
 
 if __name__ == "__main__":

@@ -1,9 +1,10 @@
 """Named experiment configs (the port's own copy of `cld_tpu/utils/registry.py`):
-the three stages of record, the `cld_smoke` sizes, and the reference's named
-experiments on the dataset axis (per-dataset env presets) whose kind is the
-model zoo (`train.mode` "zoo" and the factory algo in `algo.name`). Its
-`gan`, `ebm` and `scene_dm` rows wait for their trainers (ROADMAP Queue A 12
-parts 3 and 4); asking for one raises a `KeyError` that says so.
+the three stages of record, the `cld_smoke` sizes, and every named
+experiment of the reference on the dataset axis (per-dataset env presets):
+the model zoo's rows (`train.mode` "zoo" and the factory algo in
+`algo.name`) and the rows of the dedicated modes `gan` (with
+`algo.gan_generator_arch` for the transformer generator), `ebm` and
+`scene_dm`.
 """
 
 from __future__ import annotations
@@ -25,8 +26,6 @@ def register_experiment(name: str):
 
 def get_registered_experiment_config(name: str) -> Config:
     """The locked config registered under `name`."""
-    if name in UNPORTED_EXPERIMENTS:
-        raise KeyError(f"experiment {name!r} is not ported yet: {UNPORTED_EXPERIMENTS[name]}")
     if name not in EXP_CONFIG_REGISTRY:
         raise KeyError(
             f"unknown experiment {name!r}; registered: {sorted(EXP_CONFIG_REGISTRY)}"
@@ -157,9 +156,20 @@ def _zoo_config(algo_name: str, dataset: str = "nusc") -> Config:
     return cfg
 
 
+def _mode_config(mode: str, dataset: str = "nusc", **algo_overrides) -> Config:
+    """An entry of a dedicated train mode: the dataset's preset, `train.mode`
+    and the algo keys given."""
+    cfg = _dataset_config(dataset)
+    cfg.train.mode = mode
+    for k, v in algo_overrides.items():
+        setattr(cfg.algo, k, v)
+    return cfg
+
+
 # Every named experiment of the reference registry, one row per name:
 # (name, dataset, kind, algo-or-None). Kind "zoo" resolves through
-# `training.zoo.algo_factory`; the other kinds are train modes not ported yet.
+# `training.zoo.algo_factory`; the other kinds are train modes, a "gan" row's
+# algo naming its generator.
 # *_strive trains the same CVAE (its latent attack is an evaluation-time
 # tool); nusc_diff_stack is the diffuser algo; l5_* rows take the trajdata
 # ingestion path with the l5kit raster and timing knobs.
@@ -228,11 +238,11 @@ _REFERENCE_EXPERIMENTS = [
     ("trajdata_drivesim_diff", "drivesim", "zoo", "diff"),
 ]
 
-_WAITS_FOR = {"gan": "ROADMAP Queue A 12 part 3 (GAN and EBM)",
-              "ebm": "ROADMAP Queue A 12 part 3 (GAN and EBM)",
-              "scene_dm": "ROADMAP Queue A 12 part 4 (scene diffusion)"}
-UNPORTED_EXPERIMENTS = {name: _WAITS_FOR[kind] for name, _, kind, _ in _REFERENCE_EXPERIMENTS
-                        if kind != "zoo"}
 for _name, _ds, _kind, _algo in _REFERENCE_EXPERIMENTS:
     if _kind == "zoo":
         EXP_CONFIG_REGISTRY[_name] = lambda a=_algo, d=_ds: _zoo_config(a, dataset=d)
+    elif _kind == "gan":
+        EXP_CONFIG_REGISTRY[_name] = lambda d=_ds, arch=_algo: _mode_config(
+            "gan", dataset=d, **({"gan_generator_arch": arch} if arch else {}))
+    else:
+        EXP_CONFIG_REGISTRY[_name] = lambda d=_ds, m=_kind: _mode_config(m, dataset=d)

@@ -16,10 +16,11 @@ The port's modules use that layout, so the converted dicts load with
 * ``batch_stats`` -> BatchNorm running stats (+ a zero
   ``num_batches_tracked``).
 
-The zoo's models keep the flax module names instead (`export_flax` /
-`load_flax`): one walk over the port module converts each flax leaf by the
-type of the module it lands in, where attention kernels [D, H, hd] and
-[H, hd, D] flatten head-major onto Linear layers.
+The zoo's models, the GAN, the EBM and the scene diffusion model keep the
+flax module names instead (`export_flax` / `load_flax`): one walk over the
+port module converts each flax leaf by the type of the module it lands in,
+where attention kernels [D, H, hd] and [H, hd, D] flatten head-major onto
+Linear layers.
 """
 
 from __future__ import annotations
@@ -345,6 +346,7 @@ def export_flax(module: nn.Module, params: Dict[str, Any],
 
 def load_flax(module: nn.Module, variables: Dict[str, Any]) -> nn.Module:
     """Load flax variables {"params", "batch_stats"?} into a zoo model (or
-    `MLPResDenoiser`, or a `ResNetEncoder`), ``strict=True``."""
+    `MLPResDenoiser`, a `ResNetEncoder`, `PermuteEBM`, `TrajectoryGAN` with
+    either generator, `SceneDMModel` or one of its parts), ``strict=True``."""
     return _load(module, export_flax(module, variables["params"], variables.get("batch_stats")),
                  "")

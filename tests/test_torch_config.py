@@ -38,14 +38,16 @@ def test_registered_trainer_configs_equal(name):
 
 
 def test_registry_holds_only_the_trainer_entries():
-    """The trainer entries and the reference's zoo rows; the rows of trainers
-    not ported yet raise naming their ROADMAP part, unknown names as before."""
-    zoo_rows = {r[0] for r in jax_registry._REFERENCE_EXPERIMENTS if r[2] == "zoo"}
-    assert set(registry.EXP_CONFIG_REGISTRY) == zoo_rows | {
+    """The trainer entries and every row of the reference's registry (the
+    zoo's and the gan / ebm / scene_dm modes'); a mode's row resolves to the
+    JAX package's config; unknown names raise as before."""
+    rows = {r[0] for r in jax_registry._REFERENCE_EXPERIMENTS}
+    assert set(registry.EXP_CONFIG_REGISTRY) == rows | {
         "cld_dm_nusc", "cld_ppo_nusc", "cld_smoke", "cld_vae_nusc"}
     assert registry.get_registered_experiment_config("nusc_bc").train.mode == "zoo"
-    with pytest.raises(KeyError, match="ROADMAP Queue A 12 part 3"):
-        registry.get_registered_experiment_config("nusc_gan")
+    ours = registry.get_registered_experiment_config("nusc_gan")
+    _walk(ours, jax_registry.get_registered_experiment_config("nusc_gan"))
+    assert ours.train.mode == "gan"
     with pytest.raises(KeyError, match="unknown experiment"):
         registry.get_registered_experiment_config("nusc_nope")
 

@@ -21,8 +21,12 @@ from cld_tpu_torch.algos import diffuser
 from cld_tpu_torch.data import convert, loader, multihost, packed, synthetic
 from cld_tpu_torch.ops import diffusion, gather_kernels, lstm_kernels, native
 from cld_tpu_torch.sim import scene
+from cld_tpu_torch.algos import scene_dm as scene_dm_algo
 from cld_tpu_torch.training import dm as training_dm
+from cld_tpu_torch.training import ebm as training_ebm
+from cld_tpu_torch.training import gan as training_gan
 from cld_tpu_torch.training import ppo as training_ppo
+from cld_tpu_torch.training import scene_dm as training_scene_dm
 from cld_tpu_torch.training import vae as training_vae
 from cld_tpu_torch.training import zoo as training_zoo
 
@@ -67,6 +71,12 @@ def test_no_jax_or_reference_package_imports():
             "cld_tpu_torch/models/roi_encoder.py", "cld_tpu_torch/models/agent_predictor.py",
             "cld_tpu_torch/models/map_unet.py", "cld_tpu_torch/models/spatial_planner.py",
             "cld_tpu_torch/models/occupancy.py", "cld_tpu_torch/models/spatial_softmax.py",
+            "cld_tpu_torch/models/learned_metric.py", "cld_tpu_torch/models/gan.py",
+            "cld_tpu_torch/models/history_encoders.py",
+            "cld_tpu_torch/models/scene_transformer.py", "cld_tpu_torch/training/ebm.py",
+            "cld_tpu_torch/training/gan.py", "cld_tpu_torch/training/scene_dm.py",
+            "cld_tpu_torch/sim/learned_metrics.py", "cld_tpu_torch/algos/scene_dm.py",
+            "cld_tpu_torch/algos/latent_attack.py", "cld_tpu_torch/policies/scene_policy.py",
             "chip_smoke.py"} <= names
     for f in files:
         for mod in _imports(f):
@@ -83,7 +93,11 @@ def test_no_jax_or_reference_package_imports():
                                 convert.parse_raw_batch, convert.convert_nuscenes,
                                 training_vae.VAETrainer.__init__, training_dm.DMTrainer.__init__,
                                 training_ppo.buffer_init, training_zoo.ZooTrainer.__init__,
-                                diffuser.draw_loss_noise])
+                                diffuser.draw_loss_noise, training_ebm.EBMTrainer.__init__,
+                                training_gan.GANTrainer.__init__, training_gan.draw_gan_noise,
+                                training_scene_dm.SceneDMTrainer.__init__,
+                                scene_dm_algo.draw_scene_loss_noise,
+                                scene_dm_algo.draw_scene_sample_noise])
 def test_entry_points_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
@@ -275,13 +289,14 @@ print("FORBIDDEN_IMPORTED=" + json.dumps(bad))
 
 
 def test_train_cli_flags_and_unported_modes(tmp_path):
-    """The JAX CLI's flag names, `--device` defaulting to the card, the
-    modes and options that wait for later slices raising with their ROADMAP
-    item, and a data path without shards raising as the JAX loader does."""
+    """The JAX CLI's flag names and modes, `--device` defaulting to the
+    card, the options that wait for later slices raising with their ROADMAP
+    item, and a data path without shards raising as the JAX loader does.
+    The GAN, EBM and scene diffusion modes run a step each."""
     base = ["--registered-name", "cld_smoke", "--device", "cpu", "--output", str(tmp_path)]
     for mode in ("scene_dm", "gan", "ebm"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            train.main(base + ["--mode", mode])
+        state = train.main(base + ["--mode", mode, "--steps", "1"])
+        assert state.step == 1 and (tmp_path / mode / "ckpt_final").exists(), mode
     with pytest.raises(NotImplementedError, match="bfloat16"):
         train.main(base + ["--mode", "vae", "--precision", "bf16"])
     # packed shards are ported: a data path without shards fails as the JAX loader does
@@ -294,8 +309,13 @@ def test_train_cli_flags_and_unported_modes(tmp_path):
                  "--vae-ckpt", "--dm-ckpt", "--precision", "--device", "--zoo-algo"):
         assert f'"{flag}"' in src, flag
     assert 'add_argument("--device", type=str, default="cuda"' in src
+    src_modes = ast.literal_eval(src.split('"--mode", type=str, default=None,')[1]
+                                 .split("choices=")[1].split(")")[0])
+    jax_src = (PKG.parent / "train.py").read_text()
+    assert src_modes == ast.literal_eval(jax_src.split('"--mode", type=str, default=None,')[1]
+                                         .split("choices=")[1].split(")")[0])
     if not torch.cuda.is_available():
-        for mode in (["--mode", "vae"], ["--mode", "zoo", "--zoo-algo", "bc"]):
+        for mode in (["--mode", "vae"], ["--mode", "zoo", "--zoo-algo", "bc"], ["--mode", "ebm"]):
             with pytest.raises((RuntimeError, AssertionError)):
                 train.main(["--registered-name", "cld_smoke", *mode, "--steps", "1",
                             "--output", str(tmp_path / "cuda")])

@@ -244,13 +244,18 @@ def test_registry_zoo_rows_and_dataset_presets_match_jax(dataset):
 
 
 def test_registry_counts_and_unported_rows():
+    """The 47 zoo rows and the 8 rows of the gan / ebm / scene_dm modes: each
+    of the 8 resolves to the JAX package's config, key for key (a
+    transformer GAN row's generator included)."""
     assert len(ZOO_ROWS) == 47 and len(OTHER_ROWS) == 8
     assert set(registry.EXP_CONFIG_REGISTRY) == (
-        {r[0] for r in ZOO_ROWS} | {"cld_vae_nusc", "cld_dm_nusc", "cld_ppo_nusc", "cld_smoke"})
-    for name, _, kind, _ in OTHER_ROWS:
-        part = "part 4" if kind == "scene_dm" else "part 3"
-        with pytest.raises(KeyError, match=f"ROADMAP Queue A 12 {part}"):
-            registry.get_registered_experiment_config(name)
+        {r[0] for r in ZOO_ROWS + OTHER_ROWS}
+        | {"cld_vae_nusc", "cld_dm_nusc", "cld_ppo_nusc", "cld_smoke"})
+    for name, _, kind, algo in OTHER_ROWS:
+        got = registry.get_registered_experiment_config(name)
+        want = jax_registry.get_registered_experiment_config(name)
+        assert got.train.mode == kind and got.to_dict() == want.to_dict(), name
+        assert got.algo.get("gan_generator_arch") == algo
     ped = registry.get_registered_experiment_config("eupeds_bc")
     assert (ped.algo.horizon, ped.env.rasterizer.num_sem_layers, ped.algo.step_time) == (12, 0,
                                                                                           0.4)

@@ -70,11 +70,14 @@ def to_double(batch):
                              if torch.is_tensor(v) and v.is_floating_point()})
 
 
-def record_draws(monkeypatch, fn):
-    """The outputs of the `jax.random` samplers that `fn()` calls, by
+def record_draws(monkeypatch, fn, *args, keep_output=False):
+    """The outputs of the `jax.random` samplers that `fn(*args)` calls, by
     sampler name in call order. `fn` is traced once under `jax.jit` with the
     samplers wrapped to keep their outputs, which the compiled function
-    returns (XLA drops the rest of `fn`'s work)."""
+    returns (XLA drops the rest of `fn`'s work, unless `keep_output`: then
+    the result is (draws, fn's output) from the one compile). Pass weights
+    and batches as `args`: closed over, they are constants that XLA folds
+    through the network at compile time."""
     names = ("normal", "uniform", "randint", "bernoulli")
     seen = []
 
@@ -90,16 +93,16 @@ def record_draws(monkeypatch, fn):
             m.setattr(jax.random, n, wrap(n, getattr(jax.random, n)))
 
         @jax.jit
-        def draws():
+        def draws(*a):
             seen.clear()
-            fn()
-            return [out for _, out in seen]
+            result = fn(*a)
+            return [out for _, out in seen], (result if keep_output else None)
 
-        values = draws()
+        values, result = draws(*args)
     out = {n: [] for n in names}
     for (name, _), val in zip(seen, values):
         out[name].append(np.asarray(val))
-    return out
+    return (out, result) if keep_output else out
 
 
 def assert_close(got, want, rtol=1e-5, floor=1e-5, msg=""):
@@ -111,8 +114,9 @@ def assert_close(got, want, rtol=1e-5, floor=1e-5, msg=""):
 
 # gradients that are zero in exact arithmetic, so rounding residue on both
 # sides: a bias added to every logit of a softmax (attention keys, the
-# spatial-softmax keypoint conv) does not change it
-ZERO_IN_EXACT = ("key.bias", "kp_conv.bias")
+# spatial-softmax keypoint conv, the EBM's score under InfoNCE) does not
+# change it
+ZERO_IN_EXACT = ("key.bias", "kp_conv.bias", "score_net.bias")
 
 
 def assert_grads_close(model, want: dict, rtol=1e-4, floor=1e-5) -> int:
