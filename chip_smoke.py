@@ -193,15 +193,40 @@
    update's (both generators), the scene model's loss and gradients and 10
    steps of `scene_sample`, `ebm_rollout_scores` on a log of k/255 maps,
    and one attack step's gradient (within 1e-4).
-22. Times the launch floor: `torch.cuda._sleep(0)` (one thread that exits
+22. Runs the composer path: each of the 24 policy composers
+   (`eval.composers`) through `rollout.main --composer <name>` at the
+   closed loop's width (4 scenes x 8 agents, raster 224, the config of
+   record: ResNet-18, `cond_feat` 256, horizon 52, 100 diffusion steps for
+   Diffuser, DSPolicy and SceneDiffuser), cut to 20 frames (4 replans): s
+   per replan of the timed episode, a finite log, and exact launches: the
+   timed episode 4 `value_gather` and nothing else, the whole call twice
+   that plus one for a model-based composer's sample observation;
+   GroundTruth and GroundTruthNaN, whose actions have no controls, are
+   refused at the first replan (`TypeError`, one `value_gather`), as the
+   JAX CLI refuses them. `--composer BC --composer-ckpt` on step 20's
+   `nusc_bc` `ckpt_final`: loaded strictly, a log unlike the fresh
+   weights'. One replan of BC, TrafficSimplan, TPPplan, GANplan, Diffuser,
+   DSPolicy and SceneDiffuser on the card and on the CPU at the `cld_smoke`
+   widths (1 scene x 2 agents, raster 64) from the same weights,
+   observation and draws: actions within 1e-4 of their largest entry, the
+   same samples selected. One BC replan under `utils.timer.device_trace`:
+   the Chrome trace names `value_gather_kernel`. Data parallelism on a NCCL
+   group of world size 1 (localhost store): 2 VAE steps at batch 128,
+   raster 224 through the train CLI's wrapping equal the plain ones (1e-6
+   relative asked), and with the collectives forced on, one float64 step's
+   gradients within 1e-9 and one PPO collection into the global buffer and
+   a 2-iteration update phase on rank 0's minibatches within 1e-6 of the
+   plain ones. No `--render`: the card's machine has no
+   matplotlib.
+23. Times the launch floor: `torch.cuda._sleep(0)` (one thread that exits
    at once) from a CUDA graph, as every kernel's graph time is taken.
-23. Prints the card line, one `{"kernels": [...]}` line (`launches_by_path`
+24. Prints the card line, one `{"kernels": [...]}` line (`launches_by_path`
    there holds each main-path run's own count, of 4, 7, 8, 11, 12, 14, 15,
    17, 18 (its rollout and its `--mode test`), 19 (its training, its
    guided rollout and each model-free policy), 20 (the zoo, 0 of every
-   kernel) and 21 (each trainer, 0 of every kernel; the `--ebm-ckpt`
-   rollout; the scene policy; the latent attack),
-   each zeroed before its run and checked exactly; `launches` is their sum;
+   kernel), 21 (each trainer, 0 of every kernel; the `--ebm-ckpt`
+   rollout; the scene policy; the latent attack) and 22 (each composer's
+   call, `--composer-ckpt`, the traced replan), each zeroed before its run and checked exactly; `launches` is their sum;
    `graph_ms` is each kernel's time from a CUDA graph at the main path's
    shape, B=128 for the LSTM kernels, beside `launch_floor_ms`), and last
    `{"ok": true, "device": {...}}`. Any failed check exits non-zero first.
@@ -2114,6 +2139,7 @@ def run_data_path(report):
         report["data_path"] = res
         run_zoo_path(report, shards, tmp)  # the zoo trains from the same shards
         run_learned_path(report, shards, tmp)  # so do the EBM and the GANs
+        run_composer_path(report, tmp)  # `--composer-ckpt` reads the zoo's nusc_bc
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2735,6 +2761,369 @@ def run_learned_path(report, shards, tmp) -> None:
     report["learned"] = res
 
 
+# the composer path (step 22): the 24 policy composers through the rollout CLI
+COMPOSER_STEPS = 20  # frames: 4 replans
+# the composers that render a sample observation when they are built (one
+# `value_gather` each): the model-based ones, as the JAX composers do
+COMPOSER_BUILD_RENDERS = ("BC", "TrafficSim", "TrafficSimplan", "TPP", "TPPplan", "GAN",
+                          "GANplan", "HierAgentAwareCVAE", "STRIVE", "Diffuser", "DSPolicy")
+# the ground truth has no controls: the simulator refuses it, as the JAX one does
+COMPOSERS_WITHOUT_CONTROLS = ("GroundTruth", "GroundTruthNaN")
+# one of each model-based family, held card vs CPU
+COMPOSER_FAMILIES = ("BC", "TrafficSimplan", "TPPplan", "GANplan", "Diffuser", "DSPolicy",
+                     "SceneDiffuser")
+DP_F64_TOL = 1e-9  # float64 gradients through the collectives, of each tensor's largest entry
+COMPOSER_REL_TOL = 1e-4  # card vs CPU, of each field's largest entry (the zoo's tolerance)
+
+
+def composer_argv(name, out, *extra):
+    return ["--composer", name, "--num-scenes", str(CL_SCENES), "--agents-per-scene",
+            str(CL_AGENTS), "--num-sim-steps", str(COMPOSER_STEPS), "--raster-size", str(RASTER),
+            "--device", "cuda", "--output", str(out), *extra]
+
+
+def run_composers(report) -> dict:
+    """Each of the 24 composers through `rollout.main` at the closed loop's
+    width (4 scenes x 8 agents, raster 224, the config of record: ResNet-18,
+    `cond_feat` 256, horizon 52, 100 diffusion steps), 20 frames: s per
+    replan of the timed episode, a finite log, and the launches exactly: the
+    timed episode one `value_gather` a replan and nothing else; the whole
+    call that twice, plus one for the sample observation of a model-based
+    composer. The ground truth's actions have no controls: the CLI raises
+    `TypeError` at the first replan (one `value_gather`), as the JAX CLI
+    does."""
+    import numpy as np
+
+    from cld_tpu_torch import rollout
+    from cld_tpu_torch.eval.composers import COMPOSER_REGISTRY
+    from cld_tpu_torch.ops import native
+
+    out = ROOT / "chiprun_out" / "composers"
+    n = COMPOSER_STEPS // CL_N_STEP
+    res = {}
+    check(len(COMPOSER_REGISTRY) == 24, f"{len(COMPOSER_REGISTRY)} composers registered")
+    for name in sorted(COMPOSER_REGISTRY):
+        native.reset_launch_counts()
+        t0 = time.perf_counter()
+        if name in COMPOSERS_WITHOUT_CONTROLS:
+            try:
+                rollout.main(composer_argv(name, out / name))
+                raised = None
+            except TypeError as e:
+                raised = str(e)
+            launches = native.launch_counts()
+            check(raised is not None and "no controls" in raised,
+                  f"--composer {name}: the simulator took actions without controls")
+            check(launches == counts(value_gather=1), f"--composer {name} launches {launches}")
+            res[name] = dict(refused=raised, call_s=time.perf_counter() - t0)
+            report[f"launches_composer_{name}"] = launches
+            log(f"--composer {name}: refused at the first replan as the JAX CLI does "
+                f"({raised[:60]}...); launches {launches}")
+            continue
+        rep = rollout.main(composer_argv(name, out / name))
+        call_s = time.perf_counter() - t0
+        launches = native.launch_counts()
+        builds = int(name in COMPOSER_BUILD_RENDERS)
+        check(rep["launches"] == counts(value_gather=n),
+              f"--composer {name} episode launches {rep['launches']}")
+        check(launches == counts(value_gather=2 * n + builds),
+              f"--composer {name} launches {launches}, expected {2 * n + builds} value_gather")
+        with np.load(out / name / "trajectories.npz") as f:
+            check(f["trajectories"].shape == (COMPOSER_STEPS, CL_B, 4) and
+                  bool(np.isfinite(f["trajectories"]).all()),
+                  f"--composer {name}'s trajectory log is not finite")
+        r = dict(s_per_replan=rep["wall_clock_s"] / n, first_episode_s=rep["compile_and_first_run_s"],
+                 call_s=call_s, offroad_rate=rep["offroad_rate"],
+                 collision_rate=rep["collision_rate"])
+        res[name] = r
+        report[f"launches_composer_{name}"] = launches
+        log(f"--composer {name}: {r['s_per_replan']:.4f} s per replan ({CL_B} agents, timed "
+            f"episode; the first {r['first_episode_s']:.2f} s), the call {call_s:.1f} s, offroad "
+            f"{r['offroad_rate']:.3f}, collision {r['collision_rate']:.3f}, on {report['card']}")
+    return res
+
+
+def run_composer_ckpt(report, bc_ckpt) -> dict:
+    """`--composer BC --composer-ckpt` on the zoo path's `nusc_bc`
+    `ckpt_final` (the `bc` algo's `BCPlanner`, the composer's module), at
+    the same width with `--registered-name nusc_bc`: it loads strictly, and
+    the log differs from the fresh weights' of the same seed."""
+    import numpy as np
+
+    from cld_tpu_torch import rollout
+    from cld_tpu_torch.ops import native
+
+    out = ROOT / "chiprun_out" / "composer_ckpt"
+    logs = {}
+    for label, extra in (("fresh", []), ("ckpt", ["--composer-ckpt", str(bc_ckpt)])):
+        native.reset_launch_counts()
+        rep = rollout.main(composer_argv("BC", out / label, "--registered-name", "nusc_bc",
+                                         *extra))
+        if label == "ckpt":
+            launches = native.launch_counts()
+        with np.load(out / label / "trajectories.npz") as f:
+            logs[label] = f["trajectories"]
+    n = COMPOSER_STEPS // CL_N_STEP
+    check(launches == counts(value_gather=2 * n + 1), f"--composer-ckpt launches {launches}")
+    check(bool(np.isfinite(logs["ckpt"]).all()), "the --composer-ckpt log is not finite")
+    diff = float(np.abs(logs["ckpt"] - logs["fresh"]).max())
+    check(diff > 1e-3, f"--composer-ckpt gives the fresh weights' log (max |diff| {diff:.2e})")
+    report["launches_composer_ckpt"] = launches
+    log(f"--composer BC --composer-ckpt (the zoo's nusc_bc ckpt_final): loaded strictly, its "
+        f"log {diff:.3f} m from the fresh weights' at most; s per replan "
+        f"{rep['wall_clock_s'] / n:.4f}; launches {launches}")
+    return dict(max_log_diff_m=diff, s_per_replan=rep["wall_clock_s"] / n)
+
+
+def check_composers_card_vs_cpu() -> dict:
+    """One replan of each model-based family on the card and on the CPU at
+    the `cld_smoke` widths (1 scene x 2 agents, raster 64): the same weights
+    (built on the CPU from one seed), the same observation (rendered on the
+    CPU) and the same draws; each action field within `COMPOSER_REL_TOL` of
+    its largest entry, the '*plan' composers' selection equal."""
+    import torch
+
+    from cld_tpu_torch.eval import composers
+    from cld_tpu_torch.sim import env
+    from cld_tpu_torch.sim.scene import synthetic_scene_pack
+    from cld_tpu_torch.utils.registry import get_registered_experiment_config
+
+    cfg = get_registered_experiment_config("cld_smoke")
+    algo = cfg.algo
+    sim_cfg = env.SimConfig(num_simulation_steps=COMPOSER_STEPS, n_step_action=CL_N_STEP,
+                            raster_size=64, hist_frames=algo.history_num_frames)
+    packs = {d: synthetic_scene_pack(seed=0, num_scenes=1, agents_per_scene=2,
+                                     sim_steps=COMPOSER_STEPS, device=d) for d in ("cpu", "cuda")}
+    obs_c = env.render_observation(packs["cpu"], env.init_sim_state(packs["cpu"], sim_cfg),
+                                   sim_cfg)
+    obs = {"cpu": obs_c, "cuda": to_device(obs_c, torch.device("cuda", 0))}
+    g = torch.Generator().manual_seed(4)
+    n, T = algo.n_diffusion_steps, algo.horizon
+    draws = {"TrafficSimplan": torch.randn((2 * 4, 16), generator=g),
+             "GANplan": torch.randn((2 * 4, 16), generator=g),
+             "Diffuser": (torch.randn((2, T, 2), generator=g),
+                          torch.randn((n, 2, T, 2), generator=g)),
+             "SceneDiffuser": (torch.randn((1, 2, algo.future_num_frames, 6), generator=g),
+                               torch.randn((n, 1, 2, algo.future_num_frames, 6), generator=g))}
+    draws["DSPolicy"] = draws["Diffuser"]
+    select = composers.select_sample
+    picks = []
+    composers.select_sample = lambda *a: picks.append(select(*a).cpu()) or picks[-1].to(a[0].device)
+    worst = {}
+    try:
+        for name in COMPOSER_FAMILIES:
+            acts = {}
+            for d in ("cpu", "cuda"):
+                policy = composers.get_composer(name)(
+                    cfg, packs[d], sim_cfg, generator=torch.Generator().manual_seed(0), device=d)
+                dr = draws.get(name)
+                dr = (None if dr is None else dr.to(d) if torch.is_tensor(dr)
+                      else tuple(x.to(d) for x in dr))
+                acts[d] = policy(obs[d], dr if dr is not None else torch.Generator(d))
+            err = 0.0
+            for field in ("positions", "yaws", "controls"):
+                want = getattr(acts["cpu"], field)
+                got = getattr(acts["cuda"], field).cpu()
+                err = max(err, float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                                       1e-30))
+            same_pick = None
+            if name.endswith("plan"):
+                same_pick = bool(torch.equal(picks[-2], picks[-1]))
+                check(same_pick, f"{name}: the card picks samples {picks[-1].tolist()}, the CPU "
+                      f"{picks[-2].tolist()}")
+            worst[name] = {"rel_err": err, "same_selection": same_pick}
+            log(f"composer {name} card vs CPU: actions within {err:.2e} of their largest entry "
+                f"(tolerance {COMPOSER_REL_TOL})" + ("" if same_pick is None else
+                                                     ", the same samples selected"))
+            check(err <= COMPOSER_REL_TOL, f"composer {name}: card and CPU disagree ({err:.2e})")
+    finally:
+        composers.select_sample = select
+    return worst
+
+
+def run_composer_trace(report) -> dict:
+    """One composer replan (BC at the closed loop's width) under
+    `utils.timer.device_trace`: the Chrome trace names the `value_gather`
+    kernel of the replan's render."""
+    import torch
+
+    from cld_tpu_torch.eval.composers import get_composer
+    from cld_tpu_torch.ops import native
+    from cld_tpu_torch.sim import env
+    from cld_tpu_torch.sim.scene import synthetic_scene_pack
+    from cld_tpu_torch.utils.registry import get_registered_experiment_config
+    from cld_tpu_torch.utils.timer import device_trace
+
+    cfg = get_registered_experiment_config("cld_dm_nusc")
+    pack = synthetic_scene_pack(seed=0, num_scenes=CL_SCENES, agents_per_scene=CL_AGENTS,
+                                world_map_size=WORLD_MAP, sim_steps=COMPOSER_STEPS, device="cuda")
+    sim_cfg = env.SimConfig(num_simulation_steps=COMPOSER_STEPS, n_step_action=CL_N_STEP,
+                            raster_size=RASTER, hist_frames=cfg.algo.history_num_frames)
+    policy = get_composer("BC")(cfg, pack, sim_cfg, device="cuda")
+    state = env.init_sim_state(pack, sim_cfg)
+    policy(env.render_observation(pack, state, sim_cfg), None)  # warm
+    torch.cuda.synchronize()
+    native.reset_launch_counts()
+    t0 = time.perf_counter()
+    with device_trace(str(ROOT / "chiprun_out" / "composer_trace"), device="cuda") as prof:
+        act = policy(env.render_observation(pack, state, sim_cfg), None)
+    traced_s = time.perf_counter() - t0
+    launches = native.launch_counts()
+    trace = Path(prof.trace_path).read_text()
+    cuda_ms = sum(e.device_time_total for e in prof.key_averages()) / 1e3
+    check(launches == counts(value_gather=1), f"traced replan launches {launches}")
+    check("value_gather_kernel" in trace, "the trace does not name the value_gather kernel")
+    check(bool(torch.isfinite(act.controls).all()), "the traced replan's plan is not finite")
+    report["launches_composer_trace"] = launches
+    log(f"traced BC replan: {traced_s:.3f} s under the profiler, device time {cuda_ms:.3f} ms, "
+        f"trace {Path(prof.trace_path).stat().st_size / 1e6:.2f} MB naming value_gather_kernel")
+    return dict(traced_s=traced_s, device_ms=cuda_ms)
+
+
+def check_data_parallel_world_one(dev) -> dict:
+    """Data parallelism on one card: a NCCL process group of world size 1
+    from a localhost TCP store. `make_mesh` gives world size 1 there, and 2
+    VAE steps through the train CLI's wrapping (`replicate`, `state.mesh`)
+    equal the plain steps bit for bit (within 1e-6 relative asked); then the
+    collectives themselves on NCCL (a mesh forced active: `GlobalBatchNorm2d`
+    and the gradient all-reduce) give one float64 step's gradients within
+    1e-9 of each tensor's largest entry, and PPO's (the buffer's all-gather,
+    the minibatches' broadcast, `ratio_max`'s all-reduce) a collection and
+    an update phase within 1e-6 of the plain ones. Full width: batch 128, raster 224, a
+    dense Gaussian raster, cuDNN in its deterministic mode."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from cld_tpu_torch.data.synthetic import synthetic_batch
+    from cld_tpu_torch.ops import native
+    from cld_tpu_torch.parallel import mesh as pm
+    from cld_tpu_torch.training.vae import VAETrainer
+
+    cfg = record_config()
+    batch = synthetic_batch(seed=4, batch_size=B, raster_size=RASTER, device=dev)
+    # a dense raster: train-mode BatchNorm over the mostly-zero synthetic one is ill-conditioned
+    batch = batch._replace(image=torch.randn(batch.image.shape, device=dev,
+                                             generator=torch.Generator(device=dev).manual_seed(8)))
+    gen = lambda: torch.Generator(device=dev).manual_seed(9)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0, world_size=1)
+    # cuDNN's default convolution backward adds in no fixed order: two plain runs differ in
+    # the last bits, which Adam's first steps amplify
+    cudnn = torch.backends.cudnn
+    was = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        mesh = pm.make_mesh(device=dev)
+        check((mesh.world_size, mesh.active) == (1, False), f"world-1 mesh {mesh}")
+
+        def run(m, steps, grads=None, dtype=torch.float32):
+            trainer = VAETrainer(cfg, device=dev)
+            state = trainer.init_state(0)
+            state.model.to(dtype)
+            b = batch._replace(**{k: v.to(dtype) for k, v in batch._asdict().items()
+                                  if torch.is_tensor(v) and v.is_floating_point()})
+            if m is not None:
+                pm.replicate(state.model, m)
+                state.mesh = m
+            if grads is not None:
+                step = state.optimizer.step
+
+                def recorded(*a, **k):
+                    grads.update({n: p.grad.clone() for n, p in state.model.named_parameters()})
+                    return step(*a, **k)
+
+                state.optimizer.step = recorded
+            g = gen()
+            for _ in range(steps):
+                trainer.train_step(state, b, generator=g)
+            return {k: v.clone() for k, v in state.model.state_dict().items()}
+
+        native.reset_launch_counts()
+        plain = run(None, 2)
+        plain_launches = native.launch_counts()
+        native.reset_launch_counts()
+        wrapped = run(mesh, 2)
+        check(native.launch_counts() == plain_launches, "the wrapped steps launch otherwise")
+        param_err = max(float((wrapped[k] - v).abs().max()) / max(float(v.abs().max()), 1e-30)
+                        for k, v in plain.items() if v.is_floating_point())
+        check(param_err <= 1e-6, f"world-1 data-parallel steps differ: {param_err:.2e}")
+
+        class Forced(pm.Mesh):
+            active = True  # the collectives run at world size 1
+
+        # float64: in float32 train-mode BatchNorm's backward puts two forms of one step's
+        # gradients up to ~2e-2 of a tensor's largest entry apart (as far as float32 is
+        # from float64 there, on the CPU too)
+        g_plain, g_nccl = {}, {}
+        run(None, 1, g_plain, torch.float64)
+        run(Forced(0, 1, dev), 1, g_nccl, torch.float64)
+        grad_err = max(float((g_nccl[k] - v).abs().max()) / max(float(v.abs().max()), 1e-30)
+                       for k, v in g_plain.items())
+        check(grad_err <= DP_F64_TOL, f"NCCL data-parallel gradients differ: {grad_err:.2e}")
+
+        def ppo_run(m):
+            """One PPO collection into the global buffer and a 2-iteration
+            update phase on minibatches that rank 0 draws: the buffer, the
+            denoiser after the phase and the phase's metrics."""
+            from cld_tpu_torch.training.dm import DMTrainer
+            from cld_tpu_torch.training.ppo import PPOTrainer, buffer_init
+
+            dm = DMTrainer(cfg, VAETrainer(cfg, device=dev).init_state(0).model, device=dev)
+            state = dm.init_state(2)
+            state.lr_schedule = lambda step: 1e-4  # the record's first epoch has rate 0
+            if m is not None:
+                pm.replicate(state.model, m)
+                state.mesh = m
+            ppo = PPOTrainer(cfg, dm)
+            ppo.ppo_epochs, ppo.update_times = 1, 2
+            a = cfg.algo
+            buf = buffer_init(a.buffer_max, a.horizon, a.vae.latent_size, a.cond_feat_dim,
+                              device=dev)
+            g = gen()
+            ppo.collect_step(state, buf, batch, generator=g)
+            _, metrics = ppo.ppo_update(state, buf, generator=g)
+            out = {f"buf.{k}": getattr(buf, k) for k in ("x0", "x1", "log_p", "reward",
+                                                          "cond_feat", "baseline")}
+            out.update({f"metric.{k}": v for k, v in metrics.items()})
+            return {**out, **state.model.state_dict()}
+
+        ppo_plain, ppo_nccl = ppo_run(None), ppo_run(Forced(0, 1, dev))
+        ppo_err = max(float((ppo_nccl[k] - v).abs().max()) / max(float(v.abs().max()), 1e-30)
+                      for k, v in ppo_plain.items() if v.is_floating_point())
+        check(ppo_err <= 1e-6, f"NCCL data-parallel PPO differs: {ppo_err:.2e}")
+    finally:
+        cudnn.deterministic, cudnn.benchmark = was
+        dist.destroy_process_group()
+    log(f"data parallelism, NCCL world 1 (localhost store): 2 VAE steps at B={B}, raster "
+        f"{RASTER} through the wrapping within {param_err:.2e} (relative) of the plain ones; the "
+        f"collectives forced on: one float64 step's gradients within {grad_err:.2e} of their "
+        f"largest entry, a PPO collection and 2-iteration update within {ppo_err:.2e}")
+    return dict(param_rel_err=param_err, nccl_grad_err=grad_err, nccl_ppo_err=ppo_err)
+
+
+def run_composer_path(report, tmp) -> None:
+    """Step 22 of the module's docstring: the 24 composers through the
+    rollout CLI, `--composer-ckpt` on the zoo's `nusc_bc` checkpoint, card
+    vs CPU per family, a traced replan, and data parallelism at world size
+    1 on NCCL."""
+    import torch
+
+    t_phase = time.perf_counter()
+    res = {"composers": run_composers(report)}
+    res["composer_ckpt"] = run_composer_ckpt(report,
+                                             tmp / "zoo_runs" / "zoo_bc" / "ckpt_final")
+    res["card_vs_cpu"] = check_composers_card_vs_cpu()
+    res["trace"] = run_composer_trace(report)
+    res["data_parallel"] = check_data_parallel_world_one(torch.device("cuda", 0))
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"composer path phase {res['phase_s']:.1f} s in all, on {report['card']}")
+    report["composer_path"] = res
+
+
 def max_param_change(before, module) -> float:
     """Largest absolute change of a module's parameters since `before`."""
     return max(float((p.detach() - b).abs().max()) for p, b in zip(module.parameters(), before))
@@ -3252,6 +3641,7 @@ def main() -> int:
     try:
         from cld_tpu_torch import pipeline
         from cld_tpu_torch.data.synthetic import synthetic_batch
+        from cld_tpu_torch.eval.composers import COMPOSER_REGISTRY
         from cld_tpu_torch.ops import native
         from cld_tpu_torch.sim.scene import synthetic_scene_pack
     except ImportError as e:
@@ -3337,7 +3727,10 @@ def main() -> int:
              **{f"policy_{p}": f"launches_{p}" for p in MODEL_FREE},
              **{f"{label}_train": f"launches_{label}_train" for _, _, label in LEARNED_RUNS},
              "ebm_rollout": "launches_ebm_rollout", "scene_policy": "launches_scene_policy",
-             "latent_attack": "launches_latent_attack"}
+             "latent_attack": "launches_latent_attack",
+             **{f"composer_{c}": f"launches_composer_{c}" for c in sorted(COMPOSER_REGISTRY)},
+             "composer_ckpt": "launches_composer_ckpt",
+             "composer_trace": "launches_composer_trace"}
     # the launch floor: one kernel node of a graph that does nothing (one
     # thread that exits at once), timed as every kernel's graph_ms is
     floor_ms = graph_ms(lambda: torch.cuda._sleep(0))

@@ -8,8 +8,10 @@ decoder and the unicycle dynamics, decode, reward), the guided closed loop
 stages (`training`, `python -m cld_tpu_torch.train --mode vae|dm|ppo`), the
 model zoo's eleven baseline algos (`training/zoo.py`, `--mode zoo`), the GAN,
 the EBM learned metric and scene diffusion (`--mode gan|ebm|scene_dm`, the
-rollout CLI's `--ebm-ckpt`, `policies/scene_policy.py`) and the latent attack
-(`algos/latent_attack.py`). Ten
+rollout CLI's `--ebm-ckpt`, `policies/scene_policy.py`), the latent attack
+(`algos/latent_attack.py`), the 24 policy composers (`eval/composers.py`,
+the rollout CLI's `--composer`), renders (`viz/render.py`, `--render`) and
+data-parallel training under torchrun (`parallel/mesh.py`). Ten
 hand-written CUDA kernels carry its hot paths (`csrc/`): the fused 2-layer
 LSTM forward and its reverse sweep, the map gathers, the rigid map distance,
 and the reward's off-road count and disk-collision penalty.

@@ -42,13 +42,15 @@ class SyntheticLoader:
         return [next(it) for _ in range(n)]
 
 
-def make_loader(config, split: str = "train",
-                device="cuda") -> Union[SyntheticLoader, PackedShardLoader]:
+def make_loader(config, split: str = "train", device="cuda", rank: int = 0,
+                world_size: int = 1) -> Union[SyntheticLoader, PackedShardLoader]:
     """Loader from a config: synthetic batches when `train.data_path` is
     None or "synthetic", else the packed shards under it (`<path>/<split>`,
     or a flat dataset at the root). The validation split draws other seeds
     (10,000 against 0): on a flat dataset equal seeds would replay the
-    training samples."""
+    training samples. With `world_size` above 1 the synthetic batches are
+    rank `rank`'s rows of the global ones (`synthetic_batch`); packed
+    shards take `data.multihost.DistributedPackedLoader` for that."""
     data_path = config.train.get("data_path")
     tr = config.train
     batch_size = tr.training.batch_size if split == "train" else tr.validation.batch_size
@@ -63,4 +65,5 @@ def make_loader(config, split: str = "train",
         horizon=config.algo.future_num_frames,
         seed=seed,
         device=device,
+        **({"rank": rank, "world_size": world_size} if world_size > 1 else {}),
     )

@@ -61,8 +61,13 @@ def synthetic_batch(
     dt: float = 0.1,
     road_half_width: float = 7.0,
     device="cuda",
+    rank: int = 0,
+    world_size: int = 1,
 ) -> TrafficBatch:
-    """Generate a consistent agent-centric batch on a straight road along +x."""
+    """Generate a consistent agent-centric batch on a straight road along +x.
+    With `world_size` above 1, rank `rank`'s rows of it (rows [rank * b,
+    (rank + 1) * b), b = batch_size / world_size): the draws are the whole
+    batch's, and only these rows are painted and made."""
     rng = np.random.default_rng(seed)
     B, S, Th, T = batch_size, num_neighbors, hist_frames + 1, horizon
     H = W = raster_size
@@ -101,6 +106,16 @@ def synthetic_batch(
     n_hist[..., 1] = n_off_y[..., None]
     n_hist_yaws = np.zeros((B, S, Th, 1), dtype=np.float32)
     n_hist_avail = np.broadcast_to(n_fut_avail[..., :1], (B, S, Th))
+
+    if world_size > 1:
+        if B % world_size:
+            raise ValueError(f"a batch of {B} rows does not divide over {world_size} ranks")
+        B //= world_size
+        mine = slice(rank * B, (rank + 1) * B)
+        (speeds, fut_states, hist_positions, hist_yaws, hist_avail, n_fut, n_fut_avail, n_hist,
+         n_hist_yaws, n_hist_avail) = (a[mine] for a in (
+            speeds, fut_states, hist_positions, hist_yaws, hist_avail, n_fut, n_fut_avail,
+            n_hist, n_hist_yaws, n_hist_avail))
 
     rfa = raster_from_agent_matrix(raster_size, pixel_size, (-0.5, 0.0))
     raster_from_agent = np.broadcast_to(rfa, (B, 3, 3)).copy()

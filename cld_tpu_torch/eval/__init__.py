@@ -1,2 +1,3 @@
-"""Evaluation: open-loop metrics (ADE / FDE, Wasserstein realism) and the
-closed-loop evaluator (`cle`)."""
+"""Evaluation: open-loop metrics (ADE / FDE, Wasserstein realism), the
+closed-loop evaluator (`cle`) and the named policy composers
+(`composers`)."""

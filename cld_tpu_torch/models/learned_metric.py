@@ -13,7 +13,7 @@ variables. The trajectory encoder runs through PyTorch's LSTM operator
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -23,6 +23,7 @@ from cld_tpu_torch.data.batch import TrafficBatch
 from cld_tpu_torch.models.nets import MLP
 from cld_tpu_torch.models.resnet import ResNetEncoder
 from cld_tpu_torch.models.vae import LSTMEncoder
+from cld_tpu_torch.parallel.mesh import gather_rows
 
 
 class PermuteEBM(nn.Module):
@@ -48,13 +49,18 @@ class PermuteEBM(nn.Module):
         emb = F.relu(self.embed_net(feat))
         return self.score_net(emb)[..., 0], emb
 
-    def forward(self, batch: TrafficBatch, train: bool = False) -> Dict[str, torch.Tensor]:
+    def forward(self, batch: TrafficBatch, train: bool = False,
+                mesh=None) -> Dict[str, torch.Tensor]:
         """The contrastive score matrix [B, B]: scores[i, j] pairs map i with
-        trajectory j; the true pairs are on the diagonal."""
+        trajectory j; the true pairs are on the diagonal. Under data
+        parallelism (an active `parallel.mesh.Mesh`) a rank's [B, world * B]
+        rows pair its maps with every rank's trajectories, gathered with
+        their gradient; its true pairs are in the columns of its own rows."""
         map_feat, traj_feat = self._features(batch, train)
-        B = map_feat.shape[0]
-        pairs = torch.cat([map_feat[:, None].expand(B, B, -1),
-                           traj_feat[None].expand(B, B, -1)], dim=-1)
+        traj_feat = gather_rows(traj_feat, mesh)
+        b, n = map_feat.shape[0], traj_feat.shape[0]
+        pairs = torch.cat([map_feat[:, None].expand(b, n, -1),
+                           traj_feat[None].expand(b, n, -1)], dim=-1)
         scores, emb = self._score(pairs)
         return {"scores": scores, "features": emb}
 
@@ -64,9 +70,11 @@ class PermuteEBM(nn.Module):
         return self._score(torch.cat([map_feat, traj_feat], dim=-1))[0]
 
 
-def ebm_infonce_loss(scores: torch.Tensor) -> torch.Tensor:
-    """InfoNCE with diagonal labels, in float32: each map should score its
-    own trajectory highest."""
+def ebm_infonce_loss(scores: torch.Tensor, labels: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """InfoNCE in float32: each map should score its own trajectory, the
+    column `labels` (default: the diagonal), highest."""
     scores = scores.to(torch.float32)
-    labels = torch.arange(scores.shape[0], device=scores.device)
+    if labels is None:
+        labels = torch.arange(scores.shape[0], device=scores.device)
     return F.cross_entropy(scores, labels)

@@ -32,13 +32,21 @@ class BatchNorm2d(nn.BatchNorm2d):
         if not train:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
                                 False, 0.0, self.eps)
+        y, mean, var = self.normalize_batch(x)
+        with torch.no_grad():
+            d = self.RUNNING_DECAY
+            self.running_mean.mul_(d).add_(mean.detach(), alpha=1.0 - d)
+            self.running_var.mul_(d).add_(var.detach(), alpha=1.0 - d)
+            self.num_batches_tracked += 1
+        return y
+
+    def normalize_batch(self, x: torch.Tensor):
+        """(x normalized by the batch's statistics, their mean, their biased
+        variance): the train-mode normalization, which data parallelism
+        overrides (`parallel.mesh.GlobalBatchNorm2d`)."""
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
-            d = self.RUNNING_DECAY
-            self.running_mean.mul_(d).add_(mean, alpha=1.0 - d)
-            self.running_var.mul_(d).add_(var, alpha=1.0 - d)
-            self.num_batches_tracked += 1
-        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps), mean, var
 
 
 class _Downsample(nn.Sequential):

@@ -14,6 +14,9 @@
         --agents-policy gt_replay --guidance flagship --num-action-samples 2 --guide-with-gt
     python -m cld_tpu_torch.rollout --scene-data data/synthetic_shards --policy mpc
     python -m cld_tpu_torch.rollout --guidance flagship --ebm-ckpt runs/ebm/ckpt_final
+    python -m cld_tpu_torch.rollout --composer BC --composer-ckpt runs/zoo_bc/ckpt_final \
+        --registered-name nusc_bc
+    python -m cld_tpu_torch.rollout --policy lattice --device cpu --render
 
 Counterpart of the JAX package's `rollout.py`, with its flag names and
 defaults (one scene of 4 agents, no guidance rule). The world is the
@@ -23,7 +26,11 @@ synthetic straight road (`sim.scene.synthetic_scene_pack`) or, with
 policy is `--policy`: `dm`, the latent diffusion policy, or one of the
 model-free `lattice`, `gt_replay`, `mpc` and `contingency`;
 `--agents-policy` gives the agents other than each scene's first (the ego)
-another one. The `dm` policy's networks are at the widths of the experiment
+another one. `--composer` names a policy composer of `eval.composers` (the
+24 of the reference's registry: BC, TrafficSim, Diffuser, SceneDiffuser,
+...), which overrides `--policy` and is also what `--agents-policy` builds,
+as in the JAX CLI: its weights are fresh from `--seed`, or the
+`--composer-ckpt` file (a trainer's `ckpt_final`, loaded strictly). The `dm` policy's networks are at the widths of the experiment
 config (`--config`, `--registered-name`; the config of record by default),
 with seeded random weights or trained ones: `--vae-ckpt` / `--dm-ckpt` take
 a VAE / DM stage's `ckpt_final` of `python -m cld_tpu_torch.train`, the
@@ -53,8 +60,11 @@ closed-loop evaluator's summary, with `--ebm-ckpt` (a `--mode ebm` stage's
 `ckpt_final`) the learned realism metric of the log (`ebm_score_mean`,
 `ebm_score_min`), the throughput, each rule's satisfaction
 on the executed trajectories and the episode's kernel launches, and writes
-the world-frame trajectory log to `<output>/trajectories.npz`. Runs on the
-CUDA card unless `--device cpu` is given.
+the world-frame trajectory log to `<output>/trajectories.npz`; with
+`--render`, each scene's rollout plot `<output>/scene_XXX.png` and its
+animation `scene_XXX.gif` (a frame every `--save-every-n-frames` frames,
+`--render-size` inches; needs matplotlib and Pillow, which are imported only
+then). Runs on the CUDA card unless `--device cpu` is given.
 """
 
 from __future__ import annotations
@@ -69,6 +79,7 @@ import numpy as np
 import torch
 
 from cld_tpu_torch import pipeline
+from cld_tpu_torch.eval.composers import COMPOSER_REGISTRY, get_composer
 from cld_tpu_torch.guidance.losses import GuidanceContext
 from cld_tpu_torch.guidance.parsing import parse_guidance_arg, specs_from_configs
 from cld_tpu_torch.models.vae import DECODE_IMPLS
@@ -257,6 +268,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                              "solver; contingency: tree contingency planner")
     parser.add_argument("--agents-policy", choices=POLICIES, default=None,
                         help="policy of the agents other than each scene's first (the ego)")
+    parser.add_argument("--composer", choices=sorted(COMPOSER_REGISTRY), default=None,
+                        help="named policy composer (cld_tpu_torch.eval.composers); overrides "
+                             "--policy and --agents-policy. Weights: --composer-ckpt, else "
+                             "fresh from --seed")
+    parser.add_argument("--composer-ckpt", type=str, default=None,
+                        help="the composer's policy weights: a trainer's ckpt_final "
+                             "({'params': state_dict}, loaded strictly)")
     parser.add_argument("--guidance", type=str, default="",
                         help="rules, e.g. 'speed_limit:15,agent_collision', inline JSON "
                              "configs, or @file.json; flagship: agent_collision + "
@@ -307,6 +325,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                              "python -m cld_tpu_torch.train --mode ebm); adds the learned "
                              "closed-loop realism metric, ebm_score_mean / ebm_score_min, "
                              "to the report")
+    parser.add_argument("--render", action="store_true",
+                        help="save each scene's rollout plot (scene_XXX.png) and animation "
+                             "(scene_XXX.gif) under --output; needs matplotlib and Pillow")
+    parser.add_argument("--save-every-n-frames", type=int, default=5,
+                        help="the animation's frame stride")
+    parser.add_argument("--render-size", type=float, default=8.0,
+                        help="render figure size in inches")
     parser.add_argument("--weights", type=str, default=None,
                         help=".npz of converted JAX-package weights (default: random from --seed)")
     parser.add_argument("--seed", type=int, default=0)
@@ -377,7 +402,7 @@ def build(args) -> SimpleNamespace:
             sim_steps=args.num_sim_steps, device=dev,
         )
     models = None
-    if "dm" in (args.policy, args.agents_policy):
+    if not args.composer and "dm" in (args.policy, args.agents_policy):
         if pack.world_map.shape[-1] != cfg.env.rasterizer.num_sem_layers:
             raise ValueError(f"the scenes have {pack.world_map.shape[-1]} map layers, the "
                              f"config {cfg.env.rasterizer.num_sem_layers}")
@@ -395,7 +420,13 @@ def build(args) -> SimpleNamespace:
         decode_impl=args.decode_impl,
     )
     specs = build_guidance_specs(args, pack, sim_cfg, pack.num_agents)
-    make = lambda name: build_policy(name, args, cfg, sim_cfg, pack, models, specs, options)
+    if args.composer:
+        # a composer is what every policy name builds, as in the JAX CLI
+        make = lambda name: get_composer(args.composer)(
+            cfg, pack, sim_cfg, ckpts={"policy": args.composer_ckpt},
+            generator=torch.Generator(device=dev).manual_seed(args.seed), device=dev)
+    else:
+        make = lambda name: build_policy(name, args, cfg, sim_cfg, pack, models, specs, options)
     policy = make(args.policy)
     if args.agents_policy and args.agents_policy != args.policy:
         # ego = first agent of each scene
@@ -413,7 +444,7 @@ def main(argv=None) -> dict:
     rules = [type(s.loss).__name__ for s in specs]
     print(f"rollout: {pack.num_agents} agents, {cfg.num_replans} replans x "
           f"{cfg.n_step_action} steps, policy={args.policy}, agents_policy={args.agents_policy}, "
-          f"rules={rules or 'none'}", flush=True)
+          f"composer={args.composer}, rules={rules or 'none'}", flush=True)
 
     def episode(seed):
         """One episode from a generator seeded `seed`: (state, log, seconds)."""
@@ -446,6 +477,7 @@ def main(argv=None) -> dict:
         device=torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
         policy=args.policy,
         agents_policy=args.agents_policy,
+        composer=args.composer,
         guidance=args.guidance,
         rules=rules,
         launches={k: after[k] - before[k] for k in after},
@@ -461,6 +493,16 @@ def main(argv=None) -> dict:
         scene_index=pack.scene_index.cpu().numpy(),
     )
     print(f"saved trajectories -> {args.output}/trajectories.npz")
+    if args.render:
+        from cld_tpu_torch.viz.render import render_scene_rollout, save_rollout_gif
+
+        for s in range(args.num_scenes):
+            render_scene_rollout(pack, traj, scene=s,
+                                 out_path=os.path.join(args.output, f"scene_{s:03d}.png"),
+                                 figsize=args.render_size)
+            save_rollout_gif(pack, traj, os.path.join(args.output, f"scene_{s:03d}.gif"),
+                             scene=s, stride=args.save_every_n_frames, figsize=args.render_size)
+        print(f"saved renders -> {args.output}/scene_*.png/gif")
     return report
 
 

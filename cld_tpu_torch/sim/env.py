@@ -321,6 +321,9 @@ def simulate(
         # policies may return an Action container or a raw [Na, T, 2] tensor
         if hasattr(actions, "controls"):
             actions = actions.controls
+        if actions is None:  # as the JAX simulator, which fails to index None
+            raise TypeError("the policy's Action has no controls; the simulator steps with "
+                            "controls (wrap a planner in policies.wrappers.hierarchical_policy)")
         state, f = _consume_actions(pack, state, actions, cfg)
         frames.append(f)
     return state, torch.cat(frames, dim=0)

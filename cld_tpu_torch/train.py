@@ -30,6 +30,17 @@ checkpoint that the rollout CLI's `--ebm-ckpt` reads. `--mode test` prints the
 failure rates and the Wasserstein realism deviation over `--steps`
 validation batches as JSON.
 
+Data parallelism, as the JAX CLI shards every stage but `scene_dm` over its
+mesh: under `torchrun --nproc-per-node N` each rank trains on its rows of
+the global batch (`train.training.batch_size`, which N must divide) and the
+step is the global batch's (`parallel.mesh`: gradients averaged, BatchNorm
+on the global batch's statistics, parameters broadcast from rank 0); rank 0
+logs the metrics averaged over the ranks and writes the checkpoints.
+`train.parallel.dp` -1 takes every rank. On the CPU (gloo):
+
+    torchrun --nproc-per-node 2 -m cld_tpu_torch.train --registered-name cld_smoke \
+        --mode vae --device cpu --steps 2 --output runs_dp
+
 A small run on the CPU:
 
     python -m cld_tpu_torch.train --registered-name cld_smoke --mode vae \\
@@ -51,6 +62,7 @@ import torch
 from cld_tpu_torch.data.loader import make_loader
 from cld_tpu_torch.data.scene_batch import synthetic_scene_batch
 from cld_tpu_torch.eval.metrics import realism_deviation
+from cld_tpu_torch.parallel.mesh import Mesh, make_mesh, mean_over_ranks, replicate
 from cld_tpu_torch.training.checkpoints import (
     restore_train_state,
     save_pytree,
@@ -89,11 +101,49 @@ class MetricLogger:
         self._f.close()
 
 
-def _batches(cfg, device, start_step: int):
+# a rank's generators are seeded apart by this much, so that the ranks draw
+# different noise for their rows (rank 0 draws as a single process does)
+RANK_SEED_STRIDE = 1_000_003
+
+
+def _generator(args, seed: int, per_rank: bool = True) -> torch.Generator:
+    rank = args.mesh.rank if per_rank else 0
+    return torch.Generator(device=args.device).manual_seed(seed + RANK_SEED_STRIDE * rank)
+
+
+def _shared(state, args):
+    """The state made a data-parallel replica (`parallel.mesh`) when the run
+    has several ranks; as it is otherwise."""
+    if args.mesh.active:
+        replicate(state.model, args.mesh)
+        state.mesh = args.mesh
+    return state
+
+
+def _train_loader(cfg, device, mesh: Optional[Mesh] = None):
+    """This rank's training loader: the global batch in one process; under
+    data parallelism the rank's lane of the packed shards
+    (`DistributedPackedLoader`), or its rows of the global synthetic batch,
+    the only rows it makes."""
+    if mesh is None or not mesh.active:
+        return make_loader(cfg, "train", device=device)
+    data_path = cfg.train.get("data_path")
+    if data_path not in (None, "synthetic"):
+        from cld_tpu_torch.data.multihost import DistributedPackedLoader
+
+        return DistributedPackedLoader(data_path, split="train",
+                                       global_batch_size=cfg.train.training.batch_size, seed=0,
+                                       rank=mesh.rank, world_size=mesh.world_size,
+                                       device=device)
+    return make_loader(cfg, "train", device=device, rank=mesh.rank, world_size=mesh.world_size)
+
+
+def _batches(cfg, device, start_step: int, mesh: Optional[Mesh] = None):
     """The training stream as the JAX CLI draws it: one batch drawn for
     init and dropped, then the `start_step` batches that a resumed run has
-    already trained on, so that step s trains on the stream's batch s + 1."""
-    it = iter(make_loader(cfg, "train", device=device))
+    already trained on, so that step s trains on the stream's batch s + 1
+    (under data parallelism, this rank's rows of it)."""
+    it = iter(_train_loader(cfg, device, mesh))
     for _ in range(1 + start_step):
         next(it)
     return it
@@ -108,37 +158,43 @@ def _save(out_dir: str, name: str, state, loop_step: int, full: bool) -> None:
 def _run_stage(cfg, args, stage: str, state, step_fn, batches=None, full: bool = True):
     """The loop the stages share: resume, step, log, checkpoint. `batches`
     is the stage's batch stream (default: the loader's, as the JAX CLI draws
-    it); `full=False` writes no `_full` file and refuses `--resume`.
-    Returns the trained state."""
+    it); `full=False` writes no `_full` file and refuses `--resume`. Under
+    data parallelism the metrics are averaged over the ranks and rank 0
+    alone logs and writes. Returns the trained state."""
     if args.resume and not full:
         raise SystemExit(f"--resume: the {stage} stage writes no full-state checkpoint")
     out_dir = os.path.join(args.output, stage)
-    logger = MetricLogger(out_dir, cfg.train.logging.log_every_n_steps)
+    main = args.mesh.is_main
+    logger = MetricLogger(out_dir, cfg.train.logging.log_every_n_steps) if main else None
     try:
         start_step = 0
         if args.resume:
             state, start_step = restore_train_state(args.resume, state)
             print(f"resumed full train state from {args.resume} at step {start_step}")
         # step s, resumed or not, trains on the batch of the JAX CLI's step s
-        it = batches if batches is not None else _batches(cfg, args.device, start_step)
+        it = batches if batches is not None else _batches(cfg, args.device, start_step, args.mesh)
         num_steps = args.steps or cfg.train.training.num_steps
         t0 = time.time()
         for step in range(start_step, num_steps):
-            metrics = step_fn(state, next(it), step)
+            metrics = mean_over_ranks(step_fn(state, next(it), step), args.mesh)
+            if not main:
+                continue
             logger.log(step, metrics)
             if cfg.train.save.enabled and (step + 1) % cfg.train.save.every_n_steps == 0:
                 _save(out_dir, f"ckpt_{step + 1}", state, step + 1, full)
-        _save(out_dir, "ckpt_final", state, num_steps, full)
-        print(f"{stage} done: {num_steps} steps in {time.time() - t0:.1f}s -> {out_dir}")
+        if main:
+            _save(out_dir, "ckpt_final", state, num_steps, full)
+            print(f"{stage} done: {num_steps} steps in {time.time() - t0:.1f}s -> {out_dir}")
         return state
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
 
 
 def train_vae(cfg, args):
     trainer = VAETrainer(cfg, device=args.device)
-    state = trainer.init_state(cfg.seed)
-    gen = torch.Generator(device=args.device).manual_seed(cfg.seed + 1)
+    state = _shared(trainer.init_state(cfg.seed), args)
+    gen = _generator(args, cfg.seed + 1)
 
     def step_fn(state, batch, step):
         return trainer.train_step(state, batch, generator=gen)[1]
@@ -161,7 +217,8 @@ def _build_dm(cfg, args):
 
 def train_dm(cfg, args):
     dm_trainer, dm_state = _build_dm(cfg, args)
-    gen = torch.Generator(device=args.device).manual_seed(cfg.seed + 3)
+    dm_state = _shared(dm_state, args)
+    gen = _generator(args, cfg.seed + 3)
 
     def step_fn(state, batch, step):
         return dm_trainer.train_step(state, batch, generator=gen)[1]
@@ -172,13 +229,17 @@ def train_dm(cfg, args):
 def train_ppo(cfg, args):
     """Collect every step, update every `algo.update_interval` steps. A
     resumed run restores the optimizer and the step; the replay buffer is
-    transient and starts empty."""
+    transient and starts empty. Under data parallelism every rank holds the
+    global buffer (each collection adds every rank's rows) and its baseline,
+    and an update iteration is the global minibatch's, split over the ranks
+    (`PPOTrainer.collect_step`, `ppo_update`)."""
     dm_trainer, dm_state = _build_dm(cfg, args)
+    dm_state = _shared(dm_state, args)
     ppo = PPOTrainer(cfg, dm_trainer)
     algo = cfg.algo
     buf = buffer_init(algo.buffer_max, algo.horizon, algo.vae.latent_size, algo.cond_feat_dim,
                       device=args.device)
-    gen = torch.Generator(device=args.device).manual_seed(cfg.seed + 4)
+    gen = _generator(args, cfg.seed + 4)
 
     def step_fn(state, batch, step):
         _, collected = ppo.collect_step(state, buf, batch, generator=gen)
@@ -198,8 +259,8 @@ def train_zoo(cfg, args, algo_name: Optional[str] = None):
     `<output>/zoo_<name>/`."""
     name = algo_name or args.zoo_algo or cfg.algo.get("name", "bc")
     trainer = ZooTrainer(cfg, name, device=args.device)
-    state = trainer.init_state(cfg.seed + 9)
-    gen = torch.Generator(device=args.device).manual_seed(cfg.seed + 10)
+    state = _shared(trainer.init_state(cfg.seed + 9), args)
+    gen = _generator(args, cfg.seed + 10)
 
     def step_fn(state, batch, step):
         return trainer.train_step(state, batch, generator=gen)[1]
@@ -212,8 +273,8 @@ def train_gan(cfg, args):
     the generator `algo.gan_generator_arch` (default "mlp"); `ckpt_<n>` and
     `ckpt_final` only, as the JAX CLI writes."""
     trainer = GANTrainer(cfg, device=args.device)
-    state = trainer.init_state(cfg.seed + 11)
-    gen = torch.Generator(device=args.device).manual_seed(cfg.seed + 12)
+    state = _shared(trainer.init_state(cfg.seed + 11), args)
+    gen = _generator(args, cfg.seed + 12)
 
     def step_fn(state, batch, step):
         return trainer.train_step(state, batch, generator=gen)[1]
@@ -226,7 +287,7 @@ def train_ebm(cfg, args):
     that `python -m cld_tpu_torch.rollout --ebm-ckpt` reads. Its step draws
     nothing (the JAX CLI's key seed + 8 goes unused as well)."""
     trainer = EBMTrainer(cfg, device=args.device)
-    state = trainer.init_state(cfg.seed + 7)
+    state = _shared(trainer.init_state(cfg.seed + 7), args)
     return _run_stage(cfg, args, "ebm", state, lambda state, batch, step:
                       trainer.train_step(state, batch)[1])
 
@@ -234,7 +295,9 @@ def train_ebm(cfg, args):
 def train_scene_dm(cfg, args):
     """Scene diffusion (`training/scene_dm.py`) on four synthetic scene
     batches of `max(1, batch_size // 8)` scenes x 8 agents (seeds 0-3),
-    cycled; `ckpt_<n>` and `ckpt_final` only, as the JAX CLI writes."""
+    cycled; `ckpt_<n>` and `ckpt_final` only, as the JAX CLI writes. The
+    JAX CLI does not shard this stage: under several ranks each trains the
+    same replica, and rank 0 writes it."""
     trainer = SceneDMTrainer(cfg, device=args.device)
     algo = cfg.algo
     batches = [synthetic_scene_batch(seed=i, batch_size=max(1, cfg.train.training.batch_size // 8),
@@ -242,7 +305,7 @@ def train_scene_dm(cfg, args):
                                      horizon=algo.future_num_frames, device=args.device)
                for i in range(4)]
     state = trainer.init_state(cfg.seed)
-    gen = torch.Generator(device=args.device).manual_seed(cfg.seed + 6)
+    gen = _generator(args, cfg.seed + 6, per_rank=False)
 
     def step_fn(state, batch, step):
         return trainer.train_step(state, batch, generator=gen)[1]
@@ -318,7 +381,13 @@ def main(argv: Optional[Sequence[str]] = None):
         cfg.train.training.precision = args.precision
         cfg.lock()
     mode = args.mode or cfg.train.mode
-    print(f"mode={mode} device={args.device}")
+    args.mesh = Mesh(device=torch.device(args.device))
+    if mode != "test":
+        args.mesh = make_mesh(cfg.train.parallel.get("dp", -1), args.device)
+        if args.mesh.active:
+            args.device = str(args.mesh.device)
+    print(f"mode={mode} device={args.device}"
+          + (f" rank={args.mesh.rank}/{args.mesh.world_size}" if args.mesh.active else ""))
     return {"vae": train_vae, "dm": train_dm, "ppo": train_ppo, "scene_dm": train_scene_dm,
             "ebm": train_ebm, "zoo": train_zoo, "gan": train_gan, "test": evaluate}[mode](cfg, args)
 

@@ -108,7 +108,7 @@ class DMTrainer:
         lr = self.lr_schedule(state.step)
         loss = dm_loss(state.model, self.schedule, z0, aux["cond_feat"], t, noise, generator)
         loss.backward()
-        ok = bool(torch.isfinite(loss))
+        ok = state.loss_is_finite(loss)
         if ok:
             state.apply_gradients()
             if self.ema_decay and state.ema_params is not None:

@@ -53,20 +53,25 @@ class EBMTrainer:
         non-finite loss skips the update (parameters, moments, BatchNorm
         statistics and the step stay; one scalar read on the host).
         `infonce_acc` is the share of maps whose own trajectory scores
-        highest."""
-        model = state.model
+        highest. Under data parallelism a rank scores its maps against every
+        rank's trajectories, so the mean of the ranks' losses is the global
+        batch's InfoNCE."""
+        model, mesh = state.model, state.mesh
         buffers = [b.clone() for b in model.buffers()]
-        scores = model(batch, train=True)["scores"]
-        loss = ebm_infonce_loss(scores)
+        scores = model(batch, train=True, mesh=mesh)["scores"]
+        rows = scores.shape[0]
+        labels = torch.arange(rows, device=scores.device)
+        if mesh is not None:
+            labels = labels + mesh.rank * rows  # this rank's columns of the global batch
+        loss = ebm_infonce_loss(scores, labels)
         loss.backward()
-        if bool(torch.isfinite(loss)):
+        if state.loss_is_finite(loss):
             state.apply_gradients()
         else:
             state.optimizer.zero_grad(set_to_none=True)
             with torch.no_grad():
                 for b, old in zip(model.buffers(), buffers):
                     b.copy_(old)
-        labels = torch.arange(scores.shape[0], device=scores.device)
         acc = (torch.argmax(scores.detach(), dim=-1) == labels).to(torch.float32).mean()
         return state, {"loss": loss.detach(), "infonce_acc": acc}
 

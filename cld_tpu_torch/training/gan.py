@@ -12,6 +12,9 @@ everything else, the context encoder included. Per step:
    on another draw, from the statistics before the step; it keeps the ones
    it moves.
 
+Under data parallelism (`state.mesh`) each side's gradients are averaged
+over the ranks before its update.
+
 Float32; no non-finite guard, as in the JAX trainer. Randomness is explicit:
 the two draws are arguments, else taken from a `torch.Generator`.
 """
@@ -27,18 +30,21 @@ from torch import nn
 
 from cld_tpu_torch.data.batch import TrafficBatch
 from cld_tpu_torch.models.gan import TrajectoryGAN
+from cld_tpu_torch.parallel.mesh import average_gradients
 from cld_tpu_torch.training.state import make_optimizer, require_f32
 from cld_tpu_torch.training.vae import raster_channels
 
 
 @dataclasses.dataclass
 class GANTrainState:
-    """The GAN, one optimizer per side, and the count of steps taken."""
+    """The GAN, one optimizer per side, the count of steps taken, and the
+    data-parallel mesh of a run over several ranks (None: one process)."""
 
     model: TrajectoryGAN
     g_optimizer: torch.optim.Optimizer
     d_optimizer: torch.optim.Optimizer
     step: int = 0
+    mesh: Optional[object] = None
 
 
 def split_params(model: TrajectoryGAN) -> Tuple[List[nn.Parameter], List[nn.Parameter]]:
@@ -114,6 +120,7 @@ class GANTrainer:
         with _frozen(g_params):
             d_out = model(batch, z_d, train=True)
         d_out["d_loss"].backward()
+        average_gradients(d_params, state.mesh)
         state.d_optimizer.step()
         state.d_optimizer.zero_grad(set_to_none=True)
         with torch.no_grad():  # the discriminator pass's statistics are dropped
@@ -123,6 +130,7 @@ class GANTrainer:
         with _frozen(d_params):
             g_out = model(batch, z_g, train=True)
         g_out["g_loss"].backward()
+        average_gradients(g_params, state.mesh)
         state.g_optimizer.step()
         state.g_optimizer.zero_grad(set_to_none=True)
         state.step += 1

@@ -30,6 +30,7 @@ from cld_tpu_torch.models.vae import (
 )
 from cld_tpu_torch.ops.dynamics import UnicycleParams
 from cld_tpu_torch.ops.normalization import TrajNormalizer
+from cld_tpu_torch.parallel.mesh import broadcast_from_main, gather_rows, max_over_ranks
 from cld_tpu_torch.training.dm import DMTrainer
 from cld_tpu_torch.training.state import TrainState
 
@@ -154,7 +155,11 @@ class PPOTrainer:
         """Sample `num_samp` latents per agent, decode, score, and add the
         (x0, x1, log-prob, reward, cond) transitions to `buf` in place. The
         sampler's noise is explicit or drawn from `generator`. Also returns
-        the decoded trajectories `traj` [B, N, T, 6]."""
+        the decoded trajectories `traj` [B, N, T, 6]. Under data parallelism
+        (`dm_state.mesh`) a rank collects its rows and `buf` is the global
+        buffer, the same on every rank: every rank's transitions go into it
+        in the order of the global batch, and its baseline follows the
+        global batch's mean reward; `reward` is the rank's rows' mean."""
         B = batch.batch_size
         out = self.dm.sample(dm_state, batch, num_samp=self.num_samp, x_init=x_init,
                              step_noises=step_noises, generator=generator)
@@ -166,8 +171,9 @@ class PPOTrainer:
         }
         descaled, scaled = self.decode_samples(out["pred_traj"], aux_rep, B)
         reward = self.reward_fn(descaled, batch, scaled, dt=self.dt)
-        buf = buffer_add(buf, out["pred_traj"], out["x1"], out["log_prob_final"], reward,
-                         out["cond_feat"])
+        rows = lambda x: gather_rows(x, dm_state.mesh)
+        buf = buffer_add(buf, rows(out["pred_traj"]), rows(out["x1"]),
+                         rows(out["log_prob_final"]), rows(reward), rows(out["cond_feat"]))
         return buf, {"reward": reward.mean(), "traj": descaled}
 
     # -- clipped-surrogate updates ---------------------------------------
@@ -183,18 +189,35 @@ class PPOTrainer:
         `clip_fraction`, `approx_kl` over the phase and the phase's
         `ratio_max`. An empty buffer raises: its all-zero transitions at
         t = 0 (sigma clipped to 1e-10) would give astronomically scaled
-        gradients."""
+        gradients.
+
+        Under data parallelism (`dm_state.mesh`, a global buffer from
+        `collect_step`) the minibatches are the global ones, rank 0's draw,
+        and a rank takes its equal share of each minibatch's columns; the
+        gradients are averaged over the ranks, so an iteration is the global
+        minibatch's. `ratio_max` is the largest over the ranks; the other
+        metrics are the rank's means, which the ranks' average makes the
+        global ones."""
         if buf.size == 0:
             raise ValueError("ppo_update on an empty replay buffer — run collect_step first")
         dev = buf.x0.device
+        mesh = dm_state.mesh
         if indices is None:
             indices = torch.randint(0, buf.size,
                                     (self.ppo_epochs * self.update_times, self.mini_batch),
                                     generator=generator, device=dev)
+            indices = broadcast_from_main(indices, mesh)
+        indices = indices.to(dev)
+        if mesh is not None and mesh.active:
+            m = indices.shape[1]
+            if m % mesh.world_size:
+                raise ValueError(f"a minibatch of {m} does not divide over {mesh.world_size} ranks")
+            share = m // mesh.world_size
+            indices = indices[:, mesh.rank * share:(mesh.rank + 1) * share]
         unet = dm_state.model
         t = torch.zeros((indices.shape[1],), dtype=torch.long, device=dev)
         seq = []
-        for idx in indices.to(dev):
+        for idx in indices:
             adv = buf.reward[idx] - buf.baseline
             logp_new = transition_log_prob(unet, self.dm.schedule, buf.x1[idx], buf.x0[idx],
                                            buf.cond_feat[idx], t)
@@ -203,7 +226,8 @@ class PPOTrainer:
             dm_state.apply_gradients()
             seq.append({"loss": loss.detach(), **{k: v.detach() for k, v in stats.items()}})
         metrics = {k: torch.stack([s[k] for s in seq]).mean() for k in seq[0]}
-        metrics["ratio_max"] = torch.stack([s["ratio_max"] for s in seq]).max()
+        metrics["ratio_max"] = max_over_ranks(torch.stack([s["ratio_max"] for s in seq]).max(),
+                                              mesh)
         return dm_state, metrics
 
     # -- eval ---------------------------------------------------------------

@@ -134,7 +134,7 @@ class SceneDMTrainer:
         cond = model.encode_cond(batch)
         loss = scene_dm_loss(model.denoise, self.schedule, x0, cond, batch.agent_mask, t, eps)
         loss.backward()
-        ok = bool(torch.isfinite(loss))
+        ok = state.loss_is_finite(loss)
         if ok:
             state.apply_gradients()
         else:

@@ -82,19 +82,33 @@ def make_optimizer(params: Iterable[nn.Parameter], weight_decay: float = 0.0):
 class TrainState:
     """What a trainer updates: the trainable module (BatchNorm running
     statistics are its buffers), its optimizer, the step -> rate schedule, the
-    count of updates applied, and optionally an EMA copy of the parameters (in
-    `model.parameters()` order). The trainers update a state in place and
-    return it."""
+    count of updates applied, optionally an EMA copy of the parameters (in
+    `model.parameters()` order), and the data-parallel mesh of a run over
+    several ranks (`parallel.mesh`; None: one process). The trainers update
+    a state in place and return it."""
 
     model: nn.Module
     optimizer: torch.optim.Optimizer
     lr_schedule: Callable[[int], float]
     step: int = 0
     ema_params: Optional[List[torch.Tensor]] = None
+    mesh: Optional[object] = None
+
+    def loss_is_finite(self, loss: torch.Tensor) -> bool:
+        """The non-finite guard's test: the loss is finite (on every rank of
+        the mesh). Reads one scalar on the host."""
+        from cld_tpu_torch.parallel.mesh import all_finite
+
+        return all_finite(loss, self.mesh)
 
     def apply_gradients(self) -> None:
-        """One optimizer update from the gradients in place, at the rate
-        `lr_schedule(step)`; clears the gradients and counts the step."""
+        """One optimizer update from the gradients in place (first averaged
+        over the mesh's ranks), at the rate `lr_schedule(step)`; clears the
+        gradients and counts the step."""
+        if self.mesh is not None:
+            from cld_tpu_torch.parallel.mesh import average_gradients
+
+            average_gradients(self.model.parameters(), self.mesh)
         lr = self.lr_schedule(self.step)
         for group in self.optimizer.param_groups:
             group["lr"] = lr

@@ -98,7 +98,7 @@ class VAETrainer:
         out = model(batch, beta, train=True, noise=noise, keep_masks=keep_masks,
                     generator=generator)
         out["loss"].backward()
-        ok = bool(torch.isfinite(out["loss"]))
+        ok = state.loss_is_finite(out["loss"])
         if ok:
             state.apply_gradients()
         else:

@@ -325,7 +325,7 @@ class ZooTrainer:
         buffers = [b.clone() for b in model.buffers()]
         loss, metrics = self.spec.loss_call(model, batch, True, noise)
         loss.backward()
-        ok = bool(torch.isfinite(loss))
+        ok = state.loss_is_finite(loss)
         if ok:
             state.apply_gradients()
         else:

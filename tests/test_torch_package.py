@@ -19,6 +19,9 @@ import numpy as np
 from cld_tpu_torch import pipeline, rollout, train
 from cld_tpu_torch.algos import diffuser
 from cld_tpu_torch.data import convert, loader, multihost, packed, synthetic
+from cld_tpu_torch.eval import composers
+from cld_tpu_torch.parallel import mesh
+from cld_tpu_torch.utils import timer
 from cld_tpu_torch.ops import diffusion, gather_kernels, lstm_kernels, native
 from cld_tpu_torch.sim import scene
 from cld_tpu_torch.algos import scene_dm as scene_dm_algo
@@ -77,6 +80,9 @@ def test_no_jax_or_reference_package_imports():
             "cld_tpu_torch/training/gan.py", "cld_tpu_torch/training/scene_dm.py",
             "cld_tpu_torch/sim/learned_metrics.py", "cld_tpu_torch/algos/scene_dm.py",
             "cld_tpu_torch/algos/latent_attack.py", "cld_tpu_torch/policies/scene_policy.py",
+            "cld_tpu_torch/eval/composers.py", "cld_tpu_torch/viz/render.py",
+            "cld_tpu_torch/parallel/mesh.py", "cld_tpu_torch/utils/timer.py",
+            "cld_tpu_torch/utils/experiment.py", "cld_tpu_torch/utils/wandb_logging.py",
             "chip_smoke.py"} <= names
     for f in files:
         for mod in _imports(f):
@@ -97,7 +103,8 @@ def test_no_jax_or_reference_package_imports():
                                 training_gan.GANTrainer.__init__, training_gan.draw_gan_noise,
                                 training_scene_dm.SceneDMTrainer.__init__,
                                 scene_dm_algo.draw_scene_loss_noise,
-                                scene_dm_algo.draw_scene_sample_noise])
+                                scene_dm_algo.draw_scene_sample_noise, mesh.make_mesh,
+                                timer.device_trace, *composers.COMPOSER_REGISTRY.values()])
 def test_entry_points_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
@@ -208,16 +215,19 @@ def _jax_rollout_defaults():
 
 
 def test_rollout_cli_takes_the_jax_defaults_and_times_a_warm_episode(tmp_path, monkeypatch):
-    """Every option the two rollout CLIs share has the JAX CLI's default
-    (one scene of 4 agents, no guidance rule among them). `main` runs a
+    """The port's rollout CLI has every option of the JAX CLI, each with the
+    JAX CLI's default (one scene of 4 agents, no guidance rule, no composer,
+    no render among them). `main` runs a
     warm-up episode from a generator seeded `--seed`, then the timed one
     from `--seed` + 1, whose log it writes; its launches are the timed
     episode's alone, and the process-wide counts are left to add up."""
     jax_defaults = _jax_rollout_defaults()
     ours = vars(rollout.parse_args([]))
     shared = {o for o in jax_defaults if o.lstrip("-").replace("-", "_") in ours}
+    assert shared == set(jax_defaults), sorted(set(jax_defaults) - shared)
     assert {"--num-scenes", "--agents-per-scene", "--guidance", "--policy", "--agents-policy",
-            "--scene-data", "--scene-start-index", "--guide-with-gt", "--seed"} <= shared
+            "--scene-data", "--scene-start-index", "--guide-with-gt", "--seed", "--composer",
+            "--composer-ckpt", "--render", "--save-every-n-frames", "--render-size"} <= shared
     for opt in shared:
         assert ours[opt.lstrip("-").replace("-", "_")] == jax_defaults[opt], opt
     assert (ours["num_scenes"], ours["agents_per_scene"], ours["guidance"]) == (1, 4, "")
