@@ -218,15 +218,38 @@
    a 2-iteration update phase on rank 0's minibatches within 1e-6 of the
    plain ones. No `--render`: the card's machine has no
    matplotlib.
-23. Times the launch floor: `torch.cuda._sleep(0)` (one thread that exits
+23. Runs bf16 mixed precision (every step before this one asks for
+   precision fp32, whose tolerances it holds; "auto" is bf16 on the card):
+   the bf16 instantiation of both LSTM kernels at B = 32, 128, 512 (T = 52,
+   H = 64) against their bf16 plain versions on the card, within 2^-7 of
+   max |plain|, with the share of elements that are not bit-equal, two
+   launches bit for bit, registers and spills, and the times from Python and
+   from a CUDA graph beside the f32 kernels' and cuDNN's bf16 `nn.LSTM`; the
+   VAE, DM and PPO stages at the config of record (batch 128, raster 224)
+   under "auto" beside fp32 from the same weights, batch and draws: ms per
+   step, peak memory, the first step's loss within rtol 2e-3 / atol 1e-2 of
+   f32's (PPO: its first update iteration on the f32 collection's
+   transitions), exact launches; the train CLI at its default precision,
+   one step each of `--mode vae|dm|ppo` (every network bf16, every parameter
+   f32, exact launches); the guided call at B=128 under "auto": 100
+   bf16 `lstm2_fwd`, 99 bf16 `lstm2_bwd`, 99 `bit_gather`, 1
+   `offroad_count`, NFE/s beside step 4's, one step's guidance gradient
+   through the bf16 decoder at cosine > 0.999 against the f32 decoder's, the
+   decoded trajectories beside f32's (reported); the rollout CLI under
+   `--precision auto` with step 15's rules argv: 400 / 396 / 396 / 4 bf16
+   `lstm2_fwd`, bf16 `lstm2_bwd`, `bit_gather`, `value_gather` in the timed
+   episode, agent-steps/s beside step 15's.
+24. Times the launch floor: `torch.cuda._sleep(0)` (one thread that exits
    at once) from a CUDA graph, as every kernel's graph time is taken.
-24. Prints the card line, one `{"kernels": [...]}` line (`launches_by_path`
+25. Prints the card line, one `{"kernels": [...]}` line (`launches_by_path`
    there holds each main-path run's own count, of 4, 7, 8, 11, 12, 14, 15,
    17, 18 (its rollout and its `--mode test`), 19 (its training, its
    guided rollout and each model-free policy), 20 (the zoo, 0 of every
    kernel), 21 (each trainer, 0 of every kernel; the `--ebm-ckpt`
-   rollout; the scene policy; the latent attack) and 22 (each composer's
-   call, `--composer-ckpt`, the traced replan), each zeroed before its run and checked exactly; `launches` is their sum;
+   rollout; the scene policy; the latent attack), 22 (each composer's
+   call, `--composer-ckpt`, the traced replan) and 23 (the bf16 VAE eval
+   step, DM steps, PPO collection, train CLI, guided call and rollout), each zeroed
+   before its run and checked exactly; `launches` is their sum;
    `graph_ms` is each kernel's time from a CUDA graph at the main path's
    shape, B=128 for the LSTM kernels, beside `launch_floor_ms`), and last
    `{"ok": true, "device": {...}}`. Any failed check exits non-zero first.
@@ -246,9 +269,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# NVIDIA H100 SXM data sheet: HBM3 rate and the f32 (non-tensor-core) peak.
+# NVIDIA H100 SXM data sheet: HBM3 rate, the f32 (non-tensor-core) and bf16 dense peaks.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 
 B, T, H, L, COND = 128, 52, 64, 4, 256
 AGENTS_PER_SCENE = 4
@@ -272,6 +296,14 @@ MPC_COST_RTOL = 0.1
 # gradients that are 0 in exact arithmetic (a bias shifting every logit of a
 # softmax), held against the model's largest gradient entry
 ZERO_IN_EXACT = ("key.bias", "kp_conv.bias", "score_net.bias")
+# bf16 LSTM kernels against their bf16 plain versions, of max |plain|: the two
+# round their stores to bf16 from f32 sums taken in other orders, so an element
+# may land one bf16 ulp (2^-8 relative) apart, and an ulp of an element near
+# max |plain| is at most 2^-7 of it
+BF16_REL_TOL = 2.0 ** -7
+# bf16 against f32 from the same weights and inputs (ROADMAP "bf16 twins")
+TWIN_RTOL, TWIN_ATOL, TWIN_COSINE = 2e-3, 1e-2, 0.999
+BF16_LSTM_BATCHES = (CL_B, B, 512)
 
 
 class CheckFailed(RuntimeError):
@@ -376,9 +408,9 @@ def graph_ms(fn, launches: int = 100, replays: int = 20, windows: int = 1) -> fl
     return statistics.median(times)
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, flops_per_s: float = F32_FLOPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -694,7 +726,8 @@ def check_small_slice(dev, report, min_dist_impl="separable"):
     side = road_edge_shift(g, Bs)  # the gradient is taken where the map loss has work
     res = {}
     for where in ("cpu", dev):
-        m = pipeline.build_models(seed=5, device=where, n_diffusion_steps=steps)
+        m = pipeline.build_models(seed=5, device=where, n_diffusion_steps=steps,
+                                  precision="fp32")
         b = synthetic_batch(seed=4, batch_size=Bs, raster_size=64, device=where)
         specs = pipeline.flagship_guidance_specs(AGENTS_PER_SCENE, min_dist_impl=min_dist_impl)
         outs = {gd: pipeline.guided_collect(m, b, guided=gd, agents_per_scene=AGENTS_PER_SCENE,
@@ -1486,7 +1519,8 @@ def check_small_closed_loop(dev, report):
               for _ in range(cfg.num_replans)]
     res = {}
     for where in ("cpu", dev):
-        m = pipeline.build_models(seed=5, device=where, n_diffusion_steps=steps)
+        m = pipeline.build_models(seed=5, device=where, n_diffusion_steps=steps,
+                                  precision="fp32")
         pack = synthetic_scene_pack(seed=3, num_scenes=S, agents_per_scene=A, world_map_size=256,
                                     sim_steps=frames, device=where)
         pack = pack._replace(world_map=torch.round(pack.world_map * 255.0) * (1.0 / 255.0))
@@ -1536,7 +1570,7 @@ def rules_argv(scenes, agents, frames, raster, steps, device, output):
             "--num-sim-steps", str(frames), "--raster-size", str(raster),
             "--diffusion-steps", str(steps), "--device", str(device), "--output", str(output),
             "--editing-source", "config,heuristic", "--guidance", RULE_CONFIGS,
-            "--heuristics", RULE_HEURISTICS]
+            "--heuristics", RULE_HEURISTICS, "--precision", "fp32"]
 
 
 def run_rules_path(report):
@@ -1615,7 +1649,7 @@ def check_rules_replan(dev, report):
                                     world_map_size=256, sim_steps=10, device=where)
         pack = pack._replace(world_map=torch.round(pack.world_map * 255.0) * (1.0 / 255.0))
         specs = rollout.build_guidance_specs(args, pack, cfg, pack.num_agents)
-        m = pipeline.build_models(seed=5, device=where, n_diffusion_steps=10,
+        m = pipeline.build_models(seed=5, device=where, n_diffusion_steps=10, precision="fp32",
                                   raster_channels=hist + 1 + pack.world_map.shape[-1])
         obs = env.render_observation(pack, env.init_sim_state(pack, cfg), cfg)
         aux = m.context(obs)
@@ -1662,7 +1696,7 @@ def ckpt_rollout_argv(vae, dm, output):
     return ["--registered-name", "cld_dm_nusc", "--vae-ckpt", str(vae), "--dm-ckpt", str(dm),
             "--num-scenes", str(CL_SCENES), "--agents-per-scene", str(CL_AGENTS),
             "--num-sim-steps", str(CKPT_STEPS), "--cle-report", "--guidance", "flagship",
-            "--device", "cuda", "--output", str(output)]
+            "--device", "cuda", "--output", str(output), "--precision", "fp32"]
 
 
 def first_plan(run, models=None):
@@ -1698,7 +1732,8 @@ def run_checkpoint_path(report):
     out.mkdir(parents=True, exist_ok=True)
     (out / "config.json").write_text(json.dumps({"train": {"training": {"steps_per_epoch": 1}}}))
     base = ["--registered-name", "cld_vae_nusc", "--config", str(out / "config.json"),
-            "--device", "cuda", "--output", str(out / "runs"), "--steps", "2"]
+            "--device", "cuda", "--output", str(out / "runs"), "--steps", "2",
+            "--precision", "fp32"]
     vae_ckpt, dm_ckpt = out / "runs" / "vae" / "ckpt_final", out / "runs" / "dm" / "ckpt_final"
     native.reset_launch_counts()
     vae_state = train.main(base + ["--mode", "vae"])
@@ -1792,7 +1827,7 @@ def run_checkpoint_path(report):
     t0 = time.perf_counter()
     res = train.main(["--registered-name", "cld_dm_nusc", "--mode", "test", "--steps", "2",
                       "--vae-ckpt", str(vae_ckpt), "--dm-ckpt", str(dm_ckpt), "--device", "cuda",
-                      "--output", str(out / "runs")])
+                      "--output", str(out / "runs"), "--precision", "fp32"])
     eval_s = time.perf_counter() - t0
     eval_launches = native.launch_counts()
     check(eval_launches == counts(lstm2_fwd=2), f"--mode test launches {eval_launches}, "
@@ -1977,7 +2012,8 @@ def run_data_path(report):
         cfg_file = tmp / "config.json"
         cfg_file.write_text(json.dumps({
             "train": {"data_path": str(shards), "training": {"steps_per_epoch": 1,
-                                                             "batch_size": B}},
+                                                             "batch_size": B,
+                                                             "precision": "fp32"}},
             "env": {"rasterizer": {"raster_size": RASTER}}}))
         cfg = config_from_flags("cld_vae_nusc", str(cfg_file))
         card_b = next(iter(make_loader(cfg, "train", device="cuda")))
@@ -2052,7 +2088,7 @@ def run_data_path(report):
         scene = ["--scene-data", str(shards), "--num-scenes", str(CL_SCENES),
                  "--agents-per-scene", str(CL_AGENTS), "--num-sim-steps", str(DATA_STEPS),
                  "--raster-size", str(RASTER), "--diffusion-steps", str(N_STEPS),
-                 "--device", "cuda"]
+                 "--device", "cuda", "--precision", "fp32"]
         argv = scene + ["--policy", "dm", "--agents-policy", "gt_replay", "--guidance",
                         "flagship", "--num-action-samples", "2", "--guide-with-gt",
                         "--cle-report", "--output", str(out / "scene_rollout")]
@@ -2233,7 +2269,8 @@ def run_zoo_path(report, shards, tmp):
     t_phase = time.perf_counter()
     cfg_file = tmp / "zoo_config.json"
     cfg_file.write_text(json.dumps({
-        "train": {"data_path": str(shards), "training": {"batch_size": B, "steps_per_epoch": 1}},
+        "train": {"data_path": str(shards), "training": {"batch_size": B, "steps_per_epoch": 1,
+                                                         "precision": "fp32"}},
         "env": {"rasterizer": {"raster_size": RASTER}}}))
     res, total = {}, counts()
     step_s = []
@@ -2404,7 +2441,7 @@ def run_ebm_rollout(report, ebm_ckpt) -> dict:
                             "--num-sim-steps", str(RULES_STEPS), "--raster-size", str(RASTER),
                             "--diffusion-steps", str(N_STEPS), "--guidance", "flagship",
                             "--ebm-ckpt", str(ebm_ckpt), "--device", "cuda", "--output",
-                            str(out)])
+                            str(out), "--precision", "fp32"])
     wall = time.perf_counter() - t0
     launches = native.launch_counts()
     n = RULES_STEPS // CL_N_STEP
@@ -2543,7 +2580,8 @@ def run_latent_attack(report) -> dict:
     from cld_tpu_torch.ops import native
 
     dev = torch.device("cuda", 0)
-    decode, objective = attack_problem(pipeline.build_models(seed=0, device=dev), B, RASTER, dev)
+    decode, objective = attack_problem(pipeline.build_models(seed=0, device=dev, precision="fp32"),
+                                       B, RASTER, dev)
     g = torch.Generator(device="cpu").manual_seed(6)
     z0 = (0.1 * torch.randn((B, T, L), generator=g)).to(dev)
     with torch.no_grad():
@@ -2737,7 +2775,8 @@ def check_learned_card_vs_cpu() -> dict:
     zc = 0.1 * torch.randn((8, T, L), generator=torch.Generator().manual_seed(5))
     out = []
     for w in ("cpu", dev):
-        decode, objective = attack_problem(pipeline.build_models(seed=0, device=w), 8, 64, w)
+        decode, objective = attack_problem(
+            pipeline.build_models(seed=0, device=w, precision="fp32"), 8, 64, w)
         zr = zc.to(w).requires_grad_(True)
         total = objective(decode(zr)) + 0.1 * torch.mean(
             0.5 * torch.sum(zr.reshape(8, -1) ** 2, dim=-1))
@@ -3329,14 +3368,25 @@ def check_reward_kernels(batch, dev, report):
                                     bound_by_all_pairs=ball_by, attributes=disk_attrs)
 
 
-def record_config():
-    """The config of record, with epochs of one step: the warm-up rate is 0
+def record_config(precision="fp32"):
+    """The config of record, with epochs of one step (the warm-up rate is 0
     for the whole first epoch, so with the record's 1,000-step epochs a short
-    run would move nothing."""
+    run would move nothing), at `precision`: fp32 for every step before 23,
+    whose checks and tolerances are float32's ("auto" is bf16 on the card)."""
     from cld_tpu_torch.utils.config import default_config
 
     cfg = default_config()
     cfg.train.training.steps_per_epoch = 1
+    cfg.train.training.precision = precision
+    return cfg.lock()
+
+
+def fp32_config(name):
+    """A registered config at precision fp32 (card-vs-CPU comparisons)."""
+    from cld_tpu_torch.utils.registry import get_registered_experiment_config
+
+    cfg = get_registered_experiment_config(name).unlock()
+    cfg.train.training.precision = "fp32"
     return cfg.lock()
 
 
@@ -3565,9 +3615,8 @@ def check_small_training(dev, report):
     from cld_tpu_torch.training.dm import DMTrainer
     from cld_tpu_torch.training.ppo import PPOTrainer, buffer_init
     from cld_tpu_torch.training.vae import VAETrainer
-    from cld_tpu_torch.utils.registry import get_registered_experiment_config
 
-    cfg = get_registered_experiment_config("cld_smoke")
+    cfg = fp32_config("cld_smoke")
     algo = cfg.algo
     Bs, Hs, Ls, steps = 8, algo.vae.hidden_size, algo.vae.latent_size, algo.n_diffusion_steps
     g = torch.Generator().manual_seed(17)
@@ -3631,6 +3680,475 @@ def check_small_training(dev, report):
     report["small_training"] = summary
 
 
+# ---------------------------------------------------------------------------
+# step 23: bf16 mixed precision
+# ---------------------------------------------------------------------------
+
+BF16_PATHS = ("vae_eval", "dm_train", "ppo", "cli", "guided", "rollout")
+
+
+def hold_lstm_bf16(args, dy):
+    """Both LSTM kernels on bf16 inputs against their bf16 plain versions,
+    and each against a second launch of itself. Returns (the reverse sweep's
+    inputs, {fwd_abs, fwd_rel, fwd_unequal, bwd_abs, bwd_rel, bwd_unequal}):
+    max abs and relative (of max |plain|) errors and the share of elements
+    that are not bit-equal."""
+    import torch
+
+    from cld_tpu_torch.ops import lstm_kernels as lk
+
+    Bn, Tn, Hn = dy.shape
+    got, again = lk.lstm2_fwd(*args), lk.lstm2_fwd(*args)
+    want = lk.lstm2_core_ref(*args)
+    y, h1s, c1s, c2s = want
+    bargs = (dy, *args, h1s, c1s, y, c2s)
+    dg_k, dg_k2 = lk.lstm2_bwd(*bargs), lk.lstm2_bwd(*bargs)
+    dg_p = lk.lstm2_bwd_ref(*bargs)
+    torch.cuda.synchronize()
+    check(all(a.dtype == torch.bfloat16 for a in (*got, *dg_k)), "a bf16 kernel stored f32")
+
+    def errs(outs, refs):
+        e = [rel_err(a.float(), b.float()) for a, b in zip(outs, refs)]
+        unequal = sum(int((a != b).sum()) for a, b in zip(outs, refs))
+        return max(x[0] for x in e), max(x[1] for x in e), unequal / sum(a.numel() for a in outs)
+
+    e = dict(zip(("fwd_abs", "fwd_rel", "fwd_unequal"), errs(got, want)))
+    e.update(zip(("bwd_abs", "bwd_rel", "bwd_unequal"), errs(dg_k, dg_p)))
+    shape = f"B/T/H {Bn}/{Tn}/{Hn}"
+    log(f"lstm2_fwd bf16 {shape}: max abs err {e['fwd_abs']:.3e}, rel {e['fwd_rel']:.3e}, "
+        f"{100 * e['fwd_unequal']:.2f}% of elements not bit-equal; lstm2_bwd bf16: max abs err "
+        f"{e['bwd_abs']:.3e}, rel {e['bwd_rel']:.3e}, {100 * e['bwd_unequal']:.2f}% not "
+        f"bit-equal (tolerance 2^-7 of max |plain|)")
+    for k in ("fwd", "bwd"):
+        check(e[f"{k}_rel"] <= BF16_REL_TOL,
+              f"bf16 lstm2_{k} disagrees with its plain version at {shape}")
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"two bf16 lstm2_fwd launches differ at {shape}")
+    check(all(torch.equal(a, b) for a, b in zip(dg_k, dg_k2)),
+          f"two bf16 lstm2_bwd launches differ at {shape}")
+    return bargs, e
+
+
+def check_lstm_bf16(kernels):
+    """The bf16 instantiation of both LSTM kernels at B = 32, 128, 512 (T =
+    52, H = 64): held against the bf16 plain versions, registers and spills,
+    times from Python and from a CUDA graph beside the f32 kernels' (step 3),
+    the plain versions' and cuDNN's bf16 `nn.LSTM` (forward; backward beside
+    the bf16 `Lstm2Core` VJP)."""
+    import torch
+
+    from cld_tpu_torch.ops import lstm_kernels as lk
+
+    dev = torch.device("cuda", 0)
+    bf = torch.bfloat16
+    g = torch.Generator().manual_seed(23)
+    held, errs = {}, {}
+    for Bn in BF16_LSTM_BATCHES:
+        a, d = lstm_inputs(g, Bn, T, H, dev)
+        a, d = tuple(x.to(bf) for x in a), d.to(bf)
+        bargs, errs[str(Bn)] = hold_lstm_bf16(a, d)
+        held[Bn] = (a, bargs)
+    attrs = {}
+    for which, kname in enumerate(("lstm2_fwd_kernel", "lstm2_bwd_gates_kernel",
+                                   "lstm2_bwd_kernel")):
+        for R in ((1,) if which == 1 else lk.ROWS_PER_CTA):
+            at = lk.kernel_attributes(which, H, R, bf)
+            attrs[f"{kname}<{H},{R},bf16>" if which != 1 else f"{kname}<{H},bf16>"] = at
+            log(f"{kname} bf16 H={H} R={R}: {at['registers']} registers, {at['local_bytes']} "
+                f"bytes of local memory per thread, max {at['max_threads']} threads per block")
+
+    args, bargs = held[B]
+    fwd_ms = cuda_ms(lambda: lk.lstm2_fwd(*args), 50)
+    fwd_plain_ms = cuda_ms(lambda: lk.lstm2_core_ref(*args), 5)
+    bwd_ms = cuda_ms(lambda: lk.lstm2_bwd(*bargs), 50)
+    bwd_plain_ms = cuda_ms(lambda: lk.lstm2_bwd_ref(*bargs), 5)
+    fwd_graph, bwd_graph = {}, {}
+    for Bn, (a, ba) in held.items():
+        fwd_graph[Bn] = graph_ms(lambda: lk.lstm2_fwd(*a), launches=20)
+        bwd_graph[Bn] = graph_ms(lambda: lk.lstm2_bwd(*ba), launches=20)
+    f32_fwd, f32_bwd = kernels["lstm2_fwd"]["graph_ms"], kernels["lstm2_bwd"]["graph_ms"]
+    log("bf16 beside f32 from a CUDA graph, ms at B=" + ", ".join(
+        f"{Bn}: lstm2_fwd {fwd_graph[Bn]:.4f} (f32 {f32_fwd[str(Bn)]:.4f}), lstm2_bwd "
+        f"{bwd_graph[Bn]:.4f} (f32 {f32_bwd[str(Bn)]:.4f})" for Bn in fwd_graph))
+
+    # cuDNN's bf16 LSTM from z (its own random weights at the decoder's sizes)
+    cudnn = torch.nn.LSTM(L, H, num_layers=2, batch_first=True).to(dev).to(bf)
+    z = torch.randn((B, T, L), generator=g).to(dev).to(bf)
+    hc = (args[1][None].expand(2, B, H).contiguous(), torch.zeros((2, B, H), device=dev, dtype=bf))
+    with torch.no_grad():
+        fwd_lib_ms = cuda_ms(lambda: cudnn(z, hc), 50)
+        fwd_lib_graph = graph_ms(lambda: cudnn(z, hc), launches=20)
+    zr = z.clone().requires_grad_(True)
+    h0r = hc[0].clone().requires_grad_(True)
+    dy = bargs[0]
+    lib_in = (zr, h0r, *cudnn.parameters())
+    lib_fwd = lambda: cudnn(zr, (h0r, hc[1]))[0]
+    lib_train_fwd_ms = cuda_ms(lib_fwd, 50)
+    bwd_lib_ms = cuda_ms(lambda: torch.autograd.grad(lib_fwd(), lib_in, dy), 50) - lib_train_fwd_ms
+    core_in = [a.detach().clone().requires_grad_(True) for a in args]
+    core_fwd = lambda: lk.lstm2_core(*core_in)
+    core_fwd_ms = cuda_ms(core_fwd, 50)
+    vjp_ms = cuda_ms(lambda: torch.autograd.grad(core_fwd(), core_in, dy), 50) - core_fwd_ms
+    log(f"bf16 lstm2_fwd {fwd_ms:.4f} ms from Python ({fwd_graph[B]:.4f} from a graph) vs cuDNN "
+        f"bf16 nn.LSTM forward {fwd_lib_ms:.4f} ({fwd_lib_graph:.4f}); bf16 lstm2_bwd "
+        f"{bwd_ms:.4f} ms, Lstm2Core VJP {vjp_ms:.4f} vs cuDNN bf16 backward {bwd_lib_ms:.4f} "
+        f"(B={B})")
+
+    b16 = 2
+    w_bytes = b16 * (H * 4 * H + 2 * H * 4 * H + 4 * H)
+    fwd_b, fwd_by = bound(b16 * (B * T * 4 * H + B * H + 4 * B * T * H) + w_bytes,
+                          2.0 * B * T * (H * 4 * H + 2 * H * 4 * H), BF16_FLOPS_PER_S)
+    bwd_b, bwd_by = bound(
+        b16 * (B * T * H + B * T * 4 * H + B * H + 4 * B * T * H + 2 * B * T * 4 * H) + w_bytes,
+        2.0 * B * T * (H * 4 * H + 2 * H * 4 * H + 4 * H * 2 * H + 4 * H * H), BF16_FLOPS_PER_S)
+    e = errs[str(B)]
+    common = dict(held=errs)
+    kernels["lstm2_fwd_bf16"] = dict(
+        max_abs_err=e["fwd_abs"], max_rel_err=e["fwd_rel"], unequal_share=e["fwd_unequal"],
+        ms=fwd_ms, plain_ms=fwd_plain_ms, bound_ms=fwd_b, bound_by=fwd_by, library_ms=fwd_lib_ms,
+        library_graph_ms=fwd_lib_graph, graph_ms={str(k): v for k, v in fwd_graph.items()},
+        f32_graph_ms=f32_fwd, attributes={k: v for k, v in attrs.items() if "fwd" in k}, **common)
+    kernels["lstm2_bwd_bf16"] = dict(
+        max_abs_err=e["bwd_abs"], max_rel_err=e["bwd_rel"], unequal_share=e["bwd_unequal"],
+        ms=bwd_ms, plain_ms=bwd_plain_ms, bound_ms=bwd_b, bound_by=bwd_by, library_ms=bwd_lib_ms,
+        library_train_fwd_ms=lib_train_fwd_ms, lstm2core_vjp_ms=vjp_ms,
+        graph_ms={str(k): v for k, v in bwd_graph.items()}, f32_graph_ms=f32_bwd,
+        attributes={k: v for k, v in attrs.items() if "bwd" in k}, **common)
+
+
+def twin(what, bf16_loss, f32_loss):
+    """Hold a bf16 loss against the f32 one (ROADMAP "bf16 twins")."""
+    ok = abs(bf16_loss - f32_loss) <= TWIN_ATOL + TWIN_RTOL * abs(f32_loss)
+    check(ok, f"{what}: bf16 loss {bf16_loss!r} vs f32 {f32_loss!r} beyond rtol "
+          f"{TWIN_RTOL} / atol {TWIN_ATOL}")
+
+
+def cosine(a, b) -> float:
+    a, b = a.double().flatten(), b.double().flatten()
+    return float(a @ b / (a.norm() * b.norm()))
+
+
+def run_bf16_stages(report):
+    """The VAE, DM and PPO stages at the config of record (batch 128, raster
+    224) under "auto" (bf16 on the card) beside fp32, from the same weights,
+    batch and draws: ms per step (the first of 3 warms up), peak memory, the
+    first step's loss (taken before any update) held as bf16 twins, and the
+    launches (a VAE eval step: 1 bf16 `lstm2_fwd`; a DM step: none; a PPO
+    collection: 1 bf16 `lstm2_fwd` and 1 `offroad_count`).
+
+    PPO: each precision collects its own batch from the same noise (time,
+    launches and mean reward reported; 100 denoise steps of random weights
+    carry bf16's rounding into the rewards, so the two collections are not
+    twins), and its first update iteration's loss is held on the same
+    transitions: the f32 collection's, with the old log-prob of each
+    minibatch row the precision's own. At t = 0 sigma is 1e-10, so the
+    ratio is exactly 1 only when old and new log-prob come from one
+    computation (the design of the JAX package's PPO)."""
+    import torch
+
+    from cld_tpu_torch.algos.dm import transition_log_prob
+    from cld_tpu_torch.data.synthetic import synthetic_batch
+    from cld_tpu_torch.ops import native
+    from cld_tpu_torch.training.dm import DMTrainer
+    from cld_tpu_torch.training.ppo import PPOTrainer, ReplayBuffer, buffer_init
+    from cld_tpu_torch.training.vae import VAETrainer
+
+    dev = torch.device("cuda", 0)
+    batch = synthetic_batch(seed=0, batch_size=B, raster_size=RASTER, device=dev)
+    STEPS = 3
+    res, shared = {}, None
+
+    def steps(step, state, seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        losses, secs = [], []
+        for _ in range(STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, m = step(state, batch, generator=gen)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+        return dict(ms=1e3 * sum(secs[1:]) / (STEPS - 1), losses=losses)
+
+    for prec in ("fp32", "auto"):
+        cfg = record_config(prec)
+        r = res[prec] = {}
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        vae_tr = VAETrainer(cfg, device=dev)
+        check(vae_tr.compute_dtype == (torch.bfloat16 if prec == "auto" else torch.float32),
+              f"precision {prec} resolved to {vae_tr.compute_dtype}")
+        vs = vae_tr.init_state(seed=0)
+        r["vae"] = steps(vae_tr.train_step, vs, 40)
+        native.reset_launch_counts()
+        ev = vae_tr.eval_step(vs, batch)
+        r["vae"]["eval_launches"] = native.launch_counts()
+        r["vae"]["eval_loss"] = float(ev["loss"])
+        r["vae"]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del vae_tr, vs
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        dm_tr = DMTrainer(cfg, VAETrainer(cfg, device=dev).init_state(0).model, device=dev)
+        ds = dm_tr.init_state(seed=2)
+        native.reset_launch_counts()
+        r["dm"] = steps(dm_tr.train_step, ds, 41)
+        r["dm"]["launches"] = native.launch_counts()
+        r["dm"]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ds = dm_tr.init_state(seed=2)
+        ppo = PPOTrainer(cfg, dm_tr)
+        algo = cfg.algo
+        buf = buffer_init(algo.buffer_max, algo.horizon, algo.vae.latent_size, algo.cond_feat_dim,
+                          device=dev)
+        gen = torch.Generator(device=dev).manual_seed(42)
+        native.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        buf, out = ppo.collect_step(ds, buf, batch, generator=gen)
+        torch.cuda.synchronize()
+        collect_s = time.perf_counter() - t0
+        launches = native.launch_counts()
+        if shared is None:  # the f32 collection's transitions
+            shared = {k: getattr(buf, k).clone() for k in ("x0", "x1", "log_p", "reward",
+                                                           "cond_feat", "baseline")}
+            shared.update(ptr=buf.ptr, size=buf.size, initialized=True)
+        sb = ReplayBuffer(**{k: v.clone() if torch.is_tensor(v) else v for k, v in shared.items()})
+        indices = torch.randint(0, sb.size, (STEPS, ppo.mini_batch), generator=gen, device=dev)
+        idx = indices[0]
+        with torch.no_grad():
+            sb.log_p[idx] = transition_log_prob(ds.model, dm_tr.schedule, sb.x1[idx], sb.x0[idx],
+                                                sb.cond_feat[idx],
+                                                torch.zeros_like(idx))
+        _, first = ppo.ppo_update(ds, sb, indices=indices[:1])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ppo.ppo_update(ds, sb, indices=indices[1:])
+        torch.cuda.synchronize()
+        update_ms = 1e3 * (time.perf_counter() - t0) / (STEPS - 1)
+        r["ppo"] = dict(collect_s=collect_s, update_ms=update_ms,
+                        launches=launches, first_update_loss=float(first["loss"]),
+                        first_ratio_mean=float(first["ratio_mean"]), reward=float(out["reward"]),
+                        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                        f32_state=bool(buf.log_p.dtype == torch.float32 and all(
+                            p.dtype == torch.float32 for p in ds.model.parameters())))
+        del dm_tr, ds, ppo, buf, sb, out
+
+    f32, b16 = res["fp32"], res["auto"]
+    for stage in ("vae", "dm"):
+        log(f"{stage} step at B={B}, raster {RASTER}: bf16 {b16[stage]['ms']:.1f} ms "
+            f"(f32 {f32[stage]['ms']:.1f}), peak {b16[stage]['peak_gb']:.2f} GB (f32 "
+            f"{f32[stage]['peak_gb']:.2f}), losses {b16[stage]['losses']} (f32 "
+            f"{f32[stage]['losses']}), on {report['card']}")
+    log(f"ppo at B={B}: collection bf16 {b16['ppo']['collect_s']:.3f} s (f32 "
+        f"{f32['ppo']['collect_s']:.3f}), update iteration bf16 {b16['ppo']['update_ms']:.1f} ms "
+        f"(f32 {f32['ppo']['update_ms']:.1f}), peak {b16['ppo']['peak_gb']:.2f} GB (f32 "
+        f"{f32['ppo']['peak_gb']:.2f}); on the same transitions first update loss "
+        f"{b16['ppo']['first_update_loss']:.6f} (f32 {f32['ppo']['first_update_loss']:.6f}), "
+        f"ratio {b16['ppo']['first_ratio_mean']} (f32 {f32['ppo']['first_ratio_mean']}); own "
+        f"collections' mean reward {b16['ppo']['reward']:.4f} (f32 {f32['ppo']['reward']:.4f})")
+    for prec, r in res.items():
+        for stage in ("vae", "dm"):
+            check(all(v == v and abs(v) != float("inf") for v in r[stage]["losses"]),
+                  f"{prec} {stage}: a loss is not finite")
+        check(r["ppo"]["f32_state"], f"{prec} PPO: the buffer or the parameters are not float32")
+    bf = dict(lstm2_fwd_bf16=1)
+    check(b16["vae"]["eval_launches"] == counts(**bf), f"bf16 VAE eval launches "
+          f"{b16['vae']['eval_launches']}")
+    check(f32["vae"]["eval_launches"] == counts(lstm2_fwd=1), "f32 VAE eval launches "
+          f"{f32['vae']['eval_launches']}")
+    check(b16["dm"]["launches"] == counts(), f"bf16 DM launches {b16['dm']['launches']}")
+    check(b16["ppo"]["launches"] == counts(offroad_count=1, **bf),
+          f"bf16 PPO collection launches {b16['ppo']['launches']}")
+    twin("VAE step", b16["vae"]["losses"][0], f32["vae"]["losses"][0])
+    twin("DM step", b16["dm"]["losses"][0], f32["dm"]["losses"][0])
+    twin("PPO first update iteration", b16["ppo"]["first_update_loss"],
+         f32["ppo"]["first_update_loss"])
+    report["launches_bf16_vae_eval"] = b16["vae"]["eval_launches"]
+    report["launches_bf16_dm_train"] = b16["dm"]["launches"]
+    report["launches_bf16_ppo"] = b16["ppo"]["launches"]
+    report["bf16_stages"] = res
+
+
+def run_bf16_cli(report):
+    """The train CLI at its default precision ("auto": bf16 on the card) and
+    the config of record (batch 128, raster 224, one-step epochs from a JSON
+    `--config`), one step each of `--mode vae`, `dm` and `ppo`: every
+    network at bf16, every parameter f32, finite metrics; launches: vae and
+    dm none, ppo's collection 1 bf16 `lstm2_fwd` and 1 `offroad_count` (its
+    update comes every `update_interval` = 10 steps)."""
+    import numpy as np
+    import torch
+
+    from cld_tpu_torch import train
+    from cld_tpu_torch.ops import native
+
+    out = ROOT / "chiprun_out" / "bf16_cli"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "config.json").write_text(json.dumps({"train": {"training": {"steps_per_epoch": 1}}}))
+    base = ["--registered-name", "cld_vae_nusc", "--config", str(out / "config.json"),
+            "--device", "cuda", "--output", str(out / "runs"), "--steps", "1"]
+    ckpt = ["--vae-ckpt", str(out / "runs" / "vae" / "ckpt_final")]
+    runs, total = {}, counts()
+    for mode, extra, want in (("vae", [], counts()), ("dm", ckpt, counts()),
+                              ("ppo", ckpt, counts(lstm2_fwd_bf16=1, offroad_count=1))):
+        native.reset_launch_counts()
+        t0 = time.perf_counter()
+        state = train.main(base + ["--mode", mode] + extra)
+        secs = time.perf_counter() - t0
+        launches = native.launch_counts()
+        dtypes = {m.compute_dtype for m in state.model.modules() if hasattr(m, "compute_dtype")}
+        recs = [json.loads(line) for line in
+                (out / "runs" / mode / "metrics.jsonl").read_text().splitlines()]
+        check(dtypes == {torch.bfloat16}, f"--mode {mode} under auto computes at {dtypes}")
+        check(all(p.dtype == torch.float32 for p in state.model.parameters()),
+              f"--mode {mode}: a parameter is not float32")
+        check(launches == want, f"--mode {mode} launches {launches}, expected {want}")
+        check(len(recs) == 1 and all(np.isfinite(v) for v in recs[0].values()),
+              f"--mode {mode}: the metrics are not finite")
+        runs[mode] = dict(s=secs, metrics=recs[0])
+        total = {k: total[k] + launches[k] for k in total}
+    log("train CLI under auto (bf16), one step each at batch 128, raster 224: " + ", ".join(
+        f"--mode {m} {r['s']:.1f} s with its set-up" for m, r in runs.items()))
+    report["launches_bf16_cli"] = total
+    report["bf16_cli"] = runs
+
+
+def run_bf16_guided(models32, report):
+    """The guided call at B=128 under "auto" (bf16), from the f32 models'
+    weights: exact launches (100 bf16 `lstm2_fwd`, 99 bf16 `lstm2_bwd`, 99
+    `bit_gather`, 1 `offroad_count`), NFE/s beside f32's (timed in turns,
+    f32, bf16, bf16, f32: the host's load moves a call's time between the
+    steps of this script), one step's guidance gradient through the bf16
+    decoder against the f32 decoder's (cosine > 0.999; the same latent and
+    conditioning), and the decoded trajectories beside f32's from the same
+    noise (reported: Adam's sign amplifies rounding)."""
+    import torch
+
+    from cld_tpu_torch import pipeline
+    from cld_tpu_torch.data.synthetic import synthetic_batch
+    from cld_tpu_torch.guidance import losses as gl
+    from cld_tpu_torch.guidance import perturbation as gp
+    from cld_tpu_torch.models.vae import convert_action_to_state_and_action, decode_actions
+    from cld_tpu_torch.ops import native
+    from cld_tpu_torch.ops.normalization import TrajNormalizer
+
+    dev = torch.device("cuda", 0)
+    batch = synthetic_batch(seed=0, batch_size=B, raster_size=RASTER, device=dev)
+    models = pipeline.build_models(seed=0, device=dev)  # "auto"
+    check(models.compute_dtype == torch.bfloat16,
+          f"auto resolved to {models.compute_dtype} on the card")
+    g = torch.Generator(device=dev)
+    native.reset_launch_counts()
+    out = pipeline.guided_collect(models, batch, agents_per_scene=AGENTS_PER_SCENE,
+                                  generator=g.manual_seed(10))
+    torch.cuda.synchronize()
+    launches = native.launch_counts()
+    want = counts(lstm2_fwd_bf16=N_STEPS, lstm2_bwd_bf16=N_STEPS - 1, bit_gather=N_STEPS - 1,
+                  offroad_count=1)
+    check(launches == want, f"bf16 guided launches {launches}, expected {want}")
+    check(out["traj"].dtype == torch.float32 and bool(torch.isfinite(out["traj"]).all()),
+          "bf16 guided trajectories are not finite float32")
+    out32 = pipeline.guided_collect(models32, batch, agents_per_scene=AGENTS_PER_SCENE,
+                                    generator=g.manual_seed(10))
+    traj_diff = float((out["traj"] - out32["traj"]).abs().max())
+
+    def call_s(m, seed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipeline.guided_collect(m, batch, agents_per_scene=AGENTS_PER_SCENE,
+                                generator=g.manual_seed(seed))
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    turns = [(m, call_s(m, seed)) for m, seed in ((models32, 11), (models, 11), (models, 12),
+                                                  (models32, 12))]
+    secs = sum(t for m, t in turns if m is models) / 2
+    secs32 = sum(t for m, t in turns if m is models32) / 2
+    nfe, nfe32 = B * N_STEPS / secs, B * N_STEPS / secs32
+
+    # one guided step's gradient: the same latent and conditioning through each decoder
+    wfa, scene = pipeline.scene_world_poses(B, AGENTS_PER_SCENE, dev)
+    ctx = gl.prepack_drivable(gl.GuidanceContext(
+        drivable_map=batch.drivable_map, raster_from_agent=batch.raster_from_agent,
+        extent=batch.extent, curr_speed=batch.curr_speed, world_from_agent=wfa,
+        scene_index=scene))
+    specs = pipeline.flagship_guidance_specs(AGENTS_PER_SCENE)
+    with torch.no_grad():
+        aux = models32.context(batch)
+    z = torch.randn((B, T, L), generator=torch.Generator(device=dev).manual_seed(12), device=dev)
+
+    def gradient(m):
+        def decode_fn(v):
+            acts = decode_actions(m.decoder, v, aux["cond_feat"])
+            traj = convert_action_to_state_and_action(acts, aux["curr_states"], m.dyn,
+                                                      TrajNormalizer(), descaled_output=True)
+            return traj[:, None]
+
+        return gp.guidance_gradient(z, ctx, specs, decode_fn)
+
+    g16, g32 = gradient(models), gradient(models32)
+    cos = cosine(g16, g32)
+    log(f"bf16 guided call at B={B}: {nfe:.1f} NFE/s (f32 {nfe32:.1f} in turns with it; step 4 "
+        f"{report['pipeline']['guided_nfe_per_s']:.1f}), launches {launches}; one "
+        f"step's guidance gradient bf16 vs f32 cosine {cos:.6f}; "
+        f"decoded trajectories max |bf16 - f32| {traj_diff:.4f} m of max "
+        f"{float(out32['traj'].abs().max()):.2f}; reward {float(out['reward']):.4f} (f32 "
+        f"{float(out32['reward']):.4f}), on {report['card']}")
+    check(cos > TWIN_COSINE, f"bf16 guidance gradient cosine {cos} against f32")
+    report["launches_bf16_guided"] = launches
+    report["bf16_guided"] = dict(nfe_per_s=nfe, guided_s=secs, f32_nfe_per_s=nfe32,
+                                 turns_s=[t for _, t in turns],
+                                 step4_f32_nfe_per_s=report["pipeline"]["guided_nfe_per_s"],
+                                 gradient_cosine=cos, traj_max_abs_diff=traj_diff,
+                                 reward=float(out["reward"]), f32_reward=float(out32["reward"]))
+
+
+def run_bf16_rollout(report):
+    """The rollout CLI under "auto" (bf16) at the closed loop's width, the
+    rules path's argv (step 15) cut to 20 frames: 400 / 396 / 396 / 4
+    launches in the timed episode, of bf16 `lstm2_fwd`, bf16 `lstm2_bwd`,
+    `bit_gather`, `value_gather` (1 more `bit_gather` for the satisfaction
+    report), agent-steps/s beside the f32 rules path's."""
+    from cld_tpu_torch import rollout
+    from cld_tpu_torch.ops import native
+
+    out = ROOT / "chiprun_out" / "bf16_rollout"
+    native.reset_launch_counts()
+    rep = rollout.main(rules_argv(CL_SCENES, CL_AGENTS, RULES_STEPS, RASTER, N_STEPS, "cuda", out)
+                       + ["--precision", "auto"])
+    launches = native.launch_counts()
+    n = RULES_STEPS // CL_N_STEP
+    episode = counts(lstm2_fwd_bf16=N_STEPS * n, lstm2_bwd_bf16=(N_STEPS - 1) * n,
+                     bit_gather=(N_STEPS - 1) * n, value_gather=n)
+    check(rep["launches"] == episode, f"bf16 rollout episode launches {rep['launches']}")
+    check(launches == cli_launches(episode, bit_gather=1), f"bf16 rollout launches {launches}")
+    check(all(v == v for v in rep["guidance_satisfaction"].values()),
+          "the bf16 rollout's satisfaction report is not finite")
+    log(f"rollout CLI under auto (bf16), {CL_SCENES} x {CL_AGENTS} agents, {RULES_STEPS} frames: "
+        f"{rep['agent_steps_per_sec']:.2f} agent-steps/s (f32: step 15's "
+        f"{report['rules']['agent_steps_per_sec']:.2f}, earlier in the run); episode launches "
+        f"{rep['launches']}")
+    report["launches_bf16_rollout"] = launches
+    report["bf16_rollout"] = dict(agent_steps_per_sec=rep["agent_steps_per_sec"],
+                                  f32_agent_steps_per_sec=report["rules"]["agent_steps_per_sec"])
+
+
+def run_bf16(models32, kernels, report):
+    """Step 23: the bf16 LSTM kernels, the three stages, the guided call and
+    the rollout CLI under bf16 mixed precision."""
+    t0 = time.perf_counter()
+    check_lstm_bf16(kernels)
+    run_bf16_stages(report)
+    run_bf16_cli(report)
+    run_bf16_guided(models32, report)
+    run_bf16_rollout(report)
+    report["bf16_s"] = time.perf_counter() - t0
+    log(f"step 23 (bf16) in {report['bf16_s']:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -3662,7 +4180,7 @@ def main() -> int:
     log(f"kernels built and loaded in {report['build_s']:.1f} s: {native.library_path().name}")
 
     t0 = time.perf_counter()
-    models = pipeline.build_models(seed=0, device=dev)
+    models = pipeline.build_models(seed=0, device=dev, precision="fp32")
     batch = synthetic_batch(seed=0, batch_size=B, raster_size=RASTER, device=dev)
     torch.cuda.synchronize()
     log(f"models + synthetic batch (B={B}, {RASTER}x{RASTER}x{batch.image.shape[-1]}) "
@@ -3698,10 +4216,13 @@ def main() -> int:
     check_rules_replan(dev, report)
     run_checkpoint_path(report)
     run_data_path(report)
+    run_bf16(models, kernels, report)
 
     replaces = {
         "lstm2_fwd": ("cld_tpu_torch/csrc/lstm.cu", "cld_tpu/ops/lstm_pallas.py:169"),
         "lstm2_bwd": ("cld_tpu_torch/csrc/lstm.cu", "cld_tpu/ops/lstm_pallas.py:312"),
+        "lstm2_fwd_bf16": ("cld_tpu_torch/csrc/lstm.cu", "cld_tpu/ops/lstm_pallas.py:169"),
+        "lstm2_bwd_bf16": ("cld_tpu_torch/csrc/lstm.cu", "cld_tpu/ops/lstm_pallas.py:312"),
         "bit_gather": ("cld_tpu_torch/csrc/bit_gather.cu", "cld_tpu/ops/pallas_kernels.py:179"),
         "value_gather": ("cld_tpu_torch/csrc/value_gather.cu",
                          "cld_tpu/ops/pallas_kernels.py:291"),
@@ -3730,7 +4251,8 @@ def main() -> int:
              "latent_attack": "launches_latent_attack",
              **{f"composer_{c}": f"launches_composer_{c}" for c in sorted(COMPOSER_REGISTRY)},
              "composer_ckpt": "launches_composer_ckpt",
-             "composer_trace": "launches_composer_trace"}
+             "composer_trace": "launches_composer_trace",
+             **{f"bf16_{p}": f"launches_bf16_{p}" for p in BF16_PATHS}}
     # the launch floor: one kernel node of a graph that does nothing (one
     # thread that exits at once), timed as every kernel's graph_ms is
     floor_ms = graph_ms(lambda: torch.cuda._sleep(0))

@@ -8,6 +8,10 @@ k (for DDPM, timestep i = n - 1 - k). Whatever is not given is drawn from
 under the JAX samplers' own key schedule. BN = B * num_samp, each
 conditioning row repeated `num_samp` times in place (row b's samples are
 rows b * num_samp ... b * num_samp + num_samp - 1).
+
+Under bf16 network compute the denoiser's output is taken to float32 before
+any diffusion math: latents, noise, the posterior mean and sigma and the
+log-probabilities stay float32, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -63,7 +67,7 @@ def transition_log_prob(
 ) -> torch.Tensor:
     """log p(x_{t-1} | x_t) under the denoiser, mean over elements -> [B]:
     the PPO ratio's numerator."""
-    eps_hat = denoise_fn(x_t, cond_feat, t)
+    eps_hat = denoise_fn(x_t, cond_feat, t).to(torch.float32)
     mean, log_var = posterior_mean_logvar(schedule, x_t, eps_hat, t)
     sigma = torch.exp(0.5 * log_var)
     return torch.mean(normal_log_prob(x_t_minus_1, mean, sigma), dim=(1, 2))
@@ -129,7 +133,7 @@ def sample_traj(
     for k in range(n):
         i = n - 1 - k
         t = torch.full((BN,), i, dtype=torch.long, device=dev)
-        eps_hat = denoise_fn(x, cond, t)
+        eps_hat = denoise_fn(x, cond, t).to(torch.float32)
         mean, log_var = posterior_mean_logvar(schedule, x, eps_hat, t)
         if guidance_fn is not None and guidance_applies(i, guidance_stride, guidance_output):
             if guidance_clean:

@@ -5,7 +5,9 @@ A current-state MLP (4 -> 64), a ResNet map encoder (raster -> 256) and a
 combine MLP (320 -> 256) with LayerNorm. `map_arch` names the encoder
 (`resnet18`, `resnet34`, `resnet50`); a `_spatial_softmax` suffix puts the
 keypoint head in place of the average pool. Keys follow the reference
-(`map_encoder.encoder_heads.map_model.*` for the trunk)."""
+(`map_encoder.encoder_heads.map_model.*` for the trunk). Under bf16 compute
+(`compute_dtype`, `ops.precision`) the raster enters the trunk in bf16, as the
+JAX module casts it, and `cond_feat` comes out in bf16."""
 
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from torch import nn
 from cld_tpu_torch.data.batch import TrafficBatch, get_current_states
 from cld_tpu_torch.models.nets import MLP
 from cld_tpu_torch.models.resnet import ResNetEncoder
+from cld_tpu_torch.ops.precision import autocast
 
 
 def parse_map_arch(map_arch: str):
@@ -40,6 +43,8 @@ class _MapEncoder(nn.Module):
 
 
 class ContextEncoder(nn.Module):
+    compute_dtype = torch.float32
+
     def __init__(
         self,
         in_channels: int = 34,
@@ -65,7 +70,11 @@ class ContextEncoder(nn.Module):
         """`train` picks BatchNorm's batch statistics (and moves the running
         ones) in the map encoder; nothing else here depends on it."""
         curr_states = get_current_states(batch)  # [B, 4]
-        state_feat = self.agent_state_encoder(curr_states)
-        map_feat = self.map_encoder(batch.image, train)
-        cond_feat = self.process_cond_mlp(torch.cat([state_feat, map_feat], dim=-1))
+        image = batch.image
+        if self.compute_dtype == torch.bfloat16:
+            image = image.to(torch.bfloat16)
+        with autocast(self.compute_dtype, curr_states.device.type):
+            state_feat = self.agent_state_encoder(curr_states)
+            map_feat = self.map_encoder(image, train)
+            cond_feat = self.process_cond_mlp(torch.cat([state_feat, map_feat], dim=-1))
         return {"cond_feat": cond_feat, "curr_states": curr_states}

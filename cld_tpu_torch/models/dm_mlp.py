@@ -6,7 +6,8 @@ embedding and the conditioning, passed through residual MLP blocks and
 reshaped back; same (x, cond_feat, t) signature as `TemporalMapUnet`.
 Submodules carry the flax module names (`Dense_0`, `LayerNorm_0`, `block0`,
 ...) so that `utils.weights.export_flax` maps the JAX variables one to one;
-LayerNorm takes flax's epsilon, 1e-6.
+LayerNorm takes flax's epsilon, 1e-6. At `compute_dtype` bf16
+(`ops.precision`) it runs under bf16 autocast, as `TemporalMapUnet` does.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 from torch import nn
 
 from cld_tpu_torch.models.nets import SinusoidalPosEmb, mish
+from cld_tpu_torch.ops.precision import autocast
 
 
 class ResidualMLPBlock(nn.Module):
@@ -35,6 +37,8 @@ class ResidualMLPBlock(nn.Module):
 class MLPResDenoiser(nn.Module):
     """(x [B, T, D], cond [B, C], t [B]) -> [B, T, D]."""
 
+    compute_dtype = torch.float32
+
     def __init__(self, horizon: int = 52, transition_dim: int = 4, cond_dim: int = 256,
                  width: int = 512, num_blocks: int = 3, time_dim: int = 32):
         super().__init__()
@@ -50,8 +54,9 @@ class MLPResDenoiser(nn.Module):
 
     def forward(self, x: torch.Tensor, cond_feat: torch.Tensor, time: torch.Tensor):
         B, T, D = x.shape
-        t = self.Dense_1(mish(self.Dense_0(self.time_emb(time))))
-        h = torch.cat([x.reshape(B, T * D), t, cond_feat], dim=-1)
-        for i in range(self.num_blocks):
-            h = getattr(self, f"block{i}")(h)
-        return self.out(h).reshape(B, T, D)
+        with autocast(self.compute_dtype, x.device.type):
+            t = self.Dense_1(mish(self.Dense_0(self.time_emb(time))))
+            h = torch.cat([x.reshape(B, T * D), t, cond_feat], dim=-1)
+            for i in range(self.num_blocks):
+                h = getattr(self, f"block{i}")(h)
+            return self.out(h).reshape(B, T, D)

@@ -70,7 +70,9 @@ class SinusoidalPosEmb(nn.Module):
 class FusedGroupNorm(nn.Module):
     """GroupNorm over [B, T, C] with the JAX package's statistics: f32
     moments, variance E[x^2] - E[x]^2 clamped at 0, epsilon 1e-5 inside the
-    rsqrt. Parameters are torch GroupNorm's ``weight``/``bias`` [C]."""
+    rsqrt. Parameters are torch GroupNorm's ``weight``/``bias`` [C]. The
+    output takes the input's dtype when that is bf16 (the JAX module's
+    `astype(self.dtype)` under bf16 compute)."""
 
     def __init__(self, num_channels: int, num_groups: int = 8, eps: float = 1e-5):
         super().__init__()
@@ -97,7 +99,8 @@ class FusedGroupNorm(nn.Module):
         inv = torch.rsqrt(var + self.eps)
         mean_c = torch.repeat_interleave(mean, Cg, dim=-1)  # [B, C]
         inv_c = torch.repeat_interleave(inv, Cg, dim=-1)
-        return (x32 - mean_c[:, None, :]) * (inv_c[:, None, :] * self.weight) + self.bias
+        y = (x32 - mean_c[:, None, :]) * (inv_c[:, None, :] * self.weight) + self.bias
+        return y.to(torch.bfloat16) if x.dtype == torch.bfloat16 else y
 
 
 class Conv1dBlock(nn.Module):

@@ -10,7 +10,8 @@ module's `.training` flag: with `train=False` BatchNorm normalizes with its
 running statistics (epsilon 1e-5); with `train=True` it normalizes with the
 batch's and moves the running ones as flax's BatchNorm does, momentum 0.99
 and the biased batch variance (`torch.nn.BatchNorm2d` would store the unbiased
-one at momentum 0.1).
+one at momentum 0.1). Under bf16 compute (autocast, `ops.precision`) the
+convolutions run in bf16 and BatchNorm takes its batch statistics in float32.
 """
 
 from __future__ import annotations
@@ -45,7 +46,8 @@ class BatchNorm2d(nn.BatchNorm2d):
         variance): the train-mode normalization, which data parallelism
         overrides (`parallel.mesh.GlobalBatchNorm2d`)."""
         with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+            var, mean = torch.var_mean(x.to(torch.promote_types(x.dtype, torch.float32)),
+                                       dim=(0, 2, 3), unbiased=False)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps), mean, var
 
 

@@ -5,7 +5,9 @@ Channel ladder transition_dim -> dim*mults (4 -> 64 -> 128 -> 256 at the
 config of record), horizon halving per level (52 -> 26 -> 13), two mid
 blocks, skip-concat ups; every block adds a projection of
 [sinusoidal-t-MLP || cond_feat]. Layout [B, T, C] at the boundary; keys
-follow the reference `TemporalMapUnet`.
+follow the reference `TemporalMapUnet`. At `compute_dtype` bf16
+(`ops.precision`) the network runs under bf16 autocast over float32
+parameters and eps_hat comes out in bf16; the samplers take it to float32.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from cld_tpu_torch.models.nets import (
     SinusoidalPosEmb,
     Upsample1d,
 )
+from cld_tpu_torch.ops.precision import autocast
 
 
 class ResidualTemporalMapBlock(nn.Module):
@@ -50,6 +53,8 @@ class ResidualTemporalMapBlock(nn.Module):
 
 class TemporalMapUnet(nn.Module):
     """eps_hat = f(x_t [B, T, D], cond_feat [B, C], t [B] int) -> [B, T, D_out]."""
+
+    compute_dtype = torch.float32
 
     def __init__(
         self,
@@ -98,6 +103,10 @@ class TemporalMapUnet(nn.Module):
             raise ValueError(
                 f"horizon {x.shape[1]} must be divisible by {self.down_factor}"
             )
+        with autocast(self.compute_dtype, x.device.type):
+            return self._forward(x, cond_feat, time)
+
+    def _forward(self, x, cond_feat, time):
         t = torch.cat([self.time_mlp(time), cond_feat], dim=-1)  # [B, dim + C]
         h = []
         for res0, res1, down in self.downs:

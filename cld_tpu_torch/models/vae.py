@@ -17,6 +17,13 @@ kernel.
 
 Randomness is explicit: the reparametrization noise and the dropout keep-masks
 are arguments, drawn from a `torch.Generator` when not given.
+
+Mixed precision (`ops.precision`): `set_compute_dtype(model, torch.bfloat16)`
+runs the context encoder, the LSTM stacks, the latent heads and the decoder
+in bf16 over float32 parameters, as the JAX module's `dtype` does. The LSTM
+stacks cast their weights and inputs to bf16 explicitly (cuDNN's bf16 LSTM
+on the card), the fused decoder stores in bf16, and the loss terms are taken
+in float32.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from cld_tpu_torch.ops.dynamics import (
 )
 from cld_tpu_torch.ops.lstm_kernels import fused_decode_actions
 from cld_tpu_torch.ops.normalization import TrajNormalizer
+from cld_tpu_torch.ops.precision import autocast, autocast_dtype, no_autocast
 
 
 class _LSTMWeights(nn.Module):
@@ -79,19 +87,30 @@ def _lstm_stack(weights: _LSTMWeights, x: torch.Tensor, h0: torch.Tensor,
     train, bidirectional, batch_first), checked against torch 2.11 and 2.13.
     It is used because the `state_dict` keeps the reference's flat
     `weight_ih_l0 ...` names on a plain module and the mask goes between the
-    layers; the four separate parameters make cuDNN re-pack them per call."""
-    hx = (h0[None].contiguous(), torch.zeros_like(h0)[None])
-    # the operator's train flag only tells cuDNN to keep what its backward needs
-    # (there is no dropout inside a single layer)
-    keep_for_backward = torch.is_grad_enabled()
-    y = x
-    for n in range(weights.num_layers):
-        flat = [getattr(weights, f"{k}_l{n}") for k in
-                ("weight_ih", "weight_hh", "bias_ih", "bias_hh")]
-        y = torch._VF.lstm(y.contiguous(), hx, flat, True, 1, 0.0, keep_for_backward, False, True)[0]
-        if n == 0 and keep_mask is not None:
-            y = y * (keep_mask / (1.0 - DROPOUT_RATE))
-    return y
+    layers; the four separate parameters make cuDNN re-pack them per call.
+
+    Inside a bf16 autocast region the weights, x, h0 and each layer's input
+    are cast to bf16 explicitly and the stack runs with autocast off (autocast
+    would send the operator to float16); the output is bf16. Elsewhere the
+    stack runs in the weights' dtype."""
+    dt = autocast_dtype(x.device.type)
+    if dt == torch.float32:
+        dt = weights.weight_ih_l0.dtype
+    with no_autocast(x.device.type):
+        h0 = h0.to(dt)
+        hx = (h0[None].contiguous(), torch.zeros_like(h0)[None])
+        # the operator's train flag only tells cuDNN to keep what its backward needs
+        # (there is no dropout inside a single layer)
+        keep_for_backward = torch.is_grad_enabled()
+        y = x.to(dt)
+        for n in range(weights.num_layers):
+            flat = [getattr(weights, f"{k}_l{n}").to(dt) for k in
+                    ("weight_ih", "weight_hh", "bias_ih", "bias_hh")]
+            y = torch._VF.lstm(y.contiguous(), hx, flat, True, 1, 0.0, keep_for_backward, False,
+                               True)[0]
+            if n == 0 and keep_mask is not None:
+                y = (y * (keep_mask / (1.0 - DROPOUT_RATE))).to(dt)
+        return y
 
 
 class LSTMEncoder(nn.Module):
@@ -108,10 +127,12 @@ class LSTMEncoder(nn.Module):
 
 
 class LSTMDecoder(nn.Module):
-    """Latent sequence [B, T, L] + cond [B, C] -> scaled actions [B, T, 2].
-    h0 of both layers = cond2hidden(cond), c0 = 0. Without a dropout mask the
-    core is the fused kernel-backed one; with `keep_mask` [B, T, H] (train
-    mode) it runs layer by layer."""
+    """Latent sequence [B, T, L] + cond [B, C] -> scaled actions [B, T, 2]
+    (in the compute dtype). h0 of both layers = cond2hidden(cond), c0 = 0.
+    Without a dropout mask the core is the fused kernel-backed one; with
+    `keep_mask` [B, T, H] (train mode) it runs layer by layer."""
+
+    compute_dtype = torch.float32
 
     def __init__(self, latent_size: int = 4, hidden_size: int = 64,
                  cond_dim: int = 256, output_size: int = 2):
@@ -122,9 +143,10 @@ class LSTMDecoder(nn.Module):
 
     def forward(self, z: torch.Tensor, cond: torch.Tensor,
                 keep_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if keep_mask is None:
-            return fused_decode_actions(self, z, cond)
-        return self.hid2act(_lstm_stack(self.lstm, z, self.cond2hidden(cond), keep_mask))
+        with autocast(self.compute_dtype, z.device.type):
+            if keep_mask is None:
+                return fused_decode_actions(self, z, cond)
+            return self.hid2act(_lstm_stack(self.lstm, z, self.cond2hidden(cond), keep_mask))
 
 
 class LSTMVAE(nn.Module):
@@ -135,7 +157,10 @@ class LSTMVAE(nn.Module):
     `train` turns the inter-layer dropout on, with `keep_masks` = (encoder
     mask, decoder mask), each [B, T, H], or drawn from `generator`. `noise`
     [B, T, L] is the reparametrization noise: zeros when None and no
-    generator is given (z = mean), else drawn from `generator`."""
+    generator is given (z = mean), else drawn from `generator`. Under bf16
+    compute mean and logvar come out in bf16 and z in float32."""
+
+    compute_dtype = torch.float32
 
     def __init__(self, input_size: int = 6, hidden_size: int = 64, latent_size: int = 4,
                  cond_dim: int = 256, output_size: int = 2):
@@ -152,8 +177,9 @@ class LSTMVAE(nn.Module):
         """-> (z, mean, logvar), each [B, T, L]."""
         if train and keep_mask is None:
             keep_mask = dropout_keep_mask((*x.shape[:2], self.hidden_size), generator, x.device)
-        h = self.lstm_enc(x, cond, keep_mask if train else None)
-        mean, logvar = self.mu(h), self.logvar(h)
+        with autocast(self.compute_dtype, x.device.type):
+            h = self.lstm_enc(x, cond, keep_mask if train else None)
+            mean, logvar = self.mu(h), self.logvar(h)
         if noise is None and generator is not None:
             noise = torch.randn(mean.shape, generator=generator, device=mean.device)
         z = mean if noise is None else mean + noise * torch.exp(0.5 * logvar)
@@ -184,15 +210,18 @@ def decode_actions(decoder: LSTMDecoder, z: torch.Tensor, cond_feat: torch.Tenso
     (`ops.lstm_kernels.fused_decode_actions`), "module" the decoder's
     layer-by-layer stack through PyTorch's LSTM operator (the JAX package's
     "pallas" and "flax"). Both are differentiable in z, cond_feat and the
-    weights."""
-    if impl in ("auto", "kernel"):
-        return fused_decode_actions(decoder, z, cond_feat)
-    if impl != "module":
+    weights, run at the decoder's compute dtype and return at least float32."""
+    if impl not in DECODE_IMPLS:
         raise ValueError(f"unknown decode impl {impl!r} (expected one of {DECODE_IMPLS})")
-    lead, (T, L) = z.shape[:-2], z.shape[-2:]
-    y = _lstm_stack(decoder.lstm, z.reshape(-1, T, L),
-                    decoder.cond2hidden(cond_feat.reshape(-1, cond_feat.shape[-1])))
-    return decoder.hid2act(y).reshape(*lead, T, -1)
+    with autocast(decoder.compute_dtype, z.device.type):
+        if impl in ("auto", "kernel"):
+            acts = fused_decode_actions(decoder, z, cond_feat)
+        else:
+            lead, (T, L) = z.shape[:-2], z.shape[-2:]
+            y = _lstm_stack(decoder.lstm, z.reshape(-1, T, L),
+                            decoder.cond2hidden(cond_feat.reshape(-1, cond_feat.shape[-1])))
+            acts = decoder.hid2act(y).reshape(*lead, T, -1)
+    return acts.to(torch.promote_types(acts.dtype, torch.float32))
 
 
 def convert_action_to_state_and_action(
@@ -242,7 +271,8 @@ def vae_loss(gt_scaled, recon_actions, mu, logvar, beta):
 
 class VaeModel(nn.Module):
     """The context encoder and the LSTM-VAE. Dynamics integration and
-    normalization are parameter-free functions beside it.
+    normalization are parameter-free functions beside it. Its networks
+    compute at the dtype `ops.precision.set_compute_dtype` gives them.
 
     Every method takes `train` as an argument (BatchNorm's batch statistics
     and the LSTM stacks' dropout), as the JAX module does; the module's

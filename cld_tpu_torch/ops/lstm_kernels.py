@@ -19,7 +19,17 @@ decoder is one forward kernel and one reverse-sweep kernel
 Dispatch is by the device of the tensors: CUDA tensors launch the kernels
 (or the wrapper raises), CPU tensors take the plain PyTorch versions
 `lstm2_core_ref` / `lstm2_bwd_ref`, which compute the same functions.
-Storage and math are float32.
+
+Two storage types, picked by the inputs' dtype (one dtype for all of them,
+else the wrapper raises; there is no silent cast): float32, and bfloat16,
+the TPU kernels' production configuration (`lstm_pallas.py:742-753`). Under
+bf16 the sequences, h0 and the weights are stored in bf16; each matmul
+operand is rounded to bf16 (the carried h, the dg vectors), the products
+are summed in f32, and the gate math and the c / dh / dc carries stay f32,
+as the Pallas kernels' `mm(a, w) = dot(a.astype(w.dtype), w, f32)` does.
+The bf16 launches count as `lstm2_fwd_bf16` / `lstm2_bwd_bf16`.
+`fused_decode_actions` stores in bf16 inside a bf16 autocast region
+(`ops.precision`).
 
 The kernels keep each thread's weights in registers, in an order of their
 own: `pack_weights` lays Wh1 and W2 out that way before each launch (one
@@ -35,6 +45,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from cld_tpu_torch.ops import native
+from cld_tpu_torch.ops.precision import autocast_dtype, no_autocast
 
 
 class LSTMDecodeParams(NamedTuple):
@@ -86,37 +97,66 @@ def _gate_act(pre: torch.Tensor, H: int):
 # ---------------------------------------------------------------------------
 
 
+def _math_dtype(dt: torch.dtype) -> torch.dtype:
+    """The plain versions' arithmetic type: at least float32 (float64 stays)."""
+    return torch.promote_types(dt, torch.float32)
+
+
+def _mm(a: torch.Tensor, w: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """a @ w with a rounded to the storage type dt first (w holds dt values
+    in the math type): exact products, sums in the math type."""
+    return a.to(dt).to(w.dtype) @ w
+
+
 def lstm2_core_ref(xg1, h0, Wh1, W2, b2) -> Tuple[torch.Tensor, ...]:
-    """Plain forward: -> (y, h1s, c1s, c2s), each [B, T, H]. Differentiable
-    by autograd, which makes it the reference for `Lstm2Core`'s VJP."""
-    H = h0.shape[-1]
-    h1, h2 = h0, h0
-    c1 = c2 = torch.zeros_like(h0)
-    ys, h1s, c1s, c2s = [], [], [], []
-    for t in range(xg1.shape[1]):
-        i1, f1, g1, o1 = _gate_act(xg1[:, t] + h1 @ Wh1, H)
-        c1 = f1 * c1 + i1 * g1
-        h1 = o1 * torch.tanh(c1)
-        i2, f2, g2, o2 = _gate_act(torch.cat([h1, h2], -1) @ W2 + b2, H)
-        c2 = f2 * c2 + i2 * g2
-        h2 = o2 * torch.tanh(c2)
-        ys.append(h2)
-        h1s.append(h1)
-        c1s.append(c1)
-        c2s.append(c2)
-    st = lambda s: torch.stack(s, dim=1)
-    return st(ys), st(h1s), st(c1s), st(c2s)
+    """Plain forward: -> (y, h1s, c1s, c2s), each [B, T, H] in xg1's dtype.
+    Differentiable by autograd, which makes it the reference for
+    `Lstm2Core`'s VJP. The math runs in at least float32; under bf16 storage
+    the matmul operands round to bf16 and the outputs are stored rounded (see
+    the module docstring), at float32 every cast is the identity."""
+    dt = xg1.dtype
+    acc = _math_dtype(dt)
+    with no_autocast(xg1.device.type):
+        H = h0.shape[-1]
+        Wh1, W2, b2, h0 = Wh1.to(acc), W2.to(acc), b2.to(acc), h0.to(acc)
+        h1, h2 = h0, h0
+        c1 = c2 = torch.zeros_like(h0)
+        ys, h1s, c1s, c2s = [], [], [], []
+        for t in range(xg1.shape[1]):
+            i1, f1, g1, o1 = _gate_act(xg1[:, t].to(acc) + _mm(h1, Wh1, dt), H)
+            c1 = f1 * c1 + i1 * g1
+            h1 = o1 * torch.tanh(c1)
+            i2, f2, g2, o2 = _gate_act(_mm(torch.cat([h1, h2], -1), W2, dt) + b2, H)
+            c2 = f2 * c2 + i2 * g2
+            h2 = o2 * torch.tanh(c2)
+            ys.append(h2)
+            h1s.append(h1)
+            c1s.append(c1)
+            c2s.append(c2)
+        st = lambda s: torch.stack(s, dim=1).to(dt)
+        return st(ys), st(h1s), st(c1s), st(c2s)
 
 
 def lstm2_bwd_ref(dy, xg1, h0, Wh1, W2, b2, h1s, c1s, ys, c2s):
     """Plain reverse sweep: recompute each step's gates from the saved
-    states, return the gate cotangents (dg1, dg2), each [B, T, 4H]."""
+    states, return the gate cotangents (dg1, dg2), each [B, T, 4H] in xg1's
+    dtype. Under bf16 storage the dg vectors round to bf16 as stored and as
+    the operands of the W^T products; the carries stay in the math type."""
+    with no_autocast(xg1.device.type):
+        return _lstm2_bwd_ref(dy, xg1, h0, Wh1, W2, b2, h1s, c1s, ys, c2s)
+
+
+def _lstm2_bwd_ref(dy, xg1, h0, Wh1, W2, b2, h1s, c1s, ys, c2s):
     B, T, H4 = xg1.shape
     H = H4 // 4
+    dt = xg1.dtype
+    acc = _math_dtype(dt)
+    dy, xg1, h0, h1s, c1s, ys, c2s = (a.to(acc) for a in (dy, xg1, h0, h1s, c1s, ys, c2s))
+    Wh1, W2, b2 = Wh1.to(acc), W2.to(acc), b2.to(acc)
     zero = torch.zeros_like(h0)
     dh1c = dc1c = dh2c = dc2c = zero
-    dg1 = torch.empty_like(xg1)
-    dg2 = torch.empty_like(xg1)
+    dg1 = torch.empty_like(xg1, dtype=dt)
+    dg2 = torch.empty_like(xg1, dtype=dt)
     W2t = W2.t()
     Wh1t = Wh1.t()
     for t in range(T - 1, -1, -1):
@@ -124,8 +164,8 @@ def lstm2_bwd_ref(dy, xg1, h0, Wh1, W2, b2, h1s, c1s, ys, c2s):
         c1p = c1s[:, t - 1] if t > 0 else zero
         h2p = ys[:, t - 1] if t > 0 else h0
         c2p = c2s[:, t - 1] if t > 0 else zero
-        i1, f1, g1, o1 = _gate_act(xg1[:, t] + h1p @ Wh1, H)
-        i2, f2, g2, o2 = _gate_act(torch.cat([h1s[:, t], h2p], -1) @ W2 + b2, H)
+        i1, f1, g1, o1 = _gate_act(xg1[:, t] + _mm(h1p, Wh1, dt), H)
+        i2, f2, g2, o2 = _gate_act(_mm(torch.cat([h1s[:, t], h2p], -1), W2, dt) + b2, H)
 
         dh2 = dy[:, t] + dh2c
         tc2 = torch.tanh(c2s[:, t])
@@ -137,7 +177,7 @@ def lstm2_bwd_ref(dy, xg1, h0, Wh1, W2, b2, h1s, c1s, ys, c2s):
             dc2 * i2 * (1.0 - g2 * g2),
             do2 * o2 * (1.0 - o2),
         ], dim=-1)
-        dxh = d2 @ W2t  # [B, 2H]
+        dxh = _mm(d2, W2t, dt)  # [B, 2H]
 
         dh1 = dxh[:, :H] + dh1c
         tc1 = torch.tanh(c1s[:, t])
@@ -151,7 +191,7 @@ def lstm2_bwd_ref(dy, xg1, h0, Wh1, W2, b2, h1s, c1s, ys, c2s):
         ], dim=-1)
         dg1[:, t] = d1
         dg2[:, t] = d2
-        dh1c, dc1c, dh2c, dc2c = d1 @ Wh1t, dc1 * f1, dxh[:, H:], dc2 * f2
+        dh1c, dc1c, dh2c, dc2c = _mm(d1, Wh1t, dt), dc1 * f1, dxh[:, H:], dc2 * f2
     return dg1, dg2
 
 
@@ -239,11 +279,15 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def kernel_attributes(which: int, H: int, R: int = 1) -> dict:
+def kernel_attributes(which: int, H: int, R: int = 1,
+                      dtype: torch.dtype = torch.float32) -> dict:
     """The compiler's verdict on one instantiation (which: 0 the forward, 1
-    the reverse sweep's gates kernel, 2 its chain): registers and local
-    memory bytes (spills) per thread, max threads per block."""
-    regs, local, threads = native.attributes(native.library().cld_lstm2_attributes, which, H, R)
+    the reverse sweep's gates kernel, 2 its chain; `dtype` the storage
+    type): registers and local memory bytes (spills) per thread, max threads
+    per block."""
+    lib = native.library()
+    fn = lib.cld_lstm2_attributes_bf16 if dtype == torch.bfloat16 else lib.cld_lstm2_attributes
+    regs, local, threads = native.attributes(fn, which, H, R)
     return dict(registers=regs, local_bytes=local, max_threads=threads)
 
 
@@ -259,6 +303,22 @@ def _shapes(xg1, h0):
     return B, T, H
 
 
+STORAGE_DTYPES = (torch.float32, torch.bfloat16)  # the kernels' instantiations
+
+
+def _storage(name: str, **tensors) -> torch.dtype:
+    """The one dtype of a call's tensors; raise on mixed dtypes, and on a
+    CUDA tensor of a dtype the kernels are not built for."""
+    dtypes = {t.dtype for t in tensors.values()}
+    if len(dtypes) != 1:
+        got = ", ".join(f"{k} {t.dtype}" for k, t in tensors.items())
+        raise TypeError(f"{name}: mixed dtypes ({got}); give every tensor one dtype")
+    dt = dtypes.pop()
+    if next(iter(tensors.values())).device.type == "cuda" and dt not in STORAGE_DTYPES:
+        raise TypeError(f"{name}: dtype {dt}; the kernels store float32 or bfloat16")
+    return dt
+
+
 def _require_aligned(**tensors) -> None:
     """The kernels read these as float4: 16-byte aligned storage."""
     for name, t in tensors.items():
@@ -267,64 +327,74 @@ def _require_aligned(**tensors) -> None:
 
 
 def lstm2_fwd(xg1, h0, Wh1, W2, b2):
-    """Forward sweep -> (y, h1s, c1s, c2s). CUDA tensors launch
-    `lstm2_fwd_kernel`; CPU tensors take `lstm2_core_ref`."""
+    """Forward sweep -> (y, h1s, c1s, c2s), in the inputs' dtype. CUDA
+    tensors launch `lstm2_fwd_kernel` of their storage type; CPU tensors take
+    `lstm2_core_ref`."""
+    if xg1.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"lstm2_fwd: unsupported device {xg1.device}")
+    dt = _storage("lstm2_fwd", xg1=xg1, h0=h0, Wh1=Wh1, W2=W2, b2=b2)
     if xg1.device.type == "cpu":
         return lstm2_core_ref(xg1, h0, Wh1, W2, b2)
-    if xg1.device.type != "cuda":
-        raise ValueError(f"lstm2_fwd: unsupported device {xg1.device}")
     B, T, H = _shapes(xg1, h0)
-    dev, f32 = xg1.device, torch.float32
+    dev = xg1.device
     for name, t, shape in (("xg1", xg1, (B, T, 4 * H)), ("h0", h0, (B, H)),
                            ("Wh1", Wh1, (H, 4 * H)), ("W2", W2, (2 * H, 4 * H)),
                            ("b2", b2, (4 * H,))):
-        native.require(t, name, f32, shape, dev)
-    y, h1s, c1s, c2s = torch.empty((4, B, T, H), dtype=f32, device=dev).unbind(0)
-    wpk = pack_weights("fwd", Wh1, W2)
+        native.require(t, name, dt, shape, dev)
+    y, h1s, c1s, c2s = torch.empty((4, B, T, H), dtype=dt, device=dev).unbind(0)
+    wpk = pack_weights("fwd", Wh1.float(), W2.float())
     lib = native.library()
-    native.check(lib.cld_lstm2_fwd(
+    bf16 = dt == torch.bfloat16
+    native.check((lib.cld_lstm2_fwd_bf16 if bf16 else lib.cld_lstm2_fwd)(
         xg1.data_ptr(), h0.data_ptr(), wpk.data_ptr(), b2.data_ptr(),
         y.data_ptr(), h1s.data_ptr(), c1s.data_ptr(), c2s.data_ptr(), B, T, H,
         rows_per_cta(B, _sm_count(dev)), native.stream_ptr(dev),
     ), "lstm2_fwd")
-    native.count_launch("lstm2_fwd")
+    native.count_launch("lstm2_fwd_bf16" if bf16 else "lstm2_fwd")
     return y, h1s, c1s, c2s
 
 
 def lstm2_bwd(dy, xg1, h0, Wh1, W2, b2, h1s, c1s, ys, c2s):
-    """Reverse sweep -> (dg1, dg2). CUDA tensors launch the gates kernel into
-    a scratch buffer and then `lstm2_bwd_kernel` (one launch counted); CPU
-    tensors take `lstm2_bwd_ref`."""
+    """Reverse sweep -> (dg1, dg2), in the inputs' dtype. CUDA tensors
+    launch the gates kernel into a scratch buffer (f32) and then
+    `lstm2_bwd_kernel` (one launch counted); CPU tensors take
+    `lstm2_bwd_ref`."""
+    if xg1.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"lstm2_bwd: unsupported device {xg1.device}")
+    dt = _storage("lstm2_bwd", dy=dy, xg1=xg1, h0=h0, Wh1=Wh1, W2=W2, b2=b2, h1s=h1s,
+                  c1s=c1s, ys=ys, c2s=c2s)
     if xg1.device.type == "cpu":
         return lstm2_bwd_ref(dy, xg1, h0, Wh1, W2, b2, h1s, c1s, ys, c2s)
-    if xg1.device.type != "cuda":
-        raise ValueError(f"lstm2_bwd: unsupported device {xg1.device}")
     B, T, H = _shapes(xg1, h0)
-    dev, f32 = xg1.device, torch.float32
+    dev = xg1.device
     seq = (B, T, H)
     for name, t, shape in (("dy", dy, seq), ("xg1", xg1, (B, T, 4 * H)), ("h0", h0, (B, H)),
                            ("Wh1", Wh1, (H, 4 * H)), ("W2", W2, (2 * H, 4 * H)),
                            ("b2", b2, (4 * H,)), ("h1s", h1s, seq), ("c1s", c1s, seq),
                            ("ys", ys, seq), ("c2s", c2s, seq)):
-        native.require(t, name, f32, shape, dev)
+        native.require(t, name, dt, shape, dev)
     _require_aligned(xg1=xg1, Wh1=Wh1, W2=W2, b2=b2)
-    dg1 = torch.empty((B, T, 4 * H), dtype=f32, device=dev)
+    dg1 = torch.empty((B, T, 4 * H), dtype=dt, device=dev)
     dg2 = torch.empty_like(dg1)
-    coef = torch.empty((B, T, COEF_PLANES, H), dtype=f32, device=dev)
-    wpk = pack_weights("bwd", Wh1, W2)
+    coef = torch.empty((B, T, COEF_PLANES, H), dtype=torch.float32, device=dev)
+    wpk = pack_weights("bwd", Wh1.float(), W2.float())
     lib = native.library()
-    native.check(lib.cld_lstm2_bwd(
+    bf16 = dt == torch.bfloat16
+    native.check((lib.cld_lstm2_bwd_bf16 if bf16 else lib.cld_lstm2_bwd)(
         dy.data_ptr(), xg1.data_ptr(), h0.data_ptr(), Wh1.data_ptr(), W2.data_ptr(),
         b2.data_ptr(), h1s.data_ptr(), c1s.data_ptr(), ys.data_ptr(), c2s.data_ptr(),
         wpk.data_ptr(), coef.data_ptr(), dg1.data_ptr(), dg2.data_ptr(), B, T, H,
         rows_per_cta(B, _sm_count(dev)), native.stream_ptr(dev),
     ), "lstm2_bwd")
-    native.count_launch("lstm2_bwd")
+    native.count_launch("lstm2_bwd_bf16" if bf16 else "lstm2_bwd")
     return dg1, dg2
 
 
 class Lstm2Core(torch.autograd.Function):
-    """y = core(xg1, h0, Wh1, W2, b2), differentiable in all five inputs."""
+    """y = core(xg1, h0, Wh1, W2, b2), differentiable in all five inputs.
+    Under bf16 storage the weight, bias and h0 gradients are formed in f32
+    from the bf16 gate cotangents and returned in each input's dtype, as the
+    JAX package's `_core_bwd` does."""
 
     @staticmethod
     def forward(ctx, xg1, h0, Wh1, W2, b2):
@@ -335,21 +405,29 @@ class Lstm2Core(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         xg1, h0, Wh1, W2, b2, h1s, c1s, y, c2s = ctx.saved_tensors
+        with no_autocast(xg1.device.type):
+            return Lstm2Core._grads(ctx.needs_input_grad, dy, xg1, h0, Wh1, W2, b2, h1s, c1s,
+                                    y, c2s)
+
+    @staticmethod
+    def _grads(need, dy, xg1, h0, Wh1, W2, b2, h1s, c1s, y, c2s):
         H = h0.shape[-1]
-        dg1, dg2 = lstm2_bwd(dy.contiguous(), xg1, h0, Wh1, W2, b2, h1s, c1s, y, c2s)
-        need = ctx.needs_input_grad
+        dg1, dg2 = lstm2_bwd(dy.to(xg1.dtype).contiguous(), xg1, h0, Wh1, W2, b2, h1s, c1s,
+                             y, c2s)
+        acc = _math_dtype(xg1.dtype)
+        up = lambda a: a.to(acc)
         flat = lambda a: a.reshape(-1, a.shape[-1])
         dWh1 = dW2 = db2 = dh0 = None
         if need[2]:
-            h1prev = torch.cat([h0[:, None], h1s[:, :-1]], dim=1)
-            dWh1 = flat(h1prev).t() @ flat(dg1)
+            h1prev = torch.cat([up(h0)[:, None], up(h1s[:, :-1])], dim=1)
+            dWh1 = (flat(h1prev).t() @ flat(up(dg1))).to(Wh1.dtype)
         if need[3]:
-            h2prev = torch.cat([h0[:, None], y[:, :-1]], dim=1)
-            dW2 = flat(torch.cat([h1s, h2prev], dim=-1)).t() @ flat(dg2)
+            h2prev = torch.cat([up(h0)[:, None], up(y[:, :-1])], dim=1)
+            dW2 = (flat(torch.cat([up(h1s), h2prev], dim=-1)).t() @ flat(up(dg2))).to(W2.dtype)
         if need[4]:
-            db2 = dg2.sum(dim=(0, 1))
+            db2 = up(dg2).sum(dim=(0, 1)).to(b2.dtype)
         if need[1]:
-            dh0 = dg1[:, 0] @ Wh1.t() + dg2[:, 0] @ W2[H:].t()
+            dh0 = (up(dg1[:, 0]) @ up(Wh1).t() + up(dg2[:, 0]) @ up(W2[H:]).t()).to(h0.dtype)
         return dg1, dh0, dWh1, dW2, db2
 
 
@@ -361,14 +439,23 @@ def lstm2_core(xg1, h0, Wh1, W2, b2) -> torch.Tensor:
 def fused_decode_actions(decoder, z: torch.Tensor, cond_feat: torch.Tensor) -> torch.Tensor:
     """Latents z [..., T, L] + cond_feat [..., C] -> scaled actions
     [..., T, 2], through the kernel-backed core. Differentiable in z,
-    cond_feat and the decoder weights."""
+    cond_feat and the decoder weights. Inside a bf16 autocast region the
+    weights, z, cond_feat and every intermediate are stored in bf16 (the
+    JAX package's `fused_decode_actions` on its accelerator), and the
+    actions come out in bf16; elsewhere in the weights' dtype."""
     p = extract_decoder_params(decoder)
-    lead = z.shape[:-2]
-    T, L = z.shape[-2:]
-    z2 = z.reshape(-1, T, L)
-    cond2 = cond_feat.reshape(-1, cond_feat.shape[-1])
-    xg1 = z2 @ p.Wx1 + p.b1
-    h0 = cond2 @ p.Wc + p.bc
-    y = lstm2_core(xg1.contiguous(), h0.contiguous(), p.Wh1, p.W2, p.b2)
-    acts = y @ p.Wo + p.bo
-    return acts.reshape(*lead, T, p.Wo.shape[-1])
+    dt = autocast_dtype(z.device.type)
+    if dt == torch.float32:
+        dt = p.Wc.dtype
+    with no_autocast(z.device.type):
+        if dt != p.Wc.dtype:
+            p = LSTMDecodeParams(*(a.to(dt) for a in p))
+        lead = z.shape[:-2]
+        T, L = z.shape[-2:]
+        z2 = z.reshape(-1, T, L).to(dt)
+        cond2 = cond_feat.reshape(-1, cond_feat.shape[-1]).to(dt)
+        xg1 = z2 @ p.Wx1 + p.b1
+        h0 = cond2 @ p.Wc + p.bc
+        y = lstm2_core(xg1.contiguous(), h0.contiguous(), p.Wh1, p.W2, p.b2)
+        acts = y @ p.Wo + p.bo
+        return acts.reshape(*lead, T, p.Wo.shape[-1])

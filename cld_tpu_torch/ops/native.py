@@ -29,7 +29,8 @@ BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
 
 KERNELS = ("lstm2_fwd", "lstm2_bwd", "bit_gather", "value_gather", "drivable_gather",
-           "rigid_min", "rigid_min_fused", "rigid_bwd", "offroad_count", "disk_collision")
+           "rigid_min", "rigid_min_fused", "rigid_bwd", "offroad_count", "disk_collision",
+           "lstm2_fwd_bf16", "lstm2_bwd_bf16")
 _LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -111,12 +112,15 @@ def library() -> ctypes.CDLL:
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.cld_lstm2_fwd.argtypes = [p] * 8 + [i] * 4 + [p]
-        lib.cld_lstm2_fwd.restype = i
-        lib.cld_lstm2_bwd.argtypes = [p] * 14 + [i] * 4 + [p]
-        lib.cld_lstm2_bwd.restype = i
-        lib.cld_lstm2_attributes.argtypes = [i, i, i, p]
-        lib.cld_lstm2_attributes.restype = i
+        for fn in (lib.cld_lstm2_fwd, lib.cld_lstm2_fwd_bf16):
+            fn.argtypes = [p] * 8 + [i] * 4 + [p]
+            fn.restype = i
+        for fn in (lib.cld_lstm2_bwd, lib.cld_lstm2_bwd_bf16):
+            fn.argtypes = [p] * 14 + [i] * 4 + [p]
+            fn.restype = i
+        for fn in (lib.cld_lstm2_attributes, lib.cld_lstm2_attributes_bf16):
+            fn.argtypes = [i, i, i, p]
+            fn.restype = i
         lib.cld_bit_gather.argtypes = [p] * 3 + [i, i, i, i, p]
         lib.cld_bit_gather.restype = i
         lib.cld_value_gather.argtypes = [p] * 3 + [i, i, i, i, i, p]

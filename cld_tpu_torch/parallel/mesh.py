@@ -153,13 +153,15 @@ class GlobalBatchNorm2d(BatchNorm2d):
         from torch.distributed.nn.functional import all_reduce
 
         dims = (0, 2, 3)
-        n = all_reduce(torch.tensor(float(x.numel() // x.shape[1]), dtype=x.dtype,
+        xs = x.to(torch.promote_types(x.dtype, torch.float32))  # bf16 compute: f32 statistics
+        n = all_reduce(torch.tensor(float(x.numel() // x.shape[1]), dtype=xs.dtype,
                                     device=x.device))
-        mean = all_reduce(x.sum(dim=dims)) / n
-        centered = x - mean[None, :, None, None]
+        mean = all_reduce(xs.sum(dim=dims)) / n
+        centered = xs - mean[None, :, None, None]
         var = all_reduce((centered * centered).sum(dim=dims)) / n
         scale = self.weight * torch.rsqrt(var + self.eps)
-        return centered * scale[None, :, None, None] + self.bias[None, :, None, None], mean, var
+        y = centered * scale[None, :, None, None] + self.bias[None, :, None, None]
+        return y.to(x.dtype), mean, var
 
 
 @torch.no_grad()

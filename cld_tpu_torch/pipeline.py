@@ -18,6 +18,13 @@ observation. Both go through `sample_plans`, whose `SamplingOptions` pick the
 sampler (DDPM or DDIM), the number of samples per agent (the best one by
 total guidance loss is kept) and the guidance schedule; the defaults are the
 config of record.
+
+The networks compute at `GuidedModels.compute_dtype` (`precision` of
+`build_models`: bf16 under "auto" on the card, as the JAX flagship runs on its
+accelerator, float32 on the CPU): the context encoder, the denoiser and the
+decoder (whose fused LSTM core then stores in bf16). Latents, the sampler's
+math, the guidance's Adam step and clip, the decoded trajectories and the
+reward stay float32.
 """
 
 from __future__ import annotations
@@ -57,6 +64,7 @@ from cld_tpu_torch.ops.diffusion import DiffusionSchedule, make_schedule
 from cld_tpu_torch.ops.dynamics import RECORD_DYNAMICS, UnicycleParams
 from cld_tpu_torch.ops.geometry import transform_points, world_from_agent_matrix
 from cld_tpu_torch.ops.normalization import TrajNormalizer
+from cld_tpu_torch.ops.precision import set_compute_dtype
 from cld_tpu_torch.policies.common import Action, action_from_trajectory
 
 
@@ -111,6 +119,7 @@ class GuidedModels:
     dyn: UnicycleParams = RECORD_DYNAMICS
     horizon: int = 52
     latent_size: int = 4
+    compute_dtype: torch.dtype = torch.float32
 
 
 def build_models(
@@ -126,10 +135,15 @@ def build_models(
     dim_mults=(2, 4, 8),
     horizon: int = 52,
     n_diffusion_steps: int = 100,
+    precision: Optional[str] = "auto",
 ) -> GuidedModels:
     """Networks at the config of record's widths with seeded random weights
     (torch's default initializers under `torch.manual_seed(seed)`), frozen
-    and in eval mode."""
+    and in eval mode, computing at `precision` (a `train.training.precision`
+    value: "auto" is bf16 on a CUDA device, float32 elsewhere)."""
+    from cld_tpu_torch.training.state import resolve_compute_dtype
+
+    dtype = resolve_compute_dtype(precision, device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         context = ContextEncoder(raster_channels, curr_state_feat_dim,
@@ -137,9 +151,9 @@ def build_models(
         decoder = LSTMDecoder(latent_size, hidden_size, cond_feat_dim)
         unet = TemporalMapUnet(latent_size, latent_size, cond_feat_dim, base_dim, dim_mults)
     for m in (context, decoder, unet):
-        m.to(device).eval().requires_grad_(False)
+        set_compute_dtype(m.to(device).eval().requires_grad_(False), dtype)
     return GuidedModels(context, decoder, unet, make_schedule(n_diffusion_steps, device=device),
-                        horizon=horizon, latent_size=latent_size)
+                        horizon=horizon, latent_size=latent_size, compute_dtype=dtype)
 
 
 def build_models_from_config(cfg, device="cuda", seed: int = 0) -> GuidedModels:
@@ -147,8 +161,9 @@ def build_models_from_config(cfg, device="cuda", seed: int = 0) -> GuidedModels:
     trainers build theirs): `cond_feat_dim`, `map_feature_dim`,
     `curr_state_feat_dim`, `base_dim`, `dim_mults`, `vae.hidden_size`,
     `vae.latent_size`, `horizon`, `n_diffusion_steps`, the raster channels
-    (`history_num_frames` + 1 + the semantic map layers) and the unicycle's
-    bounds (`algo.dynamics`). The ResNet takes any raster size."""
+    (`history_num_frames` + 1 + the semantic map layers), the unicycle's
+    bounds (`algo.dynamics`) and the precision (`train.training.precision`).
+    The ResNet takes any raster size."""
     from cld_tpu_torch.training.vae import raster_channels
 
     algo = cfg.algo
@@ -159,6 +174,7 @@ def build_models_from_config(cfg, device="cuda", seed: int = 0) -> GuidedModels:
         latent_size=algo.vae.latent_size, base_dim=algo.base_dim,
         dim_mults=tuple(algo.dim_mults), horizon=algo.horizon,
         n_diffusion_steps=algo.n_diffusion_steps,
+        precision=cfg.train.training.get("precision", "auto"),
     )
     return dataclasses.replace(models, dyn=UnicycleParams.from_config(algo.dynamics))
 

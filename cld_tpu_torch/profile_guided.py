@@ -1,9 +1,10 @@
 """Where the guided pipeline's time goes on one GPU.
 
-    python -m cld_tpu_torch.profile_guided
+    python -m cld_tpu_torch.profile_guided [--precision auto|bf16|fp32]
 
 At the full width of the config of record (B=128, raster 224, 100 DDPM
-steps, seeded random weights), with TF32 off, this measures:
+steps, seeded random weights), with TF32 off, at `--precision` ("auto", the
+default, is bf16 on the card), this measures:
 
 * the whole guided and unguided calls (host clock around a synchronised
   call), best of 3;
@@ -29,6 +30,7 @@ card; fails without one.
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -131,7 +133,11 @@ def _gather_device_ms(dev) -> dict:
     }
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description="where the guided pipeline's time goes")
+    parser.add_argument("--precision", type=str, default="auto",
+                        help="network compute dtype: auto (bf16 on the card), bf16 or fp32")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_guided: no CUDA device", file=sys.stderr)
         return 2
@@ -142,14 +148,14 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
-    models = pipeline.build_models(seed=0, device=dev)
+    models = pipeline.build_models(seed=0, device=dev, precision=args.precision)
     batch = synthetic_batch(seed=0, batch_size=B, raster_size=RASTER, device=dev)
     gen = torch.Generator(device=dev)
     call = lambda guided, seed: pipeline.guided_collect(
         models, batch, guided=guided, agents_per_scene=A, generator=gen.manual_seed(seed))
     call(True, 0)  # warm-up: kernel build, cuDNN plans, allocator
     call(False, 0)
-    rep = {"card": card, "torch": torch.__version__}
+    rep = {"card": card, "torch": torch.__version__, "compute_dtype": str(models.compute_dtype)}
     rep["guided_call_s"] = min(_host_s(lambda: call(True, 1), 1) for _ in range(3))
     rep["unguided_call_s"] = min(_host_s(lambda: call(False, 1), 1) for _ in range(3))
 

@@ -259,6 +259,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="default: the config's algo.history_num_frames")
     parser.add_argument("--diffusion-steps", type=int, default=None,
                         help="default: the config's algo.n_diffusion_steps")
+    parser.add_argument("--precision", type=str, default=None,
+                        help="network compute dtype of the dm policy's models (default: the "
+                             "config's train.training.precision): auto (bf16 on the card, "
+                             "fp32 on the CPU), bf16 or fp32")
     parser.add_argument("--decode-impl", choices=DECODE_IMPLS, default="auto",
                         help="decoder inside guidance and decode: kernel (auto) is the "
                              "kernel-backed LSTM core, module the decoder's own layer stack")
@@ -345,8 +349,11 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def experiment_config(args):
     """The config of `--registered-name` / `--config` (the config of record
-    by default), with `--hist-frames` and `--diffusion-steps` over it."""
+    by default), with `--hist-frames`, `--diffusion-steps` and `--precision`
+    over it."""
     cfg = config_from_flags(args.registered_name, args.config).unlock()
+    if args.precision is not None:
+        cfg.train.training.precision = args.precision
     if args.hist_frames is not None:
         cfg.algo.history_num_frames = args.hist_frames
     if args.diffusion_steps is not None:

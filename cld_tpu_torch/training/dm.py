@@ -2,7 +2,9 @@
 `cld_tpu/training/dm.py`). The VAE (context encoder + LSTM-VAE) is frozen;
 each step encodes the batch to a stochastic latent sequence z0 and minimizes
 the epsilon-prediction MSE of the temporal UNet. Only the UNet's parameters
-are in the optimizer.
+are in the optimizer. The VAE and the denoiser compute at
+`train.training.precision` (bf16 under "auto" on the card); the diffusion
+math, the loss and the parameters stay float32.
 """
 
 from __future__ import annotations
@@ -17,29 +19,32 @@ from cld_tpu_torch.models.dm_mlp import MLPResDenoiser
 from cld_tpu_torch.models.temporal_unet import TemporalMapUnet
 from cld_tpu_torch.models.vae import VaeModel
 from cld_tpu_torch.ops.diffusion import make_schedule
+from cld_tpu_torch.ops.precision import set_compute_dtype
 from cld_tpu_torch.training.state import (
     TrainState,
     ema_update,
     make_optimizer,
-    require_f32,
+    resolve_compute_dtype,
     warmup_cosine_by_epoch,
 )
 
 
 class DMTrainer:
     """Holds the frozen VAE and builds / updates the trainable denoiser. The
-    VAE it is given is moved to `device` and frozen in place."""
+    VAE it is given is moved to `device`, frozen and set to the compute dtype
+    in place."""
 
     def __init__(self, config, vae: VaeModel, device="cuda"):
         algo = config.algo
         tr = config.train.training
-        require_f32(tr.get("precision", "auto"))
         self.arch = algo.get("diffuser_model_arch", "TemporalMapUnet")
         if self.arch not in ("TemporalMapUnet", "MLPResNetwork"):
             raise ValueError(f"unknown diffuser_model_arch {self.arch!r}")
         self.algo = algo
         self.device = torch.device(device)
-        self.vae = vae.to(self.device).requires_grad_(False)
+        self.compute_dtype = resolve_compute_dtype(tr.get("precision", "auto"), self.device)
+        self.vae = set_compute_dtype(vae.to(self.device).requires_grad_(False),
+                                     self.compute_dtype)
         self.ema_decay = algo.get("ema_decay", None)
         self.schedule = make_schedule(algo.n_diffusion_steps, device=self.device)
         opt_cfg = algo.optim_params.dm
@@ -64,7 +69,7 @@ class DMTrainer:
                                        algo.cond_feat_dim, algo.base_dim, tuple(algo.dim_mults))
             else:
                 unet = MLPResDenoiser(algo.horizon, algo.vae.latent_size, algo.cond_feat_dim)
-            unet = unet.to(self.device)
+            unet = set_compute_dtype(unet.to(self.device), self.compute_dtype)
         ema = [p.detach().clone() for p in unet.parameters()] if self.ema_decay else None
         return TrainState(unet, make_optimizer(unet.parameters(), self.weight_decay),
                           self.lr_schedule, ema_params=ema)

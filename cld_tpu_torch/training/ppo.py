@@ -11,6 +11,9 @@
   in a Python loop, each on a minibatch drawn uniformly with replacement
   below the buffer's fill. Log-prob is taken at t = 0, where sigma is clipped
   to 1e-10, as in the JAX package and its reference.
+* The networks compute at the DM trainer's dtype (bf16 under "auto" on the
+  card); the buffer, the log-probabilities, the ratio and the loss are
+  float32.
 """
 
 from __future__ import annotations

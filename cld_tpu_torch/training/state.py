@@ -19,13 +19,14 @@ import torch
 from torch import nn
 
 
-def resolve_compute_dtype(precision: Optional[str] = "auto") -> torch.dtype:
-    """Network compute dtype for training. "auto" is float32 here (the JAX
-    package takes bfloat16 on a TPU only). The bf16 spellings resolve to
-    `torch.bfloat16`, which the trainers refuse: bf16 compute is not ported
-    yet (ROADMAP Queue A 7)."""
+def resolve_compute_dtype(precision: Optional[str] = "auto", device="cpu") -> torch.dtype:
+    """Network compute dtype for training (`train.training.precision`).
+    Parameters, optimizer state and losses stay float32: mixed precision, as
+    the JAX package's `resolve_compute_dtype` gives its flax modules. "auto"
+    is bfloat16 on a CUDA device and float32 elsewhere (the JAX package's
+    auto is bf16 on its accelerator), so CPU runs stay float32."""
     if precision in ("auto", None):
-        return torch.float32
+        return torch.bfloat16 if torch.device(device).type == "cuda" else torch.float32
     table = {
         "bf16": torch.bfloat16,
         "bf16-mixed": torch.bfloat16,
@@ -46,11 +47,14 @@ def resolve_compute_dtype(precision: Optional[str] = "auto") -> torch.dtype:
 
 
 def require_f32(precision: Optional[str]) -> None:
-    """Raise for a precision that resolves to bf16."""
-    if resolve_compute_dtype(precision) != torch.float32:
+    """The trainers outside the main paths (zoo, GAN, EBM, scene diffusion)
+    compute in float32, "auto" included; raise for a precision that names
+    bf16 there."""
+    if precision not in ("auto", None) and resolve_compute_dtype(precision) != torch.float32:
         raise NotImplementedError(
-            f"train.training.precision {precision!r} resolves to bfloat16; the port trains in "
-            "float32 only (bf16 compute and bf16 LSTM storage: ROADMAP Queue A 7)"
+            f"train.training.precision {precision!r} resolves to bfloat16; this trainer "
+            "computes in float32 only (bf16 of the zoo, GAN, EBM, scene diffusion and "
+            "composer networks: ROADMAP Queue A 7 part 3)"
         )
 
 

@@ -2,7 +2,10 @@
 10-epoch warmup + cosine rate (epoch-granular), beta annealed 0.05 -> 0.3 over
 9000 steps. A step is context encoding in train mode (BatchNorm on batch
 statistics), the VAE forward with dropout and reparametrization noise, the
-loss, backward and one optimizer update, in float32.
+loss, backward and one optimizer update. The networks compute at
+`train.training.precision` (`state.resolve_compute_dtype`: bf16 under "auto"
+on the card, float32 on the CPU); parameters, optimizer state and the loss
+stay float32.
 """
 
 from __future__ import annotations
@@ -15,11 +18,12 @@ from cld_tpu_torch.data.batch import TrafficBatch
 from cld_tpu_torch.models.context import parse_map_arch
 from cld_tpu_torch.models.resnet import check_arch
 from cld_tpu_torch.models.vae import VaeModel
+from cld_tpu_torch.ops.precision import set_compute_dtype
 from cld_tpu_torch.training.state import (
     BetaSchedule,
     TrainState,
     make_optimizer,
-    require_f32,
+    resolve_compute_dtype,
     warmup_cosine_by_epoch,
 )
 
@@ -30,9 +34,9 @@ def raster_channels(config) -> int:
     return config.algo.history_num_frames + 1 + config.env.rasterizer.num_sem_layers
 
 
-def build_vae_model(config, device) -> VaeModel:
+def build_vae_model(config, device, compute_dtype: torch.dtype = torch.float32) -> VaeModel:
     algo = config.algo
-    return VaeModel(
+    model = VaeModel(
         raster_channels=raster_channels(config),
         curr_state_feat_dim=algo.curr_state_feat_dim,
         map_feature_dim=algo.map_feature_dim,
@@ -43,16 +47,17 @@ def build_vae_model(config, device) -> VaeModel:
         dt=algo.step_time,
         map_arch=algo.map_encoder_model_arch,
     ).to(device)
+    return set_compute_dtype(model, compute_dtype)
 
 
 class VAETrainer:
     def __init__(self, config, device="cuda"):
         algo = config.algo
         tr = config.train.training
-        require_f32(tr.get("precision", "auto"))
         check_arch(parse_map_arch(algo.map_encoder_model_arch)[0])
         self.config = config
         self.device = torch.device(device)
+        self.compute_dtype = resolve_compute_dtype(tr.get("precision", "auto"), self.device)
         opt_cfg = algo.optim_params.vae
         self.lr_schedule = warmup_cosine_by_epoch(
             base_lr=opt_cfg.learning_rate.initial,
@@ -67,7 +72,7 @@ class VAETrainer:
         optimizer at step 0."""
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
-            model = build_vae_model(self.config, self.device)
+            model = build_vae_model(self.config, self.device, self.compute_dtype)
         return TrainState(model, make_optimizer(model.parameters(), self.weight_decay),
                           self.lr_schedule)
 

@@ -83,7 +83,7 @@ def test_no_jax_or_reference_package_imports():
             "cld_tpu_torch/eval/composers.py", "cld_tpu_torch/viz/render.py",
             "cld_tpu_torch/parallel/mesh.py", "cld_tpu_torch/utils/timer.py",
             "cld_tpu_torch/utils/experiment.py", "cld_tpu_torch/utils/wandb_logging.py",
-            "chip_smoke.py"} <= names
+            "cld_tpu_torch/ops/precision.py", "chip_smoke.py"} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
@@ -145,7 +145,9 @@ def test_kernel_library_name_tracks_the_sources():
     assert sorted(p.name for p in native.CSRC.glob("*.cu")) == [
         "bit_gather.cu", "disk_collision.cu", "drivable_gather.cu", "lstm.cu", "offroad_count.cu",
         "rigid_bwd.cu", "rigid_min.cu", "value_gather.cu"]
-    assert len(native.KERNELS) == 10
+    # ten kernels, the LSTM pair in two storage types
+    assert len(native.KERNELS) == 12
+    assert {"lstm2_fwd_bf16", "lstm2_bwd_bf16"} <= set(native.KERNELS)
 
 
 def test_rollout_cli_defaults_to_cuda_and_runs_on_the_cpu(tmp_path, capsys):
@@ -301,14 +303,17 @@ print("FORBIDDEN_IMPORTED=" + json.dumps(bad))
 def test_train_cli_flags_and_unported_modes(tmp_path):
     """The JAX CLI's flag names and modes, `--device` defaulting to the
     card, the options that wait for later slices raising with their ROADMAP
-    item, and a data path without shards raising as the JAX loader does.
-    The GAN, EBM and scene diffusion modes run a step each."""
+    item (bf16 outside vae, dm and ppo), and a data path without shards
+    raising as the JAX loader does. The GAN, EBM and scene diffusion modes
+    run a step each; `--precision bf16` runs a VAE step in bf16 compute."""
     base = ["--registered-name", "cld_smoke", "--device", "cpu", "--output", str(tmp_path)]
     for mode in ("scene_dm", "gan", "ebm"):
         state = train.main(base + ["--mode", mode, "--steps", "1"])
         assert state.step == 1 and (tmp_path / mode / "ckpt_final").exists(), mode
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        train.main(base + ["--mode", "vae", "--precision", "bf16"])
+    state = train.main(base + ["--mode", "vae", "--precision", "bf16", "--steps", "1"])
+    assert state.step == 1 and state.model.context_encoder.compute_dtype == torch.bfloat16
+    with pytest.raises(NotImplementedError, match="A 7 part 3"):
+        train.main(base + ["--mode", "ebm", "--precision", "bf16", "--steps", "1"])
     # packed shards are ported: a data path without shards fails as the JAX loader does
     cfg = tmp_path / "c.yaml"
     cfg.write_text(f"train:\n  data_path: {tmp_path / 'no_shards'}\n")

@@ -32,6 +32,7 @@ from cld_tpu_torch.algos import dm
 from cld_tpu_torch.data.synthetic import synthetic_batch
 from cld_tpu_torch.models.vae import VaeModel
 from cld_tpu_torch.ops import diffusion
+from cld_tpu_torch.ops.precision import set_compute_dtype
 from cld_tpu_torch.training import checkpoints as ck
 from cld_tpu_torch.training import state as ts
 from cld_tpu_torch.training.dm import DMTrainer
@@ -271,9 +272,13 @@ def test_unported_options_raise(setup):
     cfg.algo.diffuser_model_arch = "TransformerNet"
     with pytest.raises(ValueError, match="unknown diffuser_model_arch"):
         DMTrainer(cfg.lock(), pt.vae, device="cpu")
+    # bf16 is ported: the denoiser and the frozen VAE compute in bf16 (set back
+    # on the shared VAE afterwards)
     cfg = get_registered_experiment_config("cld_smoke").unlock()
     cfg.train.training.precision = "bf16"
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        DMTrainer(cfg.lock(), pt.vae, device="cpu")
+    dm = DMTrainer(cfg.lock(), pt.vae, device="cpu")
+    assert dm.init_state(0).model.compute_dtype == pt.vae.context_encoder.compute_dtype == \
+        torch.bfloat16
+    set_compute_dtype(pt.vae, torch.float32)
     assert isinstance(pt.vae, VaeModel) and not any(p.requires_grad for p in pt.vae.parameters())
     assert ts.resolve_compute_dtype(None) == torch.float32

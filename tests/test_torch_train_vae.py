@@ -214,14 +214,23 @@ def test_schedules_match_at_epoch_boundaries():
 
 
 def test_resolve_compute_dtype_and_the_bf16_refusal():
+    """"auto" is bf16 on a CUDA device and f32 on the CPU (the JAX package's
+    auto: bf16 on its accelerator); the VAE trainer takes bf16, the trainers
+    outside the main paths refuse it with their ROADMAP item."""
     assert ts.resolve_compute_dtype("auto") == ts.resolve_compute_dtype("fp32") == torch.float32
+    assert ts.resolve_compute_dtype("auto", "cuda") == torch.bfloat16
+    assert ts.resolve_compute_dtype("fp32", "cuda") == torch.float32
     assert ts.resolve_compute_dtype("bf16-mixed") == torch.bfloat16
     with pytest.raises(ValueError, match="unknown"):
         ts.resolve_compute_dtype("fp8")
     cfg = get_registered_experiment_config("cld_smoke").unlock()
     cfg.train.training.precision = "16-mixed"
+    model = VAETrainer(cfg.lock(), device="cpu").init_state(0).model
+    assert model.lstmvae.lstm_dec.compute_dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    ts.require_f32("auto")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        VAETrainer(cfg.lock(), device="cpu")
+        ts.require_f32("16-mixed")
 
 
 @pytest.fixture(scope="module")
