@@ -238,7 +238,19 @@
    decoded trajectories beside f32's (reported); the rollout CLI under
    `--precision auto` with step 15's rules argv: 400 / 396 / 396 / 4 bf16
    `lstm2_fwd`, bf16 `lstm2_bwd`, `bit_gather`, `value_gather` in the timed
-   episode, agent-steps/s beside step 15's.
+   episode, agent-steps/s beside step 15's; the other trainers under "auto"
+   beside fp32 from the same weights, batch and draws, in turns (fp32,
+   bf16, bf16, fp32 blocks of 3 steps): the eleven zoo algos, both GANs and
+   the EBM at batch 128, raster 224 (synthetic batch) and scene diffusion at
+   16 scenes x 8 agents, with ms per step (steps 2-3), peak memory, no
+   kernel launch, every network bf16 but `diff`'s (f32, as the JAX factory
+   builds it), every parameter f32 but TransformerPred's two embeddings and
+   the scene model's `time_pos_emb` (bf16, as the JAX modules store them),
+   and the first loss (the GANs' d_loss) within 5% / atol 1e-2 of f32's
+   (`TRAINER_TWIN_RTOL`); `--ebm-ckpt`'s scoring of a 20-frame log of 4 x 8
+   agents at raster 224 (one `value_gather` per anchor, 2 anchors) and one
+   `SceneDiffuser` composer replan (no launch) at the closed loop's width,
+   each timed in turns beside fp32.
 24. Times the launch floor: `torch.cuda._sleep(0)` (one thread that exits
    at once) from a CUDA graph, as every kernel's graph time is taken.
 25. Prints the card line, one `{"kernels": [...]}` line (`launches_by_path`
@@ -248,7 +260,8 @@
    kernel), 21 (each trainer, 0 of every kernel; the `--ebm-ckpt`
    rollout; the scene policy; the latent attack), 22 (each composer's
    call, `--composer-ckpt`, the traced replan) and 23 (the bf16 VAE eval
-   step, DM steps, PPO collection, train CLI, guided call and rollout), each zeroed
+   step, DM steps, PPO collection, train CLI, guided call, rollout, the
+   other trainers, the EBM's scoring and the SceneDiffuser replan), each zeroed
    before its run and checked exactly; `launches` is their sum;
    `graph_ms` is each kernel's time from a CUDA graph at the main path's
    shape, B=128 for the LSTM kernels, beside `launch_floor_ms`), and last
@@ -303,6 +316,14 @@ ZERO_IN_EXACT = ("key.bias", "kp_conv.bias", "score_net.bias")
 BF16_REL_TOL = 2.0 ** -7
 # bf16 against f32 from the same weights and inputs (ROADMAP "bf16 twins")
 TWIN_RTOL, TWIN_ATOL, TWIN_COSINE = 2e-3, 1e-2, 0.999
+# the first losses of the trainers beyond the main paths, bf16 against f32:
+# they compound a ResNet with a 52-step unicycle integration or a pixel
+# softmax, where bf16's rounding alone moves a first loss by up to 0.51% in
+# the JAX package (its bf16 against its f32, `bc_gc` on the CPU parity
+# fixture of `tests/test_torch_bf16_zoo.py`) and by up to 2.1% in the port
+# (`discrete_vae` at B=8, raster 64 on the CPU); 5% tells rounding from a
+# network computed wrong
+TRAINER_TWIN_RTOL = 5e-2
 BF16_LSTM_BATCHES = (CL_B, B, 512)
 
 
@@ -2380,7 +2401,8 @@ def run_learned_trainers(report, shards, tmp) -> tuple:
 
     cfg_file = tmp / "learned_config.json"
     cfg_file.write_text(json.dumps({
-        "train": {"data_path": str(shards), "training": {"batch_size": B, "steps_per_epoch": 1}},
+        "train": {"data_path": str(shards), "training": {"batch_size": B, "steps_per_epoch": 1,
+                                                         "precision": "fp32"}},
         "env": {"rasterizer": {"raster_size": RASTER}}}))
     trainers = {"ebm": EBMTrainer, "gan": GANTrainer, "scene_dm": SceneDMTrainer}
     res, ckpts = {}, {}
@@ -2483,9 +2505,8 @@ def run_scene_policy(report, scene_ckpt) -> dict:
     from cld_tpu_torch.sim.scene import synthetic_scene_pack
     from cld_tpu_torch.training.checkpoints import restore_pytree
     from cld_tpu_torch.training.scene_dm import SceneDMTrainer
-    from cld_tpu_torch.utils.registry import get_registered_experiment_config
 
-    cfg = get_registered_experiment_config("trajdata_nusc_scene_diff")
+    cfg = fp32_config("trajdata_nusc_scene_diff")
     trainer = SceneDMTrainer(cfg, device="cuda")
     state = trainer.init_state(0)
     state.model.load_state_dict(restore_pytree(str(scene_ckpt), device="cuda")["params"],
@@ -2649,10 +2670,9 @@ def check_learned_card_vs_cpu() -> dict:
     from cld_tpu_torch.training import gan
     from cld_tpu_torch.training.ebm import EBMTrainer
     from cld_tpu_torch.training.scene_dm import SceneDMTrainer, scene_gt_trajectories
-    from cld_tpu_torch.utils.registry import get_registered_experiment_config
 
     dev = torch.device("cuda", 0)
-    cfg = get_registered_experiment_config("cld_smoke")
+    cfg = fp32_config("cld_smoke")
     hist = cfg.algo.history_num_frames
     b_cpu = synthetic_batch(seed=2, batch_size=4, raster_size=64, hist_frames=hist, device="cpu")
     # a dense Gaussian raster, as the CPU parity tests take: on the mostly-zero
@@ -2703,7 +2723,7 @@ def check_learned_card_vs_cpu() -> dict:
     # each GAN update, both generators
     z = torch.randn((4, 16), generator=torch.Generator().manual_seed(3))
     for arch in ("mlp", "transformer"):
-        gcfg = get_registered_experiment_config("cld_smoke").unlock()
+        gcfg = fp32_config("cld_smoke").unlock()
         gcfg.algo.gan_generator_arch = arch
         trainer = gan.GANTrainer(gcfg.lock(), device="cpu")
         gan_c, gan_d = pair(trainer.build, 1)
@@ -2818,7 +2838,7 @@ COMPOSER_REL_TOL = 1e-4  # card vs CPU, of each field's largest entry (the zoo's
 def composer_argv(name, out, *extra):
     return ["--composer", name, "--num-scenes", str(CL_SCENES), "--agents-per-scene",
             str(CL_AGENTS), "--num-sim-steps", str(COMPOSER_STEPS), "--raster-size", str(RASTER),
-            "--device", "cuda", "--output", str(out), *extra]
+            "--device", "cuda", "--output", str(out), "--precision", "fp32", *extra]
 
 
 def run_composers(report) -> dict:
@@ -2925,9 +2945,8 @@ def check_composers_card_vs_cpu() -> dict:
     from cld_tpu_torch.eval import composers
     from cld_tpu_torch.sim import env
     from cld_tpu_torch.sim.scene import synthetic_scene_pack
-    from cld_tpu_torch.utils.registry import get_registered_experiment_config
 
-    cfg = get_registered_experiment_config("cld_smoke")
+    cfg = fp32_config("cld_smoke")
     algo = cfg.algo
     sim_cfg = env.SimConfig(num_simulation_steps=COMPOSER_STEPS, n_step_action=CL_N_STEP,
                             raster_size=64, hist_frames=algo.history_num_frames)
@@ -2990,10 +3009,9 @@ def run_composer_trace(report) -> dict:
     from cld_tpu_torch.ops import native
     from cld_tpu_torch.sim import env
     from cld_tpu_torch.sim.scene import synthetic_scene_pack
-    from cld_tpu_torch.utils.registry import get_registered_experiment_config
     from cld_tpu_torch.utils.timer import device_trace
 
-    cfg = get_registered_experiment_config("cld_dm_nusc")
+    cfg = fp32_config("cld_dm_nusc")
     pack = synthetic_scene_pack(seed=0, num_scenes=CL_SCENES, agents_per_scene=CL_AGENTS,
                                 world_map_size=WORLD_MAP, sim_steps=COMPOSER_STEPS, device="cuda")
     sim_cfg = env.SimConfig(num_simulation_steps=COMPOSER_STEPS, n_step_action=CL_N_STEP,
@@ -3684,7 +3702,8 @@ def check_small_training(dev, report):
 # step 23: bf16 mixed precision
 # ---------------------------------------------------------------------------
 
-BF16_PATHS = ("vae_eval", "dm_train", "ppo", "cli", "guided", "rollout")
+BF16_PATHS = ("vae_eval", "dm_train", "ppo", "cli", "guided", "rollout", "trainers",
+              "ebm_scoring", "scene_diffuser")
 
 
 def hold_lstm_bf16(args, dy):
@@ -3816,11 +3835,11 @@ def check_lstm_bf16(kernels):
         attributes={k: v for k, v in attrs.items() if "bwd" in k}, **common)
 
 
-def twin(what, bf16_loss, f32_loss):
+def twin(what, bf16_loss, f32_loss, rtol=TWIN_RTOL):
     """Hold a bf16 loss against the f32 one (ROADMAP "bf16 twins")."""
-    ok = abs(bf16_loss - f32_loss) <= TWIN_ATOL + TWIN_RTOL * abs(f32_loss)
+    ok = abs(bf16_loss - f32_loss) <= TWIN_ATOL + rtol * abs(f32_loss)
     check(ok, f"{what}: bf16 loss {bf16_loss!r} vs f32 {f32_loss!r} beyond rtol "
-          f"{TWIN_RTOL} / atol {TWIN_ATOL}")
+          f"{rtol} / atol {TWIN_ATOL}")
 
 
 def cosine(a, b) -> float:
@@ -4136,15 +4155,280 @@ def run_bf16_rollout(report):
                                   f32_agent_steps_per_sec=report["rules"]["agent_steps_per_sec"])
 
 
+# step 23's trainers beyond the main paths: every zoo algo, both GANs and the
+# EBM at batch 128, raster 224, and scene diffusion at 16 scenes x 8 agents
+BF16_TRAINER_RUNS = (*((algo, reg) for reg, algo in ZOO_ALGOS.items()),
+                     ("ebm", "nusc_ebm"), ("gan", "nusc_gan"),
+                     ("transformer_gan", "nusc_transformer_gan"),
+                     ("scene_dm", "trajdata_nusc_scene_diff"))
+BF16_TRAINER_STEPS = 3  # steps 2 and 3 are timed
+BF16_TURNS = ("fp32", "auto", "auto", "fp32")  # the order of the timed blocks
+# the parameters the JAX modules create in their compute dtype (bf16 under bf16)
+BF16_STORED = {"TransformerPred": ("hist_pos_emb", "future_queries"),
+               "scene_dm": ("denoiser.time_pos_emb",)}
+
+
+def step_config(name, precision):
+    """A registered config at `precision`, epochs of one step, raster 224."""
+    from cld_tpu_torch.utils.registry import get_registered_experiment_config
+
+    cfg = get_registered_experiment_config(name).unlock()
+    cfg.train.training.precision = precision
+    cfg.train.training.steps_per_epoch = 1
+    cfg.env.rasterizer.raster_size = RASTER
+    return cfg.lock()
+
+
+def bf16_trainer(label, cfg, dev):
+    """The trainer of a `BF16_TRAINER_RUNS` label and the loss it reports."""
+    from cld_tpu_torch.training import zoo
+    from cld_tpu_torch.training.ebm import EBMTrainer
+    from cld_tpu_torch.training.gan import GANTrainer
+    from cld_tpu_torch.training.scene_dm import SceneDMTrainer
+
+    if label in ("gan", "transformer_gan"):
+        return GANTrainer(cfg, device=dev), "d_loss"
+    if label == "ebm":
+        return EBMTrainer(cfg, device=dev), "loss"
+    if label == "scene_dm":
+        return SceneDMTrainer(cfg, device=dev), "loss"
+    return zoo.ZooTrainer(cfg, label, device=dev), "loss"
+
+
+def run_bf16_trainers(report):
+    """The zoo's eleven algos, both GANs and the EBM at batch 128, raster 224
+    (synthetic batch), and scene diffusion at 16 scenes x 8 agents, each
+    under "auto" (bf16 on the card) beside fp32 from the same weights,
+    batch and draws: 3 train steps a block, blocks in turns fp32, bf16,
+    bf16, fp32 (the host's load moves a block's time); ms per step (steps
+    2-3, the mean of each precision's two blocks), peak memory of each
+    block, the first step's loss (before any update; the GANs' d_loss)
+    within `TRAINER_TWIN_RTOL` / atol 1e-2 of f32's, no kernel launch,
+    finite losses. Under "auto"
+    every network computes in bf16 except `diff`'s (float32, as the JAX
+    factory builds it), and every parameter is float32 except those the JAX
+    modules create in their compute dtype (`BF16_STORED`)."""
+    import math
+
+    import torch
+
+    from cld_tpu_torch.data.scene_batch import synthetic_scene_batch
+    from cld_tpu_torch.data.synthetic import synthetic_batch
+    from cld_tpu_torch.ops import native
+
+    dev = torch.device("cuda", 0)
+    batch = synthetic_batch(seed=0, batch_size=B, raster_size=RASTER, device=dev)
+    res, total = {}, counts()
+    for label, reg in BF16_TRAINER_RUNS:
+        cfgs = {p: step_config(reg, p) for p in ("fp32", "auto")}
+        trainers = {p: bf16_trainer(label, cfg, dev) for p, cfg in cfgs.items()}
+        key = trainers["fp32"][1]
+        algo = cfgs["fp32"].algo
+        b = batch
+        if label == "scene_dm":
+            b = synthetic_scene_batch(seed=0, batch_size=B // 8, num_agents=8,
+                                      hist_frames=algo.history_num_frames,
+                                      horizon=algo.future_num_frames, device=dev)
+        want_dtype = torch.float32 if label == "diff" else torch.bfloat16
+        check(trainers["auto"][0].compute_dtype == want_dtype,
+              f"{label}: auto resolved to {trainers['auto'][0].compute_dtype}")
+        weights = {k: v.detach().cpu() for k, v in
+                   trainers["fp32"][0].init_state(0).model.state_dict().items()}
+        blocks = {"fp32": [], "auto": []}
+        for p in BF16_TURNS:
+            trainer = trainers[p][0]
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            state = trainer.init_state(0)
+            state.model.load_state_dict(weights)
+            if p == "auto":
+                nets = {m.compute_dtype for m in state.model.modules()
+                        if hasattr(m, "compute_dtype")}
+                stored = BF16_STORED.get(label, ())
+                check(nets == {want_dtype}, f"{label} under auto computes at {nets}")
+                check(all(t.dtype == (torch.bfloat16 if k in stored else torch.float32)
+                          for k, t in state.model.named_parameters()),
+                      f"{label} under auto: a parameter in the wrong dtype")
+            kw = {} if label == "ebm" else {
+                "generator": torch.Generator(device=dev).manual_seed(7)}
+            native.reset_launch_counts()
+            losses, secs = [], []
+            for _ in range(BF16_TRAINER_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, m = trainer.train_step(state, b, **kw)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                losses.append(float(m[key]))
+            launched = native.launch_counts()
+            blocks[p].append(dict(ms=1e3 * sum(secs[1:]) / (BF16_TRAINER_STEPS - 1),
+                                  losses=losses, launches=launched,
+                                  peak_gb=torch.cuda.max_memory_allocated() / 1e9))
+            check(all(math.isfinite(v) for v in losses), f"{label} {p}: a loss is not finite")
+            check(launched == counts(), f"{label} {p} launched kernels: {launched}")
+            total = {k: total[k] + launched[k] for k in total}
+            del state
+        r = {p: dict(ms_per_step=sum(bl["ms"] for bl in blocks[p]) / len(blocks[p]),
+                     block_ms=[bl["ms"] for bl in blocks[p]],
+                     peak_gb=max(bl["peak_gb"] for bl in blocks[p]),
+                     first_loss=blocks[p][0]["losses"][0], losses=blocks[p][0]["losses"])
+             for p in blocks}
+        r["ms_ratio"] = r["auto"]["ms_per_step"] / r["fp32"]["ms_per_step"]
+        r["peak_ratio"] = r["auto"]["peak_gb"] / r["fp32"]["peak_gb"]
+        r["compute_dtype"] = str(want_dtype)
+        res[label] = r
+        log(f"{label} ({reg}) under auto ({want_dtype}): {r['auto']['ms_per_step']:.2f} ms per "
+            f"step (fp32 {r['fp32']['ms_per_step']:.2f}, x{r['ms_ratio']:.3f}; blocks "
+            f"{r['fp32']['block_ms'][0]:.2f} / {r['auto']['block_ms'][0]:.2f} / "
+            f"{r['auto']['block_ms'][1]:.2f} / {r['fp32']['block_ms'][1]:.2f} ms), peak "
+            f"{r['auto']['peak_gb']:.3f} GB (fp32 {r['fp32']['peak_gb']:.3f}, "
+            f"x{r['peak_ratio']:.3f}), first {key} {r['auto']['first_loss']!r} (fp32 "
+            f"{r['fp32']['first_loss']!r}), on {report['card']}")
+        twin(f"{label} first step", r["auto"]["first_loss"], r["fp32"]["first_loss"],
+             TRAINER_TWIN_RTOL)
+        del trainers, weights
+    report["launches_bf16_trainers"] = total
+    report["bf16_trainers"] = res
+
+
+def constant_control_policy(obs, rng):
+    """Every agent at acceleration 1 and yaw rate 0.3 over the horizon."""
+    import torch
+
+    u = torch.zeros((obs.curr_speed.shape[0], 52, 2), device=obs.curr_speed.device)
+    u[..., 0], u[..., 1] = 1.0, 0.3
+    return u
+
+
+def run_bf16_ebm_scoring(report):
+    """`--ebm-ckpt`'s scoring (`sim.learned_metrics.ebm_rollout_metric`, what
+    `rollout.ebm_report` runs) of a 20-frame log of 4 scenes x 8 agents at
+    raster 224 under "auto" beside fp32, from the same EBM weights, timed in
+    turns fp32, bf16, bf16, fp32: one render (`value_gather`) per anchor and
+    nothing else per call; the bf16 scores finite, their mean beside
+    f32's."""
+    import math
+
+    import torch
+
+    from cld_tpu_torch.ops import native
+    from cld_tpu_torch.sim import env
+    from cld_tpu_torch.sim.learned_metrics import ebm_rollout_metric
+    from cld_tpu_torch.sim.scene import synthetic_scene_pack
+    from cld_tpu_torch.training.ebm import EBMTrainer
+
+    dev = torch.device("cuda", 0)
+    pack = synthetic_scene_pack(seed=0, num_scenes=CL_SCENES, agents_per_scene=CL_AGENTS,
+                                world_map_size=WORLD_MAP, sim_steps=RULES_STEPS, device=dev)
+    algo = record_config().algo
+    sim_cfg = env.SimConfig(num_simulation_steps=RULES_STEPS, n_step_action=CL_N_STEP,
+                            raster_size=RASTER, hist_frames=algo.history_num_frames)
+    _, traj = env.simulate(pack, constant_control_policy, sim_cfg)
+    scorers = {}
+    weights = None
+    for p in ("fp32", "auto"):
+        trainer = EBMTrainer(record_config(p), device=dev)
+        state = trainer.init_state(0)
+        if weights is None:
+            weights = state.model.state_dict()
+        state.model.load_state_dict(weights)
+        scorers[p] = trainer.score_fn(state)
+    check(trainer.compute_dtype == torch.bfloat16, "the EBM under auto is not bf16")
+    horizon = algo.horizon
+    anchors = len(range(0, max(RULES_STEPS - 1, 1), EBM_STRIDE))
+    secs, out, launches = {"fp32": [], "auto": []}, {}, None
+    for p in BF16_TURNS:
+        native.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            em = ebm_rollout_metric(pack, traj, scorers[p], sim_cfg, horizon=horizon)
+        torch.cuda.synchronize()
+        secs[p].append(time.perf_counter() - t0)
+        out.setdefault(p, {k: float(em[k]) for k in ("ebm_score_mean", "ebm_score_min")})
+        if p == "auto" and launches is None:
+            launches = native.launch_counts()
+    check(launches == counts(value_gather=anchors),
+          f"bf16 EBM scoring launches {launches}, expected {anchors} value_gather")
+    check(all(math.isfinite(v) for v in out["auto"].values()), "bf16 EBM scores not finite")
+    r = dict(score_ms={p: 1e3 * sum(t) / len(t) for p, t in secs.items()}, anchors=anchors,
+             scores=out)
+    log(f"--ebm-ckpt scoring of a {RULES_STEPS}-frame log ({CL_B} agents, {anchors} anchors) "
+        f"under auto (bf16): {r['score_ms']['auto']:.2f} ms (fp32 {r['score_ms']['fp32']:.2f}), "
+        f"ebm_score_mean {out['auto']['ebm_score_mean']:.6g} (fp32 "
+        f"{out['fp32']['ebm_score_mean']:.6g}); launches {launches}, on {report['card']}")
+    report["launches_bf16_ebm_scoring"] = launches
+    report["bf16_ebm_scoring"] = r
+
+
+def run_bf16_scene_diffuser(report):
+    """One `SceneDiffuser` composer replan at the closed loop's width (4
+    scenes x 8 agents, raster 224, 100 diffusion steps) under "auto" beside
+    fp32, from the same weights, observation and draws, timed in turns fp32,
+    bf16, bf16, fp32: the composer's denoiser follows its trainer to bf16;
+    the replan launches no kernel (its observation is rendered before);
+    finite float32 actions, max |bf16 - f32| reported."""
+    import torch
+
+    from cld_tpu_torch.eval.composers import get_composer
+    from cld_tpu_torch.ops import native
+    from cld_tpu_torch.sim import env
+    from cld_tpu_torch.sim.scene import synthetic_scene_pack
+    from cld_tpu_torch.training.scene_dm import SceneDMTrainer
+
+    dev = torch.device("cuda", 0)
+    cfg32 = record_config()
+    pack = synthetic_scene_pack(seed=0, num_scenes=CL_SCENES, agents_per_scene=CL_AGENTS,
+                                world_map_size=WORLD_MAP, sim_steps=COMPOSER_STEPS, device=dev)
+    sim_cfg = env.SimConfig(num_simulation_steps=COMPOSER_STEPS, n_step_action=CL_N_STEP,
+                            raster_size=RASTER, hist_frames=cfg32.algo.history_num_frames)
+    obs = env.render_observation(pack, env.init_sim_state(pack, sim_cfg), sim_cfg)
+    check(SceneDMTrainer(record_config("auto"), device=dev).compute_dtype == torch.bfloat16,
+          "the scene trainer under auto is not bf16")
+    policies = {p: get_composer("SceneDiffuser")(
+        record_config(p), pack, sim_cfg, generator=torch.Generator(device=dev).manual_seed(0),
+        device=dev) for p in ("fp32", "auto")}
+    secs, actions, launches = {"fp32": [], "auto": []}, {}, None
+    for p in BF16_TURNS:
+        native.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        act = policies[p](obs, torch.Generator(device=dev).manual_seed(3))
+        torch.cuda.synchronize()
+        secs[p].append(time.perf_counter() - t0)
+        actions.setdefault(p, act)
+        if p == "auto" and launches is None:
+            launches = native.launch_counts()
+    a16, a32 = actions["auto"], actions["fp32"]
+    check(launches == counts(), f"bf16 SceneDiffuser replan launches {launches}")
+    check(a16.positions.dtype == torch.float32 and bool(torch.isfinite(a16.positions).all()),
+          "the bf16 SceneDiffuser actions are not finite float32")
+    diff = float((a16.positions - a32.positions).abs().max())
+    scale = float(a32.positions.abs().max())
+    r = dict(replan_s={p: sum(t) / len(t) for p, t in secs.items()}, positions_max_diff_m=diff,
+             positions_max_abs_m=scale)
+    log(f"SceneDiffuser replan ({CL_SCENES} x {CL_AGENTS} agents, "
+        f"{cfg32.algo.n_diffusion_steps} steps) under auto (bf16): {r['replan_s']['auto']:.3f} s "
+        f"(fp32 {r['replan_s']['fp32']:.3f}); positions max |bf16 - f32| {diff:.4f} m of a "
+        f"largest |f32| {scale:.4f} m (random weights); launches {launches}, on "
+        f"{report['card']}")
+    report["launches_bf16_scene_diffuser"] = launches
+    report["bf16_scene_diffuser"] = r
+
+
 def run_bf16(models32, kernels, report):
-    """Step 23: the bf16 LSTM kernels, the three stages, the guided call and
-    the rollout CLI under bf16 mixed precision."""
+    """Step 23: the bf16 LSTM kernels, the three stages, the guided call,
+    the rollout CLI, the other trainers, the EBM's scoring and the
+    SceneDiffuser composer under bf16 mixed precision."""
     t0 = time.perf_counter()
     check_lstm_bf16(kernels)
     run_bf16_stages(report)
     run_bf16_cli(report)
     run_bf16_guided(models32, report)
     run_bf16_rollout(report)
+    run_bf16_trainers(report)
+    run_bf16_ebm_scoring(report)
+    run_bf16_scene_diffuser(report)
     report["bf16_s"] = time.perf_counter() - t0
     log(f"step 23 (bf16) in {report['bf16_s']:.1f} s")
 

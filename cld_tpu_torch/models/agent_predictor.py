@@ -5,6 +5,11 @@ rotated-ROI feature cropped from a shared map grid at its current position;
 MLP heads decode the ego's actions (unicycle-integrated) and the neighbors'
 position offsets. `ec_conditioning` (the `bc_ec` algo) conditions the
 neighbors on the ego's plan, the ground-truth future in training.
+
+At `compute_dtype` bf16 (`ops.precision`) the context encoder, the ROI
+encoder, the plan encoder and both heads run under bf16 autocast over
+float32 parameters; the raster transform of the neighbors' positions, the
+unicycle integration and the loss stay outside it, as in the JAX module.
 """
 
 from __future__ import annotations
@@ -21,9 +26,12 @@ from cld_tpu_torch.models.nets import MLP
 from cld_tpu_torch.models.roi_encoder import ROIMapEncoder
 from cld_tpu_torch.ops.dynamics import RECORD_DYNAMICS, UnicycleParams, unicycle_forward_dynamics
 from cld_tpu_torch.ops.geometry import transform_points
+from cld_tpu_torch.ops.precision import autocast
 
 
 class MAAgentPredictor(nn.Module):
+    compute_dtype = torch.float32
+
     def __init__(self, raster_channels: int = 34, horizon: int = 52, dt: float = 0.1,
                  cond_feat_dim: int = 256, agent_feature_dim: int = 64,
                  map_arch: str = "resnet18", hidden: int = 256, ec_conditioning: bool = False,
@@ -50,20 +58,23 @@ class MAAgentPredictor(nn.Module):
         B = batch.image.shape[0]
         S = batch.all_other_agents_history_positions.shape[1]
         T = self.horizon
-        ego_feat = self.context(batch, train)["cond_feat"]  # [B, C]
+        dev = batch.image.device.type
         neigh_pos = batch.all_other_agents_history_positions[:, :, -1]  # [B, S, 2]
         neigh_yaw = batch.all_other_agents_history_yaws[:, :, -1, 0]  # [B, S]
         centers_px = transform_points(neigh_pos, batch.raster_from_agent)
-        roi_feat = self.roi(batch.image, centers_px, neigh_yaw, train)  # [B, S, F]
-        ego_act = self.ego_head(ego_feat).reshape(B, T, 2)
+        with autocast(self.compute_dtype, dev):
+            ego_feat = self.context(batch, train)["cond_feat"]  # [B, C]
+            roi_feat = self.roi(batch.image, centers_px, neigh_yaw, train)  # [B, S, F]
+            ego_act = self.ego_head(ego_feat).reshape(B, T, 2)
         ego_states = unicycle_forward_dynamics(self.dyn, get_current_states(batch), ego_act,
                                                self.dt)
         feats = [roi_feat, ego_feat[:, None].expand(B, S, ego_feat.shape[-1])]
-        if self.ec_conditioning:
-            plan = cond_traj if cond_traj is not None else batch.target_positions
-            ec = self.ec_encoder(plan)
-            feats.append(ec[:, None].expand(B, S, ec.shape[-1]))
-        neigh_traj = self.neigh_head(torch.cat(feats, dim=-1)).reshape(B, S, T, 2)
+        with autocast(self.compute_dtype, dev):
+            if self.ec_conditioning:
+                plan = cond_traj if cond_traj is not None else batch.target_positions
+                ec = self.ec_encoder(plan)
+                feats.append(ec[:, None].expand(B, S, ec.shape[-1]))
+            neigh_traj = self.neigh_head(torch.cat(feats, dim=-1)).reshape(B, S, T, 2)
         return {
             "ego_positions": ego_states[..., :2],
             "ego_yaws": ego_states[..., 3:4],

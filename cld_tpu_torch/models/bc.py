@@ -3,6 +3,12 @@
 MLP action decoder -> unicycle-integrated trajectory. `goal_conditional`
 (the `bc_gc` algo) adds a goal feature, by default the last available
 future pose (teacher forcing).
+
+At `compute_dtype` bf16 (`ops.precision`) the networks (context encoder,
+goal encoder, action decoder) run under bf16 autocast over float32
+parameters; the unicycle integration and the loss take the bf16 actions
+outside it, as the JAX module's do (float32 where they meet the float32
+state).
 """
 
 from __future__ import annotations
@@ -18,9 +24,12 @@ from cld_tpu_torch.models.nets import MLP
 from cld_tpu_torch.models.spatial_planner import last_available_index
 from cld_tpu_torch.models.vae import get_state_and_action_from_batch
 from cld_tpu_torch.ops.dynamics import RECORD_DYNAMICS, UnicycleParams, unicycle_forward_dynamics
+from cld_tpu_torch.ops.precision import autocast
 
 
 class BCPlanner(nn.Module):
+    compute_dtype = torch.float32
+
     def __init__(self, raster_channels: int = 34, horizon: int = 52, cond_feat_dim: int = 256,
                  map_arch: str = "resnet18", goal_conditional: bool = False,
                  goal_feature_dim: int = 32, dyn: UnicycleParams = RECORD_DYNAMICS,
@@ -46,11 +55,12 @@ class BCPlanner(nn.Module):
     def forward(self, batch: TrafficBatch, train: bool = False,
                 goal: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """`goal` [B, 3] (x, y, yaw) overrides the teacher-forced goal."""
-        aux = self.context_encoder(batch, train)
-        feat = aux["cond_feat"]
-        if self.goal_conditional:
-            feat = torch.cat([feat, self._goal_feature(batch, goal)], dim=-1)
-        actions = self.decoder(feat).reshape(-1, self.horizon, 2)
+        with autocast(self.compute_dtype, batch.image.device.type):
+            aux = self.context_encoder(batch, train)
+            feat = aux["cond_feat"]
+            if self.goal_conditional:
+                feat = torch.cat([feat, self._goal_feature(batch, goal)], dim=-1)
+            actions = self.decoder(feat).reshape(-1, self.horizon, 2)
         states = unicycle_forward_dynamics(self.dyn, get_current_states(batch), actions, self.dt)
         return {"trajectories": torch.cat([states, actions], dim=-1), "aux_info": aux}
 

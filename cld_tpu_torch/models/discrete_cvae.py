@@ -6,6 +6,11 @@ decoding.
 The Gumbel noise is explicit: `uniform` [B, K], uniforms in [1e-9, 1) (the
 JAX module's draw), turned into -log(-log(u)). Without it, or with
 `train=False`, z is the posterior's argmax one-hot.
+
+At `compute_dtype` bf16 (`ops.precision`) the context encoder and the three
+MLPs run under bf16 autocast over float32 parameters; the Gumbel relaxation,
+the unicycle integration and the losses run outside it on their bf16
+logits and actions, as in the JAX module.
 """
 
 from __future__ import annotations
@@ -22,11 +27,14 @@ from cld_tpu_torch.models.nets import MLP
 from cld_tpu_torch.models.vae import get_state_and_action_from_batch
 from cld_tpu_torch.ops.dynamics import RECORD_DYNAMICS, UnicycleParams, unicycle_forward_dynamics
 from cld_tpu_torch.ops.normalization import TrajNormalizer
+from cld_tpu_torch.ops.precision import autocast
 
 GUMBEL_UNIFORM_LOW = 1e-9
 
 
 class DiscreteTrajectoryCVAE(nn.Module):
+    compute_dtype = torch.float32
+
     def __init__(self, raster_channels: int = 34, horizon: int = 52, num_modes: int = 8,
                  cond_feat_dim: int = 256, map_arch: str = "resnet18",
                  temperature: float = 1.0, dyn: UnicycleParams = RECORD_DYNAMICS,
@@ -42,19 +50,21 @@ class DiscreteTrajectoryCVAE(nn.Module):
                            normalization=True)
 
     def _decode(self, z_onehot, cond_feat, curr_states):
-        actions_scaled = self.decoder(torch.cat([z_onehot, cond_feat], dim=-1)).reshape(
-            -1, self.horizon, 2)
+        with autocast(self.compute_dtype, z_onehot.device.type):
+            actions_scaled = self.decoder(torch.cat([z_onehot, cond_feat], dim=-1)).reshape(
+                -1, self.horizon, 2)
         actions = TrajNormalizer().descale(actions_scaled, [4, 5])
         states = unicycle_forward_dynamics(self.dyn, curr_states, actions, self.dt)
         return torch.cat([states, actions], dim=-1)
 
     def forward(self, batch: TrafficBatch, beta: float = 1.0, train: bool = False,
                 uniform: Optional[torch.Tensor] = None) -> Dict:
-        aux = self.context_encoder(batch, train)
         gt = get_state_and_action_from_batch(batch, self.horizon, self.dt)
         flat = TrajNormalizer().scale(gt).reshape(gt.shape[0], -1)
-        q_logits = self.posterior(torch.cat([flat, aux["cond_feat"]], dim=-1))
-        p_logits = self.prior(aux["cond_feat"])
+        with autocast(self.compute_dtype, batch.image.device.type):
+            aux = self.context_encoder(batch, train)
+            q_logits = self.posterior(torch.cat([flat, aux["cond_feat"]], dim=-1))
+            p_logits = self.prior(aux["cond_feat"])
         if train and uniform is not None:
             g = -torch.log(-torch.log(uniform))
             z = torch.softmax((q_logits + g) / self.temperature, dim=-1)
@@ -71,7 +81,8 @@ class DiscreteTrajectoryCVAE(nn.Module):
 
     def sample_modes(self, batch: TrafficBatch, train: bool = False) -> torch.Tensor:
         """Decode every mode -> [B, K, T, 6] multimodal futures."""
-        aux = self.context_encoder(batch, train)
+        with autocast(self.compute_dtype, batch.image.device.type):
+            aux = self.context_encoder(batch, train)
         B, K = aux["cond_feat"].shape[0], self.num_modes
         z = torch.eye(K, device=aux["cond_feat"].device).repeat(B, 1)  # [B*K, K]
         cond = torch.repeat_interleave(aux["cond_feat"], K, dim=0)

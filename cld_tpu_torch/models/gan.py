@@ -10,6 +10,12 @@ z [B * num_samp, noise_dim] is an argument. Submodules carry the flax names
 `seed`, `ln_a<i>`, `attn<i>`, `ln_m<i>`, `ff0_<i>`, `ff1_<i>`, `head`), so
 `utils.weights.load_flax` loads the JAX package's variables. LayerNorm takes
 flax's epsilon (1e-6) and GELU flax's tanh approximation.
+
+At `compute_dtype` bf16 (`ops.precision`) the context encoder, the
+generator and the discriminator run under bf16 autocast over float32
+parameters (the transformer's sinusoidal positions are cast to the seed's
+dtype, as the JAX module casts them); the unicycle integration stays outside
+it, and the discriminator's logits are float32 before the LSGAN losses.
 """
 
 from __future__ import annotations
@@ -27,12 +33,15 @@ from cld_tpu_torch.models.nets import MLP, MultiHeadDotProductAttention
 from cld_tpu_torch.models.vae import get_state_and_action_from_batch
 from cld_tpu_torch.ops.dynamics import RECORD_DYNAMICS, UnicycleParams, unicycle_forward_dynamics
 from cld_tpu_torch.ops.normalization import TrajNormalizer
+from cld_tpu_torch.ops.precision import autocast
 
 
 class TransformerGenerator(nn.Module):
     """Noise + condition seed every timestep token, sinusoidal positions,
     pre-LayerNorm self-attention and GELU MLP blocks, a linear head to
     scaled actions [B, horizon * 2]."""
+
+    compute_dtype = torch.float32
 
     def __init__(self, in_features: int, horizon: int, width: int = 64, layers: int = 2,
                  heads: int = 4):
@@ -57,16 +66,20 @@ class TransformerGenerator(nn.Module):
         return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
     def forward(self, zc: torch.Tensor) -> torch.Tensor:
-        h = self.seed(zc)[:, None] + self.positions(zc.device)[None]  # [B, T, W]
-        for i in range(self.layers):
-            a = getattr(self, f"ln_a{i}")(h)
-            h = h + getattr(self, f"attn{i}")(a)
-            m = getattr(self, f"ff0_{i}")(getattr(self, f"ln_m{i}")(h))
-            h = h + getattr(self, f"ff1_{i}")(F.gelu(m, approximate="tanh"))
-        return self.head(h).reshape(zc.shape[0], self.horizon * 2)
+        with autocast(self.compute_dtype, zc.device.type):
+            seed = self.seed(zc)
+            h = seed[:, None] + self.positions(zc.device).to(seed.dtype)[None]  # [B, T, W]
+            for i in range(self.layers):
+                a = getattr(self, f"ln_a{i}")(h)
+                h = h + getattr(self, f"attn{i}")(a)
+                m = getattr(self, f"ff0_{i}")(getattr(self, f"ln_m{i}")(h))
+                h = h + getattr(self, f"ff1_{i}")(F.gelu(m, approximate="tanh"))
+            return self.head(h).reshape(zc.shape[0], self.horizon * 2)
 
 
 class TrajectoryGAN(nn.Module):
+    compute_dtype = torch.float32
+
     def __init__(self, raster_channels: int = 34, horizon: int = 52, noise_dim: int = 16,
                  cond_feat_dim: int = 256, map_arch: str = "resnet18",
                  generator_arch: str = "mlp", dyn: UnicycleParams = RECORD_DYNAMICS,
@@ -90,11 +103,13 @@ class TrajectoryGAN(nn.Module):
                  train: bool = False) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Noise z [B * num_samp, noise_dim] + context -> descaled
         trajectories [B, num_samp, T, 6] and the context encoder's output."""
-        aux = self.context_encoder(batch, train)
-        B = aux["cond_feat"].shape[0]
-        cond = torch.repeat_interleave(aux["cond_feat"], num_samp, dim=0)
-        curr = torch.repeat_interleave(aux["curr_states"], num_samp, dim=0)
-        actions_scaled = self.generator(torch.cat([z, cond], dim=-1)).reshape(-1, self.horizon, 2)
+        with autocast(self.compute_dtype, z.device.type):
+            aux = self.context_encoder(batch, train)
+            B = aux["cond_feat"].shape[0]
+            cond = torch.repeat_interleave(aux["cond_feat"], num_samp, dim=0)
+            curr = torch.repeat_interleave(aux["curr_states"], num_samp, dim=0)
+            actions_scaled = self.generator(torch.cat([z, cond], dim=-1)).reshape(
+                -1, self.horizon, 2)
         actions = TrajNormalizer().descale(actions_scaled, [4, 5])
         states = unicycle_forward_dynamics(self.dyn, curr, actions, self.dt)
         traj = torch.cat([states, actions], dim=-1)
@@ -103,7 +118,8 @@ class TrajectoryGAN(nn.Module):
     def discriminate(self, traj_scaled: torch.Tensor, cond_feat: torch.Tensor) -> torch.Tensor:
         """[B, T, 6] scaled + [B, C] -> logits [B]."""
         flat = traj_scaled.reshape(traj_scaled.shape[0], -1)
-        return self.discriminator(torch.cat([flat, cond_feat], dim=-1))[:, 0]
+        with autocast(self.compute_dtype, flat.device.type):
+            return self.discriminator(torch.cat([flat, cond_feat], dim=-1))[:, 0]
 
     def forward(self, batch: TrafficBatch, z: torch.Tensor, train: bool = False
                 ) -> Dict[str, torch.Tensor]:

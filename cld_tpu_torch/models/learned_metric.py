@@ -9,6 +9,11 @@ Submodules carry the flax names (`map_encoder`, `traj_encoder`, `embed_net`,
 `score_net`), so `utils.weights.load_flax` loads the JAX package's
 variables. The trajectory encoder runs through PyTorch's LSTM operator
 (cuDNN on the card), as the VAE's encoder does.
+
+At `compute_dtype` bf16 (`ops.precision`) every network runs under bf16
+autocast over float32 parameters (the LSTM in bf16 through
+`models.vae._lstm_stack`, cuDNN's bf16 cells on the card), and the scores
+come out bf16, as the JAX module's; InfoNCE takes them in float32.
 """
 
 from __future__ import annotations
@@ -23,10 +28,13 @@ from cld_tpu_torch.data.batch import TrafficBatch
 from cld_tpu_torch.models.nets import MLP
 from cld_tpu_torch.models.resnet import ResNetEncoder
 from cld_tpu_torch.models.vae import LSTMEncoder
+from cld_tpu_torch.ops.precision import autocast
 from cld_tpu_torch.parallel.mesh import gather_rows
 
 
 class PermuteEBM(nn.Module):
+    compute_dtype = torch.float32
+
     def __init__(self, raster_channels: int = 34, map_arch: str = "resnet18",
                  map_feature_dim: int = 64, traj_feature_dim: int = 64,
                  embedding_dim: int = 64):
@@ -40,14 +48,16 @@ class PermuteEBM(nn.Module):
 
     def _features(self, batch: TrafficBatch, train: bool):
         trajs = torch.cat([batch.target_positions, batch.target_yaws], dim=-1)
-        map_feat = self.map_encoder(batch.image, train)
-        cond = map_feat.new_zeros((trajs.shape[0], map_feat.shape[-1]))
-        traj_feat = self.traj_encoder(trajs, cond)[:, -1]  # the last hidden state
+        with autocast(self.compute_dtype, trajs.device.type):
+            map_feat = self.map_encoder(batch.image, train)
+            cond = map_feat.new_zeros((trajs.shape[0], map_feat.shape[-1]))
+            traj_feat = self.traj_encoder(trajs, cond)[:, -1]  # the last hidden state
         return map_feat, traj_feat
 
     def _score(self, feat: torch.Tensor):
-        emb = F.relu(self.embed_net(feat))
-        return self.score_net(emb)[..., 0], emb
+        with autocast(self.compute_dtype, feat.device.type):
+            emb = F.relu(self.embed_net(feat))
+            return self.score_net(emb)[..., 0], emb
 
     def forward(self, batch: TrafficBatch, train: bool = False,
                 mesh=None) -> Dict[str, torch.Tensor]:

@@ -10,6 +10,11 @@ skip, and applies two 3x3 conv + BatchNorm + ReLU; the output is cropped to
 H x W and projected by a 1x1 conv. The trunk keeps torchvision's keys
 (`conv1`, `layer1.0.conv1`, ...); the decoder the flax names (`up0`,
 `up_final0`, `head`).
+
+At `compute_dtype` bf16 (`ops.precision`) the trunk and the decoder run
+under bf16 autocast over float32 parameters; the 1x1 head leaves autocast
+and projects a float32 copy of its input, so the logits are float32, as the
+JAX module's head is.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from cld_tpu_torch.models.resnet import ARCHS, BatchNorm2d, ResNetTrunk
+from cld_tpu_torch.ops.precision import autocast, no_autocast
 
 FINAL_WIDTHS = (64, 32)  # the two upsampling steps past the last skip (H/4 -> H)
 
@@ -46,6 +52,8 @@ class _UpBlock(nn.Module):
 class RasterizedMapUNet(ResNetTrunk):
     """Raster [B, H, W, C] -> logits [B, H, W, output_channels]."""
 
+    compute_dtype = torch.float32
+
     def __init__(self, arch: str = "resnet18", in_channels: int = 34, output_channels: int = 4):
         super().__init__(arch, in_channels)
         block = ARCHS[arch][0]
@@ -61,10 +69,15 @@ class RasterizedMapUNet(ResNetTrunk):
 
     def forward(self, image: torch.Tensor, train: bool = False) -> torch.Tensor:
         H, W = image.shape[1:3]
-        skips = super().forward(image.permute(0, 3, 1, 2), train)
-        x = skips[-1]
-        for i, skip in enumerate(reversed(skips[:-1])):
-            x = getattr(self, f"up{i}")(x, skip, train)
-        for i in range(len(FINAL_WIDTHS)):
-            x = getattr(self, f"up_final{i}")(x, None, train)
-        return self.head(x[:, :, :H, :W]).permute(0, 2, 3, 1)
+        dev = image.device.type
+        with autocast(self.compute_dtype, dev):
+            skips = super().forward(image.permute(0, 3, 1, 2), train)
+            x = skips[-1]
+            for i, skip in enumerate(reversed(skips[:-1])):
+                x = getattr(self, f"up{i}")(x, skip, train)
+            for i in range(len(FINAL_WIDTHS)):
+                x = getattr(self, f"up_final{i}")(x, None, train)
+        x = x[:, :, :H, :W]
+        with no_autocast(dev):
+            out = self.head(x.to(torch.promote_types(x.dtype, torch.float32)))
+        return out.permute(0, 2, 3, 1)

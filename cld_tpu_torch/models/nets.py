@@ -145,11 +145,12 @@ class Upsample1d(nn.Module):
 
 class MultiHeadDotProductAttention(nn.Module):
     """flax's `nn.MultiHeadDotProductAttention` (no dropout): per-head
-    query / key / value projections, softmax(q k^T / sqrt(head_dim)) in
-    float32, and an output projection. A masked logit takes float32's
-    minimum, not -inf, as flax's does, so a query whose keys are all masked
-    averages them uniformly instead of giving NaN. Plain matmuls and
-    softmax, as the JAX package computes it outside any kernel.
+    query / key / value projections, softmax(q k^T / sqrt(head_dim)) and an
+    output projection, in the dtype of the region it runs in (bf16 logits
+    under bf16 autocast). A masked logit takes the minimum of the logits'
+    dtype, not -inf, as flax's does at its `dtype`, so a query whose keys
+    are all masked averages them uniformly instead of giving NaN. Plain
+    matmuls and softmax, as the JAX package computes it outside any kernel.
 
     `query`, `key`, `value` are Linear(in, qkv_features) and `out`
     Linear(qkv_features, out_features); flax's [D, H, hd] and [H, hd, D]

@@ -69,7 +69,9 @@ def occupancy_likelihood(pred_map: torch.Tensor, traj_pos: torch.Tensor,
 
 class OccupancyPredictor(nn.Module):
     """UNet over the raster -> [B, Tf, H, W] occupancy logits + losses, Tf =
-    ceil(future_num_frames / every_n_frame)."""
+    ceil(future_num_frames / every_n_frame). The UNet computes at its
+    `compute_dtype` (`ops.precision`); its logits, and so the losses, are
+    float32 under bf16 too."""
 
     def __init__(self, raster_channels: int = 34, arch: str = "resnet18",
                  future_num_frames: int = 52, every_n_frame: int = 4):

@@ -7,6 +7,11 @@ point's feature a bilinear lookup. Both are direct gathers by index, as the
 JAX package's are (torchvision's `roi_align` averages over bins, another
 function, and is not on every host). The grid is channels-last [B, H, W, C]
 at the boundary, as in the JAX module.
+
+At `compute_dtype` bf16 (`ops.precision`) the conv pyramid and the ROI head
+run under bf16 autocast over float32 parameters. The sampling positions are
+float32 whatever the grid's dtype, and a bf16 grid's bilinear mix comes out
+float32, as in the JAX module.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import torch
 from torch import nn
 
 from cld_tpu_torch.models.nets import mish
+from cld_tpu_torch.ops.precision import autocast
 
 
 def query_feature_grid(points: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
@@ -46,8 +52,9 @@ def rotated_roi_crop(grid: torch.Tensor, center: torch.Tensor, yaw: torch.Tensor
     B, _, _, C = grid.shape
     A = center.shape[1]
     rh, rw = roi_size
-    ys = torch.linspace(-0.5, 0.5, rh, device=grid.device, dtype=grid.dtype) * roi_extent
-    xs = torch.linspace(-0.5, 0.5, rw, device=grid.device, dtype=grid.dtype) * roi_extent
+    dt = torch.promote_types(center.dtype, torch.float32)
+    ys = torch.linspace(-0.5, 0.5, rh, device=grid.device, dtype=dt) * roi_extent
+    xs = torch.linspace(-0.5, 0.5, rw, device=grid.device, dtype=dt) * roi_extent
     gy, gx = torch.meshgrid(ys, xs, indexing="ij")
     lx, ly = gx.reshape(-1), gy.reshape(-1)  # [rh*rw]
     c, s = torch.cos(yaw)[..., None], torch.sin(yaw)[..., None]  # [B, A, 1]
@@ -62,6 +69,8 @@ class MapGridEncoder(nn.Module):
     per width a 3x3 stride-2 conv, GroupNorm(8) (flax's epsilon, 1e-6) and
     Mish, then a 1x1 projection. Names follow flax (`conv0`, `gn0`, ...,
     `proj`)."""
+
+    compute_dtype = torch.float32
 
     def __init__(self, in_channels: int, feature_dim: int = 32,
                  widths: Sequence[int] = (32, 64)):
@@ -80,15 +89,18 @@ class MapGridEncoder(nn.Module):
 
     def forward(self, image: torch.Tensor, train: bool = False) -> torch.Tensor:
         x = image.permute(0, 3, 1, 2)
-        for i in range(self.num_levels):
-            x = mish(getattr(self, f"gn{i}")(getattr(self, f"conv{i}")(x)))
-        return self.proj(x).permute(0, 2, 3, 1)
+        with autocast(self.compute_dtype, x.device.type):
+            for i in range(self.num_levels):
+                x = mish(getattr(self, f"gn{i}")(getattr(self, f"conv{i}")(x)))
+            return self.proj(x).permute(0, 2, 3, 1)
 
 
 class ROIMapEncoder(nn.Module):
     """Per-agent ROI feature vectors from a shared scene feature grid:
     image [B, H, W, C], centers_px [B, A, 2] raster pixels, yaws [B, A] ->
     [B, A, agent_feature_dim] (the crop's mean through a dense `head`)."""
+
+    compute_dtype = torch.float32
 
     def __init__(self, in_channels: int, feature_dim: int = 32, agent_feature_dim: int = 64,
                  roi_size: Tuple[int, int] = (7, 7), roi_extent_m: float = 20.0,
@@ -103,4 +115,5 @@ class ROIMapEncoder(nn.Module):
         down = self.grid.down_factor
         roi = rotated_roi_crop(grid, centers_px / down, yaws, self.roi_size,
                                roi_extent=self.roi_extent_m / self.pixel_size / down)
-        return self.head(torch.mean(roi, dim=(2, 3)))
+        with autocast(self.compute_dtype, image.device.type):
+            return self.head(torch.mean(roi, dim=(2, 3)))

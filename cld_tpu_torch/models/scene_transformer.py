@@ -8,9 +8,15 @@ diffusion step.
 Submodules carry the flax names (`Dense_0`, `time_pos_emb`, `input_proj`,
 `cond_proj`, `block<i>` with `LayerNorm_<k>`, `time_attn`, `agent_attn`,
 `Dense_<k>`, `LayerNorm_0`, `output_proj`) for `utils.weights.load_flax`.
-LayerNorm takes flax's epsilon (1e-6); masked attention logits take
-float32's minimum, as flax's (`models.nets.MultiHeadDotProductAttention`).
+LayerNorm takes flax's epsilon (1e-6); masked attention logits take the
+minimum of their dtype, as flax's (`models.nets.MultiHeadDotProductAttention`).
 `time_pos_emb` is shaped by the horizon, given at construction.
+
+At `compute_dtype` bf16 (`ops.precision`) the denoiser runs under bf16
+autocast over float32 parameters, except `time_pos_emb`, which is stored in
+bf16 (`compute_dtype_params`) because the JAX module creates it in its
+compute dtype; eps comes out bf16 and the diffusion math takes it in
+float32.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import torch
 from torch import nn
 
 from cld_tpu_torch.models.nets import MultiHeadDotProductAttention, SinusoidalPosEmb, mish
+from cld_tpu_torch.ops.precision import autocast
 
 
 def _ln(width: int) -> nn.LayerNorm:
@@ -61,6 +68,9 @@ class SceneTransformerDenoiser(nn.Module):
     """(x [B, A, T, D], cond [B, A, C], t [B], agent_mask [B, A]) ->
     eps [B, A, T, output_dim], zero on padding agents."""
 
+    compute_dtype = torch.float32
+    compute_dtype_params = ("time_pos_emb",)
+
     def __init__(self, horizon: int, cond_dim: int, transition_dim: int = 6,
                  output_dim: int = 6, width: int = 128, num_layers: int = 4, num_heads: int = 4,
                  time_dim: int = 32):
@@ -81,10 +91,11 @@ class SceneTransformerDenoiser(nn.Module):
         B, A = x.shape[:2]
         if agent_mask is None:
             agent_mask = torch.ones((B, A), dtype=torch.bool, device=x.device)
-        t_emb = self.Dense_0(self.time_emb(time))  # [B, W]
-        h = (self.input_proj(x) + self.time_pos_emb + self.cond_proj(cond_feat)[:, :, None]
-             + t_emb[:, None, None])
-        for i in range(self.num_layers):
-            h = getattr(self, f"block{i}")(h, agent_mask)
-        out = self.output_proj(self.LayerNorm_0(h))
+        with autocast(self.compute_dtype, x.device.type):
+            t_emb = self.Dense_0(self.time_emb(time))  # [B, W]
+            h = (self.input_proj(x) + self.time_pos_emb + self.cond_proj(cond_feat)[:, :, None]
+                 + t_emb[:, None, None])
+            for i in range(self.num_layers):
+                h = getattr(self, f"block{i}")(h, agent_mask)
+            out = self.output_proj(self.LayerNorm_0(h))
         return out * agent_mask[..., None, None]

@@ -107,7 +107,9 @@ def decode_spatial_prediction(pred_map: torch.Tensor, raster_from_agent: torch.T
 
 
 class SpatialPlannerNet(nn.Module):
-    """The planner's UNet and its loss head."""
+    """The planner's UNet and its loss head. The UNet computes at its
+    `compute_dtype` (`ops.precision`); its logits, and so the losses and the
+    decoding, are float32 under bf16 too."""
 
     def __init__(self, raster_channels: int = 34, arch: str = "resnet18",
                  loss_weights: Optional[Dict[str, float]] = None):

@@ -2,6 +2,12 @@
 `cld_tpu/models/spatial_softmax.py`): a per-channel softmax over the spatial
 grid gives expected (x, y) keypoints in [-1, 1], the optional pooling head
 of the ResNet map encoder.
+
+It has no compute dtype of its own: it runs in the region it is called in
+(the map encoder's, bf16 autocast under bf16 compute). As in the JAX module,
+the keypoint conv and the softmax follow that region, while the pixel grid
+is float32 and the expectation over it runs in at least float32 outside
+autocast, so keypoints come out float32 from bf16 attention.
 """
 
 from __future__ import annotations
@@ -11,6 +17,8 @@ from typing import Optional
 
 import torch
 from torch import nn
+
+from cld_tpu_torch.ops.precision import no_autocast
 
 
 class SpatialSoftmax(nn.Module):
@@ -39,11 +47,18 @@ class SpatialSoftmax(nn.Module):
         if self.kp_conv is not None:
             x = self.kp_conv(x)
         B, C, H, W = x.shape
-        temperature = (torch.exp(self.log_temperature) if self.log_temperature is not None
-                       else self.temperature)
-        attn = torch.softmax(x.reshape(B, C, H * W) / temperature, dim=-1)
-        pos_x = torch.linspace(-1.0, 1.0, W, device=x.device, dtype=x.dtype)
-        pos_y = torch.linspace(-1.0, 1.0, H, device=x.device, dtype=x.dtype)
+        feat = x.reshape(B, C, H * W)
+        if self.log_temperature is not None:  # a float32 parameter promotes, as in JAX
+            temperature = torch.exp(self.log_temperature)
+            feat = feat.to(torch.promote_types(feat.dtype, temperature.dtype))
+        else:
+            temperature = self.temperature
+        attn = torch.softmax(feat / temperature, dim=-1)
+        wide = torch.promote_types(x.dtype, torch.float32)
+        pos_x = torch.linspace(-1.0, 1.0, W, device=x.device, dtype=wide)
+        pos_y = torch.linspace(-1.0, 1.0, H, device=x.device, dtype=wide)
         grid = torch.stack([pos_x[None, :].expand(H, W).reshape(-1),
                             pos_y[:, None].expand(H, W).reshape(-1)], dim=-1)  # [H*W, 2]
-        return torch.einsum("bcn,nd->bcd", attn, grid).reshape(B, C * 2)
+        with no_autocast(x.device.type):
+            kp = torch.einsum("bcn,nd->bcd", attn.to(grid.dtype), grid)
+        return kp.reshape(B, C * 2)

@@ -6,6 +6,14 @@ queries that cross-attend to it, then a unicycle-integrated trajectory.
 Submodules carry the flax names (`hist_proj`, `enc0`, `LayerNorm_0`,
 `MultiHeadDotProductAttention_0`, `self_attn`, ...); LayerNorm takes flax's
 epsilon, 1e-6; attention is `models.nets.MultiHeadDotProductAttention`.
+
+At `compute_dtype` bf16 (`ops.precision`) the network runs under bf16
+autocast, and its two learned embeddings (`hist_pos_emb`,
+`future_queries`) are stored in bf16 (`compute_dtype_params`): the JAX
+module creates them in its compute dtype. The other parameters stay
+float32; the unicycle integration and the loss run outside autocast.
+A masked attention logit takes the minimum of the logits' dtype, bf16's
+under bf16, as flax's does.
 """
 
 from __future__ import annotations
@@ -19,6 +27,7 @@ from cld_tpu_torch.data.batch import TrafficBatch, get_current_states
 from cld_tpu_torch.models.nets import MultiHeadDotProductAttention, mish
 from cld_tpu_torch.models.vae import get_state_and_action_from_batch
 from cld_tpu_torch.ops.dynamics import RECORD_DYNAMICS, UnicycleParams, unicycle_forward_dynamics
+from cld_tpu_torch.ops.precision import autocast
 
 
 def _ln(width: int) -> nn.LayerNorm:
@@ -62,6 +71,9 @@ class TransformerTrajectoryPredictor(nn.Module):
     """History tokens [B, hist_len, 5] (x, y, cos yaw, sin yaw, avail) ->
     future actions -> unicycle trajectory [B, horizon, 6]."""
 
+    compute_dtype = torch.float32
+    compute_dtype_params = ("hist_pos_emb", "future_queries")
+
     def __init__(self, hist_len: int = 31, horizon: int = 52, width: int = 64,
                  num_layers: int = 2, num_heads: int = 4,
                  dyn: UnicycleParams = RECORD_DYNAMICS, dt: float = 0.1):
@@ -79,13 +91,14 @@ class TransformerTrajectoryPredictor(nn.Module):
         hist = torch.cat([batch.history_positions, torch.cos(batch.history_yaws),
                           torch.sin(batch.history_yaws),
                           batch.history_availabilities[..., None]], dim=-1)  # [B, Th, 5]
-        tok = self.hist_proj(hist) + self.hist_pos_emb
-        for i in range(self.num_layers):
-            tok = getattr(self, f"enc{i}")(tok)
-        q = self.future_queries.expand(hist.shape[0], -1, -1)
-        for i in range(self.num_layers):
-            q = getattr(self, f"dec{i}")(q, tok)
-        actions = self.action_head(q)
+        with autocast(self.compute_dtype, hist.device.type):
+            tok = self.hist_proj(hist) + self.hist_pos_emb
+            for i in range(self.num_layers):
+                tok = getattr(self, f"enc{i}")(tok)
+            q = self.future_queries.expand(hist.shape[0], -1, -1)
+            for i in range(self.num_layers):
+                q = getattr(self, f"dec{i}")(q, tok)
+            actions = self.action_head(q)
         states = unicycle_forward_dynamics(self.dyn, get_current_states(batch), actions, self.dt)
         return {"trajectories": torch.cat([states, actions], dim=-1)}
 

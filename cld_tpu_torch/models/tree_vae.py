@@ -9,6 +9,11 @@ running statistics (it is called without `train`), so a train step never
 moves them. The reparametrization noise is explicit: `noise` [stages, B,
 latent_dim], zeros (z = mean) when not given. Ego conditioning needs the
 encoder built: `ec_traj_dim` is the conditioning trajectory's width.
+
+At `compute_dtype` bf16 (`ops.precision`) the context encoder and every
+network of the tree run under bf16 autocast over float32 parameters; the
+reparametrization, the unicycle integration and the losses stay outside it,
+as in the JAX module.
 """
 
 from __future__ import annotations
@@ -29,11 +34,14 @@ from cld_tpu_torch.models.nets import MLP
 from cld_tpu_torch.models.vae import get_state_and_action_from_batch
 from cld_tpu_torch.ops.losses import kld_0_1_loss
 from cld_tpu_torch.ops.normalization import TrajNormalizer
+from cld_tpu_torch.ops.precision import autocast
 
 STATE_EMBED_DIM = 32
 
 
 class TreeTrajectoryVAE(nn.Module):
+    compute_dtype = torch.float32
+
     def __init__(self, raster_channels: int = 34, stages: int = 2, frames_per_stage: int = 10,
                  latent_dim: int = 4, condition_dim: int = 128, ec_feat_dim: int = 64,
                  cond_feat_dim: int = 256, map_arch: str = "resnet18", kl_weight: float = 10.0,
@@ -56,15 +64,17 @@ class TreeTrajectoryVAE(nn.Module):
             for _ in range(stages)])
 
     def _conditions(self, batch: TrafficBatch, cond_traj: Optional[torch.Tensor]):
-        feats = [self.cond_proj(self.context(batch)["cond_feat"])]
-        if cond_traj is not None:
-            if self.ec_encoder is None:
-                raise ValueError("cond_traj needs a TreeTrajectoryVAE built with ec_traj_dim")
-            feats.append(self.ec_encoder(cond_traj))
-        return torch.cat(feats, dim=-1)
+        if cond_traj is not None and self.ec_encoder is None:
+            raise ValueError("cond_traj needs a TreeTrajectoryVAE built with ec_traj_dim")
+        with autocast(self.compute_dtype, batch.image.device.type):
+            feats = [self.cond_proj(self.context(batch)["cond_feat"])]
+            if cond_traj is not None:
+                feats.append(self.ec_encoder(cond_traj))
+            return torch.cat(feats, dim=-1)
 
     def _stage_cond(self, scene_feat, prev_state):
-        return torch.cat([scene_feat, self.state_embed(prev_state)], dim=-1)
+        with autocast(self.compute_dtype, prev_state.device.type):
+            return torch.cat([scene_feat, self.state_embed(prev_state)], dim=-1)
 
     def forward(self, batch: TrafficBatch, train: bool = False,
                 cond_traj: Optional[torch.Tensor] = None,

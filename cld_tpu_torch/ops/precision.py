@@ -8,7 +8,17 @@ forward under `autocast(self.compute_dtype, device_type)`, PyTorch's autocast
 at bfloat16 (matmuls and convolutions in bf16; on the card the norms and the
 softmax in f32) or nothing at all at float32, so the float32 path is exactly
 the one without mixed precision. `set_compute_dtype` sets the attribute on
-every submodule that has one.
+every submodule that has one. A module may also name parameters that the JAX
+package creates in its compute dtype (`compute_dtype_params`: a flax
+`self.param(..., self.dtype)`, such as the scene denoiser's `time_pos_emb`):
+`set_compute_dtype` stores those in the compute dtype, so under bf16 they and
+their optimizer moments are bf16, as in the JAX package.
+
+Every trainer resolves `train.training.precision` to one compute dtype
+(`training.state.resolve_compute_dtype`: "auto" is bf16 on the card and
+float32 on the CPU) and gives it to the networks whose JAX counterparts take
+the trainer's `dtype`; the others stay float32 (the `diff` algo of the zoo,
+the scene model's conditioning encoder, the composers' own networks).
 
 The LSTM paths (`ops.lstm_kernels.fused_decode_actions`,
 `models.vae._lstm_stack`) follow the autocast region they are called in
@@ -59,9 +69,14 @@ def no_autocast(device_type: str):
 
 def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     """Set `compute_dtype` on every submodule of `module` (itself included)
-    that carries one; returns `module`."""
+    that carries one, and store the parameters it names in
+    `compute_dtype_params` in `dtype`; returns `module`. Call it before the
+    optimizer is built, so that its moments take the parameters' dtypes."""
     check_compute_dtype(dtype)
     for m in module.modules():
         if hasattr(m, "compute_dtype"):
             m.compute_dtype = dtype
+            for name in getattr(m, "compute_dtype_params", ()):
+                param = getattr(m, name)
+                param.data = param.data.to(dtype)
     return module

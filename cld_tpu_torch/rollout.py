@@ -260,9 +260,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--diffusion-steps", type=int, default=None,
                         help="default: the config's algo.n_diffusion_steps")
     parser.add_argument("--precision", type=str, default=None,
-                        help="network compute dtype of the dm policy's models (default: the "
-                             "config's train.training.precision): auto (bf16 on the card, "
-                             "fp32 on the CPU), bf16 or fp32")
+                        help="network compute dtype of the dm policy's models, the "
+                             "SceneDiffuser composer's denoiser and the --ebm-ckpt metric "
+                             "(default: the config's train.training.precision): auto (bf16 on "
+                             "the card, fp32 on the CPU), bf16 or fp32. The other composers' "
+                             "networks compute in fp32")
     parser.add_argument("--decode-impl", choices=DECODE_IMPLS, default="auto",
                         help="decoder inside guidance and decode: kernel (auto) is the "
                              "kernel-backed LSTM core, module the decoder's own layer stack")

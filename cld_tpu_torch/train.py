@@ -370,9 +370,11 @@ def main(argv: Optional[Sequence[str]] = None):
                              "parameters, optimizer moments and step counters; the batch "
                              "stream skips to the step, as the JAX CLI's does")
     parser.add_argument("--precision", type=str, default=None,
-                        help="network compute dtype of --mode vae|dm|ppo|test: auto (bf16 on "
-                             "the card, fp32 on the CPU), bf16 or fp32; parameters and losses "
-                             "stay fp32. The other modes compute in fp32")
+                        help="network compute dtype of every mode: auto (bf16 on the card, "
+                             "fp32 on the CPU), bf16 or fp32; parameters and losses stay fp32 "
+                             "(the scene model's time_pos_emb takes the compute dtype, as in "
+                             "the JAX package). --mode zoo's diff algo and the scene model's "
+                             "conditioning encoder compute in fp32 under every precision")
     parser.add_argument("--device", type=str, default="cuda",
                         help="where to train: cuda (default) or cpu")
     args = parser.parse_args(argv)

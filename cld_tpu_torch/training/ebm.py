@@ -2,8 +2,12 @@
 `PermuteEBM` with the InfoNCE permutation objective, so that its
 matched-pair score becomes the learned closed-loop realism metric
 (`sim.learned_metrics`, the rollout CLI's `--ebm-ckpt`). Adam with the VAE
-stage's coupled L2 at its constant initial rate; float32; a step that gives
-a non-finite loss is skipped.
+stage's coupled L2 at its constant initial rate; a step that gives a
+non-finite loss is skipped. The networks compute at
+`train.training.precision` (`state.resolve_compute_dtype`: bf16 under
+"auto" on the card, float32 on the CPU) over float32 parameters and Adam
+moments; InfoNCE is float32. The rollout CLI's `--ebm-ckpt` scores through
+this trainer, so its metric follows the same precision.
 """
 
 from __future__ import annotations
@@ -14,15 +18,17 @@ import torch
 
 from cld_tpu_torch.data.batch import TrafficBatch
 from cld_tpu_torch.models.learned_metric import PermuteEBM, ebm_infonce_loss
-from cld_tpu_torch.training.state import TrainState, make_optimizer, require_f32
+from cld_tpu_torch.ops.precision import set_compute_dtype
+from cld_tpu_torch.training.state import TrainState, make_optimizer, resolve_compute_dtype
 from cld_tpu_torch.training.vae import raster_channels
 
 
 class EBMTrainer:
     def __init__(self, config, device="cuda"):
-        require_f32(config.train.training.get("precision", "auto"))
         self.config = config
         self.device = torch.device(device)
+        self.compute_dtype = resolve_compute_dtype(
+            config.train.training.get("precision", "auto"), self.device)
         opt = config.algo.optim_params.vae  # the VAE stage's optimizer group
         self.lr = opt.learning_rate.initial
         self.weight_decay = opt.regularization.L2
@@ -31,10 +37,12 @@ class EBMTrainer:
         """The EBM at the config's widths: trajectory features as wide as
         the map's, embeddings as wide as `cond_feat_dim`."""
         algo = self.config.algo
-        return PermuteEBM(raster_channels(self.config), algo.map_encoder_model_arch,
-                          map_feature_dim=algo.map_feature_dim,
-                          traj_feature_dim=algo.map_feature_dim,
-                          embedding_dim=algo.cond_feat_dim)
+        return set_compute_dtype(
+            PermuteEBM(raster_channels(self.config), algo.map_encoder_model_arch,
+                       map_feature_dim=algo.map_feature_dim,
+                       traj_feature_dim=algo.map_feature_dim,
+                       embedding_dim=algo.cond_feat_dim),
+            self.compute_dtype)
 
     def init_state(self, seed: int = 0) -> TrainState:
         """A fresh EBM (torch's default initializers under `seed`) with its

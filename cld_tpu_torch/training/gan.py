@@ -15,8 +15,13 @@ everything else, the context encoder included. Per step:
 Under data parallelism (`state.mesh`) each side's gradients are averaged
 over the ranks before its update.
 
-Float32; no non-finite guard, as in the JAX trainer. Randomness is explicit:
-the two draws are arguments, else taken from a `torch.Generator`.
+The networks compute at `train.training.precision`
+(`state.resolve_compute_dtype`: bf16 under "auto" on the card, float32 on
+the CPU) over float32 parameters and Adam moments; the losses are float32.
+No non-finite guard, as in the JAX trainer. Randomness is explicit: the two
+draws are arguments (float32; the JAX module draws them in its compute
+dtype, and the first layer rounds them to it), else taken from a
+`torch.Generator`.
 """
 
 from __future__ import annotations
@@ -31,7 +36,8 @@ from torch import nn
 from cld_tpu_torch.data.batch import TrafficBatch
 from cld_tpu_torch.models.gan import TrajectoryGAN
 from cld_tpu_torch.parallel.mesh import average_gradients
-from cld_tpu_torch.training.state import make_optimizer, require_f32
+from cld_tpu_torch.ops.precision import set_compute_dtype
+from cld_tpu_torch.training.state import make_optimizer, resolve_compute_dtype
 from cld_tpu_torch.training.vae import raster_channels
 
 
@@ -77,17 +83,20 @@ def draw_gan_noise(batch_size: int, noise_dim: int, generator: Optional[torch.Ge
 
 class GANTrainer:
     def __init__(self, config, device="cuda"):
-        require_f32(config.train.training.get("precision", "auto"))
         self.config = config
         self.device = torch.device(device)
+        self.compute_dtype = resolve_compute_dtype(
+            config.train.training.get("precision", "auto"), self.device)
         self.lr = config.algo.optim_params.vae.learning_rate.initial
 
     def build(self) -> TrajectoryGAN:
         algo = self.config.algo
-        return TrajectoryGAN(raster_channels(self.config), horizon=algo.horizon,
-                             cond_feat_dim=algo.cond_feat_dim,
-                             map_arch=algo.map_encoder_model_arch,
-                             generator_arch=algo.get("gan_generator_arch", "mlp"))
+        return set_compute_dtype(
+            TrajectoryGAN(raster_channels(self.config), horizon=algo.horizon,
+                          cond_feat_dim=algo.cond_feat_dim,
+                          map_arch=algo.map_encoder_model_arch,
+                          generator_arch=algo.get("gan_generator_arch", "mlp")),
+            self.compute_dtype)
 
     def init_state(self, seed: int = 0) -> GANTrainState:
         """A fresh GAN (torch's default initializers under `seed`) with both

@@ -3,8 +3,13 @@
 state+action trajectory in a scene, conditioned per agent on its encoded
 vector history and its scene-frame pose, denoised by the factorized
 time / agent transformer. Adam with the DM stage's coupled L2 and its
-warmup + cosine rate by epoch; float32; a step that gives a non-finite loss
-is skipped.
+warmup + cosine rate by epoch; a step that gives a non-finite loss is
+skipped. The denoiser computes at `train.training.precision`
+(`state.resolve_compute_dtype`: bf16 under "auto" on the card, float32 on
+the CPU), with its `time_pos_emb` stored in that dtype as the JAX module
+stores it; the conditioning encoder, every other parameter, the Adam moments
+of float32 parameters, the loss and the sampler stay float32, as in the JAX
+package.
 
 Submodules carry the flax names (`cond_encoder.hist_encoder`,
 `cond_encoder.pose_proj`, `denoiser`) for `utils.weights.load_flax`. The
@@ -31,10 +36,11 @@ from cld_tpu_torch.models.scene_transformer import SceneTransformerDenoiser
 from cld_tpu_torch.ops.diffusion import make_schedule
 from cld_tpu_torch.ops.dynamics import convert_state_to_state_and_action
 from cld_tpu_torch.ops.normalization import TrajNormalizer
+from cld_tpu_torch.ops.precision import set_compute_dtype
 from cld_tpu_torch.training.state import (
     TrainState,
     make_optimizer,
-    require_f32,
+    resolve_compute_dtype,
     warmup_cosine_by_epoch,
 )
 
@@ -91,9 +97,9 @@ class SceneDMTrainer:
     def __init__(self, config, device="cuda"):
         algo = config.algo
         tr = config.train.training
-        require_f32(tr.get("precision", "auto"))
         self.config = config
         self.device = torch.device(device)
+        self.compute_dtype = resolve_compute_dtype(tr.get("precision", "auto"), self.device)
         self.dt = algo.step_time
         self.schedule = make_schedule(algo.n_diffusion_steps, device=self.device)
         opt = algo.optim_params.dm
@@ -102,11 +108,15 @@ class SceneDMTrainer:
         self.weight_decay = opt.regularization.L2
 
     def build(self) -> SceneDMModel:
+        """The model at the config's widths, its denoiser at the trainer's
+        compute dtype."""
         algo = self.config.algo
-        return SceneDMModel(algo.history_num_frames + 1, algo.future_num_frames,
-                            cond_dim=algo.get("scene_cond_dim", 64),
-                            width=algo.get("scene_width", 128),
-                            num_layers=algo.get("scene_layers", 4))
+        model = SceneDMModel(algo.history_num_frames + 1, algo.future_num_frames,
+                             cond_dim=algo.get("scene_cond_dim", 64),
+                             width=algo.get("scene_width", 128),
+                             num_layers=algo.get("scene_layers", 4))
+        set_compute_dtype(model.denoiser, self.compute_dtype)
+        return model
 
     def init_state(self, seed: int = 0) -> TrainState:
         """A fresh model (torch's default initializers under `seed`) with its

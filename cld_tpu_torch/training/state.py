@@ -24,7 +24,10 @@ def resolve_compute_dtype(precision: Optional[str] = "auto", device="cpu") -> to
     Parameters, optimizer state and losses stay float32: mixed precision, as
     the JAX package's `resolve_compute_dtype` gives its flax modules. "auto"
     is bfloat16 on a CUDA device and float32 elsewhere (the JAX package's
-    auto is bf16 on its accelerator), so CPU runs stay float32."""
+    auto is bf16 on its accelerator), so CPU runs stay float32. Every trainer
+    (VAE, DM, PPO, the zoo, GAN, EBM and scene diffusion) computes its
+    networks at this dtype; the zoo's `diff` and the scene model's
+    conditioning encoder stay float32, as in the JAX package."""
     if precision in ("auto", None):
         return torch.bfloat16 if torch.device(device).type == "cuda" else torch.float32
     table = {
@@ -44,18 +47,6 @@ def resolve_compute_dtype(precision: Optional[str] = "auto", device="cpu") -> to
             f"accepted: 'auto', {sorted(table)}"
         )
     return table[key]
-
-
-def require_f32(precision: Optional[str]) -> None:
-    """The trainers outside the main paths (zoo, GAN, EBM, scene diffusion)
-    compute in float32, "auto" included; raise for a precision that names
-    bf16 there."""
-    if precision not in ("auto", None) and resolve_compute_dtype(precision) != torch.float32:
-        raise NotImplementedError(
-            f"train.training.precision {precision!r} resolves to bfloat16; this trainer "
-            "computes in float32 only (bf16 of the zoo, GAN, EBM, scene diffusion and "
-            "composer networks: ROADMAP Queue A 7 part 3)"
-        )
 
 
 def warmup_cosine_by_epoch(

@@ -5,8 +5,13 @@
 spec: how to build its network, how to compute its loss, and which random
 draws a train step takes. `ZooTrainer` is the one loop they share: loss,
 backward, Adam with coupled L2 at `optim_params.vae`'s constant rate, and
-the non-finite guard. Precision is float32 (the JAX package's `auto` is
-bf16 on a TPU only).
+the non-finite guard. The networks compute at `train.training.precision`
+(`state.resolve_compute_dtype`: bf16 under "auto" on the card, float32 on
+the CPU) over float32 parameters, Adam moments and BatchNorm statistics, as
+the JAX factory passes `dtype` to ten of the algos; `diff` builds its context
+encoder and UNet without it there, so it stays float32 under every
+precision (`AlgoSpec.takes_dtype`). TransformerPred stores its two learned
+embeddings in the compute dtype, as the JAX module does.
 
 Randomness is explicit: a step's draws (`noise`, a dict whose keys the spec
 names) are arguments, drawn from a `torch.Generator` when not given. The
@@ -24,7 +29,8 @@ import torch
 from torch import nn
 
 from cld_tpu_torch.data.batch import TrafficBatch, get_current_states
-from cld_tpu_torch.training.state import TrainState, make_optimizer, require_f32
+from cld_tpu_torch.ops.precision import set_compute_dtype
+from cld_tpu_torch.training.state import TrainState, make_optimizer, resolve_compute_dtype
 from cld_tpu_torch.training.vae import raster_channels
 
 Noise = Dict[str, torch.Tensor]
@@ -38,11 +44,13 @@ TREE_LATENT = 4  # TreeTrajectoryVAE's latent_dim
 class AlgoSpec:
     """`build()` -> a fresh network (on the CPU); `loss_call(model, batch,
     train, noise)` -> (loss, metrics); `draw(batch, generator)` -> the step's
-    random draws ({} for a deterministic algo)."""
+    random draws ({} for a deterministic algo); `takes_dtype`: the network
+    computes at the trainer's precision (False: float32 always)."""
 
     build: Callable[[], nn.Module]
     loss_call: Callable[[nn.Module, TrafficBatch, bool, Noise], Tuple[torch.Tensor, dict]]
     draw: Callable[[TrafficBatch, Optional[torch.Generator]], Noise] = lambda batch, gen: {}
+    takes_dtype: bool = True
 
 
 def register_algo(name: str):
@@ -272,7 +280,8 @@ class RawDiffuserModel(nn.Module):
 
 @register_algo("diff")
 def _diff(cfg):
-    """DiffuserTrafficModel: the CTG raw-action diffusion."""
+    """DiffuserTrafficModel: the CTG raw-action diffusion, float32 under
+    every precision (the JAX factory gives its networks no `dtype`)."""
 
     def loss_call(model, batch, train, noise):
         out = model(batch, train, **noise)
@@ -286,26 +295,31 @@ def _diff(cfg):
                                          device=batch.image.device)
         return {"t": t, "noise": noise, "drop": drop}
 
-    return AlgoSpec(lambda: RawDiffuserModel(cfg), loss_call, draw)
+    return AlgoSpec(lambda: RawDiffuserModel(cfg), loss_call, draw, takes_dtype=False)
 
 
 class ZooTrainer:
-    """One trainer for every factory algo."""
+    """One trainer for every factory algo. `compute_dtype` is the network's
+    (float32 for an algo whose spec does not take the precision)."""
 
     def __init__(self, config, algo_name: str, device="cuda"):
-        require_f32(config.train.training.get("precision", "auto"))
         self.spec = algo_factory(config, algo_name)
         self.device = torch.device(device)
+        self.compute_dtype = torch.float32
+        if self.spec.takes_dtype:
+            self.compute_dtype = resolve_compute_dtype(
+                config.train.training.get("precision", "auto"), self.device)
         opt = config.algo.optim_params.vae
         self.lr = opt.learning_rate.initial
         self.weight_decay = opt.regularization.L2
 
     def init_state(self, seed: int = 0) -> TrainState:
-        """A fresh network (torch's default initializers under `seed`) with
-        its optimizer at step 0, at the constant rate."""
+        """A fresh network (torch's default initializers under `seed`) at the
+        trainer's compute dtype, with its optimizer at step 0, at the
+        constant rate."""
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
-            model = self.spec.build().to(self.device)
+            model = set_compute_dtype(self.spec.build().to(self.device), self.compute_dtype)
         lr = self.lr
         return TrainState(model, make_optimizer(model.parameters(), self.weight_decay),
                           lambda step: lr)

@@ -14,7 +14,11 @@ The port's modules use that layout, so the converted dicts load with
   ``weight_ih_l{n}`` [4H, I] (gate order i, f, g, o); the single flax bias
   goes to ``bias_ih_l{n}``, ``bias_hh_l{n}`` is zero;
 * ``batch_stats`` -> BatchNorm running stats (+ a zero
-  ``num_batches_tracked``).
+  ``num_batches_tracked``);
+* a bfloat16 leaf (`ml_dtypes.bfloat16`, the dtype of a flax parameter made
+  in a bf16 compute dtype) keeps its dtype and its bits: `export_*` give it
+  back unchanged, and the loaders carry it into a `torch.bfloat16` tensor
+  through its 16-bit pattern.
 
 The zoo's models, the GAN, the EBM and the scene diffusion model keep the
 flax module names instead (`export_flax` / `load_flax`): one walk over the
@@ -228,9 +232,17 @@ def export_dm_checkpoint(variables: Dict[str, Any], prefix: str = "dm") -> State
     return _prefixed(export_temporal_unet(variables["params"], root="model"), prefix)
 
 
+def _tensor(v) -> torch.Tensor:
+    """A numpy leaf as a tensor; a bfloat16 leaf bit for bit (numpy knows
+    the dtype only through `ml_dtypes`, which `torch.as_tensor` refuses)."""
+    v = np.ascontiguousarray(v)
+    if v.dtype.name == "bfloat16":
+        return torch.from_numpy(v.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.as_tensor(v)
+
+
 def _load(module: torch.nn.Module, sd: StateDict, prefix: str) -> torch.nn.Module:
-    sub = {k[len(prefix):]: torch.as_tensor(np.ascontiguousarray(v))
-           for k, v in sd.items() if k.startswith(prefix)}
+    sub = {k[len(prefix):]: _tensor(v) for k, v in sd.items() if k.startswith(prefix)}
     ref = next(module.parameters())
     sub = {k: v.to(ref.device) for k, v in sub.items()}
     module.load_state_dict(sub, strict=True)

@@ -20,7 +20,7 @@ at small widths on the CPU (raster 64, B = 4 or 8).
   (ROADMAP "bf16 twins"): a loss within rtol 2e-3 / atol 1e-2, a gradient
   at cosine > 0.999.
 * The train CLI under `--precision bf16` on the CPU for vae, dm and ppo,
-  and `--mode zoo --precision bf16` refused with its ROADMAP item.
+  and `--mode zoo --precision bf16`, which runs in bf16 too.
 
 The JAX side is jitted with weights and batches passed as arguments.
 """
@@ -463,5 +463,6 @@ def test_train_cli_runs_vae_dm_ppo_in_bf16_and_refuses_the_zoo(tmp_path):
     ppo = train.main(base + ["--mode", "ppo", *ckpt])
     assert ppo.model.compute_dtype == BF16
     assert all(p.dtype == torch.float32 and torch.isfinite(p).all() for p in ppo.model.parameters())
-    with pytest.raises(NotImplementedError, match="A 7 part 3"):
-        train.main(base + ["--mode", "zoo", "--zoo-algo", "bc"])
+    zoo = train.main(base + ["--mode", "zoo", "--zoo-algo", "bc"])
+    assert zoo.model.compute_dtype == zoo.model.context_encoder.compute_dtype == BF16
+    assert zoo.step == 1 and all(p.dtype == torch.float32 for p in zoo.model.parameters())

@@ -302,18 +302,17 @@ print("FORBIDDEN_IMPORTED=" + json.dumps(bad))
 
 def test_train_cli_flags_and_unported_modes(tmp_path):
     """The JAX CLI's flag names and modes, `--device` defaulting to the
-    card, the options that wait for later slices raising with their ROADMAP
-    item (bf16 outside vae, dm and ppo), and a data path without shards
-    raising as the JAX loader does. The GAN, EBM and scene diffusion modes
-    run a step each; `--precision bf16` runs a VAE step in bf16 compute."""
+    card, and a data path without shards raising as the JAX loader does.
+    The GAN, EBM and scene diffusion modes run a step each; `--precision
+    bf16` runs a VAE step and an EBM step in bf16 compute."""
     base = ["--registered-name", "cld_smoke", "--device", "cpu", "--output", str(tmp_path)]
     for mode in ("scene_dm", "gan", "ebm"):
         state = train.main(base + ["--mode", mode, "--steps", "1"])
         assert state.step == 1 and (tmp_path / mode / "ckpt_final").exists(), mode
     state = train.main(base + ["--mode", "vae", "--precision", "bf16", "--steps", "1"])
     assert state.step == 1 and state.model.context_encoder.compute_dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="A 7 part 3"):
-        train.main(base + ["--mode", "ebm", "--precision", "bf16", "--steps", "1"])
+    state = train.main(base + ["--mode", "ebm", "--precision", "bf16", "--steps", "1"])
+    assert state.step == 1 and state.model.compute_dtype == torch.bfloat16
     # packed shards are ported: a data path without shards fails as the JAX loader does
     cfg = tmp_path / "c.yaml"
     cfg.write_text(f"train:\n  data_path: {tmp_path / 'no_shards'}\n")

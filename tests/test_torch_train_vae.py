@@ -32,7 +32,9 @@ from cld_tpu.utils.registry import get_registered_experiment_config as jax_regis
 from cld_tpu_torch.data.synthetic import synthetic_batch
 from cld_tpu_torch.models import vae as pv
 from cld_tpu_torch.training import state as ts
+from cld_tpu_torch.training.ebm import EBMTrainer
 from cld_tpu_torch.training.vae import VAETrainer, raster_channels
+from cld_tpu_torch.training.zoo import ZooTrainer
 from cld_tpu_torch.utils import weights as tw
 from cld_tpu_torch.utils.registry import get_registered_experiment_config
 
@@ -215,8 +217,9 @@ def test_schedules_match_at_epoch_boundaries():
 
 def test_resolve_compute_dtype_and_the_bf16_refusal():
     """"auto" is bf16 on a CUDA device and f32 on the CPU (the JAX package's
-    auto: bf16 on its accelerator); the VAE trainer takes bf16, the trainers
-    outside the main paths refuse it with their ROADMAP item."""
+    auto: bf16 on its accelerator); the VAE trainer takes bf16, and so do
+    the trainers outside the main paths (the zoo's `diff` stays f32, as in
+    the JAX package)."""
     assert ts.resolve_compute_dtype("auto") == ts.resolve_compute_dtype("fp32") == torch.float32
     assert ts.resolve_compute_dtype("auto", "cuda") == torch.bfloat16
     assert ts.resolve_compute_dtype("fp32", "cuda") == torch.float32
@@ -228,9 +231,9 @@ def test_resolve_compute_dtype_and_the_bf16_refusal():
     model = VAETrainer(cfg.lock(), device="cpu").init_state(0).model
     assert model.lstmvae.lstm_dec.compute_dtype == torch.bfloat16
     assert all(p.dtype == torch.float32 for p in model.parameters())
-    ts.require_f32("auto")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ts.require_f32("16-mixed")
+    for trainer in (EBMTrainer(cfg, device="cpu"), ZooTrainer(cfg, "bc", device="cpu")):
+        assert trainer.compute_dtype == torch.bfloat16
+    assert ZooTrainer(cfg, "diff", device="cpu").compute_dtype == torch.float32
 
 
 @pytest.fixture(scope="module")
