@@ -325,6 +325,11 @@ TWIN_RTOL, TWIN_ATOL, TWIN_COSINE = 2e-3, 1e-2, 0.999
 # network computed wrong
 TRAINER_TWIN_RTOL = 5e-2
 BF16_LSTM_BATCHES = (CL_B, B, 512)
+# further B/T/H at which the bf16 LSTM kernels are held (not timed): every
+# other hidden size, K and M padded for H = 8, 24, 40, 56; a ragged last CTA
+# (130, 601); more four-row CTAs than an H100 has SMs (601: a second wave)
+BF16_LSTM_EDGES = ((3, 5, 8), (33, 6, 16), (5, 7, 24), (64, 4, 32), (17, 9, 40), (7, 3, 48),
+                   (601, 5, 56), (130, T, H))
 
 
 class CheckFailed(RuntimeError):
@@ -3749,11 +3754,12 @@ def hold_lstm_bf16(args, dy):
 
 
 def check_lstm_bf16(kernels):
-    """The bf16 instantiation of both LSTM kernels at B = 32, 128, 512 (T =
-    52, H = 64): held against the bf16 plain versions, registers and spills,
-    times from Python and from a CUDA graph beside the f32 kernels' (step 3),
-    the plain versions' and cuDNN's bf16 `nn.LSTM` (forward; backward beside
-    the bf16 `Lstm2Core` VJP)."""
+    """The bf16 LSTM kernels (`csrc/lstm_bf16.cu`, on the tensor cores) at B
+    = 32, 128, 512 (T = 52, H = 64) and at `BF16_LSTM_EDGES`: held against
+    the bf16 plain versions, registers, spills and shared memory, times from
+    Python and from a CUDA graph beside the f32 kernels' (step 3), the plain
+    versions' and cuDNN's bf16 `nn.LSTM` (forward; backward beside the bf16
+    `Lstm2Core` VJP)."""
     import torch
 
     from cld_tpu_torch.ops import lstm_kernels as lk
@@ -3767,14 +3773,17 @@ def check_lstm_bf16(kernels):
         a, d = tuple(x.to(bf) for x in a), d.to(bf)
         bargs, errs[str(Bn)] = hold_lstm_bf16(a, d)
         held[Bn] = (a, bargs)
+    for shape in BF16_LSTM_EDGES:
+        a, d = lstm_inputs(g, *shape, dev)
+        _, errs["/".join(map(str, shape))] = hold_lstm_bf16(tuple(x.to(bf) for x in a), d.to(bf))
     attrs = {}
-    for which, kname in enumerate(("lstm2_fwd_kernel", "lstm2_bwd_gates_kernel",
-                                   "lstm2_bwd_kernel")):
-        for R in ((1,) if which == 1 else lk.ROWS_PER_CTA):
-            at = lk.kernel_attributes(which, H, R, bf)
-            attrs[f"{kname}<{H},{R},bf16>" if which != 1 else f"{kname}<{H},bf16>"] = at
-            log(f"{kname} bf16 H={H} R={R}: {at['registers']} registers, {at['local_bytes']} "
-                f"bytes of local memory per thread, max {at['max_threads']} threads per block")
+    for which, kname in enumerate(("lstm2_fwd_mma_kernel", "lstm2_gates_mma_kernel",
+                                   "lstm2_chain_mma_kernel")):
+        at = lk.kernel_attributes(which, H, dtype=bf)
+        attrs[f"{kname}<{H}>"] = at
+        log(f"{kname} H={H} ({lk.ROWS_PER_CTA_BF16} rows a CTA): {at['registers']} registers, "
+            f"{at['local_bytes']} bytes of local memory per thread, {at['shared_bytes']} bytes "
+            f"of shared memory, max {at['max_threads']} threads per block")
 
     args, bargs = held[B]
     fwd_ms = cuda_ms(lambda: lk.lstm2_fwd(*args), 50)
@@ -3785,6 +3794,14 @@ def check_lstm_bf16(kernels):
     for Bn, (a, ba) in held.items():
         fwd_graph[Bn] = graph_ms(lambda: lk.lstm2_fwd(*a), launches=20)
         bwd_graph[Bn] = graph_ms(lambda: lk.lstm2_bwd(*ba), launches=20)
+    # the per-launch weight pack inside those times (ROADMAP B 5): the forward's
+    # one layout, the reverse sweep's two
+    _, _, Wh1, W2, _ = args
+    pack_ms = {"fwd": graph_ms(lambda: lk.pack_weights("fwd_bf16", Wh1, W2), launches=20),
+               "bwd": graph_ms(lambda: lk.pack_layouts(Wh1, W2, "fwd_bf16", "bwd_bf16"),
+                               launches=20)}
+    log(f"bf16 weight pack from a CUDA graph: forward {pack_ms['fwd']:.4f} ms, reverse sweep "
+        f"{pack_ms['bwd']:.4f} ms")
     f32_fwd, f32_bwd = kernels["lstm2_fwd"]["graph_ms"], kernels["lstm2_bwd"]["graph_ms"]
     log("bf16 beside f32 from a CUDA graph, ms at B=" + ", ".join(
         f"{Bn}: lstm2_fwd {fwd_graph[Bn]:.4f} (f32 {f32_fwd[str(Bn)]:.4f}), lstm2_bwd "
@@ -3826,13 +3843,15 @@ def check_lstm_bf16(kernels):
         max_abs_err=e["fwd_abs"], max_rel_err=e["fwd_rel"], unequal_share=e["fwd_unequal"],
         ms=fwd_ms, plain_ms=fwd_plain_ms, bound_ms=fwd_b, bound_by=fwd_by, library_ms=fwd_lib_ms,
         library_graph_ms=fwd_lib_graph, graph_ms={str(k): v for k, v in fwd_graph.items()},
-        f32_graph_ms=f32_fwd, attributes={k: v for k, v in attrs.items() if "fwd" in k}, **common)
+        f32_graph_ms=f32_fwd, pack_graph_ms=pack_ms["fwd"],
+        attributes={k: v for k, v in attrs.items() if "fwd" in k}, **common)
     kernels["lstm2_bwd_bf16"] = dict(
         max_abs_err=e["bwd_abs"], max_rel_err=e["bwd_rel"], unequal_share=e["bwd_unequal"],
         ms=bwd_ms, plain_ms=bwd_plain_ms, bound_ms=bwd_b, bound_by=bwd_by, library_ms=bwd_lib_ms,
         library_train_fwd_ms=lib_train_fwd_ms, lstm2core_vjp_ms=vjp_ms,
         graph_ms={str(k): v for k, v in bwd_graph.items()}, f32_graph_ms=f32_bwd,
-        attributes={k: v for k, v in attrs.items() if "bwd" in k}, **common)
+        pack_graph_ms=pack_ms["bwd"],
+        attributes={k: v for k, v in attrs.items() if "fwd" not in k}, **common)
 
 
 def twin(what, bf16_loss, f32_loss, rtol=TWIN_RTOL):
@@ -4505,8 +4524,9 @@ def main() -> int:
     replaces = {
         "lstm2_fwd": ("cld_tpu_torch/csrc/lstm.cu", "cld_tpu/ops/lstm_pallas.py:169"),
         "lstm2_bwd": ("cld_tpu_torch/csrc/lstm.cu", "cld_tpu/ops/lstm_pallas.py:312"),
-        "lstm2_fwd_bf16": ("cld_tpu_torch/csrc/lstm.cu", "cld_tpu/ops/lstm_pallas.py:169"),
-        "lstm2_bwd_bf16": ("cld_tpu_torch/csrc/lstm.cu", "cld_tpu/ops/lstm_pallas.py:312"),
+        "lstm2_fwd_bf16": ("cld_tpu_torch/csrc/lstm_bf16.cu", "cld_tpu/ops/lstm_pallas.py:169"),
+        "lstm2_bwd_bf16": ("cld_tpu_torch/csrc/lstm_bf16.cu",
+                           "cld_tpu/ops/lstm_pallas.py:312"),
         "bit_gather": ("cld_tpu_torch/csrc/bit_gather.cu", "cld_tpu/ops/pallas_kernels.py:179"),
         "value_gather": ("cld_tpu_torch/csrc/value_gather.cu",
                          "cld_tpu/ops/pallas_kernels.py:291"),

@@ -63,27 +63,15 @@
 //   half is the next step's dh2) -> layer 1's cotangents -> barrier ->
 //   dh1 = dg1 Wh1^T. Two barriers, down from six.
 //
-// No tensor cores: the tolerance against the plain version is 1e-5 of the
-// largest value in f32, TF32 keeps ~3 digits, and with 1-2 rows per CTA a
-// 16-row mma tile would be >= 87% padding. Math is f32 without fast-math
-// intrinsics (expf / tanhf); every sum runs in a fixed order with no
-// atomics, so two launches agree bit for bit. Results differ from a plain
-// PyTorch loop by summation order and, in the forward's g gate, by tanh taken
-// as 2 sigm(2x) - 1 (~1e-7 absolute).
-//
-// Storage type S: float, or __nv_bfloat16 for bf16 mixed precision (the
-// TPU kernels' production configuration, `lstm_pallas.py:742-753`). Under
-// bf16 every input and output sequence, h0, Wh1, W2 and b2 are bf16; loads
-// widen to f32, the gate math, the sums and the c / dh / dc carries stay
-// f32, and each matmul operand is rounded to bf16 as the Pallas kernels'
-// `a.astype(w.dtype)` does: the h vectors (forward) and the dg vectors
-// (reverse sweep) enter shared memory rounded, so the products of two bf16
-// values are exact in f32 and only their sums round. Stores round to
-// nearest even (`__float2bfloat16_rn`). The register-resident weights are
-// f32 copies of the bf16 values (`pack_weights` of the widened weights); the
-// coefficient scratch stays f32.
+// f32 only, and no tensor cores: the tolerance against the plain version is
+// 1e-5 of the largest value in f32, and TF32 keeps ~3 digits. Storage and
+// math are f32 without fast-math intrinsics (expf / tanhf); every sum runs
+// in a fixed order with no atomics, so two launches agree bit for bit.
+// Results differ from a plain PyTorch loop by summation order and, in the
+// forward's g gate, by tanh taken as 2 sigm(2x) - 1 (~1e-7 absolute). Under
+// bf16 storage the sweeps are other kernels, on the tensor cores
+// (`lstm_bf16.cu`).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
@@ -97,38 +85,6 @@ constexpr int kPairs = 32;   // (b, t) pairs per gates-kernel CTA
 constexpr int kPairStride = kPairs + 4;  // padded row of the gates kernel's inputs
 
 __device__ __forceinline__ float sigm(float x) { return 1.0f / (1.0f + expf(-x)); }
-
-// Loads widen the storage type to f32; stores and `round` round f32 to it.
-template <typename S>
-struct Storage;
-
-template <>
-struct Storage<float> {
-  static __device__ __forceinline__ float load(const float* p) { return *p; }
-  static __device__ __forceinline__ float4 load4(const float* p) {
-    return *reinterpret_cast<const float4*>(p);
-  }
-  static __device__ __forceinline__ void store(float* p, float v) { *p = v; }
-  static __device__ __forceinline__ float round(float v) { return v; }
-};
-
-template <>
-struct Storage<__nv_bfloat16> {
-  static __device__ __forceinline__ float load(const __nv_bfloat16* p) {
-    return __bfloat162float(*p);
-  }
-  static __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-    const __nv_bfloat162* q = reinterpret_cast<const __nv_bfloat162*>(p);
-    const float2 a = __bfloat1622float2(q[0]), b = __bfloat1622float2(q[1]);
-    return make_float4(a.x, a.y, b.x, b.y);
-  }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-    *p = __float2bfloat16_rn(v);
-  }
-  static __device__ __forceinline__ float round(float v) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-  }
-};
 
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -224,12 +180,11 @@ constexpr size_t fwd_smem_bytes() {
 // Forward sweep. wpk: [3][H/8][8H] float4 (Wh1, W2[:H], W2[H:] in thread
 // order, the four gates of one element per float4). Outputs y (= h2), h1, c1,
 // c2 sequences, each [B, T, H].
-template <int H, int R, typename S>
+template <int H, int R>
 __global__ void __launch_bounds__(kLanes * H, 1) lstm2_fwd_kernel(
-    const S* __restrict__ xg1, const S* __restrict__ h0,
-    const float4* __restrict__ wpk, const S* __restrict__ b2, S* __restrict__ y,
-    S* __restrict__ h1s, S* __restrict__ c1s, S* __restrict__ c2s, int B, int T) {
-  using St = Storage<S>;
+    const float* __restrict__ xg1, const float* __restrict__ h0,
+    const float4* __restrict__ wpk, const float* __restrict__ b2, float* __restrict__ y,
+    float* __restrict__ h1s, float* __restrict__ c1s, float* __restrict__ c2s, int B, int T) {
   constexpr int NT = kLanes * H, G = 4 * H, K = H / kLanes;
   extern __shared__ float4 smem4[];
   float4* w2h = smem4;                                     // [K][NT] unless in registers
@@ -251,17 +206,17 @@ __global__ void __launch_bounds__(kLanes * H, 1) lstm2_fwd_kernel(
   }
   for (int i = tid; i < R * H; i += NT) {  // buffer 1 holds step -1
     const int b = b0 + i / H;
-    const float v = b < B ? St::load(h0 + (size_t)b * H + i % H) : 0.0f;
+    const float v = b < B ? h0[(size_t)b * H + i % H] : 0.0f;
     hb1[R * H + i] = v;
     hb2[R * H + i] = v;
   }
-  const float bias = l < 4 ? St::load(b2 + l * H + k) : 0.0f;
+  const float bias = l < 4 ? b2[l * H + k] : 0.0f;
   float c1[R], c2[R], xn[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int b = b0 + r;
     c1[r] = c2[r] = 0.0f;
-    xn[r] = (l < 4 && b < B) ? St::load(xg1 + (size_t)b * T * G + l * H + k) : 0.0f;
+    xn[r] = (l < 4 && b < B) ? xg1[(size_t)b * T * G + l * H + k] : 0.0f;
   }
   __syncthreads();
 
@@ -276,9 +231,8 @@ __global__ void __launch_bounds__(kLanes * H, 1) lstm2_fwd_kernel(
         a[r][g] = g == l ? xn[r] : 0.0f;
         a2[r][g] = g == l ? bias : 0.0f;
       }
-      xn[r] = (l < 4 && b < B && t + 1 < T)
-                  ? St::load(xg1 + ((size_t)b * T + t + 1) * G + l * H + k)
-                  : 0.0f;
+      xn[r] = (l < 4 && b < B && t + 1 < T) ? xg1[((size_t)b * T + t + 1) * G + l * H + k]
+                                            : 0.0f;
     }
     accum<H, R>(a, hb1 + prv * R * H, l, [&](int m) { return w1[m]; });
     // layer 2's recurrent half needs only h2[t-1]: it runs beside layer 1
@@ -289,12 +243,12 @@ __global__ void __launch_bounds__(kLanes * H, 1) lstm2_fwd_kernel(
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const float h = cell(a[r], l, c1[r]);
-      if (l == 0) hb1[(cur * R + r) * H + k] = St::round(h);  // the next products' operand
+      if (l == 0) hb1[(cur * R + r) * H + k] = h;
       const int b = b0 + r;
       if (b < B) {
         const size_t o = ((size_t)b * T + t) * H + k;
-        if (l == 0) St::store(h1s + o, h);
-        if (l == 1) St::store(c1s + o, c1[r]);
+        if (l == 0) h1s[o] = h;
+        if (l == 1) c1s[o] = c1[r];
       }
     }
     __syncthreads();
@@ -303,12 +257,12 @@ __global__ void __launch_bounds__(kLanes * H, 1) lstm2_fwd_kernel(
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const float h = cell(a2[r], l, c2[r]);
-      if (l == 0) hb2[(cur * R + r) * H + k] = St::round(h);
+      if (l == 0) hb2[(cur * R + r) * H + k] = h;
       const int b = b0 + r;
       if (b < B) {
         const size_t o = ((size_t)b * T + t) * H + k;
-        if (l == 2) St::store(y + o, h);
-        if (l == 3) St::store(c2s + o, c2[r]);
+        if (l == 2) y[o] = h;
+        if (l == 3) c2s[o] = c2[r];
       }
     }
     __syncthreads();
@@ -325,15 +279,14 @@ constexpr size_t gates_smem_bytes() {
 //   0 dy;  1 o2(1 - tanh^2 c2), 2 f2, 3-6 layer 2's gate factors
 //   (g i(1-i), c_prev f(1-f), i(1-g^2), tanh(c) o(1-o));  7-12 the same of
 //   layer 1.
-template <int H, typename S>
+template <int H>
 __global__ void __launch_bounds__(4 * H) lstm2_bwd_gates_kernel(
-    const S* __restrict__ dy, const S* __restrict__ xg1,
-    const S* __restrict__ h0, const S* __restrict__ Wh1,
-    const S* __restrict__ W2, const S* __restrict__ b2,
-    const S* __restrict__ h1s, const S* __restrict__ c1s,
-    const S* __restrict__ ys, const S* __restrict__ c2s, float* __restrict__ coef,
+    const float* __restrict__ dy, const float* __restrict__ xg1,
+    const float* __restrict__ h0, const float* __restrict__ Wh1,
+    const float* __restrict__ W2, const float* __restrict__ b2,
+    const float* __restrict__ h1s, const float* __restrict__ c1s,
+    const float* __restrict__ ys, const float* __restrict__ c2s, float* __restrict__ coef,
     int B, int T) {
-  using St = Storage<S>;
   constexpr int G = 4 * H, CG = G / 4, PT = 8;  // column groups of 4; pairs per thread
   constexpr int XS4 = kPairStride / 4;
   extern __shared__ float4 smem4[];
@@ -352,12 +305,11 @@ __global__ void __launch_bounds__(4 * H) lstm2_bwd_gates_kernel(
     if (n < N) {
       const int b = n / T, t = n % T;
       if (kk < H) {
-        v = St::load(t > 0 ? h1s + (size_t)(n - 1) * H + kk : h0 + (size_t)b * H + kk);
+        v = t > 0 ? h1s[(size_t)(n - 1) * H + kk] : h0[(size_t)b * H + kk];
       } else if (kk < 2 * H) {
-        v = St::load(h1s + (size_t)n * H + kk - H);
+        v = h1s[(size_t)n * H + kk - H];
       } else {
-        v = St::load(t > 0 ? ys + (size_t)(n - 1) * H + kk - 2 * H
-                           : h0 + (size_t)b * H + kk - 2 * H);
+        v = t > 0 ? ys[(size_t)(n - 1) * H + kk - 2 * H] : h0[(size_t)b * H + kk - 2 * H];
       }
     }
     xin[kk * kPairStride + p] = v;
@@ -365,11 +317,11 @@ __global__ void __launch_bounds__(4 * H) lstm2_bwd_gates_kernel(
   // thread tile: pairs p0 .. p0+7 x gate columns c0 .. c0+3 of both layers
   const int cg = j % CG, p0 = PT * (j / CG), c0 = 4 * cg;
   float a1[PT][4], a2[PT][4];
-  const float4 bias = St::load4(b2 + c0);
+  const float4 bias = reinterpret_cast<const float4*>(b2)[cg];
 #pragma unroll
   for (int p = 0; p < PT; ++p) {
     const int n = n0 + p0 + p;
-    const float4 x = n < N ? St::load4(xg1 + (size_t)n * G + c0)
+    const float4 x = n < N ? reinterpret_cast<const float4*>(xg1 + (size_t)n * G)[cg]
                            : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     a1[p][0] = x.x, a1[p][1] = x.y, a1[p][2] = x.z, a1[p][3] = x.w;
     a2[p][0] = bias.x, a2[p][1] = bias.y, a2[p][2] = bias.z, a2[p][3] = bias.w;
@@ -379,7 +331,7 @@ __global__ void __launch_bounds__(4 * H) lstm2_bwd_gates_kernel(
   const float4* x4 = reinterpret_cast<const float4*>(xin);
 #pragma unroll 8
   for (int kk = 0; kk < H; ++kk) {
-    const float4 w = St::load4(Wh1 + kk * G + c0);
+    const float4 w = reinterpret_cast<const float4*>(Wh1 + kk * G)[cg];
     const float4 xa = x4[kk * XS4 + p0 / 4], xb = x4[kk * XS4 + p0 / 4 + 1];
     const float xv[PT] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
 #pragma unroll
@@ -387,7 +339,7 @@ __global__ void __launch_bounds__(4 * H) lstm2_bwd_gates_kernel(
   }
 #pragma unroll 8
   for (int kk = 0; kk < 2 * H; ++kk) {
-    const float4 w = St::load4(W2 + kk * G + c0);
+    const float4 w = reinterpret_cast<const float4*>(W2 + kk * G)[cg];
     const float4 xa = x4[(H + kk) * XS4 + p0 / 4], xb = x4[(H + kk) * XS4 + p0 / 4 + 1];
     const float xv[PT] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
 #pragma unroll
@@ -411,14 +363,14 @@ __global__ void __launch_bounds__(4 * H) lstm2_bwd_gates_kernel(
     if (n >= N) continue;
     const int t = n % T;
     float* o = coef + (size_t)n * kPlanes * H + k;
-    o[0] = St::load(dy + (size_t)n * H + k);
+    o[0] = dy[(size_t)n * H + k];
 #pragma unroll
     for (int layer = 0; layer < 2; ++layer) {  // layer 2 (planes 1-6), then layer 1 (7-12)
       const float* a = act + (2 * p + 1 - layer) * G;
-      const S* cs = layer == 0 ? c2s : c1s;
+      const float* cs = layer == 0 ? c2s : c1s;
       const float ig = a[k], fg = a[H + k], gg = a[2 * H + k], og = a[3 * H + k];
-      const float c = St::load(cs + (size_t)n * H + k);
-      const float cp = t > 0 ? St::load(cs + (size_t)(n - 1) * H + k) : 0.0f;
+      const float c = cs[(size_t)n * H + k];
+      const float cp = t > 0 ? cs[(size_t)(n - 1) * H + k] : 0.0f;
       const float tc = tanhf(c);
       float* q = o + (1 + 6 * layer) * H;
       q[0] = og * (1.0f - tc * tc);
@@ -465,16 +417,15 @@ constexpr size_t bwd_smem_bytes() {
 // cotangents dg1, dg2 [B, T, 4H]. wpk: [3][H/8][8H] float4 holding, for
 // unit k's lane l, columns (m*8 + l)*4 .. +3 of the rows W2[k], W2[H + k]
 // and Wh1[k].
-template <int H, int R, typename S>
+template <int H, int R>
 __global__ void __launch_bounds__(kLanes * H, 1) lstm2_bwd_kernel(
-    const float* __restrict__ coef, const float4* __restrict__ wpk, S* __restrict__ dg1,
-    S* __restrict__ dg2, int B, int T) {
-  using St = Storage<S>;
-  constexpr int NT = kLanes * H, G = 4 * H, J4 = H / kLanes, P = kPlanes * H;
+    const float* __restrict__ coef, const float4* __restrict__ wpk, float* __restrict__ dg1,
+    float* __restrict__ dg2, int B, int T) {
+  constexpr int NT = kLanes * H, G = 4 * H, J4 = H / kLanes, S = kPlanes * H;
   extern __shared__ float4 smem4[];
   float4* w2h = smem4;                                     // [J4][NT]
-  float* stage = reinterpret_cast<float*>(w2h + J4 * NT);  // [2][R][P]
-  float* d2b = stage + 2 * R * P;                          // [R][G] dg2 of step t
+  float* stage = reinterpret_cast<float*>(w2h + J4 * NT);  // [2][R][S]
+  float* d2b = stage + 2 * R * S;                          // [R][G] dg2 of step t
   float* d1b = d2b + R * G;                                // [R][G] dg1 of step t
   const int tid = threadIdx.x, k = tid / kLanes, l = tid % kLanes;
   const int b0 = blockIdx.x * R;
@@ -489,26 +440,26 @@ __global__ void __launch_bounds__(kLanes * H, 1) lstm2_bwd_kernel(
   float dh1c[R], dc1c[R], dh2c[R], dc2c[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) dh1c[r] = dc1c[r] = dh2c[r] = dc2c[r] = 0.0f;
-  stage_coef<H, R>(stage + ((T - 1) & 1) * R * P, coef, b0, B, T, T - 1);
+  stage_coef<H, R>(stage + ((T - 1) & 1) * R * S, coef, b0, B, T, T - 1);
   cp_async_wait_all();
   __syncthreads();
 
   for (int t = T - 1; t >= 0; --t) {
-    const float* s = stage + (t & 1) * R * P;
-    if (t > 0) stage_coef<H, R>(stage + ((t - 1) & 1) * R * P, coef, b0, B, T, t - 1);
+    const float* s = stage + (t & 1) * R * S;
+    if (t > 0) stage_coef<H, R>(stage + ((t - 1) & 1) * R * S, coef, b0, B, T, t - 1);
 
     // layer 2
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      const float* sr = s + r * P;
+      const float* sr = s + r * S;
       const float dh2 = sr[k] + dh2c[r];
       const float dc2 = fmaf(dh2, sr[H + k], dc2c[r]);
       dc2c[r] = dc2 * sr[2 * H + k];
       if (l < 4) {
         const float d = (l == 3 ? dh2 : dc2) * sr[(3 + l) * H + k];
-        d2b[r * G + l * H + k] = St::round(d);  // the operand of dg2 W2^T
+        d2b[r * G + l * H + k] = d;
         const int b = b0 + r;
-        if (b < B) St::store(dg2 + ((size_t)b * T + t) * G + l * H + k, d);
+        if (b < B) dg2[((size_t)b * T + t) * G + l * H + k] = d;
       }
     }
     __syncthreads();
@@ -526,15 +477,15 @@ __global__ void __launch_bounds__(kLanes * H, 1) lstm2_bwd_kernel(
       }
       dh2c[r] = group_sum(hi);
       lo = group_sum(lo);
-      const float* sr = s + r * P;
+      const float* sr = s + r * S;
       const float dh1 = lo + dh1c[r];
       const float dc1 = fmaf(dh1, sr[7 * H + k], dc1c[r]);
       dc1c[r] = dc1 * sr[8 * H + k];
       if (l < 4) {
         const float d = (l == 3 ? dh1 : dc1) * sr[(9 + l) * H + k];
-        d1b[r * G + l * H + k] = St::round(d);
+        d1b[r * G + l * H + k] = d;
         const int b = b0 + r;
-        if (b < B) St::store(dg1 + ((size_t)b * T + t) * G + l * H + k, d);
+        if (b < B) dg1[((size_t)b * T + t) * G + l * H + k] = d;
       }
     }
     cp_async_wait_all();  // step t-1's coefficients, visible to all after the barrier
@@ -585,14 +536,27 @@ int launch_prep(const void* kernel, size_t smem) {
                                    (int)smem);
 }
 
-template <typename S>
-int fwd(const S* xg1, const S* h0, const float* wpk, const S* b2, S* y, S* h1s, S* c1s,
-        S* c2s, int B, int T, int H, int R, void* stream) {
+}  // namespace
+
+extern "C" {
+
+// Each entry point launches on `stream` and returns a cudaError_t (0 on
+// success). Shapes: xg1 [B, T, 4H], h0 [B, H], Wh1 [H, 4H], W2 [2H, 4H],
+// b2 [4H]; every state / cotangent sequence [B, T, H]; dg1, dg2 [B, T, 4H];
+// wpk the weights packed by `lstm_kernels.py:pack_weights` ("fwd" / "bwd"),
+// 12H^2 floats; coef scratch [B, T, 13, H]; xg1, Wh1,
+// W2, b2 and wpk 16-byte aligned (float4 reads). H a multiple
+// of 8 in [8, 64]; R (rows per CTA) 1 or 2. All tensors contiguous f32 on
+// the current device.
+
+int cld_lstm2_fwd(const float* xg1, const float* h0, const float* wpk, const float* b2,
+                  float* y, float* h1s, float* c1s, float* c2s, int B, int T, int H, int R,
+                  void* stream) {
   if (B == 0 || T == 0) return 0;
   return with_hidden(H, [&](auto h) {
     return with_rows(R, [&](auto r) {
       constexpr int kH = decltype(h)::value, kR = decltype(r)::value;
-      const auto kernel = lstm2_fwd_kernel<kH, kR, S>;
+      const auto kernel = lstm2_fwd_kernel<kH, kR>;
       const size_t smem = fwd_smem_bytes<kH, kR>();
       const int err = launch_prep((const void*)kernel, smem);
       if (err != 0) return err;
@@ -603,16 +567,18 @@ int fwd(const S* xg1, const S* h0, const float* wpk, const S* b2, S* y, S* h1s, 
   });
 }
 
-template <typename S>
-int bwd(const S* dy, const S* xg1, const S* h0, const S* Wh1, const S* W2, const S* b2,
-        const S* h1s, const S* c1s, const S* ys, const S* c2s, const float* wpk, float* coef,
-        S* dg1, S* dg2, int B, int T, int H, int R, void* stream) {
+// Launches the gates kernel (into coef) and then the chain: one reverse
+// sweep for the caller.
+int cld_lstm2_bwd(const float* dy, const float* xg1, const float* h0, const float* Wh1,
+                  const float* W2, const float* b2, const float* h1s, const float* c1s,
+                  const float* ys, const float* c2s, const float* wpk, float* coef,
+                  float* dg1, float* dg2, int B, int T, int H, int R, void* stream) {
   if (B == 0 || T == 0) return 0;
   return with_hidden(H, [&](auto h) {
     return with_rows(R, [&](auto r) {
       constexpr int kH = decltype(h)::value, kR = decltype(r)::value;
       const cudaStream_t s = (cudaStream_t)stream;
-      const auto gates = lstm2_bwd_gates_kernel<kH, S>;
+      const auto gates = lstm2_bwd_gates_kernel<kH>;
       constexpr size_t gsm = gates_smem_bytes<kH>();
       int err = launch_prep((const void*)gates, gsm);
       if (err != 0) return err;
@@ -620,7 +586,7 @@ int bwd(const S* dy, const S* xg1, const S* h0, const S* Wh1, const S* W2, const
           dy, xg1, h0, Wh1, W2, b2, h1s, c1s, ys, c2s, coef, B, T);
       err = (int)cudaGetLastError();
       if (err != 0) return err;
-      const auto chain = lstm2_bwd_kernel<kH, kR, S>;
+      const auto chain = lstm2_bwd_kernel<kH, kR>;
       err = launch_prep((const void*)chain, bwd_smem_bytes<kH, kR>());
       if (err != 0) return err;
       chain<<<(B + kR - 1) / kR, kLanes * kH, bwd_smem_bytes<kH, kR>(), s>>>(
@@ -630,14 +596,16 @@ int bwd(const S* dy, const S* xg1, const S* h0, const S* Wh1, const S* W2, const
   });
 }
 
-template <typename S>
-int attributes(int which, int H, int R, int* out) {
+// Compiler's verdict on one instantiation: out = {registers per thread,
+// local memory bytes per thread (spills), max threads per block}. which: 0
+// the forward, 1 the reverse sweep's gates kernel (R ignored), 2 its chain.
+int cld_lstm2_attributes(int which, int H, int R, int* out) {
   return with_hidden(H, [&](auto h) {
     return with_rows(R, [&](auto r) {
       constexpr int kH = decltype(h)::value, kR = decltype(r)::value;
-      const void* kernel = which == 0   ? (const void*)lstm2_fwd_kernel<kH, kR, S>
-                           : which == 1 ? (const void*)lstm2_bwd_gates_kernel<kH, S>
-                                        : (const void*)lstm2_bwd_kernel<kH, kR, S>;
+      const void* kernel = which == 0   ? (const void*)lstm2_fwd_kernel<kH, kR>
+                           : which == 1 ? (const void*)lstm2_bwd_gates_kernel<kH>
+                                        : (const void*)lstm2_bwd_kernel<kH, kR>;
       cudaFuncAttributes a;
       const cudaError_t err = cudaFuncGetAttributes(&a, kernel);
       if (err != cudaSuccess) return (int)err;
@@ -647,63 +615,6 @@ int attributes(int which, int H, int R, int* out) {
       return 0;
     });
   });
-}
-
-using bf16 = __nv_bfloat16;
-
-}  // namespace
-
-extern "C" {
-
-// Each entry point launches on `stream` and returns a cudaError_t (0 on
-// success). Shapes: xg1 [B, T, 4H], h0 [B, H], Wh1 [H, 4H], W2 [2H, 4H],
-// b2 [4H]; every state / cotangent sequence [B, T, H]; dg1, dg2 [B, T, 4H];
-// wpk the weights packed by `lstm_kernels.py:pack_weights` ("fwd" / "bwd"),
-// 12H^2 floats; coef scratch [B, T, 13, H] f32; xg1, Wh1,
-// W2, b2 and wpk 16-byte aligned (vector reads). H a multiple
-// of 8 in [8, 64]; R (rows per CTA) 1 or 2. All tensors contiguous on the
-// current device: f32 for the plain entry points, bf16 (wpk and coef f32)
-// for the `_bf16` ones.
-
-int cld_lstm2_fwd(const float* xg1, const float* h0, const float* wpk, const float* b2,
-                  float* y, float* h1s, float* c1s, float* c2s, int B, int T, int H, int R,
-                  void* stream) {
-  return fwd(xg1, h0, wpk, b2, y, h1s, c1s, c2s, B, T, H, R, stream);
-}
-
-int cld_lstm2_fwd_bf16(const bf16* xg1, const bf16* h0, const float* wpk, const bf16* b2,
-                       bf16* y, bf16* h1s, bf16* c1s, bf16* c2s, int B, int T, int H, int R,
-                       void* stream) {
-  return fwd(xg1, h0, wpk, b2, y, h1s, c1s, c2s, B, T, H, R, stream);
-}
-
-// Launches the gates kernel (into coef) and then the chain: one reverse
-// sweep for the caller.
-int cld_lstm2_bwd(const float* dy, const float* xg1, const float* h0, const float* Wh1,
-                  const float* W2, const float* b2, const float* h1s, const float* c1s,
-                  const float* ys, const float* c2s, const float* wpk, float* coef,
-                  float* dg1, float* dg2, int B, int T, int H, int R, void* stream) {
-  return bwd(dy, xg1, h0, Wh1, W2, b2, h1s, c1s, ys, c2s, wpk, coef, dg1, dg2, B, T, H, R,
-             stream);
-}
-
-int cld_lstm2_bwd_bf16(const bf16* dy, const bf16* xg1, const bf16* h0, const bf16* Wh1,
-                       const bf16* W2, const bf16* b2, const bf16* h1s, const bf16* c1s,
-                       const bf16* ys, const bf16* c2s, const float* wpk, float* coef,
-                       bf16* dg1, bf16* dg2, int B, int T, int H, int R, void* stream) {
-  return bwd(dy, xg1, h0, Wh1, W2, b2, h1s, c1s, ys, c2s, wpk, coef, dg1, dg2, B, T, H, R,
-             stream);
-}
-
-// Compiler's verdict on one instantiation: out = {registers per thread,
-// local memory bytes per thread (spills), max threads per block}. which: 0
-// the forward, 1 the reverse sweep's gates kernel (R ignored), 2 its chain.
-int cld_lstm2_attributes(int which, int H, int R, int* out) {
-  return attributes<float>(which, H, R, out);
-}
-
-int cld_lstm2_attributes_bf16(int which, int H, int R, int* out) {
-  return attributes<bf16>(which, H, R, out);
 }
 
 }  // extern "C"

@@ -2,8 +2,8 @@
 
 Counterpart of `cld_tpu/ops/lstm_pallas.py`. The guided sampler runs the VAE
 decoder and its VJP at every denoise step; the sequential core of that
-decoder is one forward kernel and one reverse-sweep kernel
-(`csrc/lstm.cu`), wrapped as the autograd Function `Lstm2Core`:
+decoder is one forward kernel and one reverse-sweep kernel (`csrc/lstm.cu`,
+in bf16 `csrc/lstm_bf16.cu`), wrapped as the autograd Function `Lstm2Core`:
 
 * forward: xg1 [B, T, 4H] (= z @ Wx1 + b1, computed outside), h0 [B, H]
   (initial hidden of BOTH layers, cell states zero), Wh1 [H, 4H],
@@ -27,14 +27,17 @@ bf16 the sequences, h0 and the weights are stored in bf16; each matmul
 operand is rounded to bf16 (the carried h, the dg vectors), the products
 are summed in f32, and the gate math and the c / dh / dc carries stay f32,
 as the Pallas kernels' `mm(a, w) = dot(a.astype(w.dtype), w, f32)` does.
-The bf16 launches count as `lstm2_fwd_bf16` / `lstm2_bwd_bf16`.
-`fused_decode_actions` stores in bf16 inside a bf16 autocast region
-(`ops.precision`).
+The f32 sweeps are `csrc/lstm.cu`; the bf16 ones are other kernels, on the
+tensor cores (`csrc/lstm_bf16.cu`), whose launches count as
+`lstm2_fwd_bf16` / `lstm2_bwd_bf16`. `fused_decode_actions` stores in bf16
+inside a bf16 autocast region (`ops.precision`).
 
 The kernels keep each thread's weights in registers, in an order of their
 own: `pack_weights` lays Wh1 and W2 out that way before each launch (one
-gather), `unpack_weights` inverts it. They take H a multiple of 8 in [8, 64] (`check_hidden`) and run
-`rows_per_cta` batch rows in each CTA.
+gather; "fwd" / "bwd" f32 floats for `lstm.cu`, "fwd_bf16" / "bwd_bf16"
+bf16 mma fragments for `lstm_bf16.cu`, no f32 copy), `unpack_weights`
+inverts it. They take H a multiple of 8 in [8, 64] (`check_hidden`) and run
+`rows_per_cta` (f32) or `ROWS_PER_CTA_BF16` batch rows in each CTA.
 """
 
 from __future__ import annotations
@@ -211,15 +214,21 @@ def check_hidden(H: int) -> None:
                          f"multiple of 8 in [8, 64]")
 
 
-ROWS_PER_CTA = (1, 2)  # the kernels' instantiations
+ROWS_PER_CTA = (1, 2)  # the f32 kernels' instantiations
 
 
 def rows_per_cta(B: int, sms: int) -> int:
-    """Batch rows per CTA of both sweeps: one while the B rows fit the card's
-    `sms` multiprocessors (one CTA each), two beyond. A step's time grows
-    with the rows a CTA carries, nearly in proportion from four rows on, so
-    on an H100 two rows in several waves beat four rows in one."""
+    """Batch rows per CTA of both f32 sweeps: one while the B rows fit the
+    card's `sms` multiprocessors (one CTA each), two beyond. A step's time
+    grows with the rows a CTA carries, nearly in proportion from four rows
+    on, so on an H100 two rows in several waves beat four rows in one."""
     return 1 if B <= sms else 2
+
+
+# Batch rows per CTA of both bf16 sweeps, at any B: the even slots of one
+# mma N tile of eight, so that each lane owns one cell (`lstm_bf16.cu`).
+ROWS_PER_CTA_BF16 = 4
+COEF_PLANES_BF16 = 12  # the bf16 reverse sweep's coefficients per (b, t, unit)
 
 
 def _lane_elems(n: int) -> torch.Tensor:
@@ -234,16 +243,70 @@ def _lane_elems(n: int) -> torch.Tensor:
     return ((m // v) * LANES + torch.arange(LANES)[:, None]) * v + m % v
 
 
+def mma_a_fragment() -> Tuple[torch.Tensor, torch.Tensor]:
+    """Where each bf16 of a lane's A fragment of `mma.m16n8k16` sits in its
+    16 x 16 tile: (row, column), each [4 registers, 32 lanes, 2 halves].
+    Register r holds row lane/4 (+8 for odd r), columns 2 (lane%4) and +1
+    (+8 for r >= 2), the lower column in the lower half."""
+    r = torch.arange(4)[:, None, None]
+    lane = torch.arange(32)[None, :, None]
+    e = torch.arange(2)[None, None, :]
+    return lane // 4 + 8 * (r % 2), 2 * (lane % 4) + e + 8 * (r // 2)
+
+
+def _fwd_bf16_index(H: int, pad: int) -> torch.Tensor:
+    """"fwd_bf16": the forward's and the gates kernel's A tiles, W^T with M
+    = gate columns and K = the inputs. Warp u of a layer owns units 8u ..
+    8u+7: m-tile 0 holds their gates i (rows 0-7) and f (rows 8-15), m-tile 1
+    g and o. Tiles [layer-1 warps][m-tile][k-tile] (Wh1), then [layer-2
+    warps][m-tile][operand][k-tile] (operand 0: W2[:H], 1: W2[H:]), each
+    [4, 32, 2] as `mma_a_fragment`; inputs k >= H are zero (`pad`)."""
+    G, KT, UB = 4 * H, -(-H // 16), H // 8
+    m, kk = mma_a_fragment()
+    u = torch.arange(UB)[:, None, None, None, None, None, None]
+    mt = torch.arange(2)[None, :, None, None, None, None, None]
+    op = torch.arange(2)[None, None, :, None, None, None, None]
+    kt = torch.arange(KT)[None, None, None, :, None, None, None]
+    col = (2 * mt + m // 8) * H + 8 * u + m % 8
+    k = 16 * kt + kk
+    l1 = torch.where(k < H, k * G + col, pad)[:, :, 0]  # [UB, 2, KT, 4, 32, 2]
+    l2 = torch.where(k < H, H * G + (op * H + k) * G + col, pad)  # [UB, 2, 2, KT, 4, 32, 2]
+    return torch.cat((l1.reshape(-1), l2.reshape(-1)))
+
+
+def _bwd_bf16_index(H: int, pad: int) -> torch.Tensor:
+    """"bwd_bf16": the chain's A tiles, W with M = 16 units and K = the 4H
+    gate columns. Tiles [role][m-tile][k-tile] for the roles W2[H:] (rows H +
+    unit), W2[:H] and Wh1 (rows unit), each [4, 32, 2] as `mma_a_fragment`;
+    units >= H are zero (`pad`)."""
+    G, MT, KT = 4 * H, -(-H // 16), H // 4
+    m, kk = mma_a_fragment()
+    mt = torch.arange(MT)[:, None, None, None, None]
+    kt = torch.arange(KT)[None, :, None, None, None]
+    unit = 16 * mt + m
+    k = 16 * kt + kk
+    rows = (H * G + (H + unit) * G, H * G + unit * G, unit * G)  # into cat(Wh1, W2)
+    return torch.stack([torch.where(unit < H, r + k, pad) for r in rows]).reshape(-1)
+
+
+WEIGHT_KINDS = ("fwd", "bwd", "fwd_bf16", "bwd_bf16")
+
+
 @functools.lru_cache(maxsize=None)
 def weight_index(kind: str, H: int, device: torch.device = torch.device("cpu")) -> torch.Tensor:
     """Packed weight order of one kernel as indices into
-    cat(Wh1.flatten(), W2.flatten()); shape [3, H // 8, 8H, 4], thread
-    t = 8k + l (unit k, lane l) of the kernel at [:, :, t].
+    cat(Wh1.flatten(), W2.flatten(), [0]): index 12 H^2 is the zero that
+    pads a bf16 tile.
 
-    "fwd": parts Wh1, W2[:H], W2[H:]; entry [p, m, t, g] is row e of the
-    part (e = lane l's m-th element of the H inputs) at gate column g*H + k.
-    "bwd": parts W2[k], W2[H + k], Wh1[k] (rows); entry [p, m, t, c] is
-    column (m*8 + l)*4 + c of that row."""
+    f32 kinds, shape [3, H // 8, 8H, 4], thread t = 8k + l (unit k, lane l)
+    of the kernel at [:, :, t]. "fwd": parts Wh1, W2[:H], W2[H:]; entry
+    [p, m, t, g] is row e of the part (e = lane l's m-th element of the H
+    inputs) at gate column g*H + k. "bwd": parts W2[k], W2[H + k], Wh1[k]
+    (rows); entry [p, m, t, c] is column (m*8 + l)*4 + c of that row.
+
+    bf16 kinds, flat, mma A fragments in `lstm_bf16.cu`'s order (a lane
+    reads its four 32-bit registers of a tile at [tile][r][lane]):
+    "fwd_bf16" (`_fwd_bf16_index`), "bwd_bf16" (`_bwd_bf16_index`)."""
     G, K = 4 * H, H // LANES
     k = torch.arange(H)
     if kind == "fwd":
@@ -255,22 +318,40 @@ def weight_index(kind: str, H: int, device: torch.device = torch.device("cpu")) 
         cols = _lane_elems(G).reshape(LANES, K, 4).permute(1, 0, 2)  # [K, LANES, 4]
         rows = torch.stack([H + k, 2 * H + k, k])  # W2[k], W2[H + k], Wh1[k] as rows of the cat
         idx = rows[:, None, :, None, None] * G + cols[None, :, None, :, :]
+    elif kind == "fwd_bf16":
+        return _fwd_bf16_index(H, 12 * H * H).to(device)
+    elif kind == "bwd_bf16":
+        return _bwd_bf16_index(H, 12 * H * H).to(device)
     else:
-        raise ValueError(f"weight_index: kind {kind!r}, expected 'fwd' or 'bwd'")
+        raise ValueError(f"weight_index: kind {kind!r}, expected one of {WEIGHT_KINDS}")
     return idx.reshape(3, K, LANES * H, 4).to(device)
 
 
 def pack_weights(kind: str, Wh1: torch.Tensor, W2: torch.Tensor) -> torch.Tensor:
-    """Wh1 [H, 4H], W2 [2H, 4H] -> one kernel's weight layout ("fwd" or
-    "bwd", see `weight_index`), [3, H/8, 8H, 4]."""
-    flat = torch.cat((Wh1.reshape(-1), W2.reshape(-1)))
-    return flat.take(weight_index(kind, Wh1.shape[0], flat.device))
+    """Wh1 [H, 4H], W2 [2H, 4H] -> one kernel's weight layout (see
+    `weight_index`), in the weights' dtype: one gather, no copy in another
+    type."""
+    return pack_layouts(Wh1, W2, kind)[0]
+
+
+def pack_layouts(Wh1: torch.Tensor, W2: torch.Tensor, *kinds: str) -> Tuple[torch.Tensor, ...]:
+    """`pack_weights` of each kind, from one concatenation of the weights
+    (and of the zero a bf16 layout pads with, where H is not a multiple of
+    16): the reverse sweep's two layouts in three launches."""
+    H = Wh1.shape[0]
+    parts = (Wh1.reshape(-1), W2.reshape(-1))
+    if H % 16 and any(k.endswith("_bf16") for k in kinds):
+        parts += (Wh1.new_zeros(1),)
+    flat = torch.cat(parts)
+    return tuple(flat.take(weight_index(k, H, flat.device)) for k in kinds)
 
 
 def unpack_weights(kind: str, packed: torch.Tensor, H: int):
     """Inverse of `pack_weights` -> (Wh1, W2)."""
+    idx = weight_index(kind, H, packed.device).reshape(-1)
+    keep = idx < 12 * H * H  # a bf16 tile's padding holds no weight
     flat = torch.empty(12 * H * H, dtype=packed.dtype, device=packed.device)
-    flat[weight_index(kind, H, packed.device).reshape(-1)] = packed.reshape(-1)
+    flat[idx[keep]] = packed.reshape(-1)[keep]
     return flat[: 4 * H * H].reshape(H, 4 * H), flat[4 * H * H:].reshape(2 * H, 4 * H)
 
 
@@ -282,12 +363,16 @@ def _sm_count(device: torch.device) -> int:
 def kernel_attributes(which: int, H: int, R: int = 1,
                       dtype: torch.dtype = torch.float32) -> dict:
     """The compiler's verdict on one instantiation (which: 0 the forward, 1
-    the reverse sweep's gates kernel, 2 its chain; `dtype` the storage
-    type): registers and local memory bytes (spills) per thread, max threads
-    per block."""
+    the reverse sweep's gates kernel, 2 its chain; `dtype` the storage type,
+    R of `ROWS_PER_CTA`, unused in bf16): registers and local memory bytes
+    (spills) per thread, max threads per block, and for bf16 the shared
+    memory bytes (static, and the chain's dynamic)."""
     lib = native.library()
-    fn = lib.cld_lstm2_attributes_bf16 if dtype == torch.bfloat16 else lib.cld_lstm2_attributes
-    regs, local, threads = native.attributes(fn, which, H, R)
+    if dtype == torch.bfloat16:
+        regs, local, threads, smem = native.attributes(lib.cld_lstm2_attributes_bf16, which, H,
+                                                       n=4)
+        return dict(registers=regs, local_bytes=local, max_threads=threads, shared_bytes=smem)
+    regs, local, threads = native.attributes(lib.cld_lstm2_attributes, which, H, R)
     return dict(registers=regs, local_bytes=local, max_threads=threads)
 
 
@@ -320,7 +405,7 @@ def _storage(name: str, **tensors) -> torch.dtype:
 
 
 def _require_aligned(**tensors) -> None:
-    """The kernels read these as float4: 16-byte aligned storage."""
+    """The kernels read these 16 bytes at a time: 16-byte aligned storage."""
     for name, t in tensors.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: storage must be 16-byte aligned for the LSTM kernels")
@@ -328,7 +413,8 @@ def _require_aligned(**tensors) -> None:
 
 def lstm2_fwd(xg1, h0, Wh1, W2, b2):
     """Forward sweep -> (y, h1s, c1s, c2s), in the inputs' dtype. CUDA
-    tensors launch `lstm2_fwd_kernel` of their storage type; CPU tensors take
+    tensors launch `lstm2_fwd_kernel` (f32, `csrc/lstm.cu`) or
+    `lstm2_fwd_mma_kernel` (bf16, `csrc/lstm_bf16.cu`); CPU tensors take
     `lstm2_core_ref`."""
     if xg1.device.type not in ("cpu", "cuda"):
         raise ValueError(f"lstm2_fwd: unsupported device {xg1.device}")
@@ -342,23 +428,31 @@ def lstm2_fwd(xg1, h0, Wh1, W2, b2):
                            ("b2", b2, (4 * H,))):
         native.require(t, name, dt, shape, dev)
     y, h1s, c1s, c2s = torch.empty((4, B, T, H), dtype=dt, device=dev).unbind(0)
-    wpk = pack_weights("fwd", Wh1.float(), W2.float())
     lib = native.library()
-    bf16 = dt == torch.bfloat16
-    native.check((lib.cld_lstm2_fwd_bf16 if bf16 else lib.cld_lstm2_fwd)(
+    if dt == torch.bfloat16:
+        wpk = pack_weights("fwd_bf16", Wh1, W2)  # alive until the launch is queued
+        native.check(lib.cld_lstm2_fwd_bf16(
+            xg1.data_ptr(), h0.data_ptr(), wpk.data_ptr(), b2.data_ptr(), y.data_ptr(),
+            h1s.data_ptr(), c1s.data_ptr(), c2s.data_ptr(), B, T, H, native.stream_ptr(dev),
+        ), "lstm2_fwd")
+        native.count_launch("lstm2_fwd_bf16")
+        return y, h1s, c1s, c2s
+    wpk = pack_weights("fwd", Wh1, W2)
+    native.check(lib.cld_lstm2_fwd(
         xg1.data_ptr(), h0.data_ptr(), wpk.data_ptr(), b2.data_ptr(),
         y.data_ptr(), h1s.data_ptr(), c1s.data_ptr(), c2s.data_ptr(), B, T, H,
         rows_per_cta(B, _sm_count(dev)), native.stream_ptr(dev),
     ), "lstm2_fwd")
-    native.count_launch("lstm2_fwd_bf16" if bf16 else "lstm2_fwd")
+    native.count_launch("lstm2_fwd")
     return y, h1s, c1s, c2s
 
 
 def lstm2_bwd(dy, xg1, h0, Wh1, W2, b2, h1s, c1s, ys, c2s):
     """Reverse sweep -> (dg1, dg2), in the inputs' dtype. CUDA tensors
-    launch the gates kernel into a scratch buffer (f32) and then
-    `lstm2_bwd_kernel` (one launch counted); CPU tensors take
-    `lstm2_bwd_ref`."""
+    launch a gates kernel into an f32 scratch buffer and then the chain (one
+    launch counted): `lstm2_bwd_gates_kernel` + `lstm2_bwd_kernel` (f32), or
+    `lstm2_gates_mma_kernel` + `lstm2_chain_mma_kernel` (bf16); CPU tensors
+    take `lstm2_bwd_ref`."""
     if xg1.device.type not in ("cpu", "cuda"):
         raise ValueError(f"lstm2_bwd: unsupported device {xg1.device}")
     dt = _storage("lstm2_bwd", dy=dy, xg1=xg1, h0=h0, Wh1=Wh1, W2=W2, b2=b2, h1s=h1s,
@@ -373,20 +467,31 @@ def lstm2_bwd(dy, xg1, h0, Wh1, W2, b2, h1s, c1s, ys, c2s):
                            ("b2", b2, (4 * H,)), ("h1s", h1s, seq), ("c1s", c1s, seq),
                            ("ys", ys, seq), ("c2s", c2s, seq)):
         native.require(t, name, dt, shape, dev)
-    _require_aligned(xg1=xg1, Wh1=Wh1, W2=W2, b2=b2)
     dg1 = torch.empty((B, T, 4 * H), dtype=dt, device=dev)
     dg2 = torch.empty_like(dg1)
-    coef = torch.empty((B, T, COEF_PLANES, H), dtype=torch.float32, device=dev)
-    wpk = pack_weights("bwd", Wh1.float(), W2.float())
     lib = native.library()
-    bf16 = dt == torch.bfloat16
-    native.check((lib.cld_lstm2_bwd_bf16 if bf16 else lib.cld_lstm2_bwd)(
+    sms = _sm_count(dev)
+    if dt == torch.bfloat16:
+        _require_aligned(dy=dy, h0=h0, h1s=h1s, ys=ys)
+        coef = torch.empty((B, T, COEF_PLANES_BF16, H), dtype=torch.float32, device=dev)
+        wfwd, wbwd = pack_layouts(Wh1, W2, "fwd_bf16", "bwd_bf16")  # alive until the launch is queued
+        native.check(lib.cld_lstm2_bwd_bf16(
+            dy.data_ptr(), xg1.data_ptr(), h0.data_ptr(), b2.data_ptr(), h1s.data_ptr(),
+            c1s.data_ptr(), ys.data_ptr(), c2s.data_ptr(), wfwd.data_ptr(), wbwd.data_ptr(),
+            coef.data_ptr(), dg1.data_ptr(), dg2.data_ptr(), B, T, H, sms, native.stream_ptr(dev),
+        ), "lstm2_bwd")
+        native.count_launch("lstm2_bwd_bf16")
+        return dg1, dg2
+    _require_aligned(xg1=xg1, Wh1=Wh1, W2=W2, b2=b2)
+    coef = torch.empty((B, T, COEF_PLANES, H), dtype=torch.float32, device=dev)
+    wpk = pack_weights("bwd", Wh1, W2)
+    native.check(lib.cld_lstm2_bwd(
         dy.data_ptr(), xg1.data_ptr(), h0.data_ptr(), Wh1.data_ptr(), W2.data_ptr(),
         b2.data_ptr(), h1s.data_ptr(), c1s.data_ptr(), ys.data_ptr(), c2s.data_ptr(),
         wpk.data_ptr(), coef.data_ptr(), dg1.data_ptr(), dg2.data_ptr(), B, T, H,
-        rows_per_cta(B, _sm_count(dev)), native.stream_ptr(dev),
+        rows_per_cta(B, sms), native.stream_ptr(dev),
     ), "lstm2_bwd")
-    native.count_launch("lstm2_bwd_bf16" if bf16 else "lstm2_bwd")
+    native.count_launch("lstm2_bwd")
     return dg1, dg2
 
 

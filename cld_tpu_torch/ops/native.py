@@ -112,14 +112,15 @@ def library() -> ctypes.CDLL:
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
         p, i = ctypes.c_void_p, ctypes.c_int
-        for fn in (lib.cld_lstm2_fwd, lib.cld_lstm2_fwd_bf16):
-            fn.argtypes = [p] * 8 + [i] * 4 + [p]
-            fn.restype = i
-        for fn in (lib.cld_lstm2_bwd, lib.cld_lstm2_bwd_bf16):
-            fn.argtypes = [p] * 14 + [i] * 4 + [p]
-            fn.restype = i
-        for fn in (lib.cld_lstm2_attributes, lib.cld_lstm2_attributes_bf16):
-            fn.argtypes = [i, i, i, p]
+        lib.cld_lstm2_fwd.argtypes = [p] * 8 + [i] * 4 + [p]
+        lib.cld_lstm2_fwd_bf16.argtypes = [p] * 8 + [i] * 3 + [p]
+        lib.cld_lstm2_bwd.argtypes = [p] * 14 + [i] * 4 + [p]
+        lib.cld_lstm2_bwd_bf16.argtypes = [p] * 13 + [i] * 4 + [p]
+        lib.cld_lstm2_attributes.argtypes = [i, i, i, p]
+        lib.cld_lstm2_attributes_bf16.argtypes = [i, i, p]
+        for fn in (lib.cld_lstm2_fwd, lib.cld_lstm2_fwd_bf16, lib.cld_lstm2_bwd,
+                   lib.cld_lstm2_bwd_bf16, lib.cld_lstm2_attributes,
+                   lib.cld_lstm2_attributes_bf16):
             fn.restype = i
         lib.cld_bit_gather.argtypes = [p] * 3 + [i, i, i, i, p]
         lib.cld_bit_gather.restype = i
@@ -163,10 +164,11 @@ def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def attributes(fn, *args) -> list:
+def attributes(fn, *args, n: int = 3) -> list:
     """What a `cld_*_attributes` query writes: registers and local memory
-    bytes (spills) per thread, max threads per block."""
-    out = (ctypes.c_int * 3)()
+    bytes (spills) per thread, max threads per block (and, for the n = 4
+    queries, shared memory bytes per block)."""
+    out = (ctypes.c_int * n)()
     check(fn(*args, ctypes.addressof(out)), "kernel attributes")
     return list(out)
 
