@@ -251,17 +251,40 @@
    agents at raster 224 (one `value_gather` per anchor, 2 anchors) and one
    `SceneDiffuser` composer replan (no launch) at the closed loop's width,
    each timed in turns beside fp32.
-24. Times the launch floor: `torch.cuda._sleep(0)` (one thread that exits
+24. Runs the LSTM decoder kernels at every hidden size the JAX kernels take
+   (H 1-320; `WIDE_HELD`): both sweeps in f32 and bf16 against their plain
+   versions at H = 1, 5, 50 (padded onto the H <= 64 kernels) and 72, 96,
+   128, 200, 256, 320 (`csrc/lstm_wide.cu`, a thread-block cluster per 8
+   batch rows) at small B / T, B ragged against the cluster's 8 rows: f32
+   within 1e-5 and bf16 within 2^-7 of max |plain|, two launches bit for
+   bit; the wide kernels' registers, spills, shared memory and cluster size,
+   and their times from Python and from a CUDA graph at B = 32, 128, 512,
+   T = 52, H = 128 and 320, beside the plain versions' and cuDNN's
+   `nn.LSTM` (forward, and backward beside the `Lstm2Core` VJP) at that H
+   in the same dtype. Then the guided call at the config of record with
+   `algo.vae.hidden_size` 128 (B=128 in scenes of 4, raster 224, 100 DDPM
+   steps, agent + map collision guidance), fresh weights from seed 0, under
+   "auto" (bf16) and fp32: exactly 100 wide forward and 99 wide reverse
+   sweeps of the run's dtype, 99 `bit_gather`, 1 `offroad_count`; NFE/s
+   beside step 23's H = 64 rows (no claim); one guidance step's gradient
+   bf16 against fp32 at cosine > 0.999; and the small slice of step 5 at
+   H = 128, card against CPU. Last the bulk-copy probe (`python -m
+   cld_tpu_torch.dma_probe`, the counterpart of
+   `scripts/micro_dma_probe.py`): its four cases (minor 128 / 64, the whole
+   array or a batch slice) equal to 2 x bit for bit, 4 launches, the copy
+   shapes printed, timed from a graph beside `2 * x`.
+25. Times the launch floor: `torch.cuda._sleep(0)` (one thread that exits
    at once) from a CUDA graph, as every kernel's graph time is taken.
-25. Prints the card line, one `{"kernels": [...]}` line (`launches_by_path`
+26. Prints the card line, one `{"kernels": [...]}` line (`launches_by_path`
    there holds each main-path run's own count, of 4, 7, 8, 11, 12, 14, 15,
    17, 18 (its rollout and its `--mode test`), 19 (its training, its
    guided rollout and each model-free policy), 20 (the zoo, 0 of every
    kernel), 21 (each trainer, 0 of every kernel; the `--ebm-ckpt`
    rollout; the scene policy; the latent attack), 22 (each composer's
-   call, `--composer-ckpt`, the traced replan) and 23 (the bf16 VAE eval
+   call, `--composer-ckpt`, the traced replan), 23 (the bf16 VAE eval
    step, DM steps, PPO collection, train CLI, guided call, rollout, the
-   other trainers, the EBM's scoring and the SceneDiffuser replan), each zeroed
+   other trainers, the EBM's scoring and the SceneDiffuser replan) and 24
+   (the hidden-128 guided calls, the bulk-copy probe), each zeroed
    before its run and checked exactly; `launches` is their sum;
    `graph_ms` is each kernel's time from a CUDA graph at the main path's
    shape, B=128 for the LSTM kernels, beside `launch_floor_ms`), and last
@@ -440,6 +463,20 @@ def bound(nbytes: float, flops: float, flops_per_s: float = F32_FLOPS_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def lstm_bounds(Bn, Tn, Hn, elem, flops_per_s):
+    """(forward, reverse sweep) bounds, each (ms, by): every input read once
+    and every output written once (the weights once), and the recurrent
+    products' operations (the reverse sweep's gate recompute too)."""
+    w_bytes = elem * (Hn * 4 * Hn + 2 * Hn * 4 * Hn + 4 * Hn)
+    seq, gates = Bn * Tn * Hn, Bn * Tn * 4 * Hn
+    fwd = bound(elem * (gates + Bn * Hn + 4 * seq) + w_bytes,
+                2.0 * Bn * Tn * (Hn * 4 * Hn + 2 * Hn * 4 * Hn), flops_per_s)
+    bwd = bound(elem * (seq + gates + Bn * Hn + 4 * seq + 2 * gates) + w_bytes,
+                2.0 * Bn * Tn * (Hn * 4 * Hn + 2 * Hn * 4 * Hn + 4 * Hn * 2 * Hn + 4 * Hn * Hn),
+                flops_per_s)
+    return fwd, bwd
+
+
 def gather_bound(pix, rows: int, row_elems: int, elem_bytes: int, out_bytes: int,
                  col_shift: int = 0):
     """Bound of a gather over pix [M, Q, 2] (col, row) into M sources of
@@ -610,13 +647,7 @@ def check_lstm(models, dev, report):
         f"nn.LSTM forward {fwd_lib_ms:.4f} ({fwd_lib_graph:.4f}); lstm2_bwd {bwd_ms:.4f} ms, "
         f"Lstm2Core VJP {vjp_ms:.4f} vs cuDNN backward {bwd_lib_ms:.4f} (B={B})")
 
-    f32 = 4
-    w_bytes = f32 * (H * 4 * H + 2 * H * 4 * H + 4 * H)
-    fwd_b, fwd_by = bound(f32 * (B * T * 4 * H + B * H + 4 * B * T * H) + w_bytes,
-                          2.0 * B * T * (H * 4 * H + 2 * H * 4 * H))
-    bwd_b, bwd_by = bound(
-        f32 * (B * T * H + B * T * 4 * H + B * H + 4 * B * T * H + 2 * B * T * 4 * H) + w_bytes,
-        2.0 * B * T * (H * 4 * H + 2 * H * 4 * H + 4 * H * 2 * H + 4 * H * H))
+    (fwd_b, fwd_by), (bwd_b, bwd_by) = lstm_bounds(B, T, H, 4, F32_FLOPS_PER_S)
     report["lstm2_fwd"] = dict(max_abs_err=e128["fwd_abs"], max_rel_err=e128["fwd_rel"],
                                ms=fwd_ms, plain_ms=fwd_plain_ms, bound_ms=fwd_b, bound_by=fwd_by,
                                library_ms=fwd_lib_ms, library_graph_ms=fwd_lib_graph,
@@ -725,10 +756,10 @@ def road_edge_shift(g, Bn):
     return side
 
 
-def check_small_slice(dev, report, min_dist_impl="separable"):
+def check_small_slice(dev, report, min_dist_impl="separable", hidden=H):
     """The slice at a small size on the card (kernels) and on the CPU (plain
     versions), same weights and noise, with the map loss under
-    `min_dist_impl`. Each comparison holds
+    `min_dist_impl` and an LSTM decoder of `hidden` units. Each comparison holds
     |card - cpu| <= 1e-4 |cpu| + floor * max |cpu|. The floor is 1e-6 for
     trajectories and unguided latents. It is 1e-4 for the guided latents:
     one Adam step from m = v = 0 moves a component by ~lr * sign(g), so a
@@ -753,7 +784,7 @@ def check_small_slice(dev, report, min_dist_impl="separable"):
     res = {}
     for where in ("cpu", dev):
         m = pipeline.build_models(seed=5, device=where, n_diffusion_steps=steps,
-                                  precision="fp32")
+                                  hidden_size=hidden, precision="fp32")
         b = synthetic_batch(seed=4, batch_size=Bs, raster_size=64, device=where)
         specs = pipeline.flagship_guidance_specs(AGENTS_PER_SCENE, min_dist_impl=min_dist_impl)
         outs = {gd: pipeline.guided_collect(m, b, guided=gd, agents_per_scene=AGENTS_PER_SCENE,
@@ -774,11 +805,13 @@ def check_small_slice(dev, report, min_dist_impl="separable"):
         grad = guidance_gradient(z.to(where), ctx, specs, decode_fn)
         res[str(where)] = (outs, grad.cpu(), outs[True]["launches"])
     (c_outs, c_grad, _), (g_outs, g_grad, g_launch) = res["cpu"], res[str(dev)]
-    want = counts(lstm2_fwd=steps, lstm2_bwd=steps - 1, bit_gather=steps - 1, offroad_count=1)
+    wide = "_wide" if hidden > H else ""
+    want = counts(**{f"lstm2_fwd{wide}": steps, f"lstm2_bwd{wide}": steps - 1},
+                  bit_gather=steps - 1, offroad_count=1)
     if min_dist_impl == "rigid_kernel":
         want.update(rigid_min=steps - 1, rigid_bwd=steps - 1)
-    check(g_launch == want, f"small slice ({min_dist_impl}) launches {g_launch}, expected {want}")
-    tag0 = f"small slice ({min_dist_impl})"
+    tag0 = f"small slice ({min_dist_impl}{f', H={hidden}' if wide else ''})"
+    check(g_launch == want, f"{tag0} launches {g_launch}, expected {want}")
 
     def close(name, a, b, floor):
         a, b = a.detach().cpu(), b.detach().cpu()
@@ -798,8 +831,8 @@ def check_small_slice(dev, report, min_dist_impl="separable"):
                                           c_outs[gd]["pred_traj"], 1e-4 if gd else 1e-6)
     check(float(c_grad.abs().max()) > 0.0, "small slice guidance gradient is zero")
     summary["guidance_grad"] = close("guidance gradient", g_grad, c_grad, 1e-4)
-    report["small_slice" if min_dist_impl == "separable" else f"small_slice_{min_dist_impl}"] = \
-        summary
+    key = "small_slice" if min_dist_impl == "separable" else f"small_slice_{min_dist_impl}"
+    report[f"{key}_h{hidden}" if wide else key] = summary
 
 
 def check_map_gathers(dev, report):
@@ -3830,13 +3863,7 @@ def check_lstm_bf16(kernels):
         f"{bwd_ms:.4f} ms, Lstm2Core VJP {vjp_ms:.4f} vs cuDNN bf16 backward {bwd_lib_ms:.4f} "
         f"(B={B})")
 
-    b16 = 2
-    w_bytes = b16 * (H * 4 * H + 2 * H * 4 * H + 4 * H)
-    fwd_b, fwd_by = bound(b16 * (B * T * 4 * H + B * H + 4 * B * T * H) + w_bytes,
-                          2.0 * B * T * (H * 4 * H + 2 * H * 4 * H), BF16_FLOPS_PER_S)
-    bwd_b, bwd_by = bound(
-        b16 * (B * T * H + B * T * 4 * H + B * H + 4 * B * T * H + 2 * B * T * 4 * H) + w_bytes,
-        2.0 * B * T * (H * 4 * H + 2 * H * 4 * H + 4 * H * 2 * H + 4 * H * H), BF16_FLOPS_PER_S)
+    (fwd_b, fwd_by), (bwd_b, bwd_by) = lstm_bounds(B, T, H, 2, BF16_FLOPS_PER_S)
     e = errs[str(B)]
     common = dict(held=errs)
     kernels["lstm2_fwd_bf16"] = dict(
@@ -4452,6 +4479,257 @@ def run_bf16(models32, kernels, report):
     log(f"step 23 (bf16) in {report['bf16_s']:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# step 24: the LSTM decoder kernels at every hidden size (H 1-320)
+# ---------------------------------------------------------------------------
+
+WIDE_H = 128  # the decoder width of step 24's guided calls
+# (H, B, T) at which both sweeps are held in f32 and bf16: padded onto the H <= 64
+# kernels (1, 5, 50) and onto `lstm_wide.cu` (72 ... 320), B ragged against the
+# cluster's 8 rows; cluster 8 and 16 in both dtypes, f32's weights read from
+# global memory at 256 and 320
+WIDE_HELD = ((1, 5, 7), (5, 9, 6), (50, 13, 5), (72, 5, 7), (96, 17, 4), (128, 3, 9),
+             (200, 11, 5), (256, 9, 4), (320, 13, 6))
+WIDE_TIMED_H = (128, 320)
+
+
+def cudnn_lstm_ms(Hn, dt, args, dy, g, dev):
+    """cuDNN's two-layer `nn.LSTM` at hidden Hn in dtype dt from random z
+    [B, T, L] (its own weights; it also does the input projection): forward
+    ms, and backward ms (train mode, grads of input, h0 and weights; forward
+    + backward - forward) beside the port's whole `Lstm2Core` VJP timed the
+    same way."""
+    import torch
+
+    from cld_tpu_torch.ops import lstm_kernels as lk
+
+    Bn = args[0].shape[0]
+    cudnn = torch.nn.LSTM(L, Hn, num_layers=2, batch_first=True).to(dev).to(dt)
+    z = torch.randn((Bn, T, L), generator=g).to(dev).to(dt)
+    hc = (args[1][None].expand(2, Bn, Hn).contiguous(), torch.zeros((2, Bn, Hn), device=dev,
+                                                                     dtype=dt))
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: cudnn(z, hc), 10)
+    zr = z.clone().requires_grad_(True)
+    h0r = hc[0].clone().requires_grad_(True)
+    lib_in = (zr, h0r, *cudnn.parameters())
+    lib_fwd = lambda: cudnn(zr, (h0r, hc[1]))[0]
+    bwd_ms = cuda_ms(lambda: torch.autograd.grad(lib_fwd(), lib_in, dy), 10)
+    core_in = [a.detach().clone().requires_grad_(True) for a in args]
+    core_fwd = lambda: lk.lstm2_core(*core_in)
+    vjp_ms = cuda_ms(lambda: torch.autograd.grad(core_fwd(), core_in, dy), 10)
+    return fwd_ms, bwd_ms - cuda_ms(lib_fwd, 10), vjp_ms - cuda_ms(core_fwd, 10)
+
+
+def check_wide_kernels(kernels):
+    """Both sweeps in both storage types at `WIDE_HELD`, then the wide
+    kernels' attributes and times at H = 128 and 320 (B = 32, 128, 512, T =
+    52) beside the plain versions and cuDNN; fills kernels[<wide name>]."""
+    import torch
+
+    from cld_tpu_torch.ops import lstm_kernels as lk
+
+    dev = torch.device("cuda", 0)
+    g = torch.Generator().manual_seed(24)
+    for dt in (torch.float32, torch.bfloat16):
+        sfx = "" if dt == torch.float32 else "_bf16"
+        hold = hold_lstm if dt == torch.float32 else hold_lstm_bf16
+        elem, peak = (4, F32_FLOPS_PER_S) if dt == torch.float32 else (2, BF16_FLOPS_PER_S)
+        held = {}
+        for Hn, Bn, Tn in WIDE_HELD:
+            a, d = lstm_inputs(g, Bn, Tn, Hn, dev)
+            _, held[f"{Bn}/{Tn}/{Hn}"] = hold(tuple(x.to(dt) for x in a), d.to(dt))
+        attrs = {}
+        for Hn in WIDE_TIMED_H:
+            for which, kname in enumerate(("lstm2_wide_fwd_kernel", "lstm2_wide_gates_kernel",
+                                           "lstm2_wide_chain_kernel")):
+                at = lk.kernel_attributes(which, Hn, dtype=dt)
+                attrs[f"{kname} H={Hn}"] = at
+                where = "in shared" if at["resident"] else "read from global"
+                grid = (f"cluster {at['cluster']} (weights {where} memory, "
+                        f"{at['max_active_clusters']} clusters at once)" if which != 1
+                        else "no cluster")
+                log(f"{kname} {dt} H={Hn}: {at['registers']} registers, {at['local_bytes']} "
+                    f"bytes of local memory per thread, {at['shared_bytes']} bytes of shared "
+                    f"memory, {at['threads']} threads, {grid}")
+        timed = {}
+        for Hn in WIDE_TIMED_H:
+            for Bn in (CL_B, B, 512):
+                a, d = lstm_inputs(g, Bn, T, Hn, dev)
+                a, d = tuple(x.to(dt) for x in a), d.to(dt)
+                y, h1s, c1s, c2s = lk.lstm2_fwd(*a)
+                ba = (d, *a, h1s, c1s, y, c2s)
+                row = dict(fwd_graph_ms=graph_ms(lambda: lk.lstm2_fwd(*a), 5, 4),
+                           bwd_graph_ms=graph_ms(lambda: lk.lstm2_bwd(*ba), 5, 4))
+                if Bn == B:  # the main path's shape: held, timed beside the plain versions
+                    bargs, e = hold(a, d)
+                    row.update(err=e, fwd_ms=cuda_ms(lambda: lk.lstm2_fwd(*a), 10),
+                               bwd_ms=cuda_ms(lambda: lk.lstm2_bwd(*ba), 10),
+                               fwd_plain_ms=cuda_ms(lambda: lk.lstm2_core_ref(*a), 2),
+                               bwd_plain_ms=cuda_ms(lambda: lk.lstm2_bwd_ref(*bargs), 2))
+                    row["cudnn_fwd_ms"], row["cudnn_bwd_ms"], row["vjp_ms"] = cudnn_lstm_ms(
+                        Hn, dt, a, d, g, dev)
+                    (row["fwd_bound_ms"], row["fwd_bound_by"]), (
+                        row["bwd_bound_ms"], row["bwd_bound_by"]) = lstm_bounds(B, T, Hn, elem,
+                                                                                peak)
+                timed[(Hn, Bn)] = row
+            r = timed[(Hn, B)]
+            graphs = ", ".join(f"{Bn}: fwd {timed[(Hn, Bn)]['fwd_graph_ms']:.4f}, bwd "
+                               f"{timed[(Hn, Bn)]['bwd_graph_ms']:.4f}" for Bn in (CL_B, B, 512))
+            log(f"wide LSTM {dt} H={Hn}, T={T}, from a CUDA graph (weight pack included), ms "
+                f"at B={graphs}; at B={B} from Python fwd {r['fwd_ms']:.4f} / bwd "
+                f"{r['bwd_ms']:.4f}, plain {r['fwd_plain_ms']:.3f} / {r['bwd_plain_ms']:.3f}, "
+                f"cuDNN nn.LSTM forward "
+                f"{r['cudnn_fwd_ms']:.4f} / backward {r['cudnn_bwd_ms']:.4f} (the Lstm2Core VJP "
+                f"{r['vjp_ms']:.4f}), bound {r['fwd_bound_ms']:.5f} ({r['fwd_bound_by']}) / "
+                f"{r['bwd_bound_ms']:.5f} ({r['bwd_bound_by']})")
+        for k in ("fwd", "bwd"):
+            r = timed[(WIDE_H, B)]
+            kernels[f"lstm2_{k}_wide{sfx}"] = dict(
+                max_abs_err=r["err"][f"{k}_abs"], max_rel_err=r["err"][f"{k}_rel"],
+                ms=r[f"{k}_ms"], plain_ms=r[f"{k}_plain_ms"], bound_ms=r[f"{k}_bound_ms"],
+                bound_by=r[f"{k}_bound_by"], library_ms=r[f"cudnn_{k}_ms"],
+                graph_ms={str(Bn): timed[(WIDE_H, Bn)][f"{k}_graph_ms"]
+                          for Bn in (CL_B, B, 512)},
+                by_hidden={str(Hn): {str(Bn): {kk: v for kk, v in timed[(Hn, Bn)].items()
+                                               if kk.startswith(k) or kk in ("err", "vjp_ms")
+                                               or kk.startswith(f"cudnn_{k}")}
+                                     for Bn in (CL_B, B, 512)} for Hn in WIDE_TIMED_H},
+                held={s: {kk: v for kk, v in e.items() if kk.startswith(k)}
+                      for s, e in held.items()},
+                attributes={kk: v for kk, v in attrs.items()
+                            if ("fwd" in kk) == (k == "fwd")})
+
+
+def run_wide_guided(report):
+    """The guided call with a hidden-128 decoder under "auto" (bf16) and
+    fp32, fresh weights from seed 0: exact launches, finite outputs, NFE/s
+    (the counted call's second run), and one guidance step's gradient bf16
+    against fp32 (the same latent and conditioning)."""
+    import torch
+
+    from cld_tpu_torch import pipeline
+    from cld_tpu_torch.data.synthetic import synthetic_batch
+    from cld_tpu_torch.guidance import losses as gl
+    from cld_tpu_torch.guidance import perturbation as gp
+    from cld_tpu_torch.models.vae import convert_action_to_state_and_action, decode_actions
+    from cld_tpu_torch.ops import native
+    from cld_tpu_torch.ops.normalization import TrajNormalizer
+
+    dev = torch.device("cuda", 0)
+    batch = synthetic_batch(seed=0, batch_size=B, raster_size=RASTER, device=dev)
+    g = torch.Generator(device=dev)
+    models, nfe = {}, {}
+    for precision, sfx in (("auto", "_bf16"), ("fp32", "")):
+        m = pipeline.build_models(seed=0, device=dev, hidden_size=WIDE_H, precision=precision)
+        want_dt = torch.bfloat16 if precision == "auto" else torch.float32
+        check(m.compute_dtype == want_dt, f"{precision} resolved to {m.compute_dtype}")
+        native.reset_launch_counts()
+        out = pipeline.guided_collect(m, batch, agents_per_scene=AGENTS_PER_SCENE,
+                                      generator=g.manual_seed(10))
+        torch.cuda.synchronize()
+        launches = native.launch_counts()
+        want = counts(**{f"lstm2_fwd_wide{sfx}": N_STEPS, f"lstm2_bwd_wide{sfx}": N_STEPS - 1},
+                      bit_gather=N_STEPS - 1, offroad_count=1)
+        check(launches == want, f"hidden-{WIDE_H} guided ({precision}) launches {launches}, "
+              f"expected {want}")
+        for k in ("pred_traj", "traj", "reward_per_agent"):
+            check(bool(torch.isfinite(out[k]).all()), f"hidden-{WIDE_H} guided {k} not finite")
+        check(tuple(out["traj"].shape) == (B, 1, T, 6), f"traj shape {tuple(out['traj'].shape)}")
+        report[f"launches_wide_guided{sfx or '_fp32'}"] = launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipeline.guided_collect(m, batch, agents_per_scene=AGENTS_PER_SCENE,
+                                generator=g.manual_seed(11))
+        torch.cuda.synchronize()
+        nfe[precision] = B * N_STEPS / (time.perf_counter() - t0)
+        models[precision] = m
+
+    wfa, scene = pipeline.scene_world_poses(B, AGENTS_PER_SCENE, dev)
+    ctx = gl.prepack_drivable(gl.GuidanceContext(
+        drivable_map=batch.drivable_map, raster_from_agent=batch.raster_from_agent,
+        extent=batch.extent, curr_speed=batch.curr_speed, world_from_agent=wfa,
+        scene_index=scene))
+    specs = pipeline.flagship_guidance_specs(AGENTS_PER_SCENE)
+    with torch.no_grad():
+        aux = models["fp32"].context(batch)
+    z = torch.randn((B, T, L), generator=torch.Generator(device=dev).manual_seed(12), device=dev)
+
+    def gradient(m):
+        def decode_fn(v):
+            acts = decode_actions(m.decoder, v, aux["cond_feat"])
+            traj = convert_action_to_state_and_action(acts, aux["curr_states"], m.dyn,
+                                                      TrajNormalizer(), descaled_output=True)
+            return traj[:, None]
+
+        return gp.guidance_gradient(z, ctx, specs, decode_fn)
+
+    cos = cosine(gradient(models["auto"]), gradient(models["fp32"]))
+    h64 = report.get("bf16_guided", {})
+    nan = float("nan")
+    log(f"hidden-{WIDE_H} guided call at B={B}: bf16 {nfe['auto']:.1f} NFE/s, fp32 "
+        f"{nfe['fp32']:.1f} NFE/s (H={H}: step 23's bf16 {h64.get('nfe_per_s', nan):.1f}, "
+        f"f32 {h64.get('f32_nfe_per_s', nan):.1f}; no claim), one step's guidance "
+        f"gradient bf16 vs fp32 cosine {cos:.6f}, on {report['card']}")
+    check(cos > TWIN_COSINE, f"hidden-{WIDE_H} bf16 guidance gradient cosine {cos} against fp32")
+    report["wide_guided"] = dict(hidden=WIDE_H, bf16_nfe_per_s=nfe["auto"],
+                                 fp32_nfe_per_s=nfe["fp32"], gradient_cosine=cos,
+                                 h64_bf16_nfe_per_s=h64.get("nfe_per_s"),
+                                 h64_fp32_nfe_per_s=h64.get("f32_nfe_per_s"))
+
+
+def run_dma_probe(kernels, report):
+    """The bulk-copy probe through its entry point: its four cases equal to
+    2 x bit for bit (4 launches), then its time from a CUDA graph at the
+    batch-slice case of minor 128 beside `2 * x` and its bound."""
+    import torch
+
+    from cld_tpu_torch import dma_probe
+    from cld_tpu_torch.ops import native
+
+    native.reset_launch_counts()
+    rc = dma_probe.main([])
+    torch.cuda.synchronize()
+    launches = native.launch_counts()
+    check(rc == 0, "the bulk-copy probe's output is not 2 x bit for bit")
+    check(launches == counts(dma_probe=len(dma_probe.CASES)), f"dma probe launches {launches}")
+    report["launches_dma_probe"] = launches
+    x = dma_probe.probe_input(128, True, torch.device("cuda", 0))
+    out = dma_probe.bulk_double(x, dma_probe.BB)
+    err = float((out.float() - 2 * x.float()).abs().max())
+    regs, local, threads, smem = native.attributes(native.library().cld_dma_probe_attributes,
+                                                   n=4)
+    nbytes = 2 * x.numel() * x.element_size()
+    b_ms, b_by = bound(nbytes, float(x.numel()))
+    kernels["dma_probe"] = dict(
+        max_abs_err=err, ms=cuda_ms(lambda: dma_probe.bulk_double(x, dma_probe.BB), 50),
+        plain_ms=cuda_ms(lambda: 2 * x, 50), bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(lambda: torch.mul(x, 2), 50),
+        graph_ms=graph_ms(lambda: dma_probe.bulk_double(x, dma_probe.BB)),
+        plain_graph_ms=graph_ms(lambda: 2 * x), cases=dma_probe.run_cases(x.device),
+        attributes=dict(registers=regs, local_bytes=local, max_threads=threads,
+                        static_shared_bytes=smem))
+    k = kernels["dma_probe"]
+    log(f"dma probe [{T}, {dma_probe.B}, 128] bf16, batch slices of {dma_probe.BB}: "
+        f"{k['graph_ms']:.5f} ms from a CUDA graph ({k['ms']:.4f} from Python) beside 2 * x "
+        f"{k['plain_graph_ms']:.5f} ({k['plain_ms']:.4f}), bound {b_ms:.5f} ({b_by}); "
+        f"{regs} registers, {local} bytes of local memory")
+
+
+def run_wide(kernels, report):
+    """Step 24: the LSTM kernels at H 1-320, the hidden-128 guided calls, the
+    small slice at H = 128, the bulk-copy probe."""
+    import torch
+
+    t0 = time.perf_counter()
+    check_wide_kernels(kernels)
+    run_wide_guided(report)
+    check_small_slice(torch.device("cuda", 0), report, hidden=WIDE_H)
+    run_dma_probe(kernels, report)
+    report["wide_s"] = time.perf_counter() - t0
+    log(f"step 24 (hidden sizes 1-320, the bulk-copy probe) in {report['wide_s']:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -4520,6 +4798,7 @@ def main() -> int:
     run_checkpoint_path(report)
     run_data_path(report)
     run_bf16(models, kernels, report)
+    run_wide(kernels, report)
 
     replaces = {
         "lstm2_fwd": ("cld_tpu_torch/csrc/lstm.cu", "cld_tpu/ops/lstm_pallas.py:169"),
@@ -4540,6 +4819,10 @@ def main() -> int:
                           "cld_tpu/ops/pallas_kernels.py:41"),
         "disk_collision": ("cld_tpu_torch/csrc/disk_collision.cu",
                            "cld_tpu/ops/pallas_kernels.py:617"),
+        **{f"lstm2_{k}_wide{sfx}": ("cld_tpu_torch/csrc/lstm_wide.cu",
+                                    f"cld_tpu/ops/lstm_pallas.py:{line}")
+           for k, line in (("fwd", 169), ("bwd", 312)) for sfx in ("", "_bf16")},
+        "dma_probe": ("cld_tpu_torch/csrc/dma_probe.cu", "scripts/micro_dma_probe.py:38"),
     }
     paths = {"open_loop": "launches", "closed_loop": "launches_closed_loop",
              "px_replan": "launches_px_replan", "rigid_open_loop": "launches_rigid_kernel",
@@ -4556,7 +4839,9 @@ def main() -> int:
              **{f"composer_{c}": f"launches_composer_{c}" for c in sorted(COMPOSER_REGISTRY)},
              "composer_ckpt": "launches_composer_ckpt",
              "composer_trace": "launches_composer_trace",
-             **{f"bf16_{p}": f"launches_bf16_{p}" for p in BF16_PATHS}}
+             **{f"bf16_{p}": f"launches_bf16_{p}" for p in BF16_PATHS},
+             "wide_guided_bf16": "launches_wide_guided_bf16",
+             "wide_guided_fp32": "launches_wide_guided_fp32", "dma_probe": "launches_dma_probe"}
     # the launch floor: one kernel node of a graph that does nothing (one
     # thread that exits at once), timed as every kernel's graph_ms is
     floor_ms = graph_ms(lambda: torch.cuda._sleep(0))

@@ -4,6 +4,11 @@
 // and `_bwd_kernel_v2` (reverse sweep); `_bwd_kernel` (v1) computes the same
 // dg1/dg2 and needs no kernel of its own here.
 //
+// Hidden sizes: the port takes every H in [1, 320], as the TPU kernels do.
+// The wrapper (`lstm_kernels.py:padded_hidden`) pads H with zero units:
+// H <= 64 to a multiple of 8, run here (f32) or in `lstm_bf16.cu` (bf16);
+// a larger H to a multiple of 16, run by `lstm_wide.cu` in both types.
+//
 // Cell math is flax `OptimizedLSTMCell`: gate order i, f, g, o; i/f/o
 // sigmoid, g tanh; c' = f*c + i*g; h' = o*tanh(c'). h0 is the initial hidden
 // state of BOTH layers, c0 = 0. The input projection xg1 = z @ Wx1 + b1 and

@@ -3,7 +3,9 @@
 // Replaces, under bf16 storage (the TPU kernels' production configuration,
 // `cld_tpu/ops/lstm_pallas.py:742-753`), the TPU kernels `_fwd_kernel`
 // (`lstm_pallas.py:169`, the forward sweep) and `_bwd_kernel_v2` (`:312`,
-// the reverse sweep). The f32 sweeps stay in `lstm.cu`.
+// the reverse sweep). The f32 sweeps stay in `lstm.cu`. Both take H a
+// multiple of 8 in [8, 64]: the wrapper pads a smaller or ragged H with zero
+// units, and sends H > 64 (up to 320) to `lstm_wide.cu`.
 //
 // Numbers: every input and output is bf16. Each recurrent product is
 // `mma.sync.m16n8k16.f32.bf16.bf16.f32`, which is what the TPU kernels'

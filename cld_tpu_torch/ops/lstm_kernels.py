@@ -32,12 +32,22 @@ tensor cores (`csrc/lstm_bf16.cu`), whose launches count as
 `lstm2_fwd_bf16` / `lstm2_bwd_bf16`. `fused_decode_actions` stores in bf16
 inside a bf16 autocast region (`ops.precision`).
 
-The kernels keep each thread's weights in registers, in an order of their
-own: `pack_weights` lays Wh1 and W2 out that way before each launch (one
-gather; "fwd" / "bwd" f32 floats for `lstm.cu`, "fwd_bf16" / "bwd_bf16"
-bf16 mma fragments for `lstm_bf16.cu`, no f32 copy), `unpack_weights`
-inverts it. They take H a multiple of 8 in [8, 64] (`check_hidden`) and run
-`rows_per_cta` (f32) or `ROWS_PER_CTA_BF16` batch rows in each CTA.
+Hidden sizes: every H in [1, 320], the range in which the JAX package's
+Pallas kernels run both sweeps (`check_hidden`). The wrapper pads H to the
+kernels' granularity with zero units (`padded_hidden`, `pad_blocks` and its
+exact inverse `unpad_blocks`: a zero unit stays exactly zero in every state
+and cotangent, and adds nothing to the real ones), launches at the padded
+size and slices the outputs back. Padded H <= 64 (a multiple of 8) goes to
+`lstm.cu` / `lstm_bf16.cu`, which keep each thread's weights in registers,
+in an order of their own: `pack_weights` lays Wh1 and W2 out that way
+before each launch (one gather; "fwd" / "bwd" f32 floats for `lstm.cu`,
+"fwd_bf16" / "bwd_bf16" bf16 mma fragments for `lstm_bf16.cu`, no f32
+copy), `unpack_weights` inverts it; they run `rows_per_cta` (f32) or
+`ROWS_PER_CTA_BF16` batch rows in each CTA. Padded H in [80, 320] (a
+multiple of 16) goes to `csrc/lstm_wide.cu`, which spreads the units over a
+thread-block cluster of `wide_cluster` CTAs ("wide_fwd", "wide_chain",
+"wide_gates" layouts, one template for both storage types), counted as
+`lstm2_fwd_wide` / `lstm2_bwd_wide` and their `_bf16` twins.
 """
 
 from __future__ import annotations
@@ -203,15 +213,69 @@ def _lstm2_bwd_ref(dy, xg1, h0, Wh1, W2, b2, h1s, c1s, ys, c2s):
 # ---------------------------------------------------------------------------
 
 LANES = 8  # lanes of one warp that own a hidden unit (`kLanes` in csrc/lstm.cu)
-H_RANGE = range(8, 65, 8)  # hidden sizes the kernels are built for
+H_RANGE = range(8, 65, 8)  # hidden sizes `lstm.cu` and `lstm_bf16.cu` are built for
+MAX_HIDDEN = 320  # the largest H at which the JAX package's kernels run both sweeps
+WIDE_GRAIN = 16  # `lstm_wide.cu` takes H a multiple of this in [80, MAX_HIDDEN]
 COEF_PLANES = 13  # reverse-sweep coefficients per (b, t, unit) (`kPlanes`)
 
 
 def check_hidden(H: int) -> None:
-    """Raise ValueError unless the CUDA kernels are built for hidden size H."""
-    if H not in H_RANGE:
-        raise ValueError(f"LSTM kernels: hidden size {H} is not supported; they take H a "
-                         f"multiple of 8 in [8, 64]")
+    """Raise ValueError unless the CUDA kernels take hidden size H."""
+    if not 1 <= H <= MAX_HIDDEN:
+        raise ValueError(f"LSTM kernels: hidden size {H} is not supported; they take H in "
+                         f"[1, {MAX_HIDDEN}]")
+
+
+def padded_hidden(H: int) -> int:
+    """The hidden size a kernel runs H at: H <= 64 rounds up to a multiple
+    of 8 (`lstm.cu`, `lstm_bf16.cu`), a larger H to a multiple of 16
+    (`lstm_wide.cu`)."""
+    check_hidden(H)
+    grain = LANES if H <= H_RANGE[-1] else WIDE_GRAIN
+    return -(-H // grain) * grain
+
+
+def pad_blocks(a: torch.Tensor, dim: int, blocks: int, H: int, Hp: int) -> torch.Tensor:
+    """Axis `dim` of `a` as `blocks` blocks of H units (the four gates of a
+    [.., 4H] axis, the two inputs of W2's rows, one block for a state) ->
+    each block zero-padded to Hp units. `unpad_blocks` is its exact inverse;
+    Hp == H returns `a` itself."""
+    if Hp == H:
+        return a
+    dim %= a.dim()
+    shape = a.shape
+    a = a.reshape(*shape[:dim], blocks, H, *shape[dim + 1:])
+    pad = [0, 0] * (a.dim() - dim - 2) + [0, Hp - H]
+    out = torch.nn.functional.pad(a, pad)
+    return out.reshape(*shape[:dim], blocks * Hp, *shape[dim + 1:])
+
+
+def unpad_blocks(a: torch.Tensor, dim: int, blocks: int, H: int, Hp: int) -> torch.Tensor:
+    """Inverse of `pad_blocks`: the first H units of each block, contiguous."""
+    if Hp == H:
+        return a
+    dim %= a.dim()
+    shape = a.shape
+    a = a.reshape(*shape[:dim], blocks, Hp, *shape[dim + 1:])
+    a = a.narrow(dim + 1, 0, H).reshape(*shape[:dim], blocks * H, *shape[dim + 1:])
+    return a.contiguous()
+
+
+# how each input of the sweeps is laid out over the hidden units: (axis,
+# blocks of H) pairs; sequences and h0 carry one block, gate axes four,
+# W2's rows two (the h1 and h2 inputs)
+_GATES, _UNITS = (-1, 4), (-1, 1)
+_PAD_LAYOUT = dict(xg1=(_GATES,), h0=(_UNITS,), Wh1=((0, 1), _GATES), W2=((0, 2), _GATES),
+                   b2=(_GATES,), dy=(_UNITS,), h1s=(_UNITS,), c1s=(_UNITS,), ys=(_UNITS,),
+                   c2s=(_UNITS,))
+
+
+def pad_hidden(name: str, a: torch.Tensor, H: int, Hp: int) -> torch.Tensor:
+    """One sweep input (by its name in `lstm2_fwd` / `lstm2_bwd`) padded from
+    H to Hp units along each of its hidden axes."""
+    for dim, blocks in _PAD_LAYOUT[name]:
+        a = pad_blocks(a, dim, blocks, H, Hp)
+    return a
 
 
 ROWS_PER_CTA = (1, 2)  # the f32 kernels' instantiations
@@ -228,7 +292,7 @@ def rows_per_cta(B: int, sms: int) -> int:
 # Batch rows per CTA of both bf16 sweeps, at any B: the even slots of one
 # mma N tile of eight, so that each lane owns one cell (`lstm_bf16.cu`).
 ROWS_PER_CTA_BF16 = 4
-COEF_PLANES_BF16 = 12  # the bf16 reverse sweep's coefficients per (b, t, unit)
+COEF_PLANES_BF16 = 12  # the bf16 and wide reverse sweeps' coefficients per (b, t, unit)
 
 
 def _lane_elems(n: int) -> torch.Tensor:
@@ -289,14 +353,55 @@ def _bwd_bf16_index(H: int, pad: int) -> torch.Tensor:
     return torch.stack([torch.where(unit < H, r + k, pad) for r in rows]).reshape(-1)
 
 
-WEIGHT_KINDS = ("fwd", "bwd", "fwd_bf16", "bwd_bf16")
+WIDE_CLUSTERS = (8, 16)  # `lstm_wide.cu`'s cluster sizes (16 is non-portable)
+WIDE_SLICE_BYTES = 160 * 1024  # a CTA's weight slice at cluster 8, at most
+
+
+def wide_cluster(H: int, dtype: torch.dtype) -> int:
+    """CTAs per cluster of `lstm_wide.cu` at padded hidden size H: 8 while a
+    CTA's slice of Wh1 and W2 (12 H^2 / 8 values) leaves room for the
+    buffers in 227 KB of shared memory, else 16. In bf16 that is 8 up to H =
+    224, in f32 up to 160."""
+    elem = 2 if dtype == torch.bfloat16 else 4
+    return WIDE_CLUSTERS[0] if 12 * H * H * elem // 8 <= WIDE_SLICE_BYTES else WIDE_CLUSTERS[1]
+
+
+def _wide_index(kind: str, H: int, C: int) -> torch.Tensor:
+    """The wide layouts as indices into cat(Wh1, W2) [3H, 4H], flattened.
+    CTA q of a cluster of C owns units q U .. q U + U - 1 (U = H / C) and
+    their gate columns j = g H + q U + u.
+
+    "wide_fwd" [C, H, 12 U]: CTA q's row k, column v = part * 4U + g U + u:
+    Wh1[k] (part 0), W2[k] (1), W2[H + k] (2) at column j. "wide_chain" [C,
+    4U, 3H]: CTA q's row g U + u (column j), column grp * H + i: W2[H + i]
+    (grp 0), W2[i] (1), Wh1[i] (2) at column j. "wide_gates" [3H, H, 4]:
+    row k of cat(Wh1, W2), unit u, gate g: cat[k, g H + u]."""
+    G = 4 * H
+    if kind == "wide_gates":
+        return (torch.arange(3 * H)[:, None, None] * G + torch.arange(4)[None, None, :] * H
+                + torch.arange(H)[None, :, None])
+    U = H // C
+    q = torch.arange(C)
+    gu = torch.arange(4 * U)
+    j = (gu // U) * H + q[:, None] * U + gu % U  # [C, 4U]: the CTA's gate columns
+    if kind == "wide_fwd":
+        rows = torch.tensor([0, H, 2 * H])[:, None] + torch.arange(H)  # Wh1, W2[:H], W2[H:]
+        idx = rows[None, :, :, None] * G + j[:, None, None, :]  # [C, 3, H, 4U]
+        return idx.permute(0, 2, 1, 3).reshape(C, H, 12 * U)
+    rows = torch.stack([2 * H + torch.arange(H), H + torch.arange(H), torch.arange(H)])
+    return rows.reshape(-1)[None, None, :] * G + j[:, :, None]  # [C, 4U, 3H]
+
+
+WEIGHT_KINDS = ("fwd", "bwd", "fwd_bf16", "bwd_bf16", "wide_fwd", "wide_chain", "wide_gates")
 
 
 @functools.lru_cache(maxsize=None)
-def weight_index(kind: str, H: int, device: torch.device = torch.device("cpu")) -> torch.Tensor:
+def weight_index(kind: str, H: int, device: torch.device = torch.device("cpu"),
+                 cluster: int = WIDE_CLUSTERS[0]) -> torch.Tensor:
     """Packed weight order of one kernel as indices into
     cat(Wh1.flatten(), W2.flatten(), [0]): index 12 H^2 is the zero that
-    pads a bf16 tile.
+    pads a bf16 tile. `cluster` is the wide layouts' cluster size (see
+    `_wide_index`), unused by the others.
 
     f32 kinds, shape [3, H // 8, 8H, 4], thread t = 8k + l (unit k, lane l)
     of the kernel at [:, :, t]. "fwd": parts Wh1, W2[:H], W2[H:]; entry
@@ -322,6 +427,8 @@ def weight_index(kind: str, H: int, device: torch.device = torch.device("cpu")) 
         return _fwd_bf16_index(H, 12 * H * H).to(device)
     elif kind == "bwd_bf16":
         return _bwd_bf16_index(H, 12 * H * H).to(device)
+    elif kind in ("wide_fwd", "wide_chain", "wide_gates"):
+        return _wide_index(kind, H, cluster).to(device)
     else:
         raise ValueError(f"weight_index: kind {kind!r}, expected one of {WEIGHT_KINDS}")
     return idx.reshape(3, K, LANES * H, 4).to(device)
@@ -343,12 +450,13 @@ def pack_layouts(Wh1: torch.Tensor, W2: torch.Tensor, *kinds: str) -> Tuple[torc
     if H % 16 and any(k.endswith("_bf16") for k in kinds):
         parts += (Wh1.new_zeros(1),)
     flat = torch.cat(parts)
-    return tuple(flat.take(weight_index(k, H, flat.device)) for k in kinds)
+    C = wide_cluster(H, Wh1.dtype)
+    return tuple(flat.take(weight_index(k, H, flat.device, C)) for k in kinds)
 
 
 def unpack_weights(kind: str, packed: torch.Tensor, H: int):
     """Inverse of `pack_weights` -> (Wh1, W2)."""
-    idx = weight_index(kind, H, packed.device).reshape(-1)
+    idx = weight_index(kind, H, packed.device, wide_cluster(H, packed.dtype)).reshape(-1)
     keep = idx < 12 * H * H  # a bf16 tile's padding holds no weight
     flat = torch.empty(12 * H * H, dtype=packed.dtype, device=packed.device)
     flat[idx[keep]] = packed.reshape(-1)[keep]
@@ -362,17 +470,27 @@ def _sm_count(device: torch.device) -> int:
 
 def kernel_attributes(which: int, H: int, R: int = 1,
                       dtype: torch.dtype = torch.float32) -> dict:
-    """The compiler's verdict on one instantiation (which: 0 the forward, 1
-    the reverse sweep's gates kernel, 2 its chain; `dtype` the storage type,
-    R of `ROWS_PER_CTA`, unused in bf16): registers and local memory bytes
-    (spills) per thread, max threads per block, and for bf16 the shared
-    memory bytes (static, and the chain's dynamic)."""
+    """The compiler's verdict on the instantiation that runs hidden size H
+    (which: 0 the forward, 1 the reverse sweep's gates kernel, 2 its chain;
+    `dtype` the storage type, R of `ROWS_PER_CTA`, used by f32 H <= 64
+    alone): registers and local memory bytes (spills) per thread, max
+    threads per block; for bf16 and the wide kernels the shared memory bytes
+    (static, and the chain's dynamic); for the wide kernels also the cluster
+    size, whether the weight slice is resident in shared memory, the threads
+    a launch runs and how many clusters the card holds at once."""
     lib = native.library()
+    Hp = padded_hidden(H)
+    if Hp > H_RANGE[-1]:
+        C = wide_cluster(Hp, dtype)
+        vals = native.attributes(lib.cld_lstm2_wide_attributes, which, Hp, C,
+                                 int(dtype == torch.bfloat16), n=8)
+        return dict(zip(("registers", "local_bytes", "max_threads", "shared_bytes", "cluster",
+                         "resident", "threads", "max_active_clusters"), vals))
     if dtype == torch.bfloat16:
-        regs, local, threads, smem = native.attributes(lib.cld_lstm2_attributes_bf16, which, H,
+        regs, local, threads, smem = native.attributes(lib.cld_lstm2_attributes_bf16, which, Hp,
                                                        n=4)
         return dict(registers=regs, local_bytes=local, max_threads=threads, shared_bytes=smem)
-    regs, local, threads = native.attributes(lib.cld_lstm2_attributes, which, H, R)
+    regs, local, threads = native.attributes(lib.cld_lstm2_attributes, which, Hp, R)
     return dict(registers=regs, local_bytes=local, max_threads=threads)
 
 
@@ -411,11 +529,24 @@ def _require_aligned(**tensors) -> None:
             raise ValueError(f"{name}: storage must be 16-byte aligned for the LSTM kernels")
 
 
+WIDE_UNSCHEDULABLE = 10001  # `lstm_wide.cu`'s code for a cluster the card cannot hold
+
+
+def _check_wide(err: int, name: str, H: int, C: int, dt: torch.dtype) -> None:
+    """Raise on a failed wide launch; a cluster the card cannot schedule is
+    refused by name (there is no fallback)."""
+    if err == WIDE_UNSCHEDULABLE:
+        raise RuntimeError(f"{name}: this card cannot hold one cluster of {C} CTAs of "
+                           f"`lstm_wide.cu` at H={H} ({dt})")
+    native.check(err, name)
+
+
 def lstm2_fwd(xg1, h0, Wh1, W2, b2):
     """Forward sweep -> (y, h1s, c1s, c2s), in the inputs' dtype. CUDA
-    tensors launch `lstm2_fwd_kernel` (f32, `csrc/lstm.cu`) or
-    `lstm2_fwd_mma_kernel` (bf16, `csrc/lstm_bf16.cu`); CPU tensors take
-    `lstm2_core_ref`."""
+    tensors launch, at the padded hidden size (`padded_hidden`),
+    `lstm2_fwd_kernel` (f32, `csrc/lstm.cu`), `lstm2_fwd_mma_kernel` (bf16,
+    `csrc/lstm_bf16.cu`) or above 64 `lstm2_wide_fwd_kernel`
+    (`csrc/lstm_wide.cu`); CPU tensors take `lstm2_core_ref`."""
     if xg1.device.type not in ("cpu", "cuda"):
         raise ValueError(f"lstm2_fwd: unsupported device {xg1.device}")
     dt = _storage("lstm2_fwd", xg1=xg1, h0=h0, Wh1=Wh1, W2=W2, b2=b2)
@@ -423,12 +554,29 @@ def lstm2_fwd(xg1, h0, Wh1, W2, b2):
         return lstm2_core_ref(xg1, h0, Wh1, W2, b2)
     B, T, H = _shapes(xg1, h0)
     dev = xg1.device
-    for name, t, shape in (("xg1", xg1, (B, T, 4 * H)), ("h0", h0, (B, H)),
-                           ("Wh1", Wh1, (H, 4 * H)), ("W2", W2, (2 * H, 4 * H)),
-                           ("b2", b2, (4 * H,))):
-        native.require(t, name, dt, shape, dev)
+    ins = dict(xg1=xg1, h0=h0, Wh1=Wh1, W2=W2, b2=b2)
+    for name, shape in (("xg1", (B, T, 4 * H)), ("h0", (B, H)), ("Wh1", (H, 4 * H)),
+                        ("W2", (2 * H, 4 * H)), ("b2", (4 * H,))):
+        native.require(ins[name], name, dt, shape, dev)
+    Hp = padded_hidden(H)
+    outs = _fwd_launch(B, T, Hp, dt, **{k: pad_hidden(k, a, H, Hp) for k, a in ins.items()})
+    return tuple(unpad_blocks(a, -1, 1, H, Hp) for a in outs)
+
+
+def _fwd_launch(B, T, H, dt, xg1, h0, Wh1, W2, b2):
+    dev = xg1.device
     y, h1s, c1s, c2s = torch.empty((4, B, T, H), dtype=dt, device=dev).unbind(0)
     lib = native.library()
+    if H > H_RANGE[-1]:
+        C = wide_cluster(H, dt)
+        wpk = pack_weights("wide_fwd", Wh1, W2)  # alive until the launch is queued
+        _check_wide(lib.cld_lstm2_wide_fwd(
+            xg1.data_ptr(), h0.data_ptr(), wpk.data_ptr(), b2.data_ptr(), y.data_ptr(),
+            h1s.data_ptr(), c1s.data_ptr(), c2s.data_ptr(), B, T, H, C,
+            int(dt == torch.bfloat16), native.stream_ptr(dev),
+        ), "lstm2_fwd", H, C, dt)
+        native.count_launch("lstm2_fwd_wide_bf16" if dt == torch.bfloat16 else "lstm2_fwd_wide")
+        return y, h1s, c1s, c2s
     if dt == torch.bfloat16:
         wpk = pack_weights("fwd_bf16", Wh1, W2)  # alive until the launch is queued
         native.check(lib.cld_lstm2_fwd_bf16(
@@ -449,28 +597,47 @@ def lstm2_fwd(xg1, h0, Wh1, W2, b2):
 
 def lstm2_bwd(dy, xg1, h0, Wh1, W2, b2, h1s, c1s, ys, c2s):
     """Reverse sweep -> (dg1, dg2), in the inputs' dtype. CUDA tensors
-    launch a gates kernel into an f32 scratch buffer and then the chain (one
-    launch counted): `lstm2_bwd_gates_kernel` + `lstm2_bwd_kernel` (f32), or
-    `lstm2_gates_mma_kernel` + `lstm2_chain_mma_kernel` (bf16); CPU tensors
-    take `lstm2_bwd_ref`."""
+    launch, at the padded hidden size, a gates kernel into an f32 scratch
+    buffer and then the chain (one launch counted): `lstm2_bwd_gates_kernel`
+    + `lstm2_bwd_kernel` (f32), `lstm2_gates_mma_kernel` +
+    `lstm2_chain_mma_kernel` (bf16), or above 64 `lstm2_wide_gates_kernel` +
+    `lstm2_wide_chain_kernel`; CPU tensors take `lstm2_bwd_ref`."""
     if xg1.device.type not in ("cpu", "cuda"):
         raise ValueError(f"lstm2_bwd: unsupported device {xg1.device}")
-    dt = _storage("lstm2_bwd", dy=dy, xg1=xg1, h0=h0, Wh1=Wh1, W2=W2, b2=b2, h1s=h1s,
-                  c1s=c1s, ys=ys, c2s=c2s)
+    ins = dict(dy=dy, xg1=xg1, h0=h0, Wh1=Wh1, W2=W2, b2=b2, h1s=h1s, c1s=c1s, ys=ys, c2s=c2s)
+    dt = _storage("lstm2_bwd", **ins)
     if xg1.device.type == "cpu":
         return lstm2_bwd_ref(dy, xg1, h0, Wh1, W2, b2, h1s, c1s, ys, c2s)
     B, T, H = _shapes(xg1, h0)
     dev = xg1.device
     seq = (B, T, H)
-    for name, t, shape in (("dy", dy, seq), ("xg1", xg1, (B, T, 4 * H)), ("h0", h0, (B, H)),
-                           ("Wh1", Wh1, (H, 4 * H)), ("W2", W2, (2 * H, 4 * H)),
-                           ("b2", b2, (4 * H,)), ("h1s", h1s, seq), ("c1s", c1s, seq),
-                           ("ys", ys, seq), ("c2s", c2s, seq)):
-        native.require(t, name, dt, shape, dev)
+    for name, shape in (("dy", seq), ("xg1", (B, T, 4 * H)), ("h0", (B, H)),
+                        ("Wh1", (H, 4 * H)), ("W2", (2 * H, 4 * H)), ("b2", (4 * H,)),
+                        ("h1s", seq), ("c1s", seq), ("ys", seq), ("c2s", seq)):
+        native.require(ins[name], name, dt, shape, dev)
+    Hp = padded_hidden(H)
+    dg = _bwd_launch(B, T, Hp, dt, **{k: pad_hidden(k, a, H, Hp) for k, a in ins.items()})
+    return tuple(unpad_blocks(a, -1, 4, H, Hp) for a in dg)
+
+
+def _bwd_launch(B, T, H, dt, dy, xg1, h0, Wh1, W2, b2, h1s, c1s, ys, c2s):
+    dev = xg1.device
     dg1 = torch.empty((B, T, 4 * H), dtype=dt, device=dev)
     dg2 = torch.empty_like(dg1)
     lib = native.library()
     sms = _sm_count(dev)
+    if H > H_RANGE[-1]:
+        C = wide_cluster(H, dt)
+        coef = torch.empty((B, T, COEF_PLANES_BF16, H), dtype=torch.float32, device=dev)
+        wgates, wchain = pack_layouts(Wh1, W2, "wide_gates", "wide_chain")  # alive until queued
+        _check_wide(lib.cld_lstm2_wide_bwd(
+            dy.data_ptr(), xg1.data_ptr(), h0.data_ptr(), b2.data_ptr(), h1s.data_ptr(),
+            c1s.data_ptr(), ys.data_ptr(), c2s.data_ptr(), wgates.data_ptr(), wchain.data_ptr(),
+            coef.data_ptr(), dg1.data_ptr(), dg2.data_ptr(), B, T, H, C,
+            int(dt == torch.bfloat16), native.stream_ptr(dev),
+        ), "lstm2_bwd", H, C, dt)
+        native.count_launch("lstm2_bwd_wide_bf16" if dt == torch.bfloat16 else "lstm2_bwd_wide")
+        return dg1, dg2
     if dt == torch.bfloat16:
         _require_aligned(dy=dy, h0=h0, h1s=h1s, ys=ys)
         coef = torch.empty((B, T, COEF_PLANES_BF16, H), dtype=torch.float32, device=dev)

@@ -30,7 +30,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
 
 KERNELS = ("lstm2_fwd", "lstm2_bwd", "bit_gather", "value_gather", "drivable_gather",
            "rigid_min", "rigid_min_fused", "rigid_bwd", "offroad_count", "disk_collision",
-           "lstm2_fwd_bf16", "lstm2_bwd_bf16")
+           "lstm2_fwd_bf16", "lstm2_bwd_bf16", "lstm2_fwd_wide", "lstm2_bwd_wide",
+           "lstm2_fwd_wide_bf16", "lstm2_bwd_wide_bf16", "dma_probe")
 _LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -118,9 +119,13 @@ def library() -> ctypes.CDLL:
         lib.cld_lstm2_bwd_bf16.argtypes = [p] * 13 + [i] * 4 + [p]
         lib.cld_lstm2_attributes.argtypes = [i, i, i, p]
         lib.cld_lstm2_attributes_bf16.argtypes = [i, i, p]
+        lib.cld_lstm2_wide_fwd.argtypes = [p] * 8 + [i] * 5 + [p]
+        lib.cld_lstm2_wide_bwd.argtypes = [p] * 13 + [i] * 5 + [p]
+        lib.cld_lstm2_wide_attributes.argtypes = [i, i, i, i, p]
         for fn in (lib.cld_lstm2_fwd, lib.cld_lstm2_fwd_bf16, lib.cld_lstm2_bwd,
                    lib.cld_lstm2_bwd_bf16, lib.cld_lstm2_attributes,
-                   lib.cld_lstm2_attributes_bf16):
+                   lib.cld_lstm2_attributes_bf16, lib.cld_lstm2_wide_fwd,
+                   lib.cld_lstm2_wide_bwd, lib.cld_lstm2_wide_attributes):
             fn.restype = i
         lib.cld_bit_gather.argtypes = [p] * 3 + [i, i, i, i, p]
         lib.cld_bit_gather.restype = i
@@ -151,6 +156,10 @@ def library() -> ctypes.CDLL:
         lib.cld_disk_collision.restype = i
         lib.cld_disk_collision_attributes.argtypes = [i, p]
         lib.cld_disk_collision_attributes.restype = i
+        lib.cld_dma_probe.argtypes = [p, p] + [i] * 4 + [p]
+        lib.cld_dma_probe.restype = i
+        lib.cld_dma_probe_attributes.argtypes = [p]
+        lib.cld_dma_probe_attributes.restype = i
         _LIB = lib
     return _LIB
 

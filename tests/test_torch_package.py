@@ -143,11 +143,14 @@ def test_kernel_library_name_tracks_the_sources():
     path = native.library_path()
     assert path.parent == PKG / "_build" and path.suffix == ".so"
     assert sorted(p.name for p in native.CSRC.glob("*.cu")) == [
-        "bit_gather.cu", "disk_collision.cu", "drivable_gather.cu", "lstm.cu", "lstm_bf16.cu",
-        "offroad_count.cu", "rigid_bwd.cu", "rigid_min.cu", "value_gather.cu"]
-    # ten kernels, the LSTM pair in two storage types (bf16: `lstm_bf16.cu`)
-    assert len(native.KERNELS) == 12
-    assert {"lstm2_fwd_bf16", "lstm2_bwd_bf16"} <= set(native.KERNELS)
+        "bit_gather.cu", "disk_collision.cu", "dma_probe.cu", "drivable_gather.cu", "lstm.cu",
+        "lstm_bf16.cu", "lstm_wide.cu", "offroad_count.cu", "rigid_bwd.cu", "rigid_min.cu",
+        "value_gather.cu"]
+    # ten kernels, the LSTM pair in two storage types (bf16: `lstm_bf16.cu`) and
+    # above H = 64 in both (`lstm_wide.cu`), and the bulk-copy probe
+    assert len(native.KERNELS) == 17
+    assert {"lstm2_fwd_bf16", "lstm2_bwd_bf16", "lstm2_fwd_wide", "lstm2_bwd_wide",
+            "lstm2_fwd_wide_bf16", "lstm2_bwd_wide_bf16", "dma_probe"} <= set(native.KERNELS)
 
 
 def test_rollout_cli_defaults_to_cuda_and_runs_on_the_cpu(tmp_path, capsys):
