@@ -64,14 +64,24 @@
    shapes on lattice caches (P = 1, 31, 32, 33, 65, 224; Q = 1, 3, 5, 7, 9,
    17, 53, 65; B = 1, 133); `rigid_bwd` agrees within rtol 1e-4 / atol 1e-5
    and repeats itself bit for bit, there and at P = 1, P = 33 and with every
-   column routed to one row (P = 100 and 224). Times each, from a CUDA graph
-   at B = 128 and 32 beside its bound at both, with the forward kernels'
-   registers and spills and `rigid_bwd`'s at P = 1, 33, 100 and 224.
+   column routed to one row (P = 100 and 224). Past 224 bbox points
+   (`RIGID_TILED`: P = 225, 256, 400, 1,024, where the forward kernels tile
+   the cache's columns and the backward loops over its chunks) all three at
+   ragged B and Q on lattice caches: `dist` and `idx` exact, the backward
+   within rtol 1e-4 / atol 1e-5 (the argmin's routing; at P = 256 also every
+   column to one row), each relaunch bit-equal; the same holds at the 16 x
+   16 paths' own shape (B = 128, Q = 52, P = 256). Times each, from a CUDA
+   graph at B = 128 and 32 beside its bound at both and at B = 128, P = 256, with the
+   forward kernels' registers and spills (untiled and tiled) and
+   `rigid_bwd`'s at P = 1, 33, 100, 224 and 256.
 11. Runs `pipeline.guided_collect` at full width with
    `MapCollisionLoss(min_dist_impl="rigid_kernel")` (99 `rigid_min`, 99
    `rigid_bwd`, no `rigid_min_fused`) and with `min_dist_impl="rigid",
    min_fwd_impl="fused"` (99 `rigid_min_fused`, none of the other two);
-   launch counts zeroed before each and exact; prints NFE/s. One guidance
+   launch counts zeroed before each and exact; prints NFE/s; then both
+   again with `num_points_lw=(16, 16)` (P = 256, the tiled kernels; the
+   loss's full-horizon budget, 2^27 elements of T B P^2 as in the JAX
+   package, raised for the fused call): exact launches, finite outputs. One guidance
    gradient at B=128 under "rigid_kernel", "rigid" + "fused" and
    "separable": the first two agree within rtol 1e-4, the loss values of
    all three within 1e-5 relative.
@@ -257,11 +267,14 @@
    128, 200, 256, 320 (`csrc/lstm_wide.cu`, a thread-block cluster per 8
    batch rows) at small B / T, B ragged against the cluster's 8 rows: f32
    within 1e-5 and bf16 within 2^-7 of max |plain|, two launches bit for
-   bit; the wide kernels' registers, spills, shared memory and cluster size,
-   and their times from Python and from a CUDA graph at B = 32, 128, 512,
-   T = 52, H = 128 and 320, beside the plain versions' and cuDNN's
-   `nn.LSTM` (forward, and backward beside the `Lstm2Core` VJP) at that H
-   in the same dtype. Then the guided call at the config of record with
+   bit; the wide kernels' registers, spills, shared memory and cluster size
+   (the f32 forward's at 8 and 16 rows a cluster), and their times from
+   Python and from a CUDA graph at B = 32, 128, 512, T = 52, H = 128 and
+   320, beside the plain versions' and cuDNN's `nn.LSTM` (forward, and
+   backward beside the `Lstm2Core` VJP) at that H in the same dtype, and in
+   f32 cuDNN's from a CUDA graph with TF32 on (PyTorch's default) and off;
+   the f32 forward also held at each timed B, with the rows a cluster it
+   chose. Then the guided call at the config of record with
    `algo.vae.hidden_size` 128 (B=128 in scenes of 4, raster 224, 100 DDPM
    steps, agent + map collision guidance), fresh weights from seed 0, under
    "auto" (bf16) and fp32: exactly 100 wide forward and 99 wide reverse
@@ -272,11 +285,13 @@
    cld_tpu_torch.dma_probe`, the counterpart of
    `scripts/micro_dma_probe.py`): its four cases (minor 128 / 64, the whole
    array or a batch slice) equal to 2 x bit for bit, 4 launches, the copy
-   shapes printed, timed from a graph beside `2 * x`.
+   shapes printed, more CTAs than the card has SMs at [52, 128, 128], timed
+   from a graph beside `2 * x` and its target of twice its byte bound.
 25. Times the launch floor: `torch.cuda._sleep(0)` (one thread that exits
    at once) from a CUDA graph, as every kernel's graph time is taken.
 26. Prints the card line, one `{"kernels": [...]}` line (`launches_by_path`
-   there holds each main-path run's own count, of 4, 7, 8, 11, 12, 14, 15,
+   there holds each main-path run's own count, of 4, 7, 8, 11 (both bbox
+   grids), 12, 14, 15,
    17, 18 (its rollout and its `--mode test`), 19 (its training, its
    guided rollout and each model-free policy), 20 (the zoo, 0 of every
    kernel), 21 (each trainer, 0 of every kernel; the `--ebm-ckpt`
@@ -296,6 +311,7 @@ A longer report goes to chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import shutil
 import subprocess
@@ -1232,7 +1248,7 @@ def hold_rigid_min(name, outs, want_d, want_i, worst):
 
 
 # (B, Q, P) where the forward kernels' bit-packed mask and step tiles are
-# edge-prone: P at and around a mask word of 32 rows, up to MAX_P's 7 words;
+# edge-prone: P at and around a mask word of 32 rows, up to 224's 7 words;
 # Q at one step, around `rigid_min`'s tile of 4 and the fused tile of 8, past
 # `rigid_min`'s block of 16 steps and the fused sweep of 64; B = 1 and past
 # the card's 132 SMs
@@ -1284,6 +1300,96 @@ def check_rigid_min_edges(g, dev, worst):
                   "all-on-road step: every column should match itself")
 
 
+# (B, Q, P) past the untiled kernels' 224 bbox points, on lattice caches at
+# ragged B and Q: 225 (an eighth mask word, the whole cache still one block),
+# 256 (a 16 x 16 grid: two column chunks of 128), 400 (four of 100), 1,024 (a
+# 32 x 32 grid: 26 chunks, the last 24 wide; the backward's 32 chunks)
+RIGID_TILED = {"p225": (3, 7, 225), "p256": (5, 17, 256), "p400": (3, 9, 400),
+               "p1024": (2, 5, 1024)}
+
+
+def hold_rigid_bwd(name, args, worst, row=None):
+    """`rigid_bwd` within rtol 1e-4 / atol 1e-5 of its plain version and
+    bit-equal to a relaunch; with `row`, every column routed to that row."""
+    import torch
+
+    from cld_tpu_torch.ops import rigid_kernels as rk
+
+    got, again, ref = rk.rigid_bwd(*args), rk.rigid_bwd(*args), rk.rigid_bwd_ref(*args)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    Bn, Qn, Pn, _ = args[0].shape
+    log(f"rigid_bwd [{name}: B={Bn}, Q={Qn}, P={Pn}]: max abs err {err:.3e} (rtol 1e-4, "
+        f"atol 1e-5; max |plain| {float(ref.abs().max()):.3g}); repeated launch "
+        f"bit-identical: {bool(torch.equal(got, again))}")
+    check(bool(((got - ref).abs() <= 1e-4 * ref.abs() + 1e-5).all()),
+          f"rigid_bwd ({name}) disagrees with its plain version")
+    check(torch.equal(got, again), f"rigid_bwd ({name}) differs between two launches")
+    # one point can only route to itself: p a - a p, zero up to rounding
+    check(Pn == 1 or float(ref.abs().max()) > 0.0, "rigid_bwd fixture routes nothing")
+    if row is not None:
+        check(not bool(torch.cat([got[:, :, :row], got[:, :, row + 1:]], 2).any()),
+              f"rigid_bwd ({name}) routes to a row other than {row}")
+    worst["rigid_bwd"] = max(worst["rigid_bwd"], err)
+
+
+def check_rigid_tiled(g, dev, worst):
+    """All three rigid kernels at `RIGID_TILED`: the forward kernels' dist
+    and idx equal to the plain version's (and each other's) bit for bit, the
+    backward on the argmin's routing (and at P = 256 with every column
+    routed to one row), every relaunch bit-equal."""
+    import torch
+
+    from cld_tpu_torch.ops import rigid_kernels as rk
+
+    for name, (Bn, Qn, Pn) in RIGID_TILED.items():
+        d2 = lattice_d2(g, Bn, Pn, dev)
+        on = torch.rand((Bn, Qn, Pn), generator=g) < 0.6
+        on.view(Bn * Qn, Pn)[0] = False
+        on.view(Bn * Qn, Pn)[-1] = True
+        on = on.to(dev)
+        want_d, want_i = rk.rigid_min_ref(d2, on)
+        outs = {k: getattr(rk, k)(d2, on) for k in ("rigid_min", "rigid_min_fused")}
+        again = {k: getattr(rk, k)(d2, on) for k in outs}
+        torch.cuda.synchronize()
+        qb, pc = rk.rigid_min_tiling(Pn)
+        log(f"rigid min [{name}]: {-(-Pn // pc)} column chunk(s) of {min(pc, Pn)}, {qb} steps a "
+            "block")
+        hold_rigid_min(name, outs, want_d, want_i, worst)
+        for k, (d, i) in outs.items():
+            check(torch.equal(d, again[k][0]) and torch.equal(i, again[k][1]),
+                  f"{k} ({name}) differs between two launches")
+        check(bool((want_d[0, 0] == 1e6).all()) and bool((want_i[0, 0] == 0).all()),
+              "all-off-road step: expected dist 1e6, idx 0")
+        check(torch.equal(want_i[-1, -1].long(), torch.arange(Pn, device=dev)),
+              "all-on-road step: every column should match itself")
+        pts = (torch.randn((Bn, Qn, Pn, 2), generator=g) * 5.0).to(dev)
+        gout = torch.randn((Bn, Qn, Pn), generator=g).to(dev)
+        gout = torch.where(on | ~on.any(-1, keepdim=True), torch.zeros(()).to(dev), gout)
+        hold_rigid_bwd(name, (pts, want_i, want_d, gout.contiguous()), worst)
+    # every column routed to one row through the loop kernel, at the grid of
+    # 16 x 16 (at larger P the sum of P products loses more than atol 1e-5 to
+    # float32 rounding where the two terms of grad_i cancel, in the plain
+    # version as in the kernel)
+    Bn, Qn, Pn, row = 2, 3, 256, 85
+    pts = (torch.randn((Bn, Qn, Pn, 2), generator=g) * 5.0).to(dev)
+    idx = torch.full((Bn, Qn, Pn), row, dtype=torch.int32, device=dev)
+    dist = (torch.rand((Bn, Qn, Pn), generator=g) * 1.5 + 0.5).to(dev)
+    gout = torch.randn((Bn, Qn, Pn), generator=g).to(dev)
+    hold_rigid_bwd("one_row_p256", (pts, idx, dist, gout), worst, row)
+
+
+def rigid_bounds(Bn, Qn, Pn):
+    """(forward, backward) bounds of the rigid kernels, each (ms, by):
+    every input read once, every output written once; the min's one compare
+    and one select per (b, q, i, j), the backward's division, two products
+    and three sums per column and two products and two differences per
+    row."""
+    n = Bn * Qn * Pn
+    return (bound(4 * Bn * Pn * Pn + n + 8 * n, 2.0 * n * Pn),
+            bound(8 * n + 3 * 4 * n + 8 * n, 10.0 * n))
+
+
 def check_rigid(batch, dev, report):
     """`rigid_min`, `rigid_min_fused` and `rigid_bwd` against their plain
     versions on the card."""
@@ -1308,7 +1414,7 @@ def check_rigid(batch, dev, report):
     on_full = torch.where(flip, rand, on_map).reshape(B, T, P)
 
     shapes = {"open_loop": (B, T, P, ctx.bbox_d2, on_full), "ragged": (5, 7, 16, None, None),
-              "max_p": (2, 3, rk.MAX_P, None, None)}
+              "max_p": (2, 3, 224, None, None)}
     worst = {"rigid_min": 0.0, "rigid_min_fused": 0.0, "rigid_bwd": 0.0}
     for name, (Bn, Qn, Pn, d2, on) in shapes.items():
         d2, on, pts, gout = rigid_fixture(g, Bn, Qn, Pn, dev, d2, on)
@@ -1323,19 +1429,7 @@ def check_rigid(batch, dev, report):
         n_on = int(on.sum())
         check(0 < n_on < on.numel(), "rigid fixture mask is degenerate")
 
-        got = rk.rigid_bwd(pts, want_i, want_d, gout)
-        again = rk.rigid_bwd(pts, want_i, want_d, gout)
-        ref = rk.rigid_bwd_ref(pts, want_i, want_d, gout)
-        torch.cuda.synchronize()
-        err = float((got - ref).abs().max())
-        ok = bool(((got - ref).abs() <= 1e-4 * ref.abs() + 1e-5).all())
-        log(f"rigid_bwd [{name}]: max abs err {err:.3e} (rtol 1e-4, atol 1e-5; max |plain| "
-            f"{float(ref.abs().max()):.3g}); repeated launch bit-identical: "
-            f"{bool(torch.equal(got, again))}")
-        check(ok, f"rigid_bwd ({name}) disagrees with its plain version")
-        check(torch.equal(got, again), f"rigid_bwd ({name}) differs between two launches")
-        check(float(ref.abs().max()) > 0.0, "rigid_bwd fixture routes nothing")
-        worst["rigid_bwd"] = max(worst["rigid_bwd"], err)
+        hold_rigid_bwd(name, (pts, want_i, want_d, gout), worst)
         if name == "open_loop":
             full = (d2, on, pts, gout, want_d, want_i)
 
@@ -1346,29 +1440,15 @@ def check_rigid(batch, dev, report):
     # routed to one row (groups of 32)
     for name, (Bn, Qn, Pn, row) in {"p1": (4, 5, 1, None), "p33": (4, 5, 33, None),
                                     "one_row": (4, 5, P, 37),
-                                    "one_row_max_p": (2, 3, rk.MAX_P, 0)}.items():
+                                    "one_row_max_p": (2, 3, 224, 0)}.items():
         pts = (torch.randn((Bn, Qn, Pn, 2), generator=g) * 5.0).to(dev)
         idx = (torch.randint(0, Pn, (Bn, Qn, Pn), generator=g) if row is None
                else torch.full((Bn, Qn, Pn), row)).to(torch.int32).to(dev)
         dist = (torch.rand((Bn, Qn, Pn), generator=g) * 1.5 + 0.5).to(dev)
         gout = torch.randn((Bn, Qn, Pn), generator=g).to(dev)
-        got = rk.rigid_bwd(pts, idx, dist, gout)
-        again = rk.rigid_bwd(pts, idx, dist, gout)
-        ref = rk.rigid_bwd_ref(pts, idx, dist, gout)
-        torch.cuda.synchronize()
-        err = float((got - ref).abs().max())
-        log(f"rigid_bwd [{name}: B={Bn}, Q={Qn}, P={Pn}]: max abs err {err:.3e} (rtol 1e-4, "
-            f"atol 1e-5; max |plain| {float(ref.abs().max()):.3g}); repeated launch "
-            f"bit-identical: {bool(torch.equal(got, again))}")
-        check(bool(((got - ref).abs() <= 1e-4 * ref.abs() + 1e-5).all()),
-              f"rigid_bwd ({name}) disagrees with its plain version")
-        check(torch.equal(got, again), f"rigid_bwd ({name}) differs between two launches")
-        # one point can only route to itself: p a - a p, zero up to rounding
-        check(Pn == 1 or float(ref.abs().max()) > 0.0, "rigid_bwd fixture routes nothing")
-        if row is not None:
-            check(not bool(torch.cat([got[:, :, :row], got[:, :, row + 1:]], 2).any()),
-                  f"rigid_bwd ({name}) routes to a row other than {row}")
-        worst["rigid_bwd"] = max(worst["rigid_bwd"], err)
+        hold_rigid_bwd(name, (pts, idx, dist, gout), worst, row)
+
+    check_rigid_tiled(g, dev, worst)
 
     d2, on, pts, gout, dist, idx = full
     ms = {
@@ -1390,11 +1470,47 @@ def check_rigid(batch, dev, report):
              for k in ("rigid_min", "rigid_min_fused")}
     bwd32 = [t[:CL_B].contiguous() for t in (pts, idx, dist, gout)]
     gms32["rigid_bwd"] = graph_ms(lambda: rk.rigid_bwd(*bwd32))
-    min_attrs = {k: rk.rigid_min_attributes(k) for k in ("rigid_min", "rigid_min_fused")}
+    # a 16 x 16 grid at the open loop's B and Q, the plan the 16 x 16 paths
+    # run (the forward kernels' step blocks at B = 128 and a ragged last one,
+    # the backward's loop): held against the plain versions, then timed
+    P16 = 256
+    d2_16 = lattice_d2(g, B, P16, dev)
+    on_16 = torch.rand((B, T, P16), generator=g) < 0.6
+    on_16.view(B * T, P16)[0] = False
+    on_16.view(B * T, P16)[-1] = True
+    on_16 = on_16.to(dev)
+    want_d16, want_i16 = rk.rigid_min_ref(d2_16, on_16)
+    outs16 = {k: getattr(rk, k)(d2_16, on_16) for k in ("rigid_min", "rigid_min_fused")}
+    again16 = {k: getattr(rk, k)(d2_16, on_16) for k in outs16}
+    torch.cuda.synchronize()
+    hold_rigid_min("p256_open_loop", outs16, want_d16, want_i16, worst)
+    for k, (d, i) in outs16.items():
+        check(torch.equal(d, again16[k][0]) and torch.equal(i, again16[k][1]),
+              f"{k} (p256_open_loop) differs between two launches")
+    check(bool((want_d16[0, 0] == 1e6).all()) and bool((want_i16[0, 0] == 0).all()),
+          "all-off-road step: expected dist 1e6, idx 0")
+    check(torch.equal(want_i16[-1, -1].long(), torch.arange(P16, device=dev)),
+          "all-on-road step: every column should match itself")
+    gout16 = torch.randn((B, T, P16), generator=g).to(dev)
+    gout16 = torch.where(on_16 | ~on_16.any(-1, keepdim=True), torch.zeros(()).to(dev), gout16)
+    bwd16 = ((torch.randn((B, T, P16, 2), generator=g) * 5.0).to(dev), want_i16, want_d16,
+             gout16.contiguous())
+    hold_rigid_bwd("p256_open_loop", bwd16, worst)
+    del outs16, again16
+    gms256 = {k: graph_ms(lambda: getattr(rk, k)(d2_16, on_16), 20, 10)
+              for k in ("rigid_min", "rigid_min_fused")}
+    gms256["rigid_bwd"] = graph_ms(lambda: rk.rigid_bwd(*bwd16), 20, 10)
+    del d2_16, on_16, want_d16, want_i16, gout16, bwd16
+    (min256_b, _), (bwd256_b, _) = rigid_bounds(B, T, P16)
+    log(f"rigid kernels from a CUDA graph at B={B}, Q={T}, P={P16}: "
+        + ", ".join(f"{k} {v:.5f} ms" for k, v in gms256.items())
+        + f" (bounds {min256_b:.5f} / {bwd256_b:.5f})")
+    min_attrs = {f"{k}{'_tiled' if tiled else ''}": rk.rigid_min_attributes(k, tiled)
+                 for k in ("rigid_min", "rigid_min_fused") for tiled in (False, True)}
     for k, a in min_attrs.items():
         log(f"{k}_kernel: {a['registers']} registers, {a['local_bytes']} bytes of local memory "
             f"per thread{' (spills: reported, not failed)' if a['local_bytes'] else ''}")
-    bwd_attrs = {Pn: rk.rigid_bwd_attributes(Pn) for Pn in (1, 33, P, rk.MAX_P)}
+    bwd_attrs = {Pn: rk.rigid_bwd_attributes(Pn) for Pn in (1, 33, P, 224, P16)}
     for Pn, a in bwd_attrs.items():
         log(f"rigid_bwd_kernel P={Pn}: {a['registers']} registers, {a['local_bytes']} bytes of "
             f"local memory per thread{' (spills: reported, not failed)' if a['local_bytes'] else ''}")
@@ -1404,29 +1520,23 @@ def check_rigid(batch, dev, report):
     log(f"rigid kernels from a CUDA graph: at B={B} "
         + ", ".join(f"{k} {v:.5f} ms" for k, v in gms.items()) + f"; at B={CL_B} "
         + ", ".join(f"{k} {v:.5f} ms" for k, v in gms32.items()))
-    # bytes: every input read once, every output written once; operations: the
-    # min's one compare and one select per (b, q, i, j); the backward's division,
-    # two products and three sums per column and two products and two
-    # differences per row
-    n = B * T * P
-    min_b, min_by = bound(4 * B * P * P + n + 8 * n, 2.0 * n * P)
-    bwd_b, bwd_by = bound(8 * n + 3 * 4 * n + 8 * n, 10.0 * n)
-    n32 = CL_B * T * P
-    min32_b = bound(4 * CL_B * P * P + n32 + 8 * n32, 2.0 * n32 * P)[0]
+    (min_b, min_by), (bwd_b, bwd_by) = rigid_bounds(B, T, P)
+    (min32_b, _), (bwd32_b, _) = rigid_bounds(CL_B, T, P)
     log(f"rigid min from a graph: bound {min_b:.5f} ms at B={B} ({min_by}), {min32_b:.5f} at "
         f"B={CL_B}")
     for k in ("rigid_min", "rigid_min_fused"):
         report[k] = dict(max_abs_err=worst[k], ms=ms[k], plain_ms=plain_min, bound_ms=min_b,
                          bound_by=min_by, library_ms=None, graph_ms=gms[k],
                          graph_ms_at_b32=gms32[k], bound_ms_at_b32=min32_b,
-                         attributes=min_attrs[k])
-    bwd32_b = bound(8 * n32 + 3 * 4 * n32 + 8 * n32, 10.0 * n32)[0]
+                         graph_ms_at_p256=gms256[k], bound_ms_at_p256=min256_b,
+                         attributes={"untiled": min_attrs[k], "tiled": min_attrs[f"{k}_tiled"]})
     log(f"rigid_bwd from a graph: {gms['rigid_bwd']:.5f} ms at B={B} (bound {bwd_b:.5f}), "
         f"{gms32['rigid_bwd']:.5f} at B={CL_B} (bound {bwd32_b:.5f})")
     report["rigid_bwd"] = dict(max_abs_err=worst["rigid_bwd"], ms=ms["rigid_bwd"],
                                plain_ms=plain_bwd, bound_ms=bwd_b, bound_by=bwd_by,
                                library_ms=None, graph_ms=gms["rigid_bwd"],
                                graph_ms_at_b32=gms32["rigid_bwd"], bound_ms_at_b32=bwd32_b,
+                               graph_ms_at_p256=gms256["rigid_bwd"], bound_ms_at_p256=bwd256_b,
                                attributes={str(k): v for k, v in bwd_attrs.items()})
 
 
@@ -1441,6 +1551,7 @@ def run_rigid_paths(models, batch, report):
     import torch
 
     from cld_tpu_torch import pipeline
+    from cld_tpu_torch.guidance import losses as gl
     from cld_tpu_torch.ops import native
 
     g = torch.Generator(device=batch.image.device)
@@ -1448,15 +1559,29 @@ def run_rigid_paths(models, batch, report):
     base = dict(lstm2_fwd=N_STEPS, lstm2_bwd=n, bit_gather=n, offroad_count=1)
     wants = {"rigid_kernel": counts(rigid_min=n, rigid_bwd=n, **base),
              "fused": counts(rigid_min_fused=n, **base)}
-    for name, kw in RIGID_SPECS.items():
-        specs = pipeline.flagship_guidance_specs(AGENTS_PER_SCENE, **kw)
+    runs = [(name, kw, (10, 10)) for name, kw in RIGID_SPECS.items()]
+    runs += [(f"{name}_16x16", kw, (16, 16)) for name, kw in RIGID_SPECS.items()]
+    wants.update({f"{name}_16x16": wants[name] for name in RIGID_SPECS})
+    budget = gl._FULL_HORIZON_BUDGET
+    for name, kw, grid in runs:
+        agent, bbox = pipeline.flagship_guidance_specs(AGENTS_PER_SCENE, **kw)
+        specs = [agent, dataclasses.replace(bbox, loss=dataclasses.replace(
+            bbox.loss, num_points_lw=grid))]
+        # "rigid" + "fused" runs the whole horizon at once, which the loss
+        # allows up to CLD_GUIDE_FULL_ELEMS (2^27) elements of T B P^2, as the
+        # JAX package's does; 16 x 16 at B = 128 is 436 M: raised for that call,
+        # as the loss's error asks
+        gl._FULL_HORIZON_BUDGET = max(budget, T * B * (grid[0] * grid[1]) ** 2)
         native.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = pipeline.guided_collect(models, batch, guided=True, specs=specs,
-                                      agents_per_scene=AGENTS_PER_SCENE,
-                                      generator=g.manual_seed(10))
-        torch.cuda.synchronize()
+        try:
+            out = pipeline.guided_collect(models, batch, guided=True, specs=specs,
+                                          agents_per_scene=AGENTS_PER_SCENE,
+                                          generator=g.manual_seed(10))
+            torch.cuda.synchronize()
+        finally:
+            gl._FULL_HORIZON_BUDGET = budget
         secs = time.perf_counter() - t0
         launches = native.launch_counts()
         log(f"guided pipeline, {name} ({secs:.2f} s, {B * N_STEPS / secs:.1f} NFE/s; the "
@@ -4521,10 +4646,59 @@ def cudnn_lstm_ms(Hn, dt, args, dy, g, dev):
     return fwd_ms, bwd_ms - cuda_ms(lib_fwd, 10), vjp_ms - cuda_ms(core_fwd, 10)
 
 
+def cudnn_graph_ms(Hn, args, dy, g, dev) -> dict:
+    """cuDNN's two-layer f32 `nn.LSTM` at hidden Hn from random z [B, T, L]
+    (its own weights; it also does the input projection), from a CUDA graph,
+    with TF32 on (PyTorch's default for cuDNN) and off: {"tf32_on" |
+    "tf32_off": {"fwd_ms", "bwd_ms"}}, the backward as (train-mode forward +
+    backward, grads of z, h0 and the weights) - train-mode forward."""
+    import torch
+
+    Bn = args[0].shape[0]
+    cudnn = torch.nn.LSTM(L, Hn, num_layers=2, batch_first=True).to(dev)
+    z = torch.randn((Bn, T, L), generator=g).to(dev)
+    h0 = args[1][None].expand(2, Bn, Hn).contiguous()
+    c0 = torch.zeros_like(h0)
+    zr, h0r = z.clone().requires_grad_(True), h0.clone().requires_grad_(True)
+    wrt = (zr, h0r, *cudnn.parameters())
+    train = lambda: cudnn(zr, (h0r, c0))[0]
+    out = {}
+    kept = torch.backends.cudnn.allow_tf32
+    try:
+        for key, tf32 in (("tf32_on", True), ("tf32_off", False)):
+            torch.backends.cudnn.allow_tf32 = tf32
+            with torch.no_grad():
+                fwd = graph_ms(lambda: cudnn(z, (h0, c0)), 5, 10)
+            both = graph_ms(lambda: torch.autograd.grad(train(), wrt, dy), 5, 10)
+            out[key] = dict(fwd_ms=fwd, bwd_ms=both - graph_ms(train, 5, 10))
+    finally:
+        torch.backends.cudnn.allow_tf32 = kept
+    return out
+
+
+def hold_wide_fwd(args) -> float:
+    """The f32 forward against its plain version (within `LSTM_REL_TOL` of
+    max |plain|) and a relaunch (bit-equal); returns the relative error."""
+    import torch
+
+    from cld_tpu_torch.ops import lstm_kernels as lk
+
+    got, again, want = lk.lstm2_fwd(*args), lk.lstm2_fwd(*args), lk.lstm2_core_ref(*args)
+    torch.cuda.synchronize()
+    rel = max(rel_err(a, b)[1] for a, b in zip(got, want))
+    shape = "B/T/H {}/{}/{}".format(*args[0].shape[:2], args[1].shape[-1])
+    check(rel <= LSTM_REL_TOL, f"lstm2_fwd disagrees with its plain version at {shape}")
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"two lstm2_fwd launches differ at {shape}")
+    return rel
+
+
 def check_wide_kernels(kernels):
     """Both sweeps in both storage types at `WIDE_HELD`, then the wide
     kernels' attributes and times at H = 128 and 320 (B = 32, 128, 512, T =
-    52) beside the plain versions and cuDNN; fills kernels[<wide name>]."""
+    52) beside the plain versions and cuDNN (the f32 forward held at each B,
+    where its rows a cluster change; cuDNN also from a graph, TF32 on and
+    off); fills kernels[<wide name>]."""
     import torch
 
     from cld_tpu_torch.ops import lstm_kernels as lk
@@ -4543,15 +4717,19 @@ def check_wide_kernels(kernels):
         for Hn in WIDE_TIMED_H:
             for which, kname in enumerate(("lstm2_wide_fwd_kernel", "lstm2_wide_gates_kernel",
                                            "lstm2_wide_chain_kernel")):
-                at = lk.kernel_attributes(which, Hn, dtype=dt)
-                attrs[f"{kname} H={Hn}"] = at
-                where = "in shared" if at["resident"] else "read from global"
-                grid = (f"cluster {at['cluster']} (weights {where} memory, "
-                        f"{at['max_active_clusters']} clusters at once)" if which != 1
-                        else "no cluster")
-                log(f"{kname} {dt} H={Hn}: {at['registers']} registers, {at['local_bytes']} "
-                    f"bytes of local memory per thread, {at['shared_bytes']} bytes of shared "
-                    f"memory, {at['threads']} threads, {grid}")
+                f32_fwd = which == 0 and dt == torch.float32
+                for R in lk.WIDE_ROWS if f32_fwd else (1,):
+                    at = lk.kernel_attributes(which, Hn, R, dtype=dt)
+                    name = f"lstm2_wide_fwd_f32_kernel<{R}> H={Hn}" if f32_fwd else (
+                        f"{kname} H={Hn}")
+                    attrs[name] = at
+                    where = "in shared" if at["resident"] else "read from global"
+                    grid = (f"cluster {at['cluster']} (weights {where} memory, "
+                            f"{at['max_active_clusters']} clusters at once)" if which != 1
+                            else "no cluster")
+                    log(f"{name} {dt}: {at['registers']} registers, {at['local_bytes']} "
+                        f"bytes of local memory per thread, {at['shared_bytes']} bytes of "
+                        f"shared memory, {at['threads']} threads, {grid}")
         timed = {}
         for Hn in WIDE_TIMED_H:
             for Bn in (CL_B, B, 512):
@@ -4561,6 +4739,10 @@ def check_wide_kernels(kernels):
                 ba = (d, *a, h1s, c1s, y, c2s)
                 row = dict(fwd_graph_ms=graph_ms(lambda: lk.lstm2_fwd(*a), 5, 4),
                            bwd_graph_ms=graph_ms(lambda: lk.lstm2_bwd(*ba), 5, 4))
+                if dt == torch.float32:  # the redesigned forward: its plan, held at each B
+                    plan = lk.wide_f32_plan(Bn, Hn, dev)
+                    row.update(fwd_rows=plan.rows, fwd_chunks=plan.chunks,
+                               fwd_resident=plan.resident, fwd_rel_err=hold_wide_fwd(a))
                 if Bn == B:  # the main path's shape: held, timed beside the plain versions
                     bargs, e = hold(a, d)
                     row.update(err=e, fwd_ms=cuda_ms(lambda: lk.lstm2_fwd(*a), 10),
@@ -4569,6 +4751,8 @@ def check_wide_kernels(kernels):
                                bwd_plain_ms=cuda_ms(lambda: lk.lstm2_bwd_ref(*bargs), 2))
                     row["cudnn_fwd_ms"], row["cudnn_bwd_ms"], row["vjp_ms"] = cudnn_lstm_ms(
                         Hn, dt, a, d, g, dev)
+                    if dt == torch.float32:
+                        row["cudnn_graph"] = cudnn_graph_ms(Hn, a, d, g, dev)
                     (row["fwd_bound_ms"], row["fwd_bound_by"]), (
                         row["bwd_bound_ms"], row["bwd_bound_by"]) = lstm_bounds(B, T, Hn, elem,
                                                                                 peak)
@@ -4583,17 +4767,26 @@ def check_wide_kernels(kernels):
                 f"{r['cudnn_fwd_ms']:.4f} / backward {r['cudnn_bwd_ms']:.4f} (the Lstm2Core VJP "
                 f"{r['vjp_ms']:.4f}), bound {r['fwd_bound_ms']:.5f} ({r['fwd_bound_by']}) / "
                 f"{r['bwd_bound_ms']:.5f} ({r['bwd_bound_by']})")
+            if dt == torch.float32:
+                cg = r["cudnn_graph"]
+                log(f"cuDNN nn.LSTM f32 H={Hn} B={B} from a CUDA graph: TF32 on fwd "
+                    f"{cg['tf32_on']['fwd_ms']:.4f} / bwd {cg['tf32_on']['bwd_ms']:.4f}, TF32 off "
+                    f"{cg['tf32_off']['fwd_ms']:.4f} / {cg['tf32_off']['bwd_ms']:.4f} ms; the "
+                    "f32 forward's rows a cluster at B=" + ", ".join(
+                        f"{Bn}: {timed[(Hn, Bn)]['fwd_rows']}" for Bn in (CL_B, B, 512)))
         for k in ("fwd", "bwd"):
             r = timed[(WIDE_H, B)]
             kernels[f"lstm2_{k}_wide{sfx}"] = dict(
                 max_abs_err=r["err"][f"{k}_abs"], max_rel_err=r["err"][f"{k}_rel"],
                 ms=r[f"{k}_ms"], plain_ms=r[f"{k}_plain_ms"], bound_ms=r[f"{k}_bound_ms"],
                 bound_by=r[f"{k}_bound_by"], library_ms=r[f"cudnn_{k}_ms"],
+                library_graph_ms=({t: v[f"{k}_ms"] for t, v in r["cudnn_graph"].items()}
+                                  if "cudnn_graph" in r else None),
                 graph_ms={str(Bn): timed[(WIDE_H, Bn)][f"{k}_graph_ms"]
                           for Bn in (CL_B, B, 512)},
                 by_hidden={str(Hn): {str(Bn): {kk: v for kk, v in timed[(Hn, Bn)].items()
                                                if kk.startswith(k) or kk in ("err", "vjp_ms")
-                                               or kk.startswith(f"cudnn_{k}")}
+                                               or kk.startswith("cudnn_")}
                                      for Bn in (CL_B, B, 512)} for Hn in WIDE_TIMED_H},
                 held={s: {kk: v for kk, v in e.items() if kk.startswith(k)}
                       for s, e in held.items()},
@@ -4694,26 +4887,32 @@ def run_dma_probe(kernels, report):
     check(rc == 0, "the bulk-copy probe's output is not 2 x bit for bit")
     check(launches == counts(dma_probe=len(dma_probe.CASES)), f"dma probe launches {launches}")
     report["launches_dma_probe"] = launches
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    shape = dma_probe.copy_shape(128, True, sms)
+    check(shape["ctas"] > sms, f"dma probe at [{T}, {dma_probe.B}, 128]: {shape['ctas']} CTAs "
+          f"on {sms} SMs")
     x = dma_probe.probe_input(128, True, torch.device("cuda", 0))
-    out = dma_probe.bulk_double(x, dma_probe.BB)
+    out = dma_probe.bulk_double(x)
     err = float((out.float() - 2 * x.float()).abs().max())
     regs, local, threads, smem = native.attributes(native.library().cld_dma_probe_attributes,
                                                    n=4)
     nbytes = 2 * x.numel() * x.element_size()
     b_ms, b_by = bound(nbytes, float(x.numel()))
     kernels["dma_probe"] = dict(
-        max_abs_err=err, ms=cuda_ms(lambda: dma_probe.bulk_double(x, dma_probe.BB), 50),
+        max_abs_err=err, ms=cuda_ms(lambda: dma_probe.bulk_double(x), 50),
         plain_ms=cuda_ms(lambda: 2 * x, 50), bound_ms=b_ms, bound_by=b_by,
         library_ms=cuda_ms(lambda: torch.mul(x, 2), 50),
-        graph_ms=graph_ms(lambda: dma_probe.bulk_double(x, dma_probe.BB)),
+        graph_ms=graph_ms(lambda: dma_probe.bulk_double(x)),
         plain_graph_ms=graph_ms(lambda: 2 * x), cases=dma_probe.run_cases(x.device),
         attributes=dict(registers=regs, local_bytes=local, max_threads=threads,
                         static_shared_bytes=smem))
     k = kernels["dma_probe"]
-    log(f"dma probe [{T}, {dma_probe.B}, 128] bf16, batch slices of {dma_probe.BB}: "
+    log(f"dma probe [{T}, {dma_probe.B}, 128] bf16 (the batch-slice case): "
         f"{k['graph_ms']:.5f} ms from a CUDA graph ({k['ms']:.4f} from Python) beside 2 * x "
-        f"{k['plain_graph_ms']:.5f} ({k['plain_ms']:.4f}), bound {b_ms:.5f} ({b_by}); "
-        f"{regs} registers, {local} bytes of local memory")
+        f"{k['plain_graph_ms']:.5f} ({k['plain_ms']:.4f}), bound {b_ms:.5f} ({b_by}; target "
+        f"2x the bound, {2 * b_ms:.5f}); {shape['ctas']} CTAs x {shape['copies_per_cta']} bulk "
+        f"copies of {shape['bytes_per_copy']} B on {sms} SMs; {regs} registers, {local} bytes "
+        "of local memory")
 
 
 def run_wide(kernels, report):
@@ -4826,7 +5025,10 @@ def main() -> int:
     }
     paths = {"open_loop": "launches", "closed_loop": "launches_closed_loop",
              "px_replan": "launches_px_replan", "rigid_open_loop": "launches_rigid_kernel",
-             "fused_open_loop": "launches_fused", "rigid_replan": "launches_rigid_replan",
+             "fused_open_loop": "launches_fused",
+             "rigid_open_loop_16x16": "launches_rigid_kernel_16x16",
+             "fused_open_loop_16x16": "launches_fused_16x16",
+             "rigid_replan": "launches_rigid_replan",
              "vae_train": "launches_vae_train", "dm_train": "launches_dm_train",
              "ppo": "launches_ppo", "ppo_disk_penalty": "launches_ppo_disk_penalty",
              "rules": "launches_rules", "checkpoint_rollout": "launches_checkpoint_rollout",

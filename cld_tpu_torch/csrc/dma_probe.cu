@@ -1,15 +1,29 @@
-// Probe of Hopper's bulk asynchronous copy (sm_90a): a [T, bb, minor] bf16
-// block of x [T, Bp, minor] brought into shared memory by
-// `cp.async.bulk` completing on an mbarrier, doubled, written out.
+// Probe of Hopper's bulk asynchronous copy (sm_90a): x bf16 (the probe's
+// [T, Bp, minor]) brought into shared memory tile by tile by `cp.async.bulk` completing on
+// mbarriers, doubled, written out.
 //
 // Replaces `scripts/micro_dma_probe.py:38`, the TPU probe of which
 // ANY -> VMEM scratch copies Mosaic accepts (minor 64 or 128; the whole
 // array, or a batch slice x[:, b bb : (b + 1) bb, :]). There a block was one
-// strided DMA into 16 MiB of VMEM; here a CTA's shared memory holds 227 KB,
-// so CTA (t-block, b) copies kSteps time steps of its batch slice, one bulk
-// copy per step (a step's bb x minor slice is contiguous in x: bb minor 2
-// bytes, 16-byte aligned), and the mbarrier counts the bytes of all of
-// them. What bounds it: bytes (x read once, the output written once).
+// strided DMA into 16 MiB of VMEM. Here the whole contiguous array is cut
+// into equal flat tiles of bytes (`dma_probe.py:tile_bytes`), so the TPU
+// probe's whole-array and batch-slice copies have no counterpart: its cases
+// differ only in the array's shape.
+//
+// What bounds it: bytes (x read once, the output written once; 3.4 MB at
+// [52, 128, 128], 1.02 us at the memory rate). The first design ran
+// 26 CTAs of 4 whole steps' slices (64 KB each) on the 132-SM card and took
+// 3.26x its bound from a CUDA graph, 2.1x `2 * x`. This design is for
+// bytes:
+// - tiles of 2 KB (8 rows of a step at minor 128, 16 at 64), two a CTA where
+//   that leaves at least as many CTAs as SMs (`dma_probe.py:tiles_per_cta`:
+//   416 CTAs at [52, 128, 128]), every bulk copy of a CTA issued at once by
+//   one thread before the block barrier, each on its own mbarrier (the
+//   whole array in flight across the card: 12.9 KB an SM against the ~3 MB
+//   that the memory rate times the latency asks for);
+// - the CTA's threads split over its tiles (128 a tile of 2 KB, one 16-byte
+//   vector each): each doubles its vector as soon as its own tile's barrier
+//   completes, and writes it back with a 16-byte store.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -20,7 +34,7 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kSteps = 4;      // time steps a CTA brings in
+constexpr int kMaxStages = 4;  // tiles (bulk copies in flight) a CTA, at most
 constexpr int kThreads = 256;
 constexpr size_t kSmemMax = 232448;
 
@@ -42,38 +56,41 @@ __device__ __forceinline__ bool bar_try_wait(unsigned bar, unsigned phase) {
   return done != 0;
 }
 
+// CTA c owns tiles c per, ..., c per + per - 1 of the ntiles tiles of
+// `tile` bytes each (tile k at byte k tile of x and of out).
 __global__ void __launch_bounds__(kThreads) bulk_double_kernel(const bf16* __restrict__ x,
-                                                              bf16* __restrict__ out, int T,
-                                                              int Bp, int bb, int minor) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ __align__(8) uint64_t bar;
-  const int t0 = blockIdx.x * kSteps, b = blockIdx.y;
-  const int steps = T - t0 < kSteps ? T - t0 : kSteps;
-  const unsigned row = (unsigned)(bb * minor * sizeof(bf16));  // one step's slice, bytes
-  const unsigned bar_a = saddr(&bar);
+                                                              bf16* __restrict__ out,
+                                                              int ntiles, int tile, int per) {
+  extern __shared__ __align__(128) unsigned char smem[];  // [per][tile]
+  __shared__ __align__(8) uint64_t bar[kMaxStages];
+  const int first = blockIdx.x * per;
+  const int n = ntiles - first < per ? ntiles - first : per;
+  // thread 0 sets up every barrier and issues every copy before the block
+  // barrier that lets the others wait on them: the copies' latency starts
+  // at once
   if (threadIdx.x == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar_a) : "memory");
+    for (int s = 0; s < n; ++s)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(saddr(&bar[s])) : "memory");
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar_a),
-                 "r"(row * steps)
-                 : "memory");
-    for (int s = 0; s < steps; ++s) {
-      const bf16* src = x + ((size_t)(t0 + s) * Bp + (size_t)b * bb) * minor;
+    for (int s = 0; s < n; ++s) {
+      const unsigned b = saddr(&bar[s]);
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b),
+                   "r"(tile)
+                   : "memory");
+      const unsigned char* src = reinterpret_cast<const unsigned char*>(x) +
+                                 (size_t)(first + s) * tile;
       asm volatile(
           "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
-          "[%3];\n" ::"r"(saddr(smem + (size_t)s * row)),
-          "l"(src), "r"(row), "r"(bar_a)
+          "[%3];\n" ::"r"(saddr(smem + (size_t)s * tile)),
+          "l"(src), "r"(tile), "r"(b)
           : "memory");
     }
   }
-  while (!bar_try_wait(bar_a, 0)) {
-  }
-  const int per = bb * minor / 8;  // 16-byte vectors of one step's slice
-  for (int i = threadIdx.x; i < steps * per; i += kThreads) {
-    const int s = i / per, e = i % per;
+  __syncthreads();  // the barriers are initialised
+  const int vecs = tile / 16;  // 16-byte vectors a tile; the CTA's n tiles are contiguous
+  for (int i = threadIdx.x; i < n * vecs; i += kThreads) {
+    while (!bar_try_wait(saddr(&bar[i / vecs]), 0)) {  // this vector's tile has landed
+    }
     uint4 v = reinterpret_cast<const uint4*>(smem)[i];
     __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
 #pragma unroll
@@ -81,7 +98,7 @@ __global__ void __launch_bounds__(kThreads) bulk_double_kernel(const bf16* __res
       const float2 f = __bfloat1622float2(h[j]);
       h[j] = __floats2bfloat162_rn(2.0f * f.x, 2.0f * f.y);  // exact: an exponent step
     }
-    reinterpret_cast<uint4*>(out + ((size_t)(t0 + s) * Bp + (size_t)b * bb) * minor)[e] = v;
+    reinterpret_cast<uint4*>(reinterpret_cast<unsigned char*>(out) + (size_t)first * tile)[i] = v;
   }
 }
 
@@ -89,21 +106,22 @@ __global__ void __launch_bounds__(kThreads) bulk_double_kernel(const bf16* __res
 
 extern "C" {
 
-// out = 2 x for x, out [T, Bp, minor] bf16, contiguous and 16-byte aligned
-// on the current device; CTA (t-block, b) copies x[t-block, b bb : (b+1) bb]
-// (bb | Bp; Bp == bb copies the whole array). minor a multiple of 8.
-// Launches on `stream`; returns a cudaError_t.
-int cld_dma_probe(const void* x, void* out, int T, int Bp, int bb, int minor, void* stream) {
-  if (bb <= 0 || Bp % bb || minor <= 0 || minor % 8) return (int)cudaErrorInvalidValue;
-  if (T == 0 || Bp == 0) return 0;
-  const size_t smem = (size_t)kSteps * bb * minor * sizeof(bf16);
+// out = 2 x for x, out bf16, contiguous and 16-byte aligned on the current
+// device: ntiles tiles of `tile` bytes (a multiple of 16), `per` tiles a CTA
+// (1 to kMaxStages). Launches on `stream`; returns a cudaError_t.
+int cld_dma_probe(const void* x, void* out, int ntiles, int tile, int per, void* stream) {
+  if (ntiles < 0 || tile <= 0 || tile % 16 || per < 1 || per > kMaxStages)
+    return (int)cudaErrorInvalidValue;
+  if (ntiles == 0) return 0;
+  const size_t smem = (size_t)per * tile;
   if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
-  int err = (int)cudaFuncSetAttribute((const void*)bulk_double_kernel,
-                                      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != 0) return err;
-  const dim3 grid((T + kSteps - 1) / kSteps, Bp / bb);
-  bulk_double_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const bf16*)x, (bf16*)out, T, Bp, bb, minor);
+  if (smem > 48 * 1024) {
+    const int err = (int)cudaFuncSetAttribute(
+        (const void*)bulk_double_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != 0) return err;
+  }
+  bulk_double_kernel<<<(ntiles + per - 1) / per, kThreads, smem, (cudaStream_t)stream>>>(
+      (const bf16*)x, (bf16*)out, ntiles, tile, per);
   return (int)cudaGetLastError();
 }
 

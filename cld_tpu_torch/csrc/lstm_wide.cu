@@ -20,14 +20,19 @@
 //   in shared memory for the whole sweep. Where the slice and the buffers
 //   do not fit (f32 from H = 256) it reads the slice from global memory
 //   (L2-resident, one copy for every cluster) at each step;
-// * forward (`lstm2_wide_fwd_kernel`): a step's products run over the
-//   CTA's 12 U "columns" (Wh1, W2[:H], W2[H:] against h1[t-1], h1[t-1],
-//   h2[t-2]: the two layers as a wavefront, as in `lstm_bf16.cu`), each
-//   column's K = H split into S chunks, one thread per (column, chunk) and
-//   eight rows; the chunks meet in shared memory in a fixed order; one
-//   thread per (layer, unit, row) runs the cell and writes its new h into
-//   every CTA of the cluster (distributed shared memory, an all-gather),
-//   then one cluster barrier a step;
+// * forward in bf16 (`lstm2_wide_fwd_kernel`, the first design): a step's
+//   products run over the CTA's 12 U "columns" (Wh1, W2[:H], W2[H:] against
+//   h1[t-1], h1[t-1], h2[t-2]: the two layers as a wavefront, as in
+//   `lstm_bf16.cu`), each column's K = H split into S chunks, one thread
+//   per (column, chunk) and eight rows; the chunks meet in shared memory in
+//   a fixed order; one thread per (layer, unit, row) runs the cell and
+//   writes its new h into every CTA of the cluster (distributed shared
+//   memory, an all-gather), then one cluster barrier a step;
+// * forward in f32 (`lstm2_wide_fwd_f32_kernel<R, kResident>`, redesigned
+//   below): the same products and all-gather, but 8 or 16 rows a
+//   cluster (one wave where the card holds the row tiles), two columns a
+//   product thread, and per-CTA mbarriers fed by DSMEM bulk copies
+//   (`cp.async.bulk.shared::cluster`) in place of the cluster barrier;
 // * reverse sweep, two launches counted as one: `lstm2_wide_gates_kernel`
 //   recomputes both layers' gates over all B T (b, t) pairs at once (a
 //   tiled product, no cluster) into the 12 coefficients per (pair, unit) of
@@ -47,10 +52,12 @@
 // `tanhf`) and the coefficient scratch stay f32. Every sum runs in a fixed
 // order, nothing is atomic: two launches agree bit for bit.
 //
-// What bounds them: the chain of T + 1 dependent steps, each a cluster
-// barrier after products of 12 H U MACs per row in every CTA. This is the
-// simple form: the bf16 products are not on the tensor cores, and a step's
-// products are bound by the shared-memory reads of the h / dg operand.
+// What bounds them: the chain of T + 1 dependent steps, each a barrier
+// after products of 12 H U MACs per row in every CTA. The bf16 forward and
+// both reverse sweeps are the simple form: the bf16 products are not on the
+// tensor cores, and a step's products are bound by the shared-memory reads
+// of the h / dg operand. The f32 forward's design is set out above its
+// kernel.
 //
 // The wrapper (`lstm_kernels.py`) pads H to a multiple of 16 (zero units,
 // exact) and packs the weights per CTA ("wide_fwd", "wide_chain",
@@ -253,6 +260,272 @@ __global__ void __launch_bounds__(kMaxThreads, 1) lstm2_wide_fwd_kernel(
     }
     cluster.sync();  // the step's h in every CTA; the partial sums free again
   }
+}
+
+// ---------------------------------------------------------------------------
+// The f32 forward, redesigned (`lstm2_wide_fwd_f32_kernel<R, kResident>`).
+// ---------------------------------------------------------------------------
+//
+// What held the first design back at H = 128 (0.519 ms from a graph at B =
+// 128, 13x its operation bound): a cluster owned 8 rows, so B = 128 needed
+// 16 clusters of 8 where the card holds 15 (two waves), and a step was
+// latency: 768 threads of 256 FMAs each, a block barrier, 256 of them
+// running the cells while 512 waited, then a full cluster barrier, whose
+// release also waits for the step's global stores. This design:
+// - a cluster owns R = 8 or 16 rows, chosen by the wrapper from B and the
+//   clusters the card holds at once (`lstm_kernels.py:wide_rows`): B = 128
+//   at H = 128 is 8 clusters of 16 rows, one wave;
+// - each CTA has an mbarrier per parity of its h buffer. The cell threads
+//   stage their new h in shared memory ([layer][unit][row], the block the
+//   CTA owns in every h buffer), and one lane per peer sends each layer's
+//   block there by a DSMEM bulk copy (`cp.async.bulk.shared::cluster`),
+//   which completes its bytes on the peer's barrier (`complete_tx`): 2 C
+//   transactions a barrier a step (sending each h by `st.async` from its
+//   cell thread made 16 U C, which cost more than the products at H =
+//   320). The owner arms the barrier with the step's bytes
+//   once it has read the phase before (`expect_tx`), and waits only for the
+//   h it reads next. No cluster barrier inside the sweep, and the global
+//   stores of h and c leave without a fence;
+// - a product thread owns two adjacent columns (one float2 of the "wide_fwd"
+//   layout) for R rows over a chunk of K: each h row read from shared
+//   memory feeds 2 R FMAs (the first design: R); its partial sums go to
+//   shared memory as [chunk][row][column] (float2 stores, no bank
+//   conflict), summed by the cells in chunk order;
+// - 16 U cell threads each run R / 8 rows of one unit, units fastest across
+//   threads (coalesced global stores); layer 1's input projection comes
+//   into shared memory by `cp.async` before the wait (loads into registers
+//   there the compiler may sink to their use, into the step's critical
+//   path), the bias once;
+// - where the weight slice does not fit (H >= 256) it is read from L2 as
+//   before, kResident = false.
+// The products stay f32 FMAs (TF32 would miss 1e-5 of max |plain|); every
+// sum runs in a fixed order: two launches agree bit for bit.
+
+constexpr int kPad = 8;         // extra floats per row of the partial sums (bank spread)
+constexpr int kBarBytes = 16;   // the two mbarriers at the head of shared memory
+// Most threads a block: 128 registers a thread hold the 2 R sums and the
+// rows of h and weights in flight (at 768 threads the R = 16 build spilled).
+constexpr int kF32Threads = 512;
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+// The shared::cluster address of shared address `a` in the CTA of rank p.
+__device__ __forceinline__ unsigned map_rank(unsigned a, unsigned p) {
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(a), "r"(p));
+  return r;
+}
+
+__device__ __forceinline__ void bar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// The one local arrival of a phase, with the bytes the phase waits for.
+__device__ __forceinline__ void bar_arm(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_wait(unsigned bar, unsigned parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// `bytes` of this CTA's shared memory at `src` into shared::cluster address
+// `dst`, completed on the barrier at shared::cluster address `bar`.
+__device__ __forceinline__ void send(unsigned dst, unsigned src, unsigned bytes, unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(dst),
+      "r"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Forward sweep in f32, R rows a cluster. wpk ("wide_fwd", as the first
+// design): [C][H][12 U], CTA q's row k, column v = part * 4U + g U + u.
+// Threads: 6 U S (column pair, K chunk); the first 16 U also run the cells
+// (unit u = t % U, row group t / U % 8 of R / 8 rows, layer t / 8U).
+template <int R, bool kResident>
+__global__ void __launch_bounds__(kF32Threads, 1) lstm2_wide_fwd_f32_kernel(
+    const float* __restrict__ xg1, const float* __restrict__ h0, const float* __restrict__ wpk,
+    const float* __restrict__ b2, float* __restrict__ y, float* __restrict__ h1s,
+    float* __restrict__ c1s, float* __restrict__ c2s, int B, int Tn, int H, int U, int S) {
+  constexpr int RC = R / 8;  // rows a cell thread runs
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks(), q = (int)cluster.block_rank();
+  const int b0 = (blockIdx.x / C) * R;
+  const int NV = 12 * U, NP = 6 * U, NR = NV + kPad, G = 4 * H, KC = H / S, tid = threadIdx.x;
+  extern __shared__ __align__(16) unsigned char smem[];
+  // per parity of hb, the barrier its step's h completes on
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  const size_t slice = (size_t)H * NV;
+  const float* w = wpk + (size_t)q * slice;
+  float* hb = reinterpret_cast<float*>(smem + kBarBytes);  // [parity][layer][H][R]
+  float* stage = hb + 4 * H * R;                // [parity][layer][U][R] this CTA's new h
+  float* xs = stage + 4 * U * R;                // [4][U][R] layer 1's input projection
+  float* bs = xs + 4 * U * R;                   // [4][U] layer 2's bias
+  float* red = bs + 4 * U;                      // [S][R][NR] partial sums
+  float* ws = red + (size_t)S * R * NR;         // [H][NV] the weight slice (kResident)
+  if (kResident) {  // four 16-byte loads in flight a thread
+    const size_t n4 = slice / 4;
+#pragma unroll 4
+    for (size_t i = tid; i < n4; i += blockDim.x)
+      reinterpret_cast<float4*>(ws)[i] = reinterpret_cast<const float4*>(w)[i];
+  }
+  for (int i = tid; i < 4 * U; i += blockDim.x) bs[i] = b2[i / U * H + q * U + i % U];
+  for (int i = tid; i < H * R; i += blockDim.x) {  // h1[-1] (read at s = 0), h2[-1] (s = 1)
+    const int k = i / R, r = i % R, b = b0 + r;
+    const float v = b < B ? h0[(size_t)b * H + k] : 0.0f;
+    hb[(1 * 2 + 0) * H * R + i] = v;
+    hb[(0 * 2 + 1) * H * R + i] = v;
+  }
+  const unsigned step_bytes = (unsigned)(H * R * sizeof(float));  // one layer's h, all CTAs
+  if (tid == 0) {
+    bar_init(smem_addr(&full[0]), 1);
+    bar_init(smem_addr(&full[1]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (Tn > 0) bar_arm(smem_addr(&full[0]), step_bytes);  // step 0: layer 1 alone
+    if (Tn > 1) bar_arm(smem_addr(&full[1]), 2 * step_bytes);
+  }
+
+  // products: column pair pp (columns 2 pp, 2 pp + 1, one part), K chunk
+  const int pp = tid % NP, chunk = tid / NP;
+  const int v0 = 2 * pp, part = v0 / (4 * U);  // 0: Wh1 . h1, 1: W2[:H] . h1, 2: W2[H:] . h2
+  const float* wc = (kResident ? ws : w) + (size_t)chunk * KC * NV + v0;
+  // cells: layer cl (0: 1, 1: 2), unit u of the CTA, rows r0 .. r0 + RC - 1
+  const int u = tid % U, r0 = (tid / U) % 8 * RC, cl = tid / (8 * U);
+  const bool cell = cl < 2;
+  const int unit = q * U + u;
+  float c[RC];
+#pragma unroll
+  for (int j = 0; j < RC; ++j) c[j] = 0.0f;
+  cluster.sync();  // every CTA's barriers armed and h0 in place before any remote store
+
+  for (int s = 0; s <= Tn; ++s) {
+    const int cur = s & 1, prv = cur ^ 1;
+    const bool on1 = s < Tn, on2 = s > 0;  // layer 1 runs step s, layer 2 step s - 1
+    if (cell && cl == 0 && on1) {  // layer 1's input projection, in flight during the wait
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+#pragma unroll
+        for (int j = 0; j < RC; ++j) {
+          const int b = b0 + r0 + j;
+          float* dst = xs + (g * U + u) * R + r0 + j;
+          if (b < B)
+            cp_async4(dst, xg1 + ((size_t)b * Tn + s) * G + g * H + unit);
+          else
+            *dst = 0.0f;
+        }
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    }
+    if (s > 0) {  // step s - 1's h from every CTA, in buffer prv
+      bar_wait(smem_addr(&full[prv]), ((s - 1) >> 1) & 1);
+      if (tid == 0 && s + 1 < Tn) bar_arm(smem_addr(&full[prv]), 2 * step_bytes);
+    }
+
+    if (part == 0 ? on1 : on2) {
+      float a0[R], a1[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) a0[r] = a1[r] = 0.0f;
+      const float* x = hb + ((prv * 2 + (part == 2)) * H + chunk * KC) * R;
+      // the loads of kUnroll rows of K in flight: 4, but 2 for 16 rows from
+      // shared memory (4 spilled there; from L2, 2 lost more to latency)
+      constexpr int kUnroll = R == 16 && kResident ? 2 : 4;
+#pragma unroll kUnroll
+      for (int k = 0; k < KC; ++k) {
+        const float2 wv = *reinterpret_cast<const float2*>(wc + (size_t)k * NV);
+#pragma unroll
+        for (int r4 = 0; r4 < R; r4 += 4) {
+          const float4 xv = *reinterpret_cast<const float4*>(x + k * R + r4);
+          a0[r4] = fmaf(xv.x, wv.x, a0[r4]);
+          a0[r4 + 1] = fmaf(xv.y, wv.x, a0[r4 + 1]);
+          a0[r4 + 2] = fmaf(xv.z, wv.x, a0[r4 + 2]);
+          a0[r4 + 3] = fmaf(xv.w, wv.x, a0[r4 + 3]);
+          a1[r4] = fmaf(xv.x, wv.y, a1[r4]);
+          a1[r4 + 1] = fmaf(xv.y, wv.y, a1[r4 + 1]);
+          a1[r4 + 2] = fmaf(xv.z, wv.y, a1[r4 + 2]);
+          a1[r4 + 3] = fmaf(xv.w, wv.y, a1[r4 + 3]);
+        }
+      }
+      float* dst = red + (size_t)chunk * R * NR + v0;
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        *reinterpret_cast<float2*>(dst + r * NR) = make_float2(a0[r], a1[r]);
+    }
+    __syncthreads();  // the step's partial sums
+
+    const bool run = cell && (cl == 0 ? on1 : on2);
+    float h[RC];
+    if (run) {
+      if (cl == 0) asm volatile("cp.async.wait_all;\n" ::: "memory");  // this thread's xs
+#pragma unroll
+      for (int j = 0; j < RC; ++j) {
+        float pre[4];
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {  // the chunks' partial sums in order
+          const int col = cl * 4 * U + g * U + u;
+          const float* p = red + (size_t)(r0 + j) * NR + col;
+          float a = 0.0f;
+#pragma unroll 4
+          for (int ch = 0; ch < S; ++ch) a += p[(size_t)ch * R * NR];
+          if (cl == 1) {
+#pragma unroll 4
+            for (int ch = 0; ch < S; ++ch) a += p[(size_t)ch * R * NR + 4 * U];
+          }
+          pre[g] = a + (cl == 0 ? xs[(g * U + u) * R + r0 + j] : bs[g * U + u]);
+        }
+        const float ig = sigm(pre[0]), fg = sigm(pre[1]), gg = tanhf(pre[2]), og = sigm(pre[3]);
+        c[j] = fg * c[j] + ig * gg;
+        h[j] = og * tanhf(c[j]);
+      }
+      if (s < Tn) {  // staged for the bulk copies below
+#pragma unroll
+        for (int j = 0; j < RC; ++j) stage[((cur * 2 + cl) * U + u) * R + r0 + j] = h[j];
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      }
+    }
+    if (s < Tn) {  // read at step s + 1 by every CTA of the cluster: lane p of warp 0 sends
+      __syncthreads();  // the staged block to CTA p, each layer that ran
+      if (tid < C) {
+        const unsigned bar = map_rank(smem_addr(&full[cur]), tid);
+        const unsigned bytes = (unsigned)(U * R * sizeof(float));
+        for (int l = 0; l < (on2 ? 2 : 1); ++l) {
+          const unsigned dst = smem_addr(hb + ((size_t)(cur * 2 + l) * H + q * U) * R);
+          send(map_rank(dst, tid), smem_addr(stage + (cur * 2 + l) * U * R), bytes, bar);
+        }
+      }
+    }
+    if (run) {
+#pragma unroll
+      for (int j = 0; j < RC; ++j) {
+        const int b = b0 + r0 + j;
+        if (b < B) {
+          const size_t o = ((size_t)b * Tn + (cl == 0 ? s : s - 1)) * H + unit;
+          (cl == 0 ? h1s : y)[o] = h[j];
+          (cl == 0 ? c1s : c2s)[o] = c[j];
+        }
+      }
+    }
+  }
+  cluster.sync();  // no CTA leaves while a peer may still address it
 }
 
 // a[p][g] += sum over k < H of x[k][p] w[k][g] for four pairs (x rows
@@ -511,6 +784,58 @@ int wide_bwd(const void* dy, const void* xg1, const void* h0, const void* b2, co
                         w.chain_threads, w.chain_smem, stream, args);
 }
 
+// The launch geometry of the f32 forward at (H, C, R).
+struct WideF32 {
+  int H, C, U, R, S, threads;
+  bool resident;
+  size_t smem;
+};
+
+// One candidate plan: S chunks of K, the weight slice resident in shared
+// memory or not. Shared memory: the two mbarriers, the h buffers
+// [2][2][H][R], the staged h of the CTA's units [2][2][U][R], layer 1's
+// input projection [4][U][R], layer 2's bias [4][U], the partial sums
+// [S][R][12 U + kPad] and, resident, the slice [H][12 U]. The threads
+// (6 U S) fit kF32Threads and cover the 16 U cell threads.
+bool wide_f32_fits(int H, int C, int R, int S, bool resident, WideF32* w) {
+  w->H = H;
+  w->C = C;
+  w->U = H / C;
+  w->R = R;
+  w->S = S;
+  w->threads = 6 * w->U * S;
+  if (H % S || w->threads > kF32Threads || w->threads < 16 * w->U) return false;
+  w->resident = resident;
+  w->smem = kBarBytes + sizeof(float) * ((size_t)4 * (H + 2 * w->U) * R + 4 * w->U +
+                                         (size_t)S * R * (12 * w->U + kPad) +
+                                         (resident ? (size_t)12 * H * w->U : 0));
+  return w->smem <= kSmemMax;
+}
+
+// The plan at (H, C, R), or false where there is none: the residency of R =
+// 8's plan (the slice in shared memory where it fits at 8 rows; more rows
+// never keep it where 8 could not, and a row count that would push it out
+// gets no plan), then the most chunks of K (8, else 4) that fit.
+bool wide_f32_config(int H, int C, int R, WideF32* w) {
+  if (H <= 64 || H > kMaxHidden || H % kGrain || (C != 8 && C != 16) || H % C) return false;
+  if (R != 8 && R != 16) return false;
+  for (int r = 1; r >= 0; --r) {
+    const bool resident = r != 0;
+    if (!wide_f32_fits(H, C, 8, 8, resident, w) && !wide_f32_fits(H, C, 8, 4, resident, w))
+      continue;
+    return wide_f32_fits(H, C, R, 8, resident, w) || wide_f32_fits(H, C, R, 4, resident, w);
+  }
+  return false;
+}
+
+const void* f32_kernel(int R, bool resident) {
+  if (R == 8)
+    return resident ? (const void*)lstm2_wide_fwd_f32_kernel<8, true>
+                    : (const void*)lstm2_wide_fwd_f32_kernel<8, false>;
+  return resident ? (const void*)lstm2_wide_fwd_f32_kernel<16, true>
+                  : (const void*)lstm2_wide_fwd_f32_kernel<16, false>;
+}
+
 }  // namespace
 
 extern "C" {
@@ -525,15 +850,57 @@ extern "C" {
 // time); coef an f32 scratch [B, T, 12, H]. H a multiple of 16 in [80, 320],
 // C 8 or 16 dividing H.
 
+// The bf16 forward (the first design; bf16_storage must be 1: the f32
+// forward is `cld_lstm2_wide_fwd_f32`).
 int cld_lstm2_wide_fwd(const void* xg1, const void* h0, const void* wfwd, const void* b2,
                        void* y, void* h1s, void* c1s, void* c2s, int B, int T, int H, int C,
                        int bf16_storage, void* stream) {
   Wide w;
-  if (!wide_config(H, C, bf16_storage ? 2 : 4, &w)) return (int)cudaErrorInvalidValue;
+  if (!bf16_storage || !wide_config(H, C, 2, &w)) return (int)cudaErrorInvalidValue;
   if (B == 0 || T == 0) return 0;
-  const cudaStream_t s = (cudaStream_t)stream;
-  return bf16_storage ? wide_fwd<bf16>(xg1, h0, wfwd, b2, y, h1s, c1s, c2s, B, T, w, s)
-                      : wide_fwd<float>(xg1, h0, wfwd, b2, y, h1s, c1s, c2s, B, T, w, s);
+  return wide_fwd<bf16>(xg1, h0, wfwd, b2, y, h1s, c1s, c2s, B, T, w, (cudaStream_t)stream);
+}
+
+// The f32 forward: R (8 or 16) rows a cluster, its chunks of K and the
+// weight slice's residency planned by `wide_f32_config`; refused
+// (cudaErrorInvalidValue) where there is no plan at (H, C, R).
+int cld_lstm2_wide_fwd_f32(const void* xg1, const void* h0, const void* wfwd, const void* b2,
+                           void* y, void* h1s, void* c1s, void* c2s, int B, int T, int H,
+                           int C, int R, void* stream) {
+  WideF32 w;
+  if (!wide_f32_config(H, C, R, &w)) return (int)cudaErrorInvalidValue;
+  if (B == 0 || T == 0) return 0;
+  const float *px = (const float*)xg1, *ph = (const float*)h0, *pw = (const float*)wfwd,
+              *pb = (const float*)b2;
+  float *py = (float*)y, *p1 = (float*)h1s, *pc1 = (float*)c1s, *pc2 = (float*)c2s;
+  int U = w.U, S = w.S;
+  void* args[] = {&px, &ph, &pw, &pb, &py, &p1, &pc1, &pc2, &B, &T, &H, &U, &S};
+  return cluster_launch(f32_kernel(R, w.resident), C, C * ((B + R - 1) / R), w.threads, w.smem,
+                        (cudaStream_t)stream, args);
+}
+
+// The f32 forward's plan at (H, C, R) and the compiler's verdict on it: out =
+// {registers per thread, local memory bytes per thread (spills), max threads
+// per block, dynamic shared memory bytes, threads per block, clusters the
+// card can hold at once, chunks of K, weight slice resident (0/1)};
+// cudaErrorInvalidValue where there is no plan.
+int cld_lstm2_wide_fwd_f32_query(int H, int C, int R, int* out) {
+  WideF32 w;
+  if (!wide_f32_config(H, C, R, &w)) return (int)cudaErrorInvalidValue;
+  const void* kernel = f32_kernel(R, w.resident);
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = a.maxThreadsPerBlock;
+  out[3] = (int)w.smem;
+  out[4] = w.threads;
+  out[6] = w.S;
+  out[7] = w.resident;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  return cluster_prep(kernel, C, C, w.threads, w.smem, 0, &cfg, &attr, &out[5]);
 }
 
 // Launches the gates kernel (into coef) and then the chain: one reverse
@@ -557,18 +924,19 @@ int cld_lstm2_wide_bwd(const void* dy, const void* xg1, const void* h0, const vo
 // out = {registers per thread, local memory bytes per thread (spills), max
 // threads per block, dynamic shared memory bytes, cluster size, weights
 // resident in shared memory (0/1), threads per block, clusters the card can
-// hold at once}. which: 0 the forward, 1 the reverse sweep's gates kernel
-// (no cluster: size 1), 2 its chain.
+// hold at once}. which: 0 the forward (bf16 only: the f32 forward's is
+// `cld_lstm2_wide_fwd_f32_query`), 1 the reverse sweep's gates kernel (no
+// cluster: size 1), 2 its chain.
 int cld_lstm2_wide_attributes(int which, int H, int C, int bf16_storage, int* out) {
   Wide w;
-  if (!wide_config(H, C, bf16_storage ? 2 : 4, &w)) return (int)cudaErrorInvalidValue;
+  if ((which == 0 && !bf16_storage) || !wide_config(H, C, bf16_storage ? 2 : 4, &w))
+    return (int)cudaErrorInvalidValue;
   const void* kernel =
       bf16_storage ? (which == 0   ? (const void*)lstm2_wide_fwd_kernel<bf16>
                       : which == 1 ? (const void*)lstm2_wide_gates_kernel<bf16>
                                    : (const void*)lstm2_wide_chain_kernel<bf16>)
-                   : (which == 0   ? (const void*)lstm2_wide_fwd_kernel<float>
-                      : which == 1 ? (const void*)lstm2_wide_gates_kernel<float>
-                                   : (const void*)lstm2_wide_chain_kernel<float>);
+                   : (which == 1 ? (const void*)lstm2_wide_gates_kernel<float>
+                                 : (const void*)lstm2_wide_chain_kernel<float>);
   cudaFuncAttributes a;
   cudaError_t err = cudaFuncGetAttributes(&a, kernel);
   if (err != cudaSuccess) return (int)err;

@@ -40,6 +40,14 @@
 // sum; 4 or 8 warps per block. The approximate division (`__fdividef`) was
 // faster, but its 2 ulp in a_j cost more than rtol 1e-4 against the plain
 // version where the two terms of grad_i nearly cancel.
+//
+// Any P: the template above holds every column of a (b, q) in registers,
+// one instantiation per chunk count up to 7 (P <= 224, the bbox grids of
+// record). Above that, `rigid_bwd_loop_kernel` walks the chunks in a loop:
+// it loads, divides and routes one chunk of 32 columns at a time (the same
+// `route_chunk`, so the same sums in the same ascending order), and reloads
+// p_i for step 3. Its running sums take 3 P floats a warp of shared memory
+// (24 KB for the block at P = 1,024).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -48,6 +56,44 @@ namespace {
 
 constexpr int kWarps = 2;  // (b, q) per block
 constexpr unsigned kFull = 0xffffffffu;
+
+// Step 2 for one chunk of a warp's columns: lane l holds column j's row r
+// (-1: routes nowhere), a_j and p_j. `__match_any_sync` groups the chunk's
+// lanes by row; every lane of a group adds the same members in ascending
+// lane order to its row's sums so far (sum: [3][P], a, a x, a y by row), and
+// the lowest one writes them back.
+__device__ __forceinline__ void route_chunk(float* sum, int P, int r, float a, float2 p,
+                                            int lane, unsigned lower) {
+  const unsigned same = __match_any_sync(kFull, r);
+  const int most = __reduce_max_sync(kFull, r >= 0 ? __popc(same) : 0);
+  float s_a = 0.f, s_x = 0.f, s_y = 0.f;
+  if (r >= 0) {
+    s_a = sum[r];
+    s_x = sum[P + r];
+    s_y = sum[2 * P + r];
+  }
+  const float ax = a * p.x, ay = a * p.y;
+  unsigned members = r >= 0 ? same : 0u;
+  for (int t = 0; t < most; ++t) {
+    const int src = members ? __ffs(members) - 1 : lane;
+    const float va = __shfl_sync(kFull, a, src);
+    const float vx = __shfl_sync(kFull, ax, src);
+    const float vy = __shfl_sync(kFull, ay, src);
+    if (members) {
+      s_a += va;
+      s_x += vx;
+      s_y += vy;
+      members &= members - 1u;
+    }
+  }
+  __syncwarp();
+  if (r >= 0 && (same & lower) == 0) {
+    sum[r] = s_a;
+    sum[P + r] = s_x;
+    sum[2 * P + r] = s_y;
+  }
+  __syncwarp();
+}
 
 template <int kChunks>
 __global__ void __launch_bounds__(32 * kWarps)
@@ -90,42 +136,9 @@ rigid_bwd_kernel(const float2* __restrict__ pts, const int* __restrict__ idx,
   for (int i = lane; i < 3 * P; i += 32) sum[i] = 0.f;
   __syncwarp();
 
-  // 2. running sums, chunk by chunk in ascending j: `__match_any_sync` groups
-  // the chunk's lanes by row; every lane of a group adds the same members in
-  // ascending lane order to its row's sums so far, the lowest one writes
+  // 2. running sums, chunk by chunk in ascending j
 #pragma unroll
-  for (int k = 0; k < kChunks; ++k) {
-    const int r = row[k];
-    const unsigned same = __match_any_sync(kFull, r);
-    const int most = __reduce_max_sync(kFull, r >= 0 ? __popc(same) : 0);
-    float s_a = 0.f, s_x = 0.f, s_y = 0.f;
-    if (r >= 0) {
-      s_a = sum[r];
-      s_x = sum[P + r];
-      s_y = sum[2 * P + r];
-    }
-    const float ax = a[k] * p[k].x, ay = a[k] * p[k].y;
-    unsigned members = r >= 0 ? same : 0u;
-    for (int t = 0; t < most; ++t) {
-      const int src = members ? __ffs(members) - 1 : lane;
-      const float va = __shfl_sync(kFull, a[k], src);
-      const float vx = __shfl_sync(kFull, ax, src);
-      const float vy = __shfl_sync(kFull, ay, src);
-      if (members) {
-        s_a += va;
-        s_x += vx;
-        s_y += vy;
-        members &= members - 1u;
-      }
-    }
-    __syncwarp();
-    if (r >= 0 && (same & lower) == 0) {
-      sum[r] = s_a;
-      sum[P + r] = s_x;
-      sum[2 * P + r] = s_y;
-    }
-    __syncwarp();
-  }
+  for (int k = 0; k < kChunks; ++k) route_chunk(sum, P, row[k], a[k], p[k], lane, lower);
 
   // 3. row i's gradient
 #pragma unroll
@@ -137,13 +150,49 @@ rigid_bwd_kernel(const float2* __restrict__ pts, const int* __restrict__ idx,
   }
 }
 
+// The same function for any number of chunks: each chunk loaded, divided
+// and routed in turn, p_i reloaded for the gradient.
+__global__ void __launch_bounds__(32 * kWarps)
+rigid_bwd_loop_kernel(const float2* __restrict__ pts, const int* __restrict__ idx,
+                      const float* __restrict__ dist, const float* __restrict__ g,
+                      float2* __restrict__ grad, int BQ, int P) {
+  extern __shared__ float smem[];  // per warp: sums of a, a x, a y by row [3][P]
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const int bq = blockIdx.x * kWarps + w;
+  if (bq >= BQ) return;  // the whole warp: no lane of it syncs below
+  float* sum = smem + (size_t)w * 3 * P;
+  const size_t base = (size_t)bq * P;
+  const unsigned lower = (1u << lane) - 1u;
+  for (int i = lane; i < 3 * P; i += 32) sum[i] = 0.f;
+  __syncwarp();
+  for (int j0 = 0; j0 < P; j0 += 32) {
+    const int j = j0 + lane;
+    float2 p = make_float2(0.f, 0.f);
+    float a = 0.f, d = 1.f;
+    int row = -1;
+    if (j < P) {
+      p = pts[base + j];
+      a = g[base + j];
+      d = dist[base + j];
+      const int r = idx[base + j];
+      row = (unsigned)r < (unsigned)P ? r : -1;
+    }
+    route_chunk(sum, P, row, a / d, p, lane, lower);
+  }
+  for (int i = lane; i < P; i += 32) {
+    const float2 p = pts[base + i];
+    grad[base + i] = make_float2(p.x * sum[i] - sum[P + i], p.y * sum[i] - sum[2 * P + i]);
+  }
+}
+
 template <int kChunks>
 const void* kernel_for() {
   return (const void*)rigid_bwd_kernel<kChunks>;
 }
 
-// The instantiation for P columns: ceil(P / 32) chunks, P up to 224
-// (`rigid_kernels.MAX_P`).
+// The kernel for P columns: the register-resident instantiation for
+// ceil(P / 32) chunks up to 7 (P <= 224), the loop kernel above.
 const void* kernel_for(int P) {
   switch ((P + 31) / 32) {
     case 1: return kernel_for<1>();
@@ -153,9 +202,12 @@ const void* kernel_for(int P) {
     case 5: return kernel_for<5>();
     case 6: return kernel_for<6>();
     case 7: return kernel_for<7>();
-    default: return nullptr;
+    default: return (const void*)rigid_bwd_loop_kernel;
   }
 }
+
+constexpr int kMaxDevices = 64;
+constexpr size_t kSmemMax = 232448;  // dynamic shared memory a block may use (227 KB)
 
 }  // namespace
 
@@ -163,24 +215,38 @@ extern "C" {
 
 // pts [B, Q, P, 2] f32 (8-byte aligned); idx [B, Q, P] int32; dist, g
 // [B, Q, P] f32; grad [B, Q, P, 2] f32; BQ = B * Q. One warp per (b, q), two
-// per block. Launches on `stream`; returns cudaGetLastError().
+// per block; cudaErrorInvalidValue where the block's running sums (24 P
+// bytes) exceed the card's shared memory. Launches on `stream`; returns
+// cudaGetLastError() (or the error of raising the shared-memory limit).
 int cld_rigid_bwd(const float* pts, const int* idx, const float* dist, const float* g,
                   float* grad, int BQ, int P, void* stream) {
   if (BQ == 0 || P == 0) return 0;
+  const size_t smem = (size_t)kWarps * 3 * P * sizeof(float);
+  if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
   const void* kernel = kernel_for(P);
-  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {  // only the loop kernel gets here (P > 2,048)
+    static size_t raised[kMaxDevices] = {};
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    if (dev >= kMaxDevices || smem > raised[dev]) {
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+      if (dev < kMaxDevices) raised[dev] = smem;
+    }
+  }
   void* args[] = {&pts, &idx, &dist, &g, &grad, &BQ, &P};
   const cudaError_t err = cudaLaunchKernel(
-      kernel, dim3((BQ + kWarps - 1) / kWarps), dim3(32 * kWarps), args,
-      (size_t)kWarps * 3 * P * sizeof(float), (cudaStream_t)stream);
+      kernel, dim3((BQ + kWarps - 1) / kWarps), dim3(32 * kWarps), args, smem,
+      (cudaStream_t)stream);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
-// The compiler's verdict on the instantiation for P columns: registers and
-// local memory bytes (spills) per thread, max threads per block.
+// The compiler's verdict on the kernel for P columns: registers and local
+// memory bytes (spills) per thread, max threads per block.
 int cld_rigid_bwd_attributes(int P, int* out) {
+  if (P <= 0) return (int)cudaErrorInvalidValue;
   const void* kernel = kernel_for(P);
-  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes a;
   const cudaError_t err = cudaFuncGetAttributes(&a, kernel);
   if (err != cudaSuccess) return (int)err;

@@ -59,6 +59,22 @@
 // sweeps the horizon in chunks of up to 64 steps (650 first-pass threads at
 // Q = 52, P = 100); one SM carries an agent's whole horizon, so it is no
 // faster at B = 32 than at B = 128.
+//
+// Above P = 224 the whole cache (4 P^2 bytes) no longer fits one block's
+// 227 KB beside the mask. Column j's minimum runs over every row i, so a
+// block can own a chunk of pc columns instead: it stages P x pc floats of
+// the cache (rows at stride pc) and the mask of all P rows, and sweeps its
+// columns exactly as above. Both kernels are templates on `kTiled`: the
+// untiled instantiation (P <= 224, one chunk of all P columns at stride S)
+// is the code the schedules above were measured with; the tiled one adds a
+// grid dimension of ceil(P / pc) column chunks (`rigid_min_kernel`: grid (B,
+// step chunks, column chunks); `rigid_min_fused_kernel`: grid (B, column
+// chunks)). The wrapper plans qb and pc (`ops/rigid_kernels.py:
+// rigid_min_tiling`): at most 16 steps a block, the widest chunk that fits
+// beside them, the chunks balanced (P = 256: 2 of 128; P = 1,024: 26 of 40,
+// the last 24 wide). The function, the tie rule and the bit-exactness do
+// not change: each column is still one thread's walk over the rows in
+// ascending order.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -66,9 +82,8 @@
 namespace {
 
 constexpr int QT = 2;          // steps per thread tile
-constexpr int FUSED_QB = 64;   // most steps a block stages at once
 constexpr int MAX_THREADS = 1024;
-constexpr int MAX_WORDS = 7;  // mask words per step at P = 224
+constexpr size_t SMEM_MAX = 232448;  // dynamic shared memory a block may use (227 KB)
 constexpr float BIG_D2 = 1e12f;
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -114,6 +129,32 @@ __device__ __forceinline__ void stage_cache(float* d2s, const float* __restrict_
       for (int k = lo + threadIdx.x; k < hi; k += blockDim.x) {
         const int i = k / P;
         cp_async4(d2s + i * S + (k - i * P), d2b + k);
+      }
+    }
+    cp_async_commit();
+  }
+}
+
+// Start copying columns [c0, c0 + pn) of d2b [P, P] into d2s [P, sc] (sc a
+// multiple of 4 >= pn): one commit group per word of 32 rows, in row order,
+// as `stage_cache`. 16-byte copies where every row segment starts 16-byte
+// aligned (P and c0 multiples of 4, d2b aligned; then pn is one too), else
+// 4-byte ones.
+__device__ __forceinline__ void stage_cols(float* d2s, const float* __restrict__ d2b, int P,
+                                           int sc, int W, int c0, int pn) {
+  const bool vec = (P & 3) == 0 && (c0 & 3) == 0 && (reinterpret_cast<uintptr_t>(d2b) & 15) == 0;
+  for (int w = 0; w < W; ++w) {
+    const int i0 = w * 32, rows = min(32, P - i0);
+    if (vec) {
+      const int n4 = pn / 4;
+      for (int k = threadIdx.x; k < rows * n4; k += blockDim.x) {
+        const int i = i0 + k / n4, c = 4 * (k % n4);
+        cp_async16(d2s + i * sc + c, d2b + (size_t)i * P + c0 + c);
+      }
+    } else {
+      for (int k = threadIdx.x; k < rows * pn; k += blockDim.x) {
+        const int i = i0 + k / pn, c = k % pn;
+        cp_async4(d2s + i * sc + c, d2b + (size_t)i * P + c0 + c);
       }
     }
     cp_async_commit();
@@ -197,11 +238,11 @@ __device__ __forceinline__ void note_block(float (*best)[4], float (*prev)[4], i
   }
 }
 
-// First pass over one word of 32 cache rows i0.. of four columns (c[r * S]:
+// First pass over one word of 32 cache rows i0.. of four columns (c[r * sc]:
 // row i0 + r of them, 16-byte aligned; pq[k * S + r]: row i0 + r's penalty
 // at the tile's step k): 4 rows of penalties per LDS.128, a note per block
 // of RB = 4 rows.
-__device__ __forceinline__ void fold_word(const float* c, const float* pq, int S, int i0,
+__device__ __forceinline__ void fold_word(const float* c, int sc, const float* pq, int S, int i0,
                                           float (*best)[4], float (*prev)[4], int (*blk)[4]) {
 #pragma unroll
   for (int r4 = 0; r4 < 32; r4 += 4) {
@@ -213,30 +254,31 @@ __device__ __forceinline__ void fold_word(const float* c, const float* pq, int S
       float pen[QT];
 #pragma unroll
       for (int k = 0; k < QT; ++k) pen[k] = lane_of(p4[k], u);
-      fold_row(best, *reinterpret_cast<const float4*>(c + (r4 + u) * S), pen);
+      fold_row(best, *reinterpret_cast<const float4*>(c + (r4 + u) * sc), pen);
     }
     note_block(best, prev, blk, i0 + r4 + 3);  // RB = 4: a note per group of 4 rows
   }
 }
 
 // Second pass for one output: the lowest on-road row of block `b` whose
-// cache word equals the minimum mn (c: column j of the cache, mbq: the
-// step's mask words). The first pass saw the minimum go down last in that
-// block, so its first on-road occurrence there is its first anywhere.
-__device__ __forceinline__ int first_row(const float* c, const uint32_t* mbq, int S, int P,
+// cache word equals the minimum mn (c: column j of the cache at row stride
+// sc, mbq: the step's mask words). The first pass saw the minimum go down
+// last in that block, so its first on-road occurrence there is its first
+// anywhere.
+__device__ __forceinline__ int first_row(const float* c, const uint32_t* mbq, int sc, int P,
                                          int b, float mn) {
   const int i0 = b * RB;
   const uint32_t bits = (mbq[i0 >> 5] >> (i0 & 31)) & ((1u << RB) - 1u);
   uint32_t eq = 0u;
 #pragma unroll
   for (int r = 0; r < RB; ++r)
-    if (i0 + r < P && c[(i0 + r) * S] == mn) eq |= 1u << r;
+    if (i0 + r < P && c[(i0 + r) * sc] == mn) eq |= 1u << r;
   return i0 + __ffs(eq & bits) - 1;
 }
 
-// Shared memory of a block: the cache [P, S]; for qb steps (a multiple of
-// QT), the penalties [qb, S], the mask words [qb, W] and the first off-road
-// rows [qb].
+// Shared memory of a block: the cache [P, sc] (sc = S untiled, the column
+// chunk tiled); for qb steps (a multiple of QT), the penalties [qb, S], the
+// mask words [qb, W] and the first off-road rows [qb].
 struct Smem {
   float* d2s;
   float* pen;
@@ -244,29 +286,30 @@ struct Smem {
   int* foff;
 };
 
-__device__ __forceinline__ Smem carve(float* smem, int P, int S, int W, int qb) {
+__device__ __forceinline__ Smem carve(float* smem, int P, int S, int sc, int W, int qb) {
   Smem m;
   m.d2s = smem;
-  m.pen = smem + P * S;  // 16-byte aligned: S is a multiple of 4
+  m.pen = smem + P * sc;  // 16-byte aligned: sc is a multiple of 4
   m.mb = reinterpret_cast<uint32_t*>(m.pen + qb * S);
   m.foff = reinterpret_cast<int*>(m.mb + qb * W);
   return m;
 }
 
 // Steps [0, nq) of the staged chunk of agent steps at out0 (outputs dist/idx
-// + out0 + q * P + j): one item per (tile of QT steps, group of 4 columns),
-// in rounds of blockDim.x. With `pending`, the cache's W commit groups are
+// + out0 + q * P + c0 + j): one item per (tile of QT steps, group of 4 of
+// the block's pn columns, c0 the first), in rounds of blockDim.x; the cache
+// rows lie at stride sc. With `pending`, the cache's W commit groups are
 // still in flight: every thread (with an item or not) waits for each word's
 // rows, then the block syncs, before anyone walks them.
-__device__ __forceinline__ void sweep(const Smem& m, int nq, int P, int S, int W, bool pending,
-                                      float* __restrict__ dist, int* __restrict__ idx,
-                                      size_t out0) {
+__device__ __forceinline__ void sweep(const Smem& m, int nq, int P, int S, int sc, int c0,
+                                      int pn, int W, bool pending, float* __restrict__ dist,
+                                      int* __restrict__ idx, size_t out0) {
   const float inf = __int_as_float(0x7f800000);
-  const int G = S / 4;
+  const int G = (pn + 3) / 4;
   const int nitems = (nq + QT - 1) / QT * G;
   // 16-byte stores where every row of outputs starts 16-byte aligned
-  const bool vec = S == P && ((reinterpret_cast<uintptr_t>(dist + out0) |
-                               reinterpret_cast<uintptr_t>(idx + out0)) & 15) == 0;
+  const bool vec = S == P && ((reinterpret_cast<uintptr_t>(dist + out0 + c0) |
+                               reinterpret_cast<uintptr_t>(idx + out0 + c0)) & 15) == 0;
   for (int base = 0; base < nitems; base += blockDim.x) {  // uniform over the block
     const int item = base + threadIdx.x;
     const bool live = item < nitems;
@@ -291,16 +334,16 @@ __device__ __forceinline__ void sweep(const Smem& m, int nq, int P, int S, int W
       }
       if (!live) continue;
       const int i0 = w * 32;
-      const float* c = m.d2s + i0 * S + j0;
+      const float* c = m.d2s + i0 * sc + j0;
       const int rows = min(32, P - i0);
       if (rows == 32) {
-        fold_word(c, pt + i0, S, i0, best, prev, blk);
+        fold_word(c, sc, pt + i0, S, i0, best, prev, blk);
       } else {
         for (int r = 0; r < rows; ++r) {  // a partial word: a note per row
           float p[QT];
 #pragma unroll
           for (int k = 0; k < QT; ++k) p[k] = pt[k * S + i0 + r];
-          fold_row(best, *reinterpret_cast<const float4*>(c + r * S), p);
+          fold_row(best, *reinterpret_cast<const float4*>(c + r * sc), p);
           note_block(best, prev, blk, i0 + r);
         }
       }
@@ -320,7 +363,7 @@ __device__ __forceinline__ void sweep(const Smem& m, int nq, int P, int S, int W
         // taken whatever mn, so that its loads issue with the others';
         // +inf: no on-road row below +inf, so row 0 ties at +inf (all
         // on-road) or the first off-road row wins below
-        const int fr = first_row(m.d2s + j0 + e, m.mb + q * W, S, P, blk[k][e], mn);
+        const int fr = first_row(m.d2s + j0 + e, m.mb + q * W, sc, P, blk[k][e], mn);
         a[e] = mn < inf ? fr : 0;
         if (f < P) {  // the off-road rows weigh 1e12; the first of them is the lowest
           if (BIG_D2 < mn) {
@@ -332,14 +375,14 @@ __device__ __forceinline__ void sweep(const Smem& m, int nq, int P, int S, int W
         }
         d[e] = sqrtf(mn + 1e-12f);
       }
-      const size_t o = out0 + (size_t)q * P + j0;
+      const size_t o = out0 + (size_t)q * P + c0 + j0;
       if (vec) {
         *reinterpret_cast<float4*>(dist + o) = make_float4(d[0], d[1], d[2], d[3]);
         *reinterpret_cast<int4*>(idx + o) = make_int4(a[0], a[1], a[2], a[3]);
       } else {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          if (j0 + e < P) {
+          if (j0 + e < pn) {
             dist[o + e] = d[e];
             idx[o + e] = a[e];
           }
@@ -349,56 +392,78 @@ __device__ __forceinline__ void sweep(const Smem& m, int nq, int P, int S, int W
   }
 }
 
-size_t smem_bytes(int P, int qb) {
+// Shared memory of a block of qb steps whose cache rows lie at stride sc.
+size_t smem_bytes(int P, int qb, int sc) {
   const int S = (P + 3) & ~3, W = (P + 31) / 32;
-  return (size_t)P * S * sizeof(float) +
+  return (size_t)P * sc * sizeof(float) +
          (size_t)qb * (S * sizeof(float) + W * sizeof(uint32_t) + sizeof(int));
 }
-
-// The most steps a block stages at once: FUSED_QB, or 16 where the cache
-// leaves too little shared memory for FUSED_QB steps' penalties.
-int max_qb(int P) { return P <= 160 ? FUSED_QB : 16; }
 
 // Stage the steps [q0, q0 + nq) of agent b and sweep them.
 __device__ __forceinline__ void chunk(const Smem& m, const uint8_t* __restrict__ onroad,
                                       float* __restrict__ dist, int* __restrict__ idx, int b,
-                                      int Q, int P, int S, int W, int q0, int nq, bool pending) {
+                                      int Q, int P, int S, int sc, int c0, int pn, int W, int q0,
+                                      int nq, bool pending) {
   const size_t base = ((size_t)b * Q + q0) * P;
   load_mask(m.pen, onroad + base, nq, (nq + QT - 1) / QT * QT, P, S);
   __syncthreads();
   pack_mask(m.mb, m.foff, m.pen, nq, P, S, W);
   __syncthreads();
-  sweep(m, nq, P, S, W, pending, dist, idx, base);
+  sweep(m, nq, P, S, sc, c0, pn, W, pending, dist, idx, base);
 }
 
-__global__ void __launch_bounds__(MAX_THREADS)
-rigid_min_kernel(const float* __restrict__ d2, const uint8_t* __restrict__ onroad,
-                 float* __restrict__ dist, int* __restrict__ idx, int Q, int P, int qb) {
-  extern __shared__ __align__(16) float smem[];
-  const int S = (P + 3) & ~3, W = (P + 31) / 32;
-  const Smem m = carve(smem, P, S, W, qb);
-  const int q0 = blockIdx.y * qb;
-  stage_cache(m.d2s, d2 + (size_t)blockIdx.x * P * P, P, S, W);
-  chunk(m, onroad, dist, idx, blockIdx.x, Q, P, S, W, q0, min(qb, Q - q0), true);
-}
-
-__global__ void __launch_bounds__(MAX_THREADS)
-rigid_min_fused_kernel(const float* __restrict__ d2, const uint8_t* __restrict__ onroad,
-                       float* __restrict__ dist, int* __restrict__ idx, int Q, int P, int qb) {
-  extern __shared__ __align__(16) float smem[];
-  const int S = (P + 3) & ~3, W = (P + 31) / 32;
-  const Smem m = carve(smem, P, S, W, qb);
-  stage_cache(m.d2s, d2 + (size_t)blockIdx.x * P * P, P, S, W);
-  for (int q0 = 0; q0 < Q; q0 += qb) {
-    if (q0 > 0) __syncthreads();  // the last chunk's shared memory is read
-    chunk(m, onroad, dist, idx, blockIdx.x, Q, P, S, W, q0, min(qb, Q - q0), q0 == 0);
+// The block's cache columns: all P at stride S (untiled), or chunk `cb` of
+// pc (tiled): (sc, c0, pn), and the copies that stage them.
+template <bool kTiled>
+__device__ __forceinline__ void stage(float* d2s, const float* __restrict__ d2b, int P, int S,
+                                      int W, int pc, int cb, int* sc, int* c0, int* pn) {
+  if (kTiled) {
+    *sc = pc;
+    *c0 = cb * pc;
+    *pn = min(pc, P - *c0);
+    stage_cols(d2s, d2b, P, *sc, W, *c0, *pn);
+  } else {
+    *sc = S;
+    *c0 = 0;
+    *pn = P;
+    stage_cache(d2s, d2b, P, S, W);
   }
 }
 
-// One thread per (tile, group of 4 columns) of a block's first chunk, in
-// whole warps, at most MAX_THREADS.
-int threads_for(int Q, int P, int qb) {
-  const int items = (min(Q, qb) + QT - 1) / QT * ((P + 3) / 4);
+template <bool kTiled>
+__global__ void __launch_bounds__(MAX_THREADS)
+rigid_min_kernel(const float* __restrict__ d2, const uint8_t* __restrict__ onroad,
+                 float* __restrict__ dist, int* __restrict__ idx, int Q, int P, int qb, int pc) {
+  extern __shared__ __align__(16) float smem[];
+  const int S = (P + 3) & ~3, W = (P + 31) / 32;
+  const Smem m = carve(smem, P, S, kTiled ? pc : S, W, qb);
+  const int q0 = blockIdx.y * qb;
+  int sc, c0, pn;
+  stage<kTiled>(m.d2s, d2 + (size_t)blockIdx.x * P * P, P, S, W, pc, blockIdx.z, &sc, &c0, &pn);
+  chunk(m, onroad, dist, idx, blockIdx.x, Q, P, S, sc, c0, pn, W, q0, min(qb, Q - q0), true);
+}
+
+template <bool kTiled>
+__global__ void __launch_bounds__(MAX_THREADS)
+rigid_min_fused_kernel(const float* __restrict__ d2, const uint8_t* __restrict__ onroad,
+                       float* __restrict__ dist, int* __restrict__ idx, int Q, int P, int qb,
+                       int pc) {
+  extern __shared__ __align__(16) float smem[];
+  const int S = (P + 3) & ~3, W = (P + 31) / 32;
+  const Smem m = carve(smem, P, S, kTiled ? pc : S, W, qb);
+  int sc, c0, pn;
+  stage<kTiled>(m.d2s, d2 + (size_t)blockIdx.x * P * P, P, S, W, pc, blockIdx.y, &sc, &c0, &pn);
+  for (int q0 = 0; q0 < Q; q0 += qb) {
+    if (q0 > 0) __syncthreads();  // the last chunk's shared memory is read
+    chunk(m, onroad, dist, idx, blockIdx.x, Q, P, S, sc, c0, pn, W, q0, min(qb, Q - q0),
+          q0 == 0);
+  }
+}
+
+// One thread per (tile, group of 4 of the block's columns) of a block's
+// first chunk of steps, in whole warps, at most MAX_THREADS.
+int threads_for(int Q, int cols, int qb) {
+  const int items = (min(Q, qb) + QT - 1) / QT * ((cols + 3) / 4);
   return min(MAX_THREADS, (items + 31) / 32 * 32);
 }
 
@@ -418,50 +483,85 @@ cudaError_t allow_smem(K kernel, size_t smem, size_t* raised) {
   return err;
 }
 
+// The checks both entry points share: qb a positive multiple of QT, pc a
+// positive multiple of 4 (tiled: pc < P), the block's shared memory within
+// the card's. Returns the bytes, or 0 if the plan is refused.
+size_t plan_bytes(int P, int qb, int pc) {
+  if (qb <= 0 || qb % QT != 0 || pc <= 0) return 0;
+  const bool tiled = pc < P;
+  if (tiled && pc % 4 != 0) return 0;
+  const size_t smem = smem_bytes(P, qb, tiled ? pc : (P + 3) & ~3);
+  return smem <= SMEM_MAX ? smem : 0;
+}
+
 }  // namespace
 
 extern "C" {
 
 // d2 [B, P, P] f32; onroad [B, Q, P] one byte per row (0 = off-road);
-// dist [B, Q, P] f32; idx [B, Q, P] int32; P <= 32 * MAX_WORDS; qb steps a
-// block of rigid_min_kernel, a multiple of QT (cut to max_qb(P)). Launches on
-// `stream`; returns cudaGetLastError() (or the error of raising the
-// shared-memory limit).
+// dist [B, Q, P] f32; idx [B, Q, P] int32; qb steps a block, a multiple of
+// QT; pc the columns a block owns: pc >= P runs the untiled kernel (the whole
+// cache a block), pc < P (a multiple of 4) the tiled one over ceil(P / pc)
+// column chunks (`ops/rigid_kernels.py:rigid_min_tiling` plans both). Returns
+// cudaErrorInvalidValue for a plan whose block exceeds the card's shared
+// memory. Launches on `stream`; returns cudaGetLastError() (or the error of
+// raising the shared-memory limit).
 int cld_rigid_min(const float* d2, const uint8_t* onroad, float* dist, int* idx, int B, int Q,
-                  int P, int qb, void* stream) {
+                  int P, int qb, int pc, void* stream) {
   if (B == 0 || Q == 0 || P == 0) return 0;
-  if (P > 32 * MAX_WORDS || qb <= 0 || qb % QT != 0) return (int)cudaErrorInvalidValue;
-  qb = min(qb, max_qb(P));
-  static size_t raised[MAX_DEVICES] = {};
-  const size_t smem = smem_bytes(P, qb);
-  cudaError_t err = allow_smem(rigid_min_kernel, smem, raised);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)B, (unsigned)((Q + qb - 1) / qb));
-  rigid_min_kernel<<<grid, threads_for(Q, P, qb), smem, (cudaStream_t)stream>>>(
-      d2, onroad, dist, idx, Q, P, qb);
+  const size_t smem = plan_bytes(P, qb, pc);
+  if (smem == 0) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)B, (unsigned)((Q + qb - 1) / qb), (unsigned)((P + pc - 1) / pc));
+  cudaError_t err;
+  if (pc < P) {
+    static size_t raised[MAX_DEVICES] = {};
+    err = allow_smem(rigid_min_kernel<true>, smem, raised);
+    if (err != cudaSuccess) return (int)err;
+    rigid_min_kernel<true><<<grid, threads_for(Q, pc, qb), smem, (cudaStream_t)stream>>>(
+        d2, onroad, dist, idx, Q, P, qb, pc);
+  } else {
+    static size_t raised[MAX_DEVICES] = {};
+    err = allow_smem(rigid_min_kernel<false>, smem, raised);
+    if (err != cudaSuccess) return (int)err;
+    rigid_min_kernel<false><<<grid, threads_for(Q, P, qb), smem, (cudaStream_t)stream>>>(
+        d2, onroad, dist, idx, Q, P, qb, P);
+  }
   return (int)cudaGetLastError();
 }
 
 int cld_rigid_min_fused(const float* d2, const uint8_t* onroad, float* dist, int* idx, int B,
-                        int Q, int P, void* stream) {
+                        int Q, int P, int qb, int pc, void* stream) {
   if (B == 0 || Q == 0 || P == 0) return 0;
-  if (P > 32 * MAX_WORDS) return (int)cudaErrorInvalidValue;
-  static size_t raised[MAX_DEVICES] = {};
-  const int qb = max_qb(P);
-  const size_t smem = smem_bytes(P, qb);
-  cudaError_t err = allow_smem(rigid_min_fused_kernel, smem, raised);
-  if (err != cudaSuccess) return (int)err;
-  rigid_min_fused_kernel<<<(unsigned)B, threads_for(Q, P, qb), smem,
-                           (cudaStream_t)stream>>>(d2, onroad, dist, idx, Q, P, qb);
+  const size_t smem = plan_bytes(P, qb, pc);
+  if (smem == 0) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)B, (unsigned)((P + pc - 1) / pc));
+  cudaError_t err;
+  if (pc < P) {
+    static size_t raised[MAX_DEVICES] = {};
+    err = allow_smem(rigid_min_fused_kernel<true>, smem, raised);
+    if (err != cudaSuccess) return (int)err;
+    rigid_min_fused_kernel<true><<<grid, threads_for(Q, pc, qb), smem,
+                                   (cudaStream_t)stream>>>(d2, onroad, dist, idx, Q, P, qb, pc);
+  } else {
+    static size_t raised[MAX_DEVICES] = {};
+    err = allow_smem(rigid_min_fused_kernel<false>, smem, raised);
+    if (err != cudaSuccess) return (int)err;
+    rigid_min_fused_kernel<false><<<grid, threads_for(Q, P, qb), smem,
+                                    (cudaStream_t)stream>>>(d2, onroad, dist, idx, Q, P, qb, P);
+  }
   return (int)cudaGetLastError();
 }
 
 // Registers, local memory bytes (spills) per thread and max threads per
-// block of rigid_min_kernel (fused = 0) or rigid_min_fused_kernel (fused = 1).
-int cld_rigid_min_attributes(int fused, int* out) {
+// block of rigid_min_kernel (fused = 0) or rigid_min_fused_kernel (fused =
+// 1), untiled (tiled = 0) or tiled (tiled = 1).
+int cld_rigid_min_attributes(int fused, int tiled, int* out) {
+  const void* kernel =
+      fused ? (tiled ? (const void*)rigid_min_fused_kernel<true>
+                     : (const void*)rigid_min_fused_kernel<false>)
+            : (tiled ? (const void*)rigid_min_kernel<true> : (const void*)rigid_min_kernel<false>);
   cudaFuncAttributes a;
-  const cudaError_t err = cudaFuncGetAttributes(
-      &a, fused ? (const void*)rigid_min_fused_kernel : (const void*)rigid_min_kernel);
+  const cudaError_t err = cudaFuncGetAttributes(&a, kernel);
   if (err != cudaSuccess) return (int)err;
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;

@@ -1,6 +1,7 @@
-"""Device time of the bf16 LSTM decoder kernels, beside the f32 ones and the
-card's launch floor, for comparing two versions of the port's kernels on
-one card.
+"""Device time and output hashes of the port's kernels, for comparing two
+versions of them on one card: the LSTM decoder sweeps at H = 64, 128 and
+320 in f32 and bf16, the bulk-copy probe beside `2 * x`, the rigid
+map-distance kernels, and the card's launch floor.
 
     python cld_tpu_torch/kernel_ab.py [--root DIR] [--label NAME]
 
@@ -9,25 +10,33 @@ file), so that one command can time an older checkout's kernels beside this
 one's, in turns: old, new, new, old. Run it as a file, not with `-m`, which
 would import this checkout's package first.
 
-At the decoder's shape (T = 52, H = 64, the inputs of
-`chip_smoke.py:lstm_inputs` from one seed) and B = 32, 128 and 512 (the
-closed loop, the open loop, four open-loop calls' worth): the forward
-`lstm2_fwd` and the reverse sweep `lstm2_bwd` (its gates kernel and chain,
-one launch for the caller), in bf16 (on the reverse sweep's inputs from
-the plain bf16 forward) and in f32. Each call includes its weight pack.
-From replays of a CUDA graph of 20 calls, the median of 5 windows of 10
-replays each, after 0.2 s that bring the card's clocks up; each time is
-the median over 4 placements (clones of the inputs, each with its own
-graph), with the range over the placements beside it. Also the launch
-floor: `torch.cuda._sleep(0)`, one thread that exits at once, timed the
-same way (a yardstick of one graph kernel node; no path calls it).
+At the decoder's shape (T = 52, the inputs of `chip_smoke.py:lstm_inputs`
+from one seed) and B = 32, 128 and 512 (the closed loop, the open loop,
+four open-loop calls' worth): the forward `lstm2_fwd` and the reverse sweep
+`lstm2_bwd` (its gates kernel and chain, one launch for the caller), in
+bf16 (on the reverse sweep's inputs from the plain bf16 forward) and in
+f32, at H = 64 (`lstm.cu`, `lstm_bf16.cu`) and at H = 128 and 320
+(`lstm_wide.cu`). Each call includes its weight pack. Then the bulk-copy
+probe at [52, 128, 128] bf16 (its batch-slice case) beside `2 * x`, and
+`rigid_min`, `rigid_min_fused` and `rigid_bwd` at the guided path's B =
+128, Q = 52, P = 100 on a lattice cache. Each time comes from replays of
+a CUDA graph of 20 calls, the median of 5 windows of 10 replays (kernels
+above 1 ms: 5 calls, 3 windows of 4), after 0.2 s that bring the card's
+clocks up, and is the median over 4 placements (clones of the inputs, each
+with its own graph), with the range over the placements beside it. Also
+the launch floor: `torch.cuda._sleep(0)`, one thread that exits at once,
+timed the same way (a yardstick of one graph kernel node; no path calls
+it).
 
-Each bf16 output is first held against its plain version (within 2^-7 of
-max |plain| for every output, `chip_smoke.py:BF16_REL_TOL`) and against a
-second launch (bit-equal); every output, bf16 and f32, is hashed (sha256),
-so that two versions can be compared bit for bit (the f32 kernels' hashes
-must not move between versions). Prints one JSON line with the card and
-appends it to chiprun_out/kernel_ab.jsonl. Fails without a CUDA card.
+Each forward output is first held against its plain version (bf16 within
+2^-7 of max |plain|, `chip_smoke.py:BF16_REL_TOL`; f32 within 1e-5,
+`LSTM_REL_TOL`, at H = 128 and 320) and against a second launch
+(bit-equal), so is the H = 64 bf16 reverse sweep; the probe must equal 2 x
+and the rigid forward kernels the plain version, bit for bit. Every output
+is hashed (sha256), so that two versions can be compared bit for bit: a
+kernel that did not change keeps its hashes. Prints one JSON line with the
+card and appends it to chiprun_out/kernel_ab.jsonl. Fails without a CUDA
+card.
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ from __future__ import annotations
 import argparse
 import hashlib
 import importlib.util
+import inspect
 import json
 import statistics
 import sys
@@ -42,6 +52,8 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 BATCHES = (32, 128, 512)
+WIDE_H = (128, 320)
+RIGID_P = 100
 
 
 def sha256(*tensors) -> str:
@@ -87,20 +99,24 @@ def main(argv=None) -> int:
     def time_placed(key, fn, *inputs):
         """fn(*inputs) on clones of the inputs, each with its own graph (and
         so its own output buffers): the median over placements is kept, with
-        the range."""
+        the range. A kernel above 1 ms gets a shorter graph and fewer
+        replays."""
         times, keep = [], []
+        heavy = cs.cuda_ms(lambda: fn(*inputs), 2, warmup=1) > 1.0
+        shape = dict(launches=5, replays=4, windows=3) if heavy else dict(launches=20,
+                                                                          replays=10, windows=5)
         for _ in range(4):
             cl = [t.clone() for t in inputs]
             keep.append(cl)  # alive, so that the next clone lies elsewhere
-            times.append(cs.graph_ms(lambda: fn(*cl), launches=20, replays=10, windows=5))
+            times.append(cs.graph_ms(lambda: fn(*cl), **shape))
             torch.cuda.empty_cache()
         res[f"{key}_ms"] = statistics.median(times)
         res[f"{key}_ms_range"] = [min(times), max(times)]
 
-    def held(name, got, again, want):
+    def held(name, got, again, want, tol=cs.BF16_REL_TOL):
         torch.cuda.synchronize()
         rel = max(cs.rel_err(a.float(), b.float())[1] for a, b in zip(got, want))
-        if rel > cs.BF16_REL_TOL:
+        if rel > tol:
             raise RuntimeError(f"{name}: {rel:.3e} of max |plain| from its plain version")
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             raise RuntimeError(f"{name}: two launches differ")
@@ -129,6 +145,54 @@ def main(argv=None) -> int:
         time_placed(f"lstm2_bwd_bf16_B{Bn}", lk.lstm2_bwd, *b16)
         time_placed(f"lstm2_fwd_B{Bn}", lk.lstm2_fwd, *a32)
         time_placed(f"lstm2_bwd_B{Bn}", lk.lstm2_bwd, *b32)
+    for Hn in WIDE_H:  # the wide sweeps (csrc/lstm_wide.cu)
+        for Bn in BATCHES:
+            g = torch.Generator().manual_seed(19)
+            a32, d32 = cs.lstm_inputs(g, Bn, cs.T, Hn, dev)
+            a16 = tuple(x.to(torch.bfloat16) for x in a32)
+            for sfx, a, d, tol in (("", a32, d32, cs.LSTM_REL_TOL),
+                                   ("_bf16", a16, d32.to(torch.bfloat16), cs.BF16_REL_TOL)):
+                key = f"H{Hn}_B{Bn}{sfx}"
+                ref = lk.lstm2_core_ref(*a)
+                fwd = lk.lstm2_fwd(*a)
+                held(f"lstm2_fwd_{key}", fwd, lk.lstm2_fwd(*a), ref, tol)
+                res[f"lstm2_fwd_{key}_sha256"] = sha256(*fwd)
+                b = (d, *a, ref[1], ref[2], ref[0], ref[3])
+                res[f"lstm2_bwd_{key}_sha256"] = sha256(*lk.lstm2_bwd(*b))
+                time_placed(f"lstm2_fwd_{key}", lk.lstm2_fwd, *a)
+                time_placed(f"lstm2_bwd_{key}", lk.lstm2_bwd, *b)
+            del a32, a16, ref, fwd, b
+            torch.cuda.empty_cache()
+
+    from cld_tpu_torch import dma_probe as dp
+
+    x = dp.probe_input(128, True, dev)
+    # an older checkout's probe takes the TPU probe's batch slice as well
+    takes_bb = "bb" in inspect.signature(dp.bulk_double).parameters
+    double = (lambda t: dp.bulk_double(t, dp.BB)) if takes_bb else dp.bulk_double
+    out = double(x)
+    if not torch.equal(out, 2 * x):
+        raise RuntimeError("dma_probe: not 2 x bit for bit")
+    res["dma_probe_sha256"] = sha256(out)
+    time_placed("dma_probe", double, x)
+    time_placed("two_x", lambda t: 2 * t, x)
+
+    from cld_tpu_torch.ops import rigid_kernels as rk
+
+    g = torch.Generator().manual_seed(7)
+    d2 = cs.lattice_d2(g, cs.B, RIGID_P, dev)
+    on = (torch.rand((cs.B, cs.T, RIGID_P), generator=g) < 0.6).to(dev)
+    want = rk.rigid_min_ref(d2, on)
+    pts = (torch.randn((cs.B, cs.T, RIGID_P, 2), generator=g) * 5.0).to(dev)
+    gout = torch.randn((cs.B, cs.T, RIGID_P), generator=g).to(dev)
+    for name in ("rigid_min", "rigid_min_fused"):
+        got = getattr(rk, name)(d2, on)
+        if not all(torch.equal(a_, b_) for a_, b_ in zip(got, want)):
+            raise RuntimeError(f"{name}: differs from its plain version")
+        res[f"{name}_sha256"] = sha256(*got)
+        time_placed(name, getattr(rk, name), d2, on)
+    res["rigid_bwd_sha256"] = sha256(rk.rigid_bwd(pts, want[1], want[0], gout))
+    time_placed("rigid_bwd", rk.rigid_bwd, pts, want[1], want[0], gout)
     time_placed("launch_floor", lambda: torch.cuda._sleep(0))  # 4 graphs, no input
 
     line = json.dumps(res)

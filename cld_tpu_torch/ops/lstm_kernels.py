@@ -52,8 +52,9 @@ thread-block cluster of `wide_cluster` CTAs ("wide_fwd", "wide_chain",
 
 from __future__ import annotations
 
+import ctypes
 import functools
-from typing import NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -366,6 +367,74 @@ def wide_cluster(H: int, dtype: torch.dtype) -> int:
     return WIDE_CLUSTERS[0] if 12 * H * H * elem // 8 <= WIDE_SLICE_BYTES else WIDE_CLUSTERS[1]
 
 
+WIDE_ROWS = (8, 16)  # batch rows a cluster of the f32 wide forward owns (its instantiations)
+# a step's time at each R, relative to R = 8's: the FMAs double from 8 to 16
+# rows, the exchange and the wait do not (an H100 at H = 128 and 320, both
+# with the slice in shared memory and read from L2: 1.8x; `wide_rows`)
+WIDE_ROW_COST = {8: 1.0, 16: 1.8}
+WIDE_NO_PLAN = 1  # cudaErrorInvalidValue: `wide_f32_config` has no plan at (H, C, R)
+
+
+class WidePlan(NamedTuple):
+    """The f32 wide forward's plan at one row count, as `wide_f32_config` in
+    csrc/lstm_wide.cu makes it (`lstm2_wide_fwd_f32_kernel`): rows a
+    cluster, chunks of K (S), threads a CTA (6 U S), the weight slice in
+    shared memory or not, dynamic shared memory bytes; and the compiler's
+    verdict on its instantiation: registers and local memory bytes (spills)
+    per thread, max threads per block, clusters the card holds at once."""
+
+    rows: int
+    chunks: int
+    threads: int
+    resident: bool
+    smem: int
+    registers: int
+    local_bytes: int
+    max_threads: int
+    max_active_clusters: int
+
+
+@functools.lru_cache(maxsize=None)
+def wide_fwd_plan(device: torch.device, H: int, R: int) -> Optional[WidePlan]:
+    """The f32 wide forward's plan at padded H and R rows a cluster on
+    `device` (`cld_lstm2_wide_fwd_f32_query`), or None where the kernel has
+    none (the weight slice would leave shared memory at R where R = 8 keeps
+    it there)."""
+    out = (ctypes.c_int * 8)()
+    with torch.cuda.device(device):
+        err = native.library().cld_lstm2_wide_fwd_f32_query(
+            H, wide_cluster(H, torch.float32), R, ctypes.addressof(out))
+    if err == WIDE_NO_PLAN:
+        return None
+    native.check(err, "lstm2_fwd plan")
+    regs, local, max_threads, smem, threads, clusters, chunks, resident = out
+    return WidePlan(R, chunks, threads, bool(resident), smem, regs, local, max_threads, clusters)
+
+
+def wide_rows(B: int, clusters: Dict[int, int]) -> int:
+    """Rows a cluster of the f32 wide forward owns at batch B, from
+    `clusters` (R -> clusters of that instantiation the card holds at once):
+    the least waves of ceil(B / R) row tiles times a step's cost at R
+    (`WIDE_ROW_COST`), the fewer rows on a tie. So the row tiles fit one
+    wave where the card holds them (B = 128 at H = 128: 8 clusters of 16
+    rows, where 16 of 8 took two waves), and 8 rows stay where 16 would
+    save less than their steps cost (H = 320, B = 128: three waves of 8
+    rows against two of 16)."""
+    cost = {R: -(-(-(-B // R)) // n) * WIDE_ROW_COST[R] for R, n in clusters.items() if n > 0}
+    if not cost:
+        raise RuntimeError("lstm2_fwd: this card cannot hold one cluster of "
+                           "`lstm2_wide_fwd_f32_kernel`")
+    return min(cost, key=lambda R: (cost[R], R))
+
+
+def wide_f32_plan(B: int, H: int, device: torch.device) -> WidePlan:
+    """The plan the f32 wide forward launches at batch B: `wide_rows` over
+    the row counts that have a plan."""
+    plans = {R: wide_fwd_plan(device, H, R) for R in WIDE_ROWS}
+    plans = {R: pl for R, pl in plans.items() if pl is not None}
+    return plans[wide_rows(B, {R: pl.max_active_clusters for R, pl in plans.items()})]
+
+
 def _wide_index(kind: str, H: int, C: int) -> torch.Tensor:
     """The wide layouts as indices into cat(Wh1, W2) [3H, 4H], flattened.
     CTA q of a cluster of C owns units q U .. q U + U - 1 (U = H / C) and
@@ -472,14 +541,27 @@ def kernel_attributes(which: int, H: int, R: int = 1,
                       dtype: torch.dtype = torch.float32) -> dict:
     """The compiler's verdict on the instantiation that runs hidden size H
     (which: 0 the forward, 1 the reverse sweep's gates kernel, 2 its chain;
-    `dtype` the storage type, R of `ROWS_PER_CTA`, used by f32 H <= 64
-    alone): registers and local memory bytes (spills) per thread, max
+    `dtype` the storage type; R of `ROWS_PER_CTA` for f32 H <= 64, of
+    `WIDE_ROWS` for the f32 wide forward (8 otherwise), unused by the
+    others): registers and local memory bytes (spills) per thread, max
     threads per block; for bf16 and the wide kernels the shared memory bytes
     (static, and the chain's dynamic); for the wide kernels also the cluster
     size, whether the weight slice is resident in shared memory, the threads
-    a launch runs and how many clusters the card holds at once."""
+    a launch runs and how many clusters the card holds at once; for the f32
+    wide forward also its rows a cluster and chunks of K."""
     lib = native.library()
     Hp = padded_hidden(H)
+    if Hp > H_RANGE[-1] and which == 0 and dtype == torch.float32:
+        R = R if R in WIDE_ROWS else WIDE_ROWS[0]
+        plan = wide_fwd_plan(torch.device("cuda", torch.cuda.current_device()), Hp, R)
+        if plan is None:
+            raise ValueError(f"kernel_attributes: the f32 wide forward has no plan at H={Hp}, "
+                             f"R={R}")
+        return dict(registers=plan.registers, local_bytes=plan.local_bytes,
+                    max_threads=plan.max_threads, shared_bytes=plan.smem, threads=plan.threads,
+                    max_active_clusters=plan.max_active_clusters,
+                    cluster=wide_cluster(Hp, dtype), resident=int(plan.resident),
+                    rows=plan.rows, chunks=plan.chunks)
     if Hp > H_RANGE[-1]:
         C = wide_cluster(Hp, dtype)
         vals = native.attributes(lib.cld_lstm2_wide_attributes, which, Hp, C,
@@ -570,11 +652,14 @@ def _fwd_launch(B, T, H, dt, xg1, h0, Wh1, W2, b2):
     if H > H_RANGE[-1]:
         C = wide_cluster(H, dt)
         wpk = pack_weights("wide_fwd", Wh1, W2)  # alive until the launch is queued
-        _check_wide(lib.cld_lstm2_wide_fwd(
-            xg1.data_ptr(), h0.data_ptr(), wpk.data_ptr(), b2.data_ptr(), y.data_ptr(),
-            h1s.data_ptr(), c1s.data_ptr(), c2s.data_ptr(), B, T, H, C,
-            int(dt == torch.bfloat16), native.stream_ptr(dev),
-        ), "lstm2_fwd", H, C, dt)
+        ptrs = (xg1.data_ptr(), h0.data_ptr(), wpk.data_ptr(), b2.data_ptr(), y.data_ptr(),
+                h1s.data_ptr(), c1s.data_ptr(), c2s.data_ptr(), B, T, H, C)
+        if dt == torch.bfloat16:
+            err = lib.cld_lstm2_wide_fwd(*ptrs, 1, native.stream_ptr(dev))
+        else:
+            plan = wide_f32_plan(B, H, dev)
+            err = lib.cld_lstm2_wide_fwd_f32(*ptrs, plan.rows, native.stream_ptr(dev))
+        _check_wide(err, "lstm2_fwd", H, C, dt)
         native.count_launch("lstm2_fwd_wide_bf16" if dt == torch.bfloat16 else "lstm2_fwd_wide")
         return y, h1s, c1s, c2s
     if dt == torch.bfloat16:

@@ -122,10 +122,13 @@ def library() -> ctypes.CDLL:
         lib.cld_lstm2_wide_fwd.argtypes = [p] * 8 + [i] * 5 + [p]
         lib.cld_lstm2_wide_bwd.argtypes = [p] * 13 + [i] * 5 + [p]
         lib.cld_lstm2_wide_attributes.argtypes = [i, i, i, i, p]
+        lib.cld_lstm2_wide_fwd_f32.argtypes = [p] * 8 + [i] * 5 + [p]
+        lib.cld_lstm2_wide_fwd_f32_query.argtypes = [i] * 3 + [p]
         for fn in (lib.cld_lstm2_fwd, lib.cld_lstm2_fwd_bf16, lib.cld_lstm2_bwd,
                    lib.cld_lstm2_bwd_bf16, lib.cld_lstm2_attributes,
                    lib.cld_lstm2_attributes_bf16, lib.cld_lstm2_wide_fwd,
-                   lib.cld_lstm2_wide_bwd, lib.cld_lstm2_wide_attributes):
+                   lib.cld_lstm2_wide_bwd, lib.cld_lstm2_wide_attributes,
+                   lib.cld_lstm2_wide_fwd_f32, lib.cld_lstm2_wide_fwd_f32_query):
             fn.restype = i
         lib.cld_bit_gather.argtypes = [p] * 3 + [i, i, i, i, p]
         lib.cld_bit_gather.restype = i
@@ -138,11 +141,11 @@ def library() -> ctypes.CDLL:
             fn.restype = i
         lib.cld_drivable_gather_attributes.argtypes = [i, i, p]
         lib.cld_drivable_gather_attributes.restype = i
-        lib.cld_rigid_min.argtypes = [p] * 4 + [i, i, i, i, p]
+        lib.cld_rigid_min.argtypes = [p] * 4 + [i] * 5 + [p]
         lib.cld_rigid_min.restype = i
-        lib.cld_rigid_min_fused.argtypes = [p] * 4 + [i, i, i, p]
+        lib.cld_rigid_min_fused.argtypes = [p] * 4 + [i] * 5 + [p]
         lib.cld_rigid_min_fused.restype = i
-        lib.cld_rigid_min_attributes.argtypes = [i, p]
+        lib.cld_rigid_min_attributes.argtypes = [i, i, p]
         lib.cld_rigid_min_attributes.restype = i
         lib.cld_rigid_bwd.argtypes = [p] * 5 + [i, i, p]
         lib.cld_rigid_bwd.restype = i
@@ -156,7 +159,7 @@ def library() -> ctypes.CDLL:
         lib.cld_disk_collision.restype = i
         lib.cld_disk_collision_attributes.argtypes = [i, p]
         lib.cld_disk_collision_attributes.restype = i
-        lib.cld_dma_probe.argtypes = [p, p] + [i] * 4 + [p]
+        lib.cld_dma_probe.argtypes = [p, p] + [i] * 3 + [p]
         lib.cld_dma_probe.restype = i
         lib.cld_dma_probe_attributes.argtypes = [p]
         lib.cld_dma_probe_attributes.restype = i

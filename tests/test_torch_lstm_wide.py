@@ -18,6 +18,11 @@ interpret mode.
   kernels run them (per CTA of the cluster, the wavefront of the two layers,
   the all-gather of h and the reduce-scatter of the chain's partial
   products), against the plain versions.
+* The f32 forward's rows a cluster (`wide_rows`: the fewest waves), and a
+  walk of it thread by thread as `lstm2_wide_fwd_f32_kernel<R>` indexes its work
+  (column pairs x chunks of K, partial sums in chunk order, R / 8 rows a
+  cell thread, the bytes each CTA's barrier is armed for against the bytes
+  its peers send), at R = 8 and 16, against the plain version.
 
 The JAX side runs as one jitted compile per case with its arrays passed as
 arguments.
@@ -407,3 +412,124 @@ def test_walk_of_the_wide_sweeps_matches_the_plain_versions(H, dtype):
     for name, g, w in zip(("dg1", "dg2"), got_dg, want_dg):
         np.testing.assert_allclose(g.float().numpy(), w.float().numpy(), **tol(w.float()),
                                    err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# the redesigned f32 forward: its rows a cluster, its schedule
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("B,clusters,want", [
+    (32, {8: 15, 16: 15}, 8), (120, {8: 15, 16: 15}, 8), (128, {8: 15, 16: 15}, 16),
+    (512, {8: 15, 16: 15}, 8), (32, {8: 7, 16: 7}, 8), (128, {8: 7, 16: 7}, 8),
+    (512, {8: 7, 16: 7}, 16), (128, {8: 15}, 8), (128, {8: 15, 16: 0}, 8),
+    (1, {8: 15, 16: 15}, 8)])
+def test_wide_rows_takes_the_least_waves_times_step_cost(B, clusters, want):
+    """Rows a cluster: the least waves of row tiles (over the clusters the
+    card holds at once: an H100 holds 15 clusters of 8 at H = 128, 7 of 16
+    at 320) times a 16-row step's 1.8x cost, the fewer rows on a tie: B =
+    128 at H = 128 is 8 tiles of 16, one wave, where 16 tiles of 8 took two;
+    at H = 320 three waves of 8 rows beat two of 16, ten lose to five."""
+    assert tl.wide_rows(B, clusters) == want
+
+
+def test_wide_rows_refuses_a_card_that_holds_no_cluster():
+    with pytest.raises(RuntimeError, match="cannot hold one cluster"):
+        tl.wide_rows(32, {8: 0, 16: 0})
+
+
+def _walk_fwd_f32(xg1, h0, Wh1, W2, b2, R, S):
+    """The f32 forward as `lstm2_wide_fwd_f32_kernel<R>` indexes it at S
+    chunks of K (`wide_f32_config`'s choice in csrc/lstm_wide.cu): for each
+    tile of R rows and CTA q, thread t's column pair t % 6U and chunk t / 6U
+    of K write partial sums red[chunk][row][column]; cell thread t < 16 U
+    (unit t % U, rows (t / U % 8) R / 8 .., layer t / 8U) sums them in chunk
+    order and sends its h into every CTA's buffer of the step's parity,
+    whose barrier must have been armed for exactly the bytes that arrive."""
+    B, T, G = xg1.shape
+    H = G // 4
+    C = tl.wide_cluster(H, torch.float32)
+    U, NV, NP, RC = H // C, 12 * H // C, 6 * H // C, R // 8
+    KC = H // S
+    assert H % S == 0 and 16 * U <= 6 * U * S  # S chunks K evenly; a cell thread each
+    w = tl.pack_weights("wide_fwd", Wh1, W2).reshape(C, H, NV)
+    t = torch.arange(6 * U * S)
+    pairs = set(zip((t % NP).tolist(), (t // NP).tolist()))
+    assert pairs == {(v, ch) for v in range(NP) for ch in range(S)}  # each product once
+    assert all((2 * v) // (4 * U) == (2 * v + 1) // (4 * U) for v in range(NP))  # one part a pair
+    cells = torch.arange(16 * U)
+    cu, cr0, ccl = cells % U, (cells // U) % 8 * RC, cells // (8 * U)
+    assert len(set(zip(ccl.tolist(), cu.tolist(), cr0.tolist()))) == 16 * U  # each cell once
+    outs = torch.zeros(4, B, T, H)  # y, h1, c1, c2
+    step_bytes = H * R * 4
+    for b0 in range(0, B, R):
+        rows = torch.arange(b0, b0 + R)
+        live = rows < B
+        init = torch.where(live[None], h0[rows.clamp(max=B - 1)].T, 0.0)  # [H, R]
+        hb = torch.zeros(C, 2, 2, H, R)  # per CTA: [parity][layer][unit][row]
+        hb[:, 1, 0] = init
+        hb[:, 0, 1] = init
+        c = torch.zeros(C, 2, U, R)
+        armed = {0: step_bytes, 1: 2 * step_bytes}  # the phases armed before the loop
+        for s in range(T + 1):
+            cur, prv = s & 1, (s & 1) ^ 1
+            on1, on2 = s < T, s > 0
+            arrived = torch.zeros(C, dtype=torch.long)
+            sends = []
+            for q in range(C):
+                red = torch.zeros(S, R, NV)
+                for ch in range(S):
+                    ks = slice(ch * KC, (ch + 1) * KC)
+                    for part, on in ((0, on1), (1, on2), (2, on2)):
+                        if on:
+                            cols = slice(part * 4 * U, (part + 1) * 4 * U)
+                            red[ch, :, cols] = hb[q, prv, int(part == 2), ks].T @ w[q, ks, cols]
+                for cl, on in ((0, on1), (1, on2)):
+                    if not on:
+                        continue
+                    step = s if cl == 0 else s - 1
+                    pre = torch.zeros(4, R, U)
+                    for g in range(4):
+                        col = cl * 4 * U + g * U + torch.arange(U)
+                        for ch in range(S):  # chunk order, as the cell threads sum
+                            pre[g] += red[ch][:, col]
+                        if cl == 1:
+                            for ch in range(S):
+                                pre[g] += red[ch][:, col + 4 * U]
+                        unit = g * H + q * U + torch.arange(U)
+                        pre[g] += (torch.where(live[:, None], xg1[rows.clamp(max=B - 1), step][:,
+                                   unit], 0.0) if cl == 0 else b2[unit])
+                    i, f, gg, o = (torch.sigmoid(pre[0]), torch.sigmoid(pre[1]),
+                                   torch.tanh(pre[2]), torch.sigmoid(pre[3]))
+                    cc = f * c[q, cl].T + i * gg  # [R, U]
+                    c[q, cl] = cc.T
+                    h = o * torch.tanh(cc)
+                    if s < T:
+                        sends.append((cl, q, h))
+                        arrived += len(cells) // 2 * RC * 4  # one layer's cell threads, each CTA
+                    units = slice(q * U, (q + 1) * U)
+                    outs[1 if cl == 0 else 0, rows[live], step, units] = h[live]
+                    outs[2 if cl == 0 else 3, rows[live], step, units] = cc[live]
+            for cl, q, h in sends:  # DSMEM bulk copies into every CTA's buffer `cur`
+                hb[:, cur, cl, q * U:(q + 1) * U] = h.T
+            if s < T:  # each CTA's barrier `cur` completes on exactly its armed bytes
+                assert arrived.tolist() == [armed.pop(s)] * C
+                if s + 2 < T:
+                    armed[s + 2] = 2 * step_bytes
+        assert not armed
+    return outs[0], outs[1], outs[2], outs[3]
+
+
+# (H, R, S): the chunks of K that `wide_f32_config` plans there (8 while 6 U
+# 8 threads fit the kernel's 512, else 4)
+@pytest.mark.parametrize("H,R,S", [(80, 8, 8), (80, 16, 8), (128, 8, 4), (128, 16, 4),
+                                   (240, 8, 4), (320, 8, 4), (320, 16, 4)])
+def test_walk_of_the_f32_wide_forward_matches_the_plain_version(H, R, S):
+    B, T = 19, 4  # a ragged last tile of rows at R = 8 and 16
+    args = [torch.from_numpy(a) for a in _core_inputs(18, B, T, H)]
+    Hp = tl.padded_hidden(H)
+    padded = [tl.pad_hidden(n, a, H, Hp) for n, a in zip(NAMES, args)]
+    got = _walk_fwd_f32(*padded, R, S)
+    want = tl.lstm2_core_ref(*padded)
+    for name, g, w in zip(("y", "h1s", "c1s", "c2s"), got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-5, atol=1e-6, err_msg=name)

@@ -12,6 +12,9 @@ and one all-on-road step forced in (where there are two steps). Tolerances: `dis
 rtol 1e-6 (one sqrt of the same minimum; measured exact), `idx` exactly
 equal (the lowest on-road row wins a tie on both sides), the backward rtol
 1e-4 / atol 1e-5 (f32 sums in another order), as `tests/test_pallas.py`.
+Above P = 224 the CUDA kernels tile the cache's columns and the backward
+walks its chunks in a loop: `lattice_p225`, `lattice_p256`, `p256`,
+`one_row_p400` and the tiling plan (`rigid_min_tiling`) cover that range.
 """
 
 import functools
@@ -29,13 +32,16 @@ torch.set_num_threads(2)
 
 SHAPES = {"b3_q13_p24": (3, 13, 24), "b5_q7_p16": (5, 7, 16), "b2_q4_p100": (2, 4, 100),
           "grid_ties_p16": (3, 9, 16)}
-# where the CUDA forward kernels' bit-packed mask (32 rows a word, up to 7 at
-# MAX_P) and step tiles (2 steps; blocks of 16, sweeps of 64) are edge-prone,
-# on R x C lattices of the bbox grid (full of exact ties), at small B
+# where the CUDA forward kernels' bit-packed mask (32 rows a word, 7 at the
+# untiled kernels' largest P of record, 224) and step tiles (2 steps; blocks
+# of 16, sweeps of 64) are edge-prone, and past 224, where the cache no
+# longer fits one block (225: one more mask word; 256: a 16 x 16 grid, two
+# column chunks), on R x C lattices of the bbox grid (full of exact ties),
+# at small B
 EDGE_MIN = {"lattice_p1": (2, 3, 1), "lattice_p31_q5": (2, 5, 31), "lattice_p32": (2, 2, 32),
             "lattice_p33_q17": (1, 17, 33), "lattice_p65": (2, 3, 65),
-            "lattice_max_p": (1, 3, rk.MAX_P), "lattice_b1_q1": (1, 1, 20),
-            "lattice_q65": (1, 65, 8)}
+            "lattice_max_p": (1, 3, 224), "lattice_b1_q1": (1, 1, 20),
+            "lattice_q65": (1, 65, 8), "lattice_p225": (1, 3, 225), "lattice_p256": (1, 3, 256)}
 
 
 def _lattice(B, P, rng):
@@ -133,6 +139,70 @@ def test_rigid_bwd_matches_jax_kernel(name, op):
                                    err_msg=tag)
 
 
+@pytest.mark.parametrize("op", ["rigid_min", "rigid_min_fused", "rigid_bwd"])
+def test_rigid_wrappers_take_p_past_224_on_the_cpu(op):
+    """P = 225 (the first P past the kernels' old limit of 224) runs each
+    wrapper's plain version on CPU tensors, with no launch."""
+    B, Q, P = 1, 2, 225
+    rng = np.random.default_rng(225)
+    local = _lattice(B, P, rng)
+    d2 = torch.from_numpy(np.sum((local[:, :, None] - local[:, None]) ** 2, -1))
+    on = torch.from_numpy(rng.random((B, Q, P)) > 0.4)
+    native.reset_launch_counts()
+    want_d, want_i = rk.rigid_min_ref(d2, on)
+    if op == "rigid_bwd":
+        pts = torch.from_numpy(rng.normal(0, 5, (B, Q, P, 2)).astype(np.float32))
+        g = torch.from_numpy(rng.normal(0, 1, (B, Q, P)).astype(np.float32))
+        assert torch.equal(rk.rigid_bwd(pts, want_i, want_d, g),
+                           rk.rigid_bwd_ref(pts, want_i, want_d, g))
+    else:
+        dist, idx = getattr(rk, op)(d2, on)
+        assert torch.equal(dist, want_d) and torch.equal(idx, want_i)
+    assert native.launch_counts() == {k: 0 for k in native.KERNELS}
+
+
+@pytest.mark.parametrize("P", [1, 100, 160, 161, 224, 225, 232, 233, 256, 400, 1024,
+                               rk.RIGID_MAX_P])
+def test_rigid_min_tiling_fits_a_block_and_covers_every_column(P):
+    """The forward kernels' plan: the whole cache (pc = P) with the untiled steps
+    a block while it fits, else column chunks of a multiple of 4 that cover
+    the P columns once; every block within an H100's 227 KB of shared
+    memory, at most 16 steps; a 32 x 32 grid (P = 1,024) is taken, past
+    `RIGID_MAX_P` the plan raises. Column chunks give the whole minimum: each
+    column's min and argmin run over every row."""
+    qb, pc = rk.rigid_min_tiling(P)
+    S = -(-P // 4) * 4
+    assert qb % rk.RIGID_MIN_TILE == 0 and rk.RIGID_MIN_TILE <= qb <= 64
+    if P <= 224:
+        assert (qb, pc) == (64 if P <= 160 else 16, P)
+    if pc >= P:
+        assert pc == P and 4 * P * S + qb * rk._step_bytes(P) <= rk.SMEM_BYTES
+    else:
+        chunks = -(-P // pc)
+        assert pc % 4 == 0 and qb <= rk.TILED_STEPS and P > 224
+        assert 0 < P - (chunks - 1) * pc <= pc  # the last chunk: ragged, never empty
+        assert 4 * P * pc + qb * rk._step_bytes(P) <= rk.SMEM_BYTES
+        assert 24 * P <= rk.SMEM_BYTES  # the backward's running sums
+    if P == rk.RIGID_MAX_P:
+        with pytest.raises(ValueError, match="RIGID_MAX_P"):
+            rk.rigid_min_tiling(P + 1)
+    if 225 <= P <= 1024:  # chunked minima against the whole, on a lattice
+        rng = np.random.default_rng(P)
+        local = _lattice(1, P, rng)
+        d2 = torch.from_numpy(np.sum((local[:, :, None] - local[:, None]) ** 2, -1))
+        on = torch.from_numpy(rng.random((1, 2, P)) > 0.4)
+        want = rk.rigid_min_ref(d2, on)
+        rows = torch.arange(P, dtype=torch.int32)[:, None]
+        dist, idx = [], []
+        for c0 in range(0, P, pc):  # a block's columns, every row
+            masked = torch.where(on[..., :, None], d2[:, None, :, c0:c0 + pc], rk.BIG_D2)
+            m = masked.amin(-2)
+            dist.append(torch.sqrt(m + 1e-12))
+            idx.append(torch.where(masked == m[..., None, :], rows, P).amin(-2))
+        assert torch.equal(torch.cat(dist, -1), want[0])
+        assert torch.equal(torch.cat(idx, -1), want[1])
+
+
 def test_rigid_wrappers_raise_off_cpu_and_cuda():
     m = lambda *s, dtype=torch.float32: torch.empty(*s, dtype=dtype, device="meta")
     for fn in (rk.rigid_min, rk.rigid_min_fused):
@@ -143,16 +213,18 @@ def test_rigid_wrappers_raise_off_cpu_and_cuda():
 
 
 # (B, Q, P, the row every column routes to, or None for random rows)
-EDGE_BWD = {"p1": (2, 3, 1, None), "p33": (2, 3, 33, None), "p224": (2, 3, rk.MAX_P, None),
-            "one_row_p100": (2, 3, 100, 37), "one_row_p224": (1, 2, rk.MAX_P, 0)}
+EDGE_BWD = {"p1": (2, 3, 1, None), "p33": (2, 3, 33, None), "p224": (2, 3, 224, None),
+            "one_row_p100": (2, 3, 100, 37), "one_row_p224": (1, 2, 224, 0),
+            "p256": (1, 3, 256, None), "one_row_p400": (1, 2, 400, 250)}
 
 
 @pytest.mark.parametrize("name", sorted(EDGE_BWD))
 def test_rigid_bwd_matches_jax_kernel_at_edge_shapes(name):
     """The shapes where the CUDA backward's grouping of a warp's columns by
     row is edge-prone: one column (one lane of one chunk), one column past a
-    chunk of 32, the largest P (seven chunks), and every column routed to one
-    row (groups of 32 in every chunk)."""
+    chunk of 32, seven chunks (the most it holds in registers, P = 224),
+    eight (P = 256, its loop over chunks), and every column routed to one row
+    (groups of 32 in every chunk; P = 400: the loop's last chunk ragged)."""
     B, Q, P, row = EDGE_BWD[name]
     rng = np.random.default_rng(sum(map(ord, name)))
     pts = rng.normal(0, 5, (B, Q, P, 2)).astype(np.float32)
