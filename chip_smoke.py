@@ -265,15 +265,18 @@
    (H 1-320; `WIDE_HELD`): both sweeps in f32 and bf16 against their plain
    versions at H = 1, 5, 50 (padded onto the H <= 64 kernels) and 72, 96,
    128, 200, 256, 320 (`csrc/lstm_wide.cu`, a thread-block cluster per 8
-   batch rows) at small B / T, B ragged against the cluster's 8 rows: f32
-   within 1e-5 and bf16 within 2^-7 of max |plain|, two launches bit for
+   or 16 batch rows) at small B / T, B ragged against the cluster's rows:
+   f32 within 1e-5 and bf16 within 2^-7 of max |plain|, two launches bit for
    bit; the wide kernels' registers, spills, shared memory and cluster size
-   (the f32 forward's at 8 and 16 rows a cluster), and their times from
-   Python and from a CUDA graph at B = 32, 128, 512, T = 52, H = 128 and
-   320, beside the plain versions' and cuDNN's `nn.LSTM` (forward, and
-   backward beside the `Lstm2Core` VJP) at that H in the same dtype, and in
-   f32 cuDNN's from a CUDA graph with TF32 on (PyTorch's default) and off;
-   the f32 forward also held at each timed B, with the rows a cluster it
+   (the f32 forward's and the reverse sweep's chain at 8 and 16 rows a
+   cluster, the chain's slice rows in shared memory, its gates GEMM), and
+   their times from Python and from a CUDA graph at B = 32, 128, 512, T =
+   52, H = 128 and 320, beside the plain versions' and cuDNN's `nn.LSTM`
+   (forward, and backward beside the `Lstm2Core` VJP) at that H in the same
+   dtype, and cuDNN's from a CUDA graph (f32 with TF32 on, PyTorch's
+   default, and off; bf16); the reverse sweep's gates / chain split from
+   `torch.profiler` over graph replays at B = 128; the f32 forward and both
+   reverse sweeps also held at each timed B, with the rows a cluster each
    chose. Then the guided call at the config of record with
    `algo.vae.hidden_size` 128 (B=128 in scenes of 4, raster 224, 100 DDPM
    steps, agent + map collision guidance), fresh weights from seed 0, under
@@ -471,6 +474,43 @@ def graph_ms(fn, launches: int = 100, replays: int = 20, windows: int = 1) -> fl
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / (launches * replays))
     return statistics.median(times)
+
+
+def graph_kernel_ms(fn, launches: int = 10, replays: int = 5) -> dict:
+    """Device ms per call of fn of each kernel it launches, by kernel name:
+    torch.profiler's per-kernel device times (as `profile_guided.py` reads
+    them) over `replays` replays of a CUDA graph of `launches` calls. Empty
+    where the profiler saw no device time."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(replays):
+            graph.replay()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time > 0:
+            out[e.name] = out.get(e.name, 0.0) + e.device_time * 1e-3 / (launches * replays)
+    return out
+
+
+def sweep_split(by_kernel: dict) -> dict:
+    """A reverse sweep's device ms by part, from `graph_kernel_ms`: its
+    gates kernel(s), its chain, and the rest (the weight packs' gathers)."""
+    part = lambda e: "gates" if "gates" in e else "chain" if "chain" in e else "other"
+    out = {"gates": 0.0, "chain": 0.0, "other": 0.0}
+    for name, ms in by_kernel.items():
+        out[part(name)] += ms
+    return out if by_kernel else {}
 
 
 def bound(nbytes: float, flops: float, flops_per_s: float = F32_FLOPS_PER_S):
@@ -4647,16 +4687,17 @@ def cudnn_lstm_ms(Hn, dt, args, dy, g, dev):
 
 
 def cudnn_graph_ms(Hn, args, dy, g, dev) -> dict:
-    """cuDNN's two-layer f32 `nn.LSTM` at hidden Hn from random z [B, T, L]
-    (its own weights; it also does the input projection), from a CUDA graph,
-    with TF32 on (PyTorch's default for cuDNN) and off: {"tf32_on" |
-    "tf32_off": {"fwd_ms", "bwd_ms"}}, the backward as (train-mode forward +
-    backward, grads of z, h0 and the weights) - train-mode forward."""
+    """cuDNN's two-layer `nn.LSTM` at hidden Hn from random z [B, T, L] in
+    the inputs' dtype (its own weights; it also does the input projection),
+    from a CUDA graph: in f32 with TF32 on (PyTorch's default for cuDNN) and
+    off, {"tf32_on" | "tf32_off": {"fwd_ms", "bwd_ms"}}; in bf16 {"bf16":
+    {...}}; the backward as (train-mode forward + backward, grads of z, h0
+    and the weights) - train-mode forward."""
     import torch
 
-    Bn = args[0].shape[0]
-    cudnn = torch.nn.LSTM(L, Hn, num_layers=2, batch_first=True).to(dev)
-    z = torch.randn((Bn, T, L), generator=g).to(dev)
+    Bn, dt = args[0].shape[0], args[0].dtype
+    cudnn = torch.nn.LSTM(L, Hn, num_layers=2, batch_first=True).to(dev).to(dt)
+    z = torch.randn((Bn, T, L), generator=g).to(dev).to(dt)
     h0 = args[1][None].expand(2, Bn, Hn).contiguous()
     c0 = torch.zeros_like(h0)
     zr, h0r = z.clone().requires_grad_(True), h0.clone().requires_grad_(True)
@@ -4664,8 +4705,9 @@ def cudnn_graph_ms(Hn, args, dy, g, dev) -> dict:
     train = lambda: cudnn(zr, (h0r, c0))[0]
     out = {}
     kept = torch.backends.cudnn.allow_tf32
+    modes = (("tf32_on", True), ("tf32_off", False)) if dt == torch.float32 else (("bf16", kept),)
     try:
-        for key, tf32 in (("tf32_on", True), ("tf32_off", False)):
+        for key, tf32 in modes:
             torch.backends.cudnn.allow_tf32 = tf32
             with torch.no_grad():
                 fwd = graph_ms(lambda: cudnn(z, (h0, c0)), 5, 10)
@@ -4693,12 +4735,32 @@ def hold_wide_fwd(args) -> float:
     return rel
 
 
+def hold_wide_bwd(bargs, tol) -> float:
+    """The wide reverse sweep against its plain version (within `tol` of max
+    |plain|) and a relaunch (bit-equal), at the rows a cluster its chain
+    chose; returns the relative error."""
+    import torch
+
+    from cld_tpu_torch.ops import lstm_kernels as lk
+
+    got, again, want = lk.lstm2_bwd(*bargs), lk.lstm2_bwd(*bargs), lk.lstm2_bwd_ref(*bargs)
+    torch.cuda.synchronize()
+    rel = max(rel_err(a.float(), b.float())[1] for a, b in zip(got, want))
+    shape = "B/T/H {}/{}/{} {}".format(*bargs[0].shape, bargs[0].dtype)
+    check(rel <= tol, f"lstm2_bwd disagrees with its plain version at {shape}")
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"two lstm2_bwd launches differ at {shape}")
+    return rel
+
+
 def check_wide_kernels(kernels):
     """Both sweeps in both storage types at `WIDE_HELD`, then the wide
     kernels' attributes and times at H = 128 and 320 (B = 32, 128, 512, T =
-    52) beside the plain versions and cuDNN (the f32 forward held at each B,
-    where its rows a cluster change; cuDNN also from a graph, TF32 on and
-    off); fills kernels[<wide name>]."""
+    52) beside the plain versions and cuDNN (the f32 forward and both
+    reverse sweeps held again at each B, where their rows a cluster change;
+    the reverse sweep's gates / chain split from graph replays at B = 128;
+    cuDNN also from a graph, f32 with TF32 on and off, and bf16); fills
+    kernels[<wide name>]."""
     import torch
 
     from cld_tpu_torch.ops import lstm_kernels as lk
@@ -4715,16 +4777,25 @@ def check_wide_kernels(kernels):
             _, held[f"{Bn}/{Tn}/{Hn}"] = hold(tuple(x.to(dt) for x in a), d.to(dt))
         attrs = {}
         for Hn in WIDE_TIMED_H:
-            for which, kname in enumerate(("lstm2_wide_fwd_kernel", "lstm2_wide_gates_kernel",
+            gates = ("lstm2_wide_gates_mma_kernel" if dt == torch.bfloat16
+                     else "lstm2_wide_gates_f32_kernel")
+            for which, kname in enumerate(("lstm2_wide_fwd_kernel", gates,
                                            "lstm2_wide_chain_kernel")):
                 f32_fwd = which == 0 and dt == torch.float32
-                for R in lk.WIDE_ROWS if f32_fwd else (1,):
+                rows = (lk.WIDE_ROWS if f32_fwd or which == 2 else (1,))
+                for R in rows:
+                    if which == 2 and lk.wide_chain_plan(dev, Hn, R, dt) is None:
+                        log(f"{kname} H={Hn} {dt}: no plan at {R} rows a cluster")
+                        continue
                     at = lk.kernel_attributes(which, Hn, R, dtype=dt)
                     name = f"lstm2_wide_fwd_f32_kernel<{R}> H={Hn}" if f32_fwd else (
-                        f"{kname} H={Hn}")
+                        f"{kname}<{R}> H={Hn}" if which == 2 else f"{kname} H={Hn}")
                     attrs[name] = at
-                    where = "in shared" if at["resident"] else "read from global"
-                    grid = (f"cluster {at['cluster']} (weights {where} memory, "
+                    where = ("in registers" if which == 2 and dt == torch.bfloat16 else
+                             f"{at['resident_rows']} of {4 * Hn // at['cluster']} rows in shared "
+                             "memory" if which == 2 else "in shared memory" if at["resident"]
+                             else "read from global memory")
+                    grid = (f"cluster {at['cluster']} (weights {where}, "
                             f"{at['max_active_clusters']} clusters at once)" if which != 1
                             else "no cluster")
                     log(f"{name} {dt}: {at['registers']} registers, {at['local_bytes']} "
@@ -4738,7 +4809,10 @@ def check_wide_kernels(kernels):
                 y, h1s, c1s, c2s = lk.lstm2_fwd(*a)
                 ba = (d, *a, h1s, c1s, y, c2s)
                 row = dict(fwd_graph_ms=graph_ms(lambda: lk.lstm2_fwd(*a), 5, 4),
-                           bwd_graph_ms=graph_ms(lambda: lk.lstm2_bwd(*ba), 5, 4))
+                           bwd_graph_ms=graph_ms(lambda: lk.lstm2_bwd(*ba), 5, 4),
+                           bwd_rows=lk.wide_bwd_plan(Bn, Hn, dt, dev).rows,
+                           bwd_rel_err=hold_wide_bwd(ba, LSTM_REL_TOL if dt == torch.float32
+                                                     else BF16_REL_TOL))
                 if dt == torch.float32:  # the redesigned forward: its plan, held at each B
                     plan = lk.wide_f32_plan(Bn, Hn, dev)
                     row.update(fwd_rows=plan.rows, fwd_chunks=plan.chunks,
@@ -4751,8 +4825,8 @@ def check_wide_kernels(kernels):
                                bwd_plain_ms=cuda_ms(lambda: lk.lstm2_bwd_ref(*bargs), 2))
                     row["cudnn_fwd_ms"], row["cudnn_bwd_ms"], row["vjp_ms"] = cudnn_lstm_ms(
                         Hn, dt, a, d, g, dev)
-                    if dt == torch.float32:
-                        row["cudnn_graph"] = cudnn_graph_ms(Hn, a, d, g, dev)
+                    row["cudnn_graph"] = cudnn_graph_ms(Hn, a, d, g, dev)
+                    row["bwd_split"] = sweep_split(graph_kernel_ms(lambda: lk.lstm2_bwd(*ba)))
                     (row["fwd_bound_ms"], row["fwd_bound_by"]), (
                         row["bwd_bound_ms"], row["bwd_bound_by"]) = lstm_bounds(B, T, Hn, elem,
                                                                                 peak)
@@ -4767,13 +4841,17 @@ def check_wide_kernels(kernels):
                 f"{r['cudnn_fwd_ms']:.4f} / backward {r['cudnn_bwd_ms']:.4f} (the Lstm2Core VJP "
                 f"{r['vjp_ms']:.4f}), bound {r['fwd_bound_ms']:.5f} ({r['fwd_bound_by']}) / "
                 f"{r['bwd_bound_ms']:.5f} ({r['bwd_bound_by']})")
+            cg = r["cudnn_graph"]
+            split = ", ".join(f"{k} {v:.4f}" for k, v in r["bwd_split"].items()) or "not measured"
+            log(f"cuDNN nn.LSTM {dt} H={Hn} B={B} from a CUDA graph (fwd / bwd ms): " + ", ".join(
+                f"{k} {v['fwd_ms']:.4f} / {v['bwd_ms']:.4f}" for k, v in cg.items()) +
+                f"; the reverse sweep's split (graph replays, ms): {split}; its chain's rows a "
+                "cluster at B=" + ", ".join(f"{Bn}: {timed[(Hn, Bn)]['bwd_rows']} (held at "
+                                            f"{timed[(Hn, Bn)]['bwd_rel_err']:.2e})"
+                                            for Bn in (CL_B, B, 512)))
             if dt == torch.float32:
-                cg = r["cudnn_graph"]
-                log(f"cuDNN nn.LSTM f32 H={Hn} B={B} from a CUDA graph: TF32 on fwd "
-                    f"{cg['tf32_on']['fwd_ms']:.4f} / bwd {cg['tf32_on']['bwd_ms']:.4f}, TF32 off "
-                    f"{cg['tf32_off']['fwd_ms']:.4f} / {cg['tf32_off']['bwd_ms']:.4f} ms; the "
-                    "f32 forward's rows a cluster at B=" + ", ".join(
-                        f"{Bn}: {timed[(Hn, Bn)]['fwd_rows']}" for Bn in (CL_B, B, 512)))
+                log("the f32 forward's rows a cluster at B=" + ", ".join(
+                    f"{Bn}: {timed[(Hn, Bn)]['fwd_rows']}" for Bn in (CL_B, B, 512)))
         for k in ("fwd", "bwd"):
             r = timed[(WIDE_H, B)]
             kernels[f"lstm2_{k}_wide{sfx}"] = dict(
@@ -4784,6 +4862,7 @@ def check_wide_kernels(kernels):
                                   if "cudnn_graph" in r else None),
                 graph_ms={str(Bn): timed[(WIDE_H, Bn)][f"{k}_graph_ms"]
                           for Bn in (CL_B, B, 512)},
+                split=(timed[(WIDE_H, B)].get("bwd_split") if k == "bwd" else None),
                 by_hidden={str(Hn): {str(Bn): {kk: v for kk, v in timed[(Hn, Bn)].items()
                                                if kk.startswith(k) or kk in ("err", "vjp_ms")
                                                or kk.startswith("cudnn_")}

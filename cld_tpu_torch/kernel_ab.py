@@ -3,7 +3,7 @@ versions of them on one card: the LSTM decoder sweeps at H = 64, 128 and
 320 in f32 and bf16, the bulk-copy probe beside `2 * x`, the rigid
 map-distance kernels, and the card's launch floor.
 
-    python cld_tpu_torch/kernel_ab.py [--root DIR] [--label NAME]
+    python cld_tpu_torch/kernel_ab.py [--root DIR] [--label NAME] [--only wide_bwd]
 
 Imports `cld_tpu_torch` from DIR (default: the checkout that holds this
 file), so that one command can time an older checkout's kernels beside this
@@ -31,12 +31,22 @@ it).
 Each forward output is first held against its plain version (bf16 within
 2^-7 of max |plain|, `chip_smoke.py:BF16_REL_TOL`; f32 within 1e-5,
 `LSTM_REL_TOL`, at H = 128 and 320) and against a second launch
-(bit-equal), so is the H = 64 bf16 reverse sweep; the probe must equal 2 x
-and the rigid forward kernels the plain version, bit for bit. Every output
-is hashed (sha256), so that two versions can be compared bit for bit: a
-kernel that did not change keeps its hashes. Prints one JSON line with the
-card and appends it to chiprun_out/kernel_ab.jsonl. Fails without a CUDA
-card.
+(bit-equal), so are the H = 64 bf16 reverse sweep and the wide reverse
+sweeps; the probe must equal 2 x and the rigid forward kernels the plain
+version, bit for bit. Every output is hashed (sha256), so that two versions
+can be compared bit for bit: a kernel that did not change keeps its hashes.
+
+The wide reverse sweeps also get their split: each kernel's device ms per
+call from `torch.profiler` over replays of a CUDA graph
+(`chip_smoke.py:graph_kernel_ms`), summed into the gates kernel(s), the
+chain and the rest (the weight packs). Where the checkout's `_bwd_launch`
+takes `rows`, the chain is also split at H = 128, B = 64 with 8 and with 16
+rows a cluster forced (one wave at either: a step's cost at 16 rows
+relative to 8, `lstm_kernels.CHAIN_ROW_COST`). `--only wide_bwd` runs the
+wide reverse sweeps, their splits and the launch floor alone.
+
+Prints one JSON line with the card and appends it to
+chiprun_out/kernel_ab.jsonl. Fails without a CUDA card.
 """
 
 from __future__ import annotations
@@ -80,7 +90,9 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", type=str, default=str(HERE.parent))
     parser.add_argument("--label", type=str, default=None)
+    parser.add_argument("--only", choices=("all", "wide_bwd"), default="all")
     args = parser.parse_args(argv)
+    every = args.only == "all"
     import torch
 
     if not torch.cuda.is_available():
@@ -123,7 +135,7 @@ def main(argv=None) -> int:
         res[f"{name}_rel_err"] = rel
 
     torch.cuda._sleep(400_000_000)  # ~0.2 s of one busy thread: the clocks leave idle
-    for Bn in BATCHES:
+    for Bn in BATCHES if every else ():
         g = torch.Generator().manual_seed(17)
         a32, d32 = cs.lstm_inputs(g, Bn, cs.T, cs.H, dev)
         ref32 = lk.lstm2_core_ref(*a32)
@@ -154,15 +166,37 @@ def main(argv=None) -> int:
                                    ("_bf16", a16, d32.to(torch.bfloat16), cs.BF16_REL_TOL)):
                 key = f"H{Hn}_B{Bn}{sfx}"
                 ref = lk.lstm2_core_ref(*a)
-                fwd = lk.lstm2_fwd(*a)
-                held(f"lstm2_fwd_{key}", fwd, lk.lstm2_fwd(*a), ref, tol)
-                res[f"lstm2_fwd_{key}_sha256"] = sha256(*fwd)
+                if every:
+                    fwd = lk.lstm2_fwd(*a)
+                    held(f"lstm2_fwd_{key}", fwd, lk.lstm2_fwd(*a), ref, tol)
+                    res[f"lstm2_fwd_{key}_sha256"] = sha256(*fwd)
+                    time_placed(f"lstm2_fwd_{key}", lk.lstm2_fwd, *a)
                 b = (d, *a, ref[1], ref[2], ref[0], ref[3])
-                res[f"lstm2_bwd_{key}_sha256"] = sha256(*lk.lstm2_bwd(*b))
-                time_placed(f"lstm2_fwd_{key}", lk.lstm2_fwd, *a)
+                bwd = lk.lstm2_bwd(*b)
+                held(f"lstm2_bwd_{key}", bwd, lk.lstm2_bwd(*b), lk.lstm2_bwd_ref(*b), tol)
+                res[f"lstm2_bwd_{key}_sha256"] = sha256(*bwd)
                 time_placed(f"lstm2_bwd_{key}", lk.lstm2_bwd, *b)
-            del a32, a16, ref, fwd, b
+                res[f"lstm2_bwd_{key}_split"] = cs.sweep_split(
+                    cs.graph_kernel_ms(lambda: lk.lstm2_bwd(*b)))
+            del a32, a16, ref, b
             torch.cuda.empty_cache()
+    if "rows" in inspect.signature(lk._bwd_launch).parameters:
+        for dt in (torch.float32, torch.bfloat16):  # the chain at each R, one wave at either
+            g = torch.Generator().manual_seed(19)
+            a, d = cs.lstm_inputs(g, 64, cs.T, 128, dev)
+            a, d = tuple(x.to(dt) for x in a), d.to(dt)
+            ref = lk.lstm2_core_ref(*a)
+            b = dict(zip(("dy", "xg1", "h0", "Wh1", "W2", "b2", "h1s", "c1s", "ys", "c2s"),
+                         (d, *a, ref[1], ref[2], ref[0], ref[3])))
+            sfx = "" if dt == torch.float32 else "_bf16"
+            res[f"chain_rows_H128_B64{sfx}"] = {
+                str(R): cs.sweep_split(cs.graph_kernel_ms(
+                    lambda: lk._bwd_launch(64, cs.T, 128, dt, rows=R, **b)))["chain"]
+                for R in lk.WIDE_ROWS}
+
+    if not every:
+        time_placed("launch_floor", lambda: torch.cuda._sleep(0))
+        return report(res)
 
     from cld_tpu_torch import dma_probe as dp
 
@@ -194,7 +228,10 @@ def main(argv=None) -> int:
     res["rigid_bwd_sha256"] = sha256(rk.rigid_bwd(pts, want[1], want[0], gout))
     time_placed("rigid_bwd", rk.rigid_bwd, pts, want[1], want[0], gout)
     time_placed("launch_floor", lambda: torch.cuda._sleep(0))  # 4 graphs, no input
+    return report(res)
 
+
+def report(res: dict) -> int:
     line = json.dumps(res)
     print(line, flush=True)
     out = HERE.parent / "chiprun_out"

@@ -45,9 +45,11 @@ before each launch (one gather; "fwd" / "bwd" f32 floats for `lstm.cu`,
 copy), `unpack_weights` inverts it; they run `rows_per_cta` (f32) or
 `ROWS_PER_CTA_BF16` batch rows in each CTA. Padded H in [80, 320] (a
 multiple of 16) goes to `csrc/lstm_wide.cu`, which spreads the units over a
-thread-block cluster of `wide_cluster` CTAs ("wide_fwd", "wide_chain",
-"wide_gates" layouts, one template for both storage types), counted as
-`lstm2_fwd_wide` / `lstm2_bwd_wide` and their `_bf16` twins.
+thread-block cluster of `wide_cluster` CTAs ("wide_fwd", "wide_gates",
+"wide_chain" layouts, and "wide_gates_bf16", "wide_chain_bf16" for the bf16
+reverse sweep's tensor-core tiles), counted as `lstm2_fwd_wide` /
+`lstm2_bwd_wide` and their `_bf16` twins. The reverse sweep there is a gates
+GEMM and a chain whose rows a cluster (8 or 16) `wide_bwd_plan` picks.
 """
 
 from __future__ import annotations
@@ -411,19 +413,21 @@ def wide_fwd_plan(device: torch.device, H: int, R: int) -> Optional[WidePlan]:
     return WidePlan(R, chunks, threads, bool(resident), smem, regs, local, max_threads, clusters)
 
 
-def wide_rows(B: int, clusters: Dict[int, int]) -> int:
-    """Rows a cluster of the f32 wide forward owns at batch B, from
-    `clusters` (R -> clusters of that instantiation the card holds at once):
-    the least waves of ceil(B / R) row tiles times a step's cost at R
-    (`WIDE_ROW_COST`), the fewer rows on a tie. So the row tiles fit one
-    wave where the card holds them (B = 128 at H = 128: 8 clusters of 16
-    rows, where 16 of 8 took two waves), and 8 rows stay where 16 would
-    save less than their steps cost (H = 320, B = 128: three waves of 8
-    rows against two of 16)."""
-    cost = {R: -(-(-(-B // R)) // n) * WIDE_ROW_COST[R] for R, n in clusters.items() if n > 0}
+def wide_rows(B: int, clusters: Dict[int, int], row_cost: Dict[int, float] = WIDE_ROW_COST,
+              kernel: str = "lstm2_wide_fwd_f32_kernel") -> int:
+    """Rows a cluster of a wide sweep owns at batch B, from `clusters` (R ->
+    clusters of that instantiation the card holds at once): the least waves
+    of ceil(B / R) row tiles times a step's cost at R (`row_cost`: the f32
+    forward's `WIDE_ROW_COST` by default, the chain's `CHAIN_ROW_COST`), the
+    fewer rows on a tie. So the row tiles fit one wave where the card holds
+    them (B = 128 at H = 128: 8 clusters of 16 rows, where 16 of 8 took two
+    waves), and 8 rows stay where 16 would save less than their steps cost
+    (the f32 forward at H = 320, B = 128: three waves of 8 rows against two
+    of 16). `kernel` names the kernel in the error a card without room for
+    one cluster raises."""
+    cost = {R: -(-(-(-B // R)) // n) * row_cost[R] for R, n in clusters.items() if n > 0}
     if not cost:
-        raise RuntimeError("lstm2_fwd: this card cannot hold one cluster of "
-                           "`lstm2_wide_fwd_f32_kernel`")
+        raise RuntimeError(f"this card cannot hold one cluster of `{kernel}`")
     return min(cost, key=lambda R: (cost[R], R))
 
 
@@ -435,20 +439,105 @@ def wide_f32_plan(B: int, H: int, device: torch.device) -> WidePlan:
     return plans[wide_rows(B, {R: pl.max_active_clusters for R, pl in plans.items()})]
 
 
+# The reverse sweep's chain (`lstm2_wide_chain_kernel<T, R, KT>`): a step's
+# time at 16 rows a cluster relative to 8's, per storage type (an H100 at H
+# = 128, B = 64, one wave at either R: the chain's device time with R forced,
+# `kernel_ab.py`'s `chain_rows_H128_B64`, 1.75-1.80 in f32, 1.56-1.58 in bf16)
+CHAIN_ROW_COST = {torch.float32: {8: 1.0, 16: 1.77}, torch.bfloat16: {8: 1.0, 16: 1.57}}
+
+
+class ChainPlan(NamedTuple):
+    """The wide chain's plan at one row count and storage type, as
+    `wide_chain_config` in csrc/lstm_wide.cu makes it: rows a cluster, chunks
+    of K (f32), threads a CTA, rows of the CTA's weight slice resident in
+    shared memory (f32; of 4 H / C), k-tiles of its A fragments (bf16),
+    dynamic shared memory bytes; and the compiler's verdict on its
+    instantiation: registers and local memory bytes (spills) per thread, max
+    threads per block, clusters the card holds at once."""
+
+    rows: int
+    chunks: int
+    threads: int
+    resident_rows: int
+    k_tiles: int
+    smem: int
+    registers: int
+    local_bytes: int
+    max_threads: int
+    max_active_clusters: int
+
+
+@functools.lru_cache(maxsize=None)
+def wide_chain_plan(device: torch.device, H: int, R: int,
+                    dtype: torch.dtype) -> Optional[ChainPlan]:
+    """The wide chain's plan at padded H, R rows a cluster and storage dtype
+    on `device` (`cld_lstm2_wide_chain_query`), or None where it has none
+    (its buffers alone overflow shared memory: R = 16 at H = 320)."""
+    out = (ctypes.c_int * 9)()
+    with torch.cuda.device(device):
+        err = native.library().cld_lstm2_wide_chain_query(
+            H, wide_cluster(H, dtype), R, int(dtype == torch.bfloat16), ctypes.addressof(out))
+    if err == WIDE_NO_PLAN:
+        return None
+    native.check(err, "lstm2_bwd plan")
+    regs, local, max_threads, smem, threads, clusters, chunks, kres, k_tiles = out
+    return ChainPlan(R, chunks, threads, kres, k_tiles, smem, regs, local, max_threads, clusters)
+
+
+def wide_bwd_plan(B: int, H: int, dtype: torch.dtype, device: torch.device) -> ChainPlan:
+    """The chain plan the wide reverse sweep launches at batch B: `wide_rows`
+    with the chain's `CHAIN_ROW_COST` over the row counts that have a plan."""
+    plans = {R: wide_chain_plan(device, H, R, dtype) for R in WIDE_ROWS}
+    plans = {R: pl for R, pl in plans.items() if pl is not None}
+    R = wide_rows(B, {R: pl.max_active_clusters for R, pl in plans.items()},
+                  CHAIN_ROW_COST[dtype], "lstm2_wide_chain_kernel")
+    return plans[R]
+
+
+GATES_UNITS = 16  # hidden units of a gates-GEMM tile of `lstm_wide.cu` (`kGUnits`)
+
+
+def gates_tile_units(bf16: bool) -> torch.Tensor:
+    """[64]: the unit, of a gates tile's 16, that each of its 64 columns
+    holds; column g 16 + m is gate g. f32 ("wide_gates"): unit m. bf16
+    ("wide_gates_bf16"): m = 8 ub + c is column c of the gate's n-tile ub,
+    unit 4 (c // 2) + 2 ub + c % 2, so that the mma C fragment of lane tq
+    (columns 2 tq, 2 tq + 1 of each n-tile) holds units 4 tq .. 4 tq + 3."""
+    m = torch.arange(GATES_UNITS).repeat(4)
+    if not bf16:
+        return m
+    ub, c = m // 8, m % 8
+    return 4 * (c // 2) + 2 * ub + c % 2
+
+
+def chain_k_tiles(H: int, C: int) -> int:
+    """k-tiles of 16 over a CTA's 4 H / C gate columns: the bf16 chain's A
+    fragments ("wide_chain_bf16", zero-padded past 4 H / C)."""
+    return -(-4 * (H // C) // 16)
+
+
 def _wide_index(kind: str, H: int, C: int) -> torch.Tensor:
-    """The wide layouts as indices into cat(Wh1, W2) [3H, 4H], flattened.
-    CTA q of a cluster of C owns units q U .. q U + U - 1 (U = H / C) and
-    their gate columns j = g H + q U + u.
+    """The wide layouts as indices into cat(Wh1, W2) [3H, 4H], flattened
+    (12 H^2: the zero a bf16 tile pads with). CTA q of a cluster of C owns
+    units q U .. q U + U - 1 (U = H / C) and their gate columns j = g H + q U
+    + u.
 
     "wide_fwd" [C, H, 12 U]: CTA q's row k, column v = part * 4U + g U + u:
     Wh1[k] (part 0), W2[k] (1), W2[H + k] (2) at column j. "wide_chain" [C,
     4U, 3H]: CTA q's row g U + u (column j), column grp * H + i: W2[H + i]
-    (grp 0), W2[i] (1), Wh1[i] (2) at column j. "wide_gates" [3H, H, 4]:
-    row k of cat(Wh1, W2), unit u, gate g: cat[k, g H + u]."""
+    (grp 0), W2[i] (1), Wh1[i] (2) at column j. "wide_gates" /
+    "wide_gates_bf16" [H / 16, 3H, 64]: unit tile ut's row k of cat(Wh1,
+    W2), column g 16 + m: cat[k, g H + 16 ut + unit(m)] (`gates_tile_units`).
+    "wide_chain_bf16" [C, H / 16, 3, KT, 4, 32, 2]: CTA q's mma A fragments
+    (`mma_a_fragment`) of warp w, group grp and k-tile kt: row m is unit i =
+    16 w + m of the group's weights (as "wide_chain"), column 16 kt + k the
+    CTA's gate column g U + u (past 4U: the zero)."""
     G = 4 * H
-    if kind == "wide_gates":
-        return (torch.arange(3 * H)[:, None, None] * G + torch.arange(4)[None, None, :] * H
-                + torch.arange(H)[None, :, None])
+    if kind in ("wide_gates", "wide_gates_bf16"):
+        unit = gates_tile_units(kind.endswith("_bf16"))
+        col = (torch.arange(4 * GATES_UNITS) // GATES_UNITS) * H + unit  # [64]
+        ut = torch.arange(H // GATES_UNITS)[:, None, None] * GATES_UNITS
+        return torch.arange(3 * H)[None, :, None] * G + ut + col[None, None, :]
     U = H // C
     q = torch.arange(C)
     gu = torch.arange(4 * U)
@@ -458,10 +547,22 @@ def _wide_index(kind: str, H: int, C: int) -> torch.Tensor:
         idx = rows[None, :, :, None] * G + j[:, None, None, :]  # [C, 3, H, 4U]
         return idx.permute(0, 2, 1, 3).reshape(C, H, 12 * U)
     rows = torch.stack([2 * H + torch.arange(H), H + torch.arange(H), torch.arange(H)])
-    return rows.reshape(-1)[None, None, :] * G + j[:, :, None]  # [C, 4U, 3H]
+    if kind == "wide_chain":
+        return rows.reshape(-1)[None, None, :] * G + j[:, :, None]  # [C, 4U, 3H]
+    KT = chain_k_tiles(H, C)
+    m, kk = mma_a_fragment()  # [4, 32, 2] each
+    shape = lambda n, at: [n if d == at else 1 for d in range(7)]  # [C, H/16, 3, KT, 4, 32, 2]
+    unit = 16 * torch.arange(H // 16).reshape(shape(H // 16, 1)) + m
+    row = rows[torch.arange(3).reshape(shape(3, 2)), unit]
+    kcol = 16 * torch.arange(KT).reshape(shape(KT, 3)) + kk
+    col = j[q.reshape(shape(C, 0)), kcol.clamp(max=4 * U - 1)]
+    return torch.where(kcol < 4 * U, row * G + col, 12 * H * H)
 
 
-WEIGHT_KINDS = ("fwd", "bwd", "fwd_bf16", "bwd_bf16", "wide_fwd", "wide_chain", "wide_gates")
+WEIGHT_KINDS = ("fwd", "bwd", "fwd_bf16", "bwd_bf16", "wide_fwd", "wide_chain", "wide_gates",
+                "wide_gates_bf16", "wide_chain_bf16")
+WIDE_BWD_KINDS = {torch.float32: ("wide_gates", "wide_chain"),
+                  torch.bfloat16: ("wide_gates_bf16", "wide_chain_bf16")}
 
 
 @functools.lru_cache(maxsize=None)
@@ -496,7 +597,7 @@ def weight_index(kind: str, H: int, device: torch.device = torch.device("cpu"),
         return _fwd_bf16_index(H, 12 * H * H).to(device)
     elif kind == "bwd_bf16":
         return _bwd_bf16_index(H, 12 * H * H).to(device)
-    elif kind in ("wide_fwd", "wide_chain", "wide_gates"):
+    elif kind.startswith("wide_") and kind in WEIGHT_KINDS:
         return _wide_index(kind, H, cluster).to(device)
     else:
         raise ValueError(f"weight_index: kind {kind!r}, expected one of {WEIGHT_KINDS}")
@@ -513,10 +614,11 @@ def pack_weights(kind: str, Wh1: torch.Tensor, W2: torch.Tensor) -> torch.Tensor
 def pack_layouts(Wh1: torch.Tensor, W2: torch.Tensor, *kinds: str) -> Tuple[torch.Tensor, ...]:
     """`pack_weights` of each kind, from one concatenation of the weights
     (and of the zero a bf16 layout pads with, where H is not a multiple of
-    16): the reverse sweep's two layouts in three launches."""
+    16 or, in "wide_chain_bf16", 4 H / C not one): the reverse sweep's two
+    layouts in three launches."""
     H = Wh1.shape[0]
     parts = (Wh1.reshape(-1), W2.reshape(-1))
-    if H % 16 and any(k.endswith("_bf16") for k in kinds):
+    if any(k.endswith("_bf16") for k in kinds) and (H % 16 or "wide_chain_bf16" in kinds):
         parts += (Wh1.new_zeros(1),)
     flat = torch.cat(parts)
     C = wide_cluster(H, Wh1.dtype)
@@ -542,13 +644,15 @@ def kernel_attributes(which: int, H: int, R: int = 1,
     """The compiler's verdict on the instantiation that runs hidden size H
     (which: 0 the forward, 1 the reverse sweep's gates kernel, 2 its chain;
     `dtype` the storage type; R of `ROWS_PER_CTA` for f32 H <= 64, of
-    `WIDE_ROWS` for the f32 wide forward (8 otherwise), unused by the
-    others): registers and local memory bytes (spills) per thread, max
-    threads per block; for bf16 and the wide kernels the shared memory bytes
-    (static, and the chain's dynamic); for the wide kernels also the cluster
-    size, whether the weight slice is resident in shared memory, the threads
-    a launch runs and how many clusters the card holds at once; for the f32
-    wide forward also its rows a cluster and chunks of K."""
+    `WIDE_ROWS` for the f32 wide forward and the wide chain (8 otherwise),
+    unused by the others): registers and local memory bytes (spills) per
+    thread, max threads per block; for bf16 and the wide kernels the shared
+    memory bytes (static, and the wide kernels' dynamic); for the wide
+    kernels also the cluster size (1: the gates GEMM), whether the weight
+    slice is resident in shared memory, the threads a launch runs and how
+    many clusters the card holds at once; for the f32 wide forward and the
+    chain also their rows a cluster and chunks of K, for the chain the rows
+    of its slice in shared memory (f32) and its k-tiles (bf16)."""
     lib = native.library()
     Hp = padded_hidden(H)
     if Hp > H_RANGE[-1] and which == 0 and dtype == torch.float32:
@@ -562,6 +666,19 @@ def kernel_attributes(which: int, H: int, R: int = 1,
                     max_active_clusters=plan.max_active_clusters,
                     cluster=wide_cluster(Hp, dtype), resident=int(plan.resident),
                     rows=plan.rows, chunks=plan.chunks)
+    if Hp > H_RANGE[-1] and which == 2:
+        R = R if R in WIDE_ROWS else WIDE_ROWS[0]
+        plan = wide_chain_plan(torch.device("cuda", torch.cuda.current_device()), Hp, R, dtype)
+        if plan is None:
+            raise ValueError(f"kernel_attributes: the wide chain has no plan at H={Hp}, R={R} "
+                             f"({dtype})")
+        C = wide_cluster(Hp, dtype)
+        return dict(registers=plan.registers, local_bytes=plan.local_bytes,
+                    max_threads=plan.max_threads, shared_bytes=plan.smem, threads=plan.threads,
+                    max_active_clusters=plan.max_active_clusters, cluster=C,
+                    resident=int(plan.resident_rows == 4 * Hp // C), rows=plan.rows,
+                    chunks=plan.chunks, resident_rows=plan.resident_rows,
+                    k_tiles=plan.k_tiles)
     if Hp > H_RANGE[-1]:
         C = wide_cluster(Hp, dtype)
         vals = native.attributes(lib.cld_lstm2_wide_attributes, which, Hp, C,
@@ -618,8 +735,10 @@ def _check_wide(err: int, name: str, H: int, C: int, dt: torch.dtype) -> None:
     """Raise on a failed wide launch; a cluster the card cannot schedule is
     refused by name (there is no fallback)."""
     if err == WIDE_UNSCHEDULABLE:
+        kernel = ("lstm2_wide_chain_kernel" if name == "lstm2_bwd" else "lstm2_wide_fwd_kernel"
+                  if dt == torch.bfloat16 else "lstm2_wide_fwd_f32_kernel")
         raise RuntimeError(f"{name}: this card cannot hold one cluster of {C} CTAs of "
-                           f"`lstm_wide.cu` at H={H} ({dt})")
+                           f"`{kernel}` (`lstm_wide.cu`) at H={H} ({dt})")
     native.check(err, name)
 
 
@@ -685,8 +804,10 @@ def lstm2_bwd(dy, xg1, h0, Wh1, W2, b2, h1s, c1s, ys, c2s):
     launch, at the padded hidden size, a gates kernel into an f32 scratch
     buffer and then the chain (one launch counted): `lstm2_bwd_gates_kernel`
     + `lstm2_bwd_kernel` (f32), `lstm2_gates_mma_kernel` +
-    `lstm2_chain_mma_kernel` (bf16), or above 64 `lstm2_wide_gates_kernel` +
-    `lstm2_wide_chain_kernel`; CPU tensors take `lstm2_bwd_ref`."""
+    `lstm2_chain_mma_kernel` (bf16), or above 64 the gates GEMM
+    (`lstm2_wide_gates_f32_kernel`, in bf16 `lstm2_wide_gates_mma_kernel`) +
+    `lstm2_wide_chain_kernel` at `wide_bwd_plan`'s rows; CPU tensors take
+    `lstm2_bwd_ref`."""
     if xg1.device.type not in ("cpu", "cuda"):
         raise ValueError(f"lstm2_bwd: unsupported device {xg1.device}")
     ins = dict(dy=dy, xg1=xg1, h0=h0, Wh1=Wh1, W2=W2, b2=b2, h1s=h1s, c1s=c1s, ys=ys, c2s=c2s)
@@ -705,7 +826,16 @@ def lstm2_bwd(dy, xg1, h0, Wh1, W2, b2, h1s, c1s, ys, c2s):
     return tuple(unpad_blocks(a, -1, 4, H, Hp) for a in dg)
 
 
-def _bwd_launch(B, T, H, dt, dy, xg1, h0, Wh1, W2, b2, h1s, c1s, ys, c2s):
+def _aligned(a: torch.Tensor) -> torch.Tensor:
+    """`a`, or a copy of it where its storage is not 16-byte aligned (the
+    wide reverse sweep reads it 16 bytes at a time)."""
+    return a if a.data_ptr() % 16 == 0 else a.clone()
+
+
+def _bwd_launch(B, T, H, dt, dy, xg1, h0, Wh1, W2, b2, h1s, c1s, ys, c2s, rows=None):
+    """The reverse sweep's launch at padded H. `rows` (wide H only) forces
+    the chain's rows a cluster, for measuring a step's cost at each R
+    (`CHAIN_ROW_COST`); None takes `wide_bwd_plan`'s choice."""
     dev = xg1.device
     dg1 = torch.empty((B, T, 4 * H), dtype=dt, device=dev)
     dg2 = torch.empty_like(dg1)
@@ -713,12 +843,13 @@ def _bwd_launch(B, T, H, dt, dy, xg1, h0, Wh1, W2, b2, h1s, c1s, ys, c2s):
     sms = _sm_count(dev)
     if H > H_RANGE[-1]:
         C = wide_cluster(H, dt)
+        R = wide_bwd_plan(B, H, dt, dev).rows if rows is None else rows
         coef = torch.empty((B, T, COEF_PLANES_BF16, H), dtype=torch.float32, device=dev)
-        wgates, wchain = pack_layouts(Wh1, W2, "wide_gates", "wide_chain")  # alive until queued
+        wgates, wchain = pack_layouts(Wh1, W2, *WIDE_BWD_KINDS[dt])  # alive until queued
+        ins = [_aligned(a) for a in (dy, xg1, h0, b2, h1s, c1s, ys, c2s)]
         _check_wide(lib.cld_lstm2_wide_bwd(
-            dy.data_ptr(), xg1.data_ptr(), h0.data_ptr(), b2.data_ptr(), h1s.data_ptr(),
-            c1s.data_ptr(), ys.data_ptr(), c2s.data_ptr(), wgates.data_ptr(), wchain.data_ptr(),
-            coef.data_ptr(), dg1.data_ptr(), dg2.data_ptr(), B, T, H, C,
+            *(a.data_ptr() for a in ins), wgates.data_ptr(), wchain.data_ptr(),
+            coef.data_ptr(), dg1.data_ptr(), dg2.data_ptr(), B, T, H, C, R,
             int(dt == torch.bfloat16), native.stream_ptr(dev),
         ), "lstm2_bwd", H, C, dt)
         native.count_launch("lstm2_bwd_wide_bf16" if dt == torch.bfloat16 else "lstm2_bwd_wide")

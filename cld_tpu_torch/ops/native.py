@@ -120,7 +120,8 @@ def library() -> ctypes.CDLL:
         lib.cld_lstm2_attributes.argtypes = [i, i, i, p]
         lib.cld_lstm2_attributes_bf16.argtypes = [i, i, p]
         lib.cld_lstm2_wide_fwd.argtypes = [p] * 8 + [i] * 5 + [p]
-        lib.cld_lstm2_wide_bwd.argtypes = [p] * 13 + [i] * 5 + [p]
+        lib.cld_lstm2_wide_bwd.argtypes = [p] * 13 + [i] * 6 + [p]
+        lib.cld_lstm2_wide_chain_query.argtypes = [i] * 4 + [p]
         lib.cld_lstm2_wide_attributes.argtypes = [i, i, i, i, p]
         lib.cld_lstm2_wide_fwd_f32.argtypes = [p] * 8 + [i] * 5 + [p]
         lib.cld_lstm2_wide_fwd_f32_query.argtypes = [i] * 3 + [p]
@@ -128,7 +129,8 @@ def library() -> ctypes.CDLL:
                    lib.cld_lstm2_bwd_bf16, lib.cld_lstm2_attributes,
                    lib.cld_lstm2_attributes_bf16, lib.cld_lstm2_wide_fwd,
                    lib.cld_lstm2_wide_bwd, lib.cld_lstm2_wide_attributes,
-                   lib.cld_lstm2_wide_fwd_f32, lib.cld_lstm2_wide_fwd_f32_query):
+                   lib.cld_lstm2_wide_fwd_f32, lib.cld_lstm2_wide_fwd_f32_query,
+                   lib.cld_lstm2_wide_chain_query):
             fn.restype = i
         lib.cld_bit_gather.argtypes = [p] * 3 + [i, i, i, i, p]
         lib.cld_bit_gather.restype = i

@@ -217,13 +217,19 @@ def _padded_weights(seed, H):
 
 @pytest.mark.parametrize("H,dtype", WIDE)
 def test_wide_layouts_are_permutations_with_exact_inverses(H, dtype):
+    """The forward's layout and the reverse sweep's two of the storage type
+    ("wide_gates" / "wide_chain" in f32, "wide_gates_bf16" /
+    "wide_chain_bf16" in bf16): every weight once, the rest the zero that
+    pads the bf16 chain's k-tiles past 4 H / C, and an exact inverse."""
     Wh1, W2, Hp = _padded_weights(13, H)
     Wh1, W2 = Wh1.to(dtype), W2.to(dtype)
     C = tl.wide_cluster(Hp, dtype)
     assert C in tl.WIDE_CLUSTERS and Hp % C == 0
-    for kind in ("wide_fwd", "wide_chain", "wide_gates"):
-        idx = tl.weight_index(kind, Hp, cluster=C)
-        assert torch.equal(idx.reshape(-1).sort().values, torch.arange(12 * Hp * Hp)), kind
+    for kind in ("wide_fwd", *tl.WIDE_BWD_KINDS[dtype]):
+        idx = tl.weight_index(kind, Hp, cluster=C).reshape(-1)
+        real = idx[idx < 12 * Hp * Hp]
+        assert torch.equal(real.sort().values, torch.arange(12 * Hp * Hp)), kind
+        assert bool((idx[idx >= 12 * Hp * Hp] == 12 * Hp * Hp).all()), kind
         back = tl.unpack_weights(kind, tl.pack_weights(kind, Wh1, W2), Hp)
         assert torch.equal(back[0], Wh1) and torch.equal(back[1], W2), kind
 
@@ -244,12 +250,42 @@ def _cta_columns(q, C, H):
     return (torch.arange(4)[:, None] * H + q * U + torch.arange(U)).reshape(-1)
 
 
+def _gates_dense(packed, H, dtype):
+    """cat(Wh1, W2) [3H, 4H] read back through a gates layout ([H / 16, 3H,
+    64], column g 16 + m of unit tile ut: gate g of unit 16 ut +
+    `gates_tile_units`[m]), as float."""
+    p = packed.float().reshape(H // 16, 3 * H, 64)
+    col = (torch.arange(64) // 16) * H + tl.gates_tile_units(dtype == BF16)
+    out = torch.zeros(3 * H, 4 * H)
+    for ut in range(H // 16):
+        out[:, col + 16 * ut] = p[ut]
+    return out
+
+
+def _chain_dense(packed, H, C, dtype):
+    """Each CTA's chain weights [C, 3, H, 4U] (group grp, unit i, the CTA's
+    gate column g U + u), as float, from "wide_chain" ([C, 4U, 3H]) or from
+    the mma A fragments of "wide_chain_bf16"."""
+    U = H // C
+    if dtype != BF16:
+        return packed.float().reshape(C, 4 * U, 3, H).permute(0, 2, 3, 1)
+    KT = tl.chain_k_tiles(H, C)
+    frag = packed.float().reshape(C, H // 16, 3, KT, 4, 32, 2)
+    m, kk = torch.broadcast_tensors(*tl.mma_a_fragment())
+    dense = torch.zeros(C, H // 16, 3, 16, 16 * KT)
+    for kt in range(KT):
+        dense[:, :, :, m.reshape(-1), (16 * kt + kk).reshape(-1)] = frag[:, :, :, kt].reshape(
+            C, H // 16, 3, -1)
+    return dense.permute(0, 2, 1, 3, 4).reshape(C, 3, H, 16 * KT)[..., :4 * U]
+
+
 @pytest.mark.parametrize("H,dtype", WIDE)
 def test_wide_layouts_give_the_jax_gate_products(H, dtype):
-    """Each CTA's products through "wide_fwd", the chain's partial products
-    through "wide_chain" summed over the cluster, and the gates kernel's
-    through "wide_gates", against h @ Wh1, [h1, h2] @ W2 and d @ W^T from
-    the JAX package's states (operands at the storage type, f32 sums)."""
+    """Each CTA's products through "wide_fwd", the gates GEMM's through its
+    tiles ("wide_gates" / "wide_gates_bf16") and the chain's partial products
+    through "wide_chain" / "wide_chain_bf16" summed over the cluster,
+    against h @ Wh1, [h1, h2] @ W2 and d @ W^T from the JAX package's states
+    (operands at the storage type, f32 sums)."""
     B, T = 3, 4
     Hp = tl.padded_hidden(H)
     args = _core_inputs(14, B, T, H)
@@ -271,25 +307,21 @@ def test_wide_layouts_give_the_jax_gate_products(H, dtype):
         np.testing.assert_allclose(p1, want1[:, cols], rtol=1e-5, atol=1e-6)
         np.testing.assert_allclose(p2, want2[:, cols], rtol=1e-5, atol=1e-6)
 
-    gates = tl.pack_weights("wide_gates", Wh1, W2).reshape(3, Hp, Hp, 4).float()
-    g1 = torch.einsum("bk,kug->bgu", h1p, gates[0]).reshape(B, 4 * Hp)
-    g2 = (torch.einsum("bk,kug->bgu", h1t, gates[1])
-          + torch.einsum("bk,kug->bgu", h2p, gates[2])).reshape(B, 4 * Hp)
-    np.testing.assert_allclose(g1, want1, rtol=1e-5, atol=1e-6)
-    np.testing.assert_allclose(g2, want2, rtol=1e-5, atol=1e-6)
+    gates_kind, chain_kind = tl.WIDE_BWD_KINDS[dtype]
+    cat = _gates_dense(tl.pack_weights(gates_kind, Wh1, W2), Hp, dtype)
+    np.testing.assert_allclose(h1p @ cat[:Hp], want1, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(torch.cat([h1t, h2p], -1) @ cat[Hp:], want2, rtol=1e-5, atol=1e-6)
 
     rng = np.random.default_rng(15)
     d2, d1 = (torch.from_numpy(rng.normal(size=(B, 4 * Hp)).astype(np.float32)).to(dtype).float()
               for _ in range(2))
-    chain = tl.pack_weights("wide_chain", Wh1, W2)
-    U = Hp // C
-    w = chain.reshape(C, 4 * U, 3 * Hp).float()
+    w = _chain_dense(tl.pack_weights(chain_kind, Wh1, W2), Hp, C, dtype)
     parts = torch.zeros(3, B, Hp)
     for q in range(C):  # each CTA's partials for every unit, summed at the owner
         cols = _cta_columns(q, C, Hp)
-        parts[0] += d2[:, cols] @ w[q][:, :Hp]
-        parts[1] += d2[:, cols] @ w[q][:, Hp:2 * Hp]
-        parts[2] += d1[:, cols] @ w[q][:, 2 * Hp:]
+        parts[0] += d2[:, cols] @ w[q, 0].T
+        parts[1] += d2[:, cols] @ w[q, 1].T
+        parts[2] += d1[:, cols] @ w[q, 2].T
     W2f, Wh1f = W2.float(), Wh1.float()
     np.testing.assert_allclose(parts[0], d2 @ W2f[Hp:].T, rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(parts[1], d2 @ W2f[:Hp].T, rtol=1e-5, atol=1e-5)
@@ -336,61 +368,200 @@ def _walk_fwd(xg1, h0, Wh1, W2, b2):
     return tuple(o.to(dt) for o in outs)
 
 
-def _walk_bwd(dy, xg1, h0, Wh1, W2, b2, h1s, c1s, ys, c2s):
-    """The reverse sweep as `lstm2_wide_gates_kernel` + `lstm2_wide_chain_kernel`
-    run it: the 12 coefficient planes from the "wide_gates" products, then
-    iteration s: layer 2 at step T-1-s and layer 1 at step T-s, each CTA's
-    partial products of its own units' dg for every unit, summed at the
-    owner in rank order."""
+GATES_PAIRS = 128  # (b, t) pairs of a gates CTA (`kGPairs`)
+
+
+def _walk_gates(xg1, h0, Wh1, W2, b2, h1s, c1s, ys, c2s):
+    """coef [B, T, 12, H] as the gates GEMM computes it
+    (`lstm2_wide_gates_f32_kernel`, in bf16 `lstm2_wide_gates_mma_kernel`):
+    a CTA per (128 pairs, 16 units, layer), K summed one row at a time in
+    the kernels' order (chunks of 16 / 32 rows of "wide_gates", in order),
+    the pairs past B T zero; each thread or lane holds every gate of 4
+    consecutive units (one 16-byte store a plane), and every (pair, unit,
+    gate) of each layer is some thread's exactly once."""
+    B, T, G = xg1.shape
+    H, N, dt = G // 4, B * T, xg1.dtype
+    bf16 = dt == BF16
+    f = lambda a: a.float().reshape(N, -1)
+    kind = tl.WIDE_BWD_KINDS[dt][0]
+    w = tl.pack_weights(kind, Wh1, W2).float().reshape(H // 16, 3 * H, 64)
+    unit = tl.gates_tile_units(bf16)
+    first = (torch.arange(N) % T == 0)[:, None]
+    prev = lambda a: torch.where(first, h0.float().repeat_interleave(T, 0), f(a).roll(1, 0))
+    x = torch.cat([prev(h1s), f(h1s), prev(ys)], -1)  # the operand of each K row
+    # who holds what: f32 thread (ug, pg): pairs pg + 32 i, columns g 16 + 4 ug
+    # + e; bf16 warp w, lane (gq, tq): pairs 32 w + 16 mt + gq + 8 h, columns
+    # g 16 + 8 ub + 2 tq + e of the C fragments
+    if bf16:
+        w_, mt, h, g, ub, gq, tq, e = torch.meshgrid(*map(torch.arange, (4, 2, 2, 4, 2, 8, 4, 2)),
+                                                     indexing="ij")
+        pair, col, lane = 32 * w_ + 16 * mt + gq + 8 * h, 16 * g + 8 * ub + 2 * tq + e, tq
+    else:
+        ug, pg, i, g, e = torch.meshgrid(*map(torch.arange, (4, 32, 4, 4, 4)), indexing="ij")
+        pair, col, lane = pg + 32 * i, 16 * g + 4 * ug + e, ug
+    seen = torch.zeros(GATES_PAIRS, 64, dtype=torch.long)
+    seen.index_put_((pair.reshape(-1), col.reshape(-1)), torch.ones(pair.numel(), dtype=torch.long),
+                    accumulate=True)
+    assert bool((seen == 1).all())
+    units_held = unit[col] - 4 * lane  # each holder's units: 4 lane .. 4 lane + 3
+    assert int(units_held.min()) == 0 and int(units_held.max()) == 3
+    kc = 32 if bf16 else 16
+    coef = torch.zeros(N, 12, H)
+    for n0 in range(0, N, GATES_PAIRS):
+        rows = torch.arange(n0, n0 + GATES_PAIRS)
+        live = rows < N
+        xt = torch.where(live[:, None], x[rows.clamp(max=N - 1)], 0.0)
+        for cl, (k0, k1) in enumerate(((H, 3 * H), (0, H))):  # layer 2 (planes 0-5), layer 1
+            acc = torch.zeros(H // 16, GATES_PAIRS, 64)
+            for c0 in range(k0, k1, kc):  # the chunks in order, their rows in order
+                for k in range(c0, min(c0 + kc, k1)):
+                    acc += xt[None, :, k, None] * w[:, None, k, :]
+            for ut in range(H // 16):
+                gcol = (torch.arange(64) // 16) * H + 16 * ut + unit
+                pre = acc[ut][live] + (f(xg1)[:, gcol][rows[live]] if cl else b2.float()[gcol])
+                i, fg, g_, o = (pre[:, 16 * j:16 * j + 16] for j in range(4))
+                i, fg, g_, o = torch.sigmoid(i), torch.sigmoid(fg), torch.tanh(g_), torch.sigmoid(o)
+                units = 16 * ut + unit[:16]
+                cs = f(c1s if cl else c2s)
+                cv = cs[rows[live]][:, units]
+                cp = torch.where(first[rows[live]], 0.0, cs.roll(1, 0)[rows[live]][:, units])
+                tc = torch.tanh(cv)
+                planes = (o * (1 - tc * tc), fg, g_ * i * (1 - i), cp * fg * (1 - fg),
+                          i * (1 - g_ * g_), tc * o * (1 - o))
+                for j, v in enumerate(planes):
+                    coef[rows[live][:, None], 6 * cl + j, units[None, :]] = v
+    return coef.reshape(B, T, 12, H)
+
+
+def _plain_coef(xg1, h0, Wh1, W2, b2, h1s, c1s, ys, c2s):
+    """The 12 planes from the plain gate products (operands at the storage
+    type, f32 sums), for the gates walk to match."""
     B, T, G = xg1.shape
     H = G // 4
-    dt = xg1.dtype
-    C = tl.wide_cluster(H, dt)
-    U = H // C
     f = lambda a: a.float()
-    gates, chain = tl.pack_layouts(Wh1, W2, "wide_gates", "wide_chain")
-    gw = f(gates).reshape(3, H, H, 4)
     h1p = torch.cat([f(h0)[:, None], f(h1s)[:, :-1]], 1)
     h2p = torch.cat([f(h0)[:, None], f(ys)[:, :-1]], 1)
-    pre1 = torch.einsum("btk,kug->btgu", h1p, gw[0]).reshape(B, T, G) + f(xg1)
-    pre2 = (torch.einsum("btk,kug->btgu", f(h1s), gw[1])
-            + torch.einsum("btk,kug->btgu", h2p, gw[2])).reshape(B, T, G) + f(b2)
-    coef = []
+    pre1 = h1p @ f(Wh1) + f(xg1)
+    pre2 = torch.cat([f(h1s), h2p], -1) @ f(W2) + f(b2)
+    out = []
     for pre, cs in ((pre2, f(c2s)), (pre1, f(c1s))):
-        i, fg, g, o = torch.sigmoid(pre[..., :H]), torch.sigmoid(pre[..., H:2 * H]), \
-            torch.tanh(pre[..., 2 * H:3 * H]), torch.sigmoid(pre[..., 3 * H:])
+        i, fg, g, o = (pre[..., j * H:(j + 1) * H] for j in range(4))
+        i, fg, g, o = torch.sigmoid(i), torch.sigmoid(fg), torch.tanh(g), torch.sigmoid(o)
         cp = torch.cat([torch.zeros(B, 1, H), cs[:, :-1]], 1)
         tc = torch.tanh(cs)
-        coef += [o * (1 - tc * tc), fg, g * i * (1 - i), cp * fg * (1 - fg), i * (1 - g * g),
-                 tc * o * (1 - o)]
-    w = f(chain).reshape(C, 4 * U, 3 * H)
-    own = torch.zeros(C, 2, B, 4 * U)  # each CTA's dg2, dg1 in its (g, u) order
-    carry = torch.zeros(2, B, H)
-    dg = torch.zeros(2, B, T, G)  # dg2, dg1
-    for s in range(T + 1):
-        parts = torch.zeros(3, C, B, H)  # [group, source CTA]
-        for q in range(C):
-            parts[0, q] = own[q, 0] @ w[q][:, :H]
-            parts[1, q] = own[q, 0] @ w[q][:, H:2 * H]
-            parts[2, q] = own[q, 1] @ w[q][:, 2 * H:]
-        for q in range(C):
-            units = torch.arange(q * U, (q + 1) * U)
-            cols = _cta_columns(q, C, H)
-            for layer, on in ((0, s < T), (1, s > 0)):
-                if not on:
-                    continue
-                t = T - 1 - s if layer == 0 else T - s
-                if layer == 0:
-                    dh = f(dy)[:, t, units] + parts[0, :, :, units].sum(0)
-                else:
-                    dh = parts[1, :, :, units].sum(0) + parts[2, :, :, units].sum(0)
-                k = [coef[6 * layer + j][:, t, units] for j in range(6)]
-                dc = dh * k[0] + carry[layer][:, units]
-                carry[layer][:, units] = dc * k[1]
-                d = torch.cat([dc * k[2], dc * k[3], dc * k[4], dh * k[5]], -1)
-                own[q, layer] = d.to(dt).float()
-                dg[layer][:, t, cols] = d
+        out += [o * (1 - tc * tc), fg, g * i * (1 - i), cp * fg * (1 - fg), i * (1 - g * g),
+                tc * o * (1 - o)]
+    return torch.stack(out, 2)
+
+
+def _walk_chain(dy, coef, Wh1, W2, R, S=1):
+    """dg1, dg2 as `lstm2_wide_chain_kernel<T, R>` computes them from coef:
+    per tile of R rows, iteration s runs layer 2 at step T-1-s and layer 1
+    at T-s; from s = 1 each CTA forms its partial products of the dg of s -
+    1 for every unit (f32: column pairs x S chunks of K, summed in chunk
+    order; bf16: warp w's units 16 w .., from the mma A fragments), stages
+    them [owner][grp][R][U] and sends each owner its block into the owner's
+    receive buffer [parity][source][grp][R][U], one bulk copy a peer, whose
+    bytes must be exactly those the owner's barrier of that parity was armed
+    with; each owner sums the C blocks in rank order and runs its cells (16
+    U threads, R / 8 rows each)."""
+    B, T, H = dy.shape
+    dt = dy.dtype
+    C = tl.wide_cluster(H, dt)
+    U, K, RC = H // C, 4 * H // C, R // 8
+    w = _chain_dense(tl.pack_weights(tl.WIDE_BWD_KINDS[dt][1], Wh1, W2), H, C, dt)  # [C,3,H,K]
+    if dt != BF16:  # column pairs x chunks: each (pair, chunk) once, both columns in one group
+        npw = -(-3 * H // 2 // 32) * 32
+        t_ = torch.arange(npw * S)
+        held = {(int(p), int(c)) for p, c in zip(t_ % npw, t_ // npw) if p < 3 * H // 2}
+        assert held == {(p, c) for p in range(3 * H // 2) for c in range(S)}
+        assert all((2 * p) // H == (2 * p + 1) // H for p in range(3 * H // 2))
+        assert K % S == 0
+    else:  # warp w's C fragments: units 16 w + gq (+ 8), rows 8 nt + 2 tq (+ 1), each once
+        wp, h, gq, nt, tq, e = torch.meshgrid(*map(torch.arange, (H // 16, 2, 8, R // 8, 4, 2)),
+                                              indexing="ij")
+        cover = torch.zeros(H, R, dtype=torch.long)
+        cover.index_put_(((16 * wp + gq + 8 * h).reshape(-1), (8 * nt + 2 * tq + e).reshape(-1)),
+                         torch.ones(wp.numel(), dtype=torch.long), accumulate=True)
+        assert bool((cover == 1).all())
+    cells = torch.arange(16 * U)  # (layer, unit, first row): each cell of the CTA once
+    cell_set = {(int(c // (8 * U)), int(c % U), int((c // U) % 8 * RC + j))
+                for c in cells for j in range(RC)}
+    assert cell_set == {(l, u, r) for l in range(2) for u in range(U) for r in range(R)}
+    step_bytes = 12 * H * R
+    kc = K // S
+    dg = torch.zeros(2, B, T, 4 * H)  # dg2, dg1
+    for b0 in range(0, B, R):
+        rows = torch.arange(b0, b0 + R)
+        live = rows < B
+        rc = rows.clamp(max=B - 1)
+        own = torch.zeros(C, 2, R, K)  # each CTA's dg2, dg1 at the storage type, (g, u) order
+        carry = torch.zeros(C, 2, R, U)
+        recv = torch.zeros(C, 2, C, 3, R, U)  # [owner][parity][source][grp][R][U]
+        armed = {s: step_bytes for s in (1, 2) if s <= T}
+        for s in range(T + 1):
+            par = s & 1
+            if s > 0:
+                arrived = torch.zeros(C, dtype=torch.long)
+                for q in range(C):
+                    part = torch.zeros(3, R, H)
+                    for grp in range(3):
+                        x = own[q, 0 if grp < 2 else 1]
+                        if dt == BF16:
+                            part[grp] = x @ w[q, grp].T
+                        else:
+                            for ch in range(S):  # chunk order
+                                ks = slice(ch * kc, (ch + 1) * kc)
+                                part[grp] += x[:, ks] @ w[q, grp][:, ks].T
+                    stage = part.reshape(3, R, C, U).permute(2, 0, 1, 3)  # [owner][grp][R][U]
+                    for o in range(C):  # the bulk copy to owner o, onto its barrier `par`
+                        recv[o, par, q] = stage[o]
+                        arrived[o] += stage[o].numel() * 4
+                assert arrived.tolist() == [armed.pop(s)] * C
+                if s + 2 <= T:
+                    armed[s + 2] = step_bytes
+            for q in range(C):
+                units = q * U + torch.arange(U)
+                for cl, on in ((0, s < T), (1, s > 0)):
+                    if not on:
+                        continue
+                    t = T - 1 - s if cl == 0 else T - s
+                    k = [torch.where(live[:, None], coef[rc, t, 6 * cl + j][:, units].float(), 0.0)
+                         for j in range(6)]
+                    if cl == 0:
+                        acc = torch.zeros(R, U)
+                        if s > 0:
+                            for p in range(C):  # rank order
+                                acc = acc + recv[q, par, p, 0]
+                        dh = torch.where(live[:, None], dy[rc, t][:, units].float(), 0.0) + acc
+                    else:
+                        a, e_ = torch.zeros(R, U), torch.zeros(R, U)
+                        for p in range(C):
+                            a = a + recv[q, par, p, 1]
+                        for p in range(C):
+                            e_ = e_ + recv[q, par, p, 2]
+                        dh = a + e_
+                    dc = dh * k[0] + carry[q, cl]
+                    carry[q, cl] = dc * k[1]
+                    d = torch.cat([dc * k[2], dc * k[3], dc * k[4], dh * k[5]], -1)  # [R, 4U]
+                    own[q, cl] = d.to(dt).float()
+                    cols = _cta_columns(q, C, H)
+                    dg[cl][rows[live][:, None], t, cols[None, :]] = d[live]
+        assert not armed
     return dg[1].to(dt), dg[0].to(dt)
+
+
+# the chunks of K that `wide_chain_config` (csrc/lstm_wide.cu) plans for the f32
+# chain at R = 8: the most with which the slice and the chunk sums fit
+CHAIN_F32_CHUNKS = {80: 4, 128: 2, 320: 1}
+
+
+def _walk_bwd(dy, xg1, h0, Wh1, W2, b2, h1s, c1s, ys, c2s):
+    """The reverse sweep as the gates GEMM + the chain run it (`_walk_gates`,
+    then `_walk_chain` at 8 rows a cluster)."""
+    coef = _walk_gates(xg1, h0, Wh1, W2, b2, h1s, c1s, ys, c2s)
+    H = dy.shape[-1]
+    return _walk_chain(dy, coef, Wh1, W2, 8, CHAIN_F32_CHUNKS[H] if dy.dtype != BF16 else 1)
 
 
 @pytest.mark.parametrize("H,dtype", [(80, torch.float32), (320, torch.float32), (128, BF16)])
@@ -533,3 +704,69 @@ def test_walk_of_the_f32_wide_forward_matches_the_plain_version(H, R, S):
     want = tl.lstm2_core_ref(*padded)
     for name, g, w in zip(("y", "h1s", "c1s", "c2s"), got, want):
         np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-5, atol=1e-6, err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# the redesigned reverse sweep: the gates GEMM's tiling, the chain's schedule,
+# its rows a cluster
+# ---------------------------------------------------------------------------
+
+
+def _bwd_inputs(seed, B, T, H, dtype):
+    """Padded sweep inputs in the storage type, the plain forward's states
+    and a cotangent: (dy, xg1, h0, Wh1, W2, b2, h1s, c1s, ys, c2s)."""
+    Hp = tl.padded_hidden(H)
+    args = [tl.pad_hidden(n, torch.from_numpy(a), H, Hp).to(dtype)
+            for n, a in zip(NAMES, _core_inputs(seed, B, T, H))]
+    dy = torch.from_numpy(np.random.default_rng(seed + 1).normal(size=(B, T, H)).astype(np.float32))
+    y, h1s, c1s, c2s = tl.lstm2_core_ref(*args)
+    return (tl.pad_hidden("dy", dy, H, Hp).to(dtype), *args, h1s, c1s, y, c2s)
+
+
+@pytest.mark.parametrize("H,dtype", [(80, torch.float32), (320, torch.float32), (128, BF16)])
+def test_walk_of_the_wide_gates_gemm_matches_the_plain_coefficients(H, dtype):
+    """The gates GEMM's tiling (`_walk_gates`: each (pair, unit, gate) held
+    once, four consecutive units a thread or lane, K in the kernels' order)
+    at B T = 130 pairs: two tiles of 128, the second holding 2, against the
+    12 planes from the plain gate products (rtol 1e-5: other sum orders)."""
+    ins = _bwd_inputs(21, 26, 5, H, dtype)
+    got = _walk_gates(*ins[1:])
+    want = _plain_coef(*ins[1:])
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("H,R,S,dtype", [
+    (80, 8, 4, torch.float32), (80, 16, 4, torch.float32), (128, 8, 2, torch.float32),
+    (128, 16, 1, torch.float32), (320, 8, 1, torch.float32), (80, 8, 1, BF16),
+    (128, 8, 1, BF16), (128, 16, 1, BF16), (320, 8, 1, BF16)])
+def test_walk_of_the_wide_chain_matches_the_plain_version(H, R, S, dtype):
+    """The chain as `lstm2_wide_chain_kernel<T, R>` schedules it
+    (`_walk_chain`: the bulk copies into [parity][source][grp][R][U], the
+    bytes each barrier is armed for against those its peers send, the owner's
+    rank-order sums), at R = 8 and 16 with the chunks of K the f32 plan
+    makes there, on a ragged last tile of rows (B = 19), against
+    `lstm2_bwd_ref`: f32 within rtol 1e-5, bf16 within 2^-7 of max |plain|."""
+    dy, xg1, h0, Wh1, W2, b2, h1s, c1s, ys, c2s = _bwd_inputs(22, 19, 4, H, dtype)
+    coef = _plain_coef(xg1, h0, Wh1, W2, b2, h1s, c1s, ys, c2s)
+    got = _walk_chain(dy, coef, Wh1, W2, R, S)
+    want = tl.lstm2_bwd_ref(dy, xg1, h0, Wh1, W2, b2, h1s, c1s, ys, c2s)
+    for name, g, w in zip(("dg1", "dg2"), got, want):
+        w = w.float()
+        tol = (dict(rtol=0, atol=2.0 ** -7 * float(w.abs().max())) if dtype == BF16
+               else dict(rtol=1e-5, atol=1e-6))
+        np.testing.assert_allclose(g.float().numpy(), w.numpy(), **tol, err_msg=name)
+
+
+@pytest.mark.parametrize("dtype,B,clusters,want", [
+    (torch.float32, 32, {8: 15, 16: 14}, 8), (torch.float32, 128, {8: 15, 16: 14}, 16),
+    (torch.float32, 512, {8: 15, 16: 14}, 8), (torch.float32, 128, {8: 7}, 8),
+    (BF16, 32, {8: 15, 16: 15}, 8), (BF16, 128, {8: 15, 16: 15}, 16),
+    (BF16, 512, {8: 15, 16: 15}, 16), (BF16, 128, {8: 7}, 8)])
+def test_wide_chain_rows_take_the_least_waves_times_step_cost(dtype, B, clusters, want):
+    """The chain's rows a cluster: `wide_rows` over its own `CHAIN_ROW_COST`
+    (a 16-row step's cost relative to 8 rows', per storage type); at H = 320
+    only R = 8 has a plan ({8: n}); a card without room for one cluster is
+    refused by the chain's name."""
+    assert tl.wide_rows(B, clusters, tl.CHAIN_ROW_COST[dtype], "lstm2_wide_chain_kernel") == want
+    with pytest.raises(RuntimeError, match="lstm2_wide_chain_kernel"):
+        tl.wide_rows(B, {8: 0}, tl.CHAIN_ROW_COST[dtype], "lstm2_wide_chain_kernel")

@@ -71,8 +71,9 @@ def t(a):
 
 def grads_of(fn_jax, fn_port, *arrays):
     """Value and gradients of a scalar function of numpy arrays, both
-    packages: ((jax value, jax grads), (port value, port grads))."""
-    jv, jg = jax.value_and_grad(fn_jax, argnums=tuple(range(len(arrays))))(
+    packages: ((jax value, jax grads), (port value, port grads)); the JAX
+    side as one compile."""
+    jv, jg = jax.jit(jax.value_and_grad(fn_jax, argnums=tuple(range(len(arrays)))))(
         *[jnp.asarray(a) for a in arrays])
     ts = [torch.tensor(a, requires_grad=True) for a in arrays]
     pv = fn_port(*ts)
@@ -350,16 +351,20 @@ def test_cvae_and_discrete_cvae_sampling_match_jax(monkeypatch):
     v = zp.random_variables(m, jb, rngs=("params", "sample"))
     p = tw.load_flax(TrajectoryCVAE(zp.CHANNELS, 52, cond_feat_dim=16), v)
     rng = jax.random.key(4)
-    z = zp.record_draws(monkeypatch, lambda: m.apply(v, jb, 3, method="sample",
-                                                     rngs={"sample": rng}))["normal"][0]
-    want = jax.jit(lambda: m.apply(v, jb, 3, method="sample", rngs={"sample": rng}))()
+    # one compile each, the weights, batch and key as arguments (closed over,
+    # XLA folds them through the network as constants)
+    drawn, want = zp.record_draws(
+        monkeypatch, lambda v, jb, rng: m.apply(v, jb, 3, method="sample", rngs={"sample": rng}),
+        v, jb, rng, keep_output=True)
+    z = drawn["normal"][0]
     zp.assert_close(p.sample(tb, 3, z=t(z)).detach().numpy(), want, floor=1e-5)
 
     md = JDiscrete(horizon=52, cond_feat_dim=16, num_modes=4)
     vd = zp.random_variables(md, jb, rngs=("params", "sample"))
     pd = tw.load_flax(DiscreteTrajectoryCVAE(zp.CHANNELS, 52, 4, cond_feat_dim=16), vd)
     zp.assert_close(pd.sample_modes(tb).detach().numpy(),
-                    jax.jit(lambda: md.apply(vd, jb, method="sample_modes"))(), floor=1e-5)
+                    jax.jit(lambda vd, jb: md.apply(vd, jb, method="sample_modes"))(vd, jb),
+                    floor=1e-5)
 
 
 def test_tree_vae_sampling_and_ego_conditioning_match_jax(monkeypatch):
@@ -370,17 +375,19 @@ def test_tree_vae_sampling_and_ego_conditioning_match_jax(monkeypatch):
     p = tw.load_flax(TreeTrajectoryVAE(zp.CHANNELS, cond_feat_dim=16, ec_traj_dim=2), v)
     rng = jax.random.key(2)
 
-    def sample():
-        return m.apply(v, jb, 3, jnp.asarray(plan), method="sample", rngs={"sample": rng})
+    # one compile each, the weights, batch, plan and key as arguments
+    def sample(v, jb, plan, rng):
+        return m.apply(v, jb, 3, plan, method="sample", rngs={"sample": rng})
 
-    def forward():
-        return m.apply(v, jb, cond_traj=jnp.asarray(plan), rngs={"sample": rng})
+    def forward(v, jb, plan, rng):
+        return m.apply(v, jb, cond_traj=plan, rngs={"sample": rng})
 
-    z = np.stack(zp.record_draws(monkeypatch, sample)["normal"])
-    zp.assert_close(p.sample(tb, 3, t(plan), z=t(z)).detach().numpy(), jax.jit(sample)(),
-                    floor=1e-5)
-    noise = np.stack(zp.record_draws(monkeypatch, forward)["normal"])
-    want = jax.jit(forward)()
+    args = (v, jb, jnp.asarray(plan), rng)
+    drawn, sampled = zp.record_draws(monkeypatch, sample, *args, keep_output=True)
+    z = np.stack(drawn["normal"])
+    zp.assert_close(p.sample(tb, 3, t(plan), z=t(z)).detach().numpy(), sampled, floor=1e-5)
+    drawn, want = zp.record_draws(monkeypatch, forward, *args, keep_output=True)
+    noise = np.stack(drawn["normal"])
     got = p(tb, cond_traj=t(plan), noise=t(noise))
     for k in ("loss", "trajectories"):
         zp.assert_close(got[k].detach().numpy(), want[k], floor=1e-5, msg=k)
@@ -392,8 +399,8 @@ def test_bc_with_a_given_goal_matches_jax():
     m = JBC(horizon=52, cond_feat_dim=16, goal_conditional=True)
     v = zp.random_variables(m, jb)
     p = tw.load_flax(BCPlanner(zp.CHANNELS, 52, 16, goal_conditional=True), v)
-    zp.assert_close(p(tb, goal=t(goal))["trajectories"].detach().numpy(),
-                    jax.jit(lambda: m.apply(v, jb, goal=jnp.asarray(goal)))()["trajectories"],
+    want = jax.jit(lambda v, jb, goal: m.apply(v, jb, goal=goal))(v, jb, jnp.asarray(goal))
+    zp.assert_close(p(tb, goal=t(goal))["trajectories"].detach().numpy(), want["trajectories"],
                     floor=1e-5)
 
 
@@ -522,7 +529,9 @@ def test_diffuser_loss_matches_jax(monkeypatch):
     jd, pd = _diffusers()
     gt, curr, cond = f32(4, 8, 6, scale=0.5), _curr(4), f32(4, 5)
     rng = jax.random.key(9)
-    drawn = zp.record_draws(monkeypatch, lambda: jd.loss(rng, gt, curr, cond, 0.5))
+    drawn = zp.record_draws(monkeypatch, lambda rng, gt, curr, cond: jd.loss(rng, gt, curr, cond,
+                                                                            0.5),
+                            rng, gt, curr, cond)
     draws = dict(t=t(drawn["randint"][0]), noise=t(drawn["normal"][0]),
                  drop=t(drawn["bernoulli"][0]))
     assert 0 < int(draws["drop"].sum()) < 4  # both branches of the dropout
