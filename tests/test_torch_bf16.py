@@ -127,9 +127,13 @@ def test_bf16_sweeps_match_the_pallas_kernels_in_interpret_mode(shape):
             rng.normal(size=(4 * H,)) * 0.3]
     dy = rng.normal(size=(Bn, Tn, H))
     jb = [jnp.asarray(a, jnp.float32).astype(jnp.bfloat16) for a in arrs]
-    h1c1, yc2 = lp._core_fwd_impl(*jb, True)
     dyb = jnp.asarray(dy, jnp.float32).astype(jnp.bfloat16)
-    jgrads = lp._core_bwd(True, (*jb, h1c1, yc2), dyb)
+
+    def jax_side(jb, dyb):  # both sweeps in interpret mode, one jitted compile
+        h1c1, yc2 = lp._core_fwd_impl(*jb, True)
+        return h1c1, yc2, lp._core_bwd(True, (*jb, h1c1, yc2), dyb)
+
+    h1c1, yc2, jgrads = jax.jit(jax_side)(jb, dyb)
 
     tb = [torch.from_numpy(_np(a)).to(BF16) for a in jb]
     y, h1s, c1s, c2s = lstm_kernels.lstm2_core_ref(*tb)

@@ -101,8 +101,8 @@ def test_stl_values_and_gradients_match_jax(case):
     fn, _ = _stl_cases()[case]
     rng = np.random.default_rng(sorted(_stl_cases()).index(case))
     traj = rng.normal(0.0, 1.5, size=(3, 20, 6)).astype(np.float32)
-    want = np.asarray(fn(jstl, jnp.asarray(traj)))
-    want_g = np.asarray(jax.grad(lambda x: jnp.sum(jnp.sin(fn(jstl, x))))(jnp.asarray(traj)))
+    want, want_g = map(np.asarray, jax.jit(lambda x: (  # one jitted compile
+        fn(jstl, x), jax.grad(lambda x: jnp.sum(jnp.sin(fn(jstl, x))))(x)))(jnp.asarray(traj)))
     x = torch.from_numpy(traj).requires_grad_(True)
     got = fn(stl, x)
     (g,) = torch.autograd.grad(torch.sin(got).sum(), x)
@@ -200,7 +200,8 @@ def test_occupancy_grid_and_metrics_match_jax(step, sigma, window):
     coords = rng.uniform(-20, 20, size=(60, 2)).astype(np.float32)
     coords[5] = [np.nan, 1.0]  # a non-finite position splats nothing
     jst = jocc.occupancy_init(origin, (40, 48), step, sigma)
-    jst = jocc.occupancy_update(jst, jnp.asarray(coords), weight=0.7, window=window)
+    jst = jax.jit(lambda s, c: jocc.occupancy_update(s, c, weight=0.7, window=window))(
+        jst, jnp.asarray(coords))
     st = occ.occupancy_init(origin, (40, 48), step, sigma, device="cpu")
     st = occ.occupancy_update(st, torch.from_numpy(coords), weight=0.7, window=window)
     np.testing.assert_allclose(st.grid.numpy(), np.asarray(jst.grid), rtol=1e-5, atol=1e-7)

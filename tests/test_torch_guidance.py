@@ -93,6 +93,16 @@ LOSSES = {
 FLAGSHIP = ("agent_collision", "map_collision")
 
 
+def _jax_value_and_grad(jloss, x, jctx, wts):
+    """The JAX loss and the gradient of its weighted sum as numpy, from one
+    jitted compile (the trajectories and the context passed as arguments)."""
+
+    def jax_side(v, c):
+        return jloss(v, c), jax.grad(lambda u: jnp.sum(jloss(u, c) * wts))(v)
+
+    return tuple(map(np.asarray, jax.jit(jax_side)(jnp.asarray(x), jctx)))
+
+
 @pytest.mark.parametrize("name", sorted(LOSSES))
 @pytest.mark.parametrize("packed", [False, True])
 def test_loss_values_and_grads_match(name, packed):
@@ -101,9 +111,8 @@ def test_loss_values_and_grads_match(name, packed):
         tctx = tlo.prepack_map_bbox(tctx._replace(
             drivable_packed=pack_drivable_bits(tctx.drivable_map)))
     jloss, tloss = LOSSES[name]
-    want = jloss(jnp.asarray(x), jctx)
     wts = np.random.default_rng(1).uniform(0.5, 1.5, (B, 1)).astype(np.float32)
-    gj = jax.grad(lambda v: jnp.sum(jloss(v, jctx) * wts))(jnp.asarray(x))
+    want, gj = _jax_value_and_grad(jloss, x, jctx, wts)
     xt = torch.from_numpy(x).requires_grad_(True)
     got = tloss(xt, tctx)
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **LOSS)
@@ -127,14 +136,17 @@ def test_perturb_step_matches():
     jspecs = [jpt.GuidanceSpec(LOSSES[k][0], 10.0) for k in FLAGSHIP]
     tspecs = [tpt.GuidanceSpec(LOSSES[k][1], 10.0) for k in FLAGSHIP]
     lat = x[:, 0]  # perturb the trajectory itself: decode = add the sample axis
-    want = jpt.perturb(jnp.asarray(lat), jctx, jspecs, lambda v: v[:, None],
-                       lr=0.3, grad_steps=1, perturb_th=jnp.float32(0.05))
-    jtotal, _ = jpt.compute_guidance_loss(jnp.asarray(x), jctx, jspecs)
+
+    def jax_side(lat, x, c):  # one jitted compile
+        return (jpt.perturb(lat, c, jspecs, lambda v: v[:, None], lr=0.3, grad_steps=1,
+                            perturb_th=jnp.float32(0.05)),
+                jpt.compute_guidance_loss(x, c, jspecs)[0],
+                jax.grad(lambda v: jpt.compute_guidance_loss(v[:, None], c, jspecs)[0])(lat))
+
+    want, jtotal, gj = jax.jit(jax_side)(jnp.asarray(lat), jnp.asarray(x), jctx)
     ttotal, _ = tpt.compute_guidance_loss(torch.from_numpy(x), tctx, tspecs)
     np.testing.assert_allclose(float(ttotal), float(jtotal), **LOSS)
     g = tpt.guidance_gradient(torch.from_numpy(lat), tctx, tspecs, lambda v: v[:, None])
-    gj = jax.grad(lambda v: jpt.compute_guidance_loss(v[:, None], jctx, jspecs)[0])(
-        jnp.asarray(lat))
     np.testing.assert_allclose(g.numpy(), np.asarray(gj), **GRAD)
     got = tpt.perturb(torch.from_numpy(lat), tctx, tspecs, lambda v: v[:, None],
                       lr=0.3, grad_steps=1, perturb_th=torch.tensor(0.05))
@@ -177,10 +189,16 @@ def _map_pair(dist, fwd, gather):
                                  gather_impl=_GATHER[gather]))
 
 
-def _values_and_grads(jloss, tloss, x, jctx, tctx):
+def _values_and_grads(jloss, tloss, x, jctx, tctx, jit=False):
+    """Both sides' loss values and gradients. The JAX side runs op by op
+    unless `jit`: the map loss's "rigid" and "pairwise" forms route a
+    gradient by an argmin whose near-ties XLA's fusions can tip."""
     wts = np.random.default_rng(1).uniform(0.5, 1.5, (x.shape[0], 1)).astype(np.float32)
-    want = np.asarray(jloss(jnp.asarray(x), jctx))
-    gj = np.asarray(jax.grad(lambda v: jnp.sum(jloss(v, jctx) * wts))(jnp.asarray(x)))
+    if jit:
+        want, gj = _jax_value_and_grad(jloss, x, jctx, wts)
+    else:
+        want = np.asarray(jloss(jnp.asarray(x), jctx))
+        gj = np.asarray(jax.grad(lambda v: jnp.sum(jloss(v, jctx) * wts))(jnp.asarray(x)))
     xt = torch.from_numpy(x).requires_grad_(True)
     got = tloss(xt, tctx)
     (got * torch.from_numpy(wts)).sum().backward()
@@ -208,7 +226,8 @@ def test_map_collision_every_impl_matches_jax(dist, fwd, gather, packed):
         tctx = tlo.prepack_map_bbox(tlo.prepack_drivable(tctx))
         np.testing.assert_array_equal(tctx.bbox_d2.numpy(), np.asarray(jctx.bbox_d2))
     jloss, tloss = _map_pair(dist, fwd, gather)
-    _hold(*_values_and_grads(jloss, tloss, x, jctx, tctx), bf16="bf16" in dist + fwd)
+    _hold(*_values_and_grads(jloss, tloss, x, jctx, tctx, jit=dist.startswith("separable")),
+          bf16="bf16" in dist + fwd)
 
 
 @pytest.mark.parametrize("dist", ["rigid", "pairwise"])
@@ -308,7 +327,7 @@ def test_agent_collision_every_path_matches_jax(name, chunked, monkeypatch):
     jloss = jlo.AgentCollisionLoss(num_disks=5, buffer_dist=0.2, **kw)
     tloss = tlo.AgentCollisionLoss(num_disks=5, buffer_dist=0.2, **kw)
     dot = kw.get("pairwise_impl") == "dot"
-    _hold(*_values_and_grads(jloss, tloss, x, jctx, tctx),
+    _hold(*_values_and_grads(jloss, tloss, x, jctx, tctx, jit=True),
           loss=dict(rtol=1e-4, atol=1e-5) if dot else LOSS,
           grad=dict(rtol=1e-4, atol=1e-5) if dot else GRAD)
 

@@ -145,10 +145,15 @@ def _pair(name, **overrides):
 
 
 def _hold(jloss, tloss, x, jctx, tctx):
-    """Loss values and the gradient of a weighted sum, both packages."""
+    """Loss values and the gradient of a weighted sum, both packages (the
+    JAX side as one jitted compile, the trajectories and context passed as
+    arguments)."""
     wts = np.random.default_rng(1).uniform(0.5, 1.5, (B, N)).astype(np.float32)
-    want = np.asarray(jloss(jnp.asarray(x), jctx))
-    gj = np.asarray(jax.grad(lambda v: jnp.sum(jloss(v, jctx) * wts))(jnp.asarray(x)))
+
+    def jax_side(v, c):
+        return jloss(v, c), jax.grad(lambda u: jnp.sum(jloss(u, c) * wts))(v)
+
+    want, gj = map(np.asarray, jax.jit(jax_side)(jnp.asarray(x), jctx))
     xt = torch.from_numpy(x).requires_grad_(True)
     got = tloss(xt, tctx)
     (got * torch.from_numpy(wts)).sum().backward()
@@ -225,8 +230,9 @@ def test_compute_guidance_loss_means_agent_indexed_rules_over_their_agents():
               for n in names]
     tspecs = [tpt.GuidanceSpec(_pair(n)[1], 2.0, mask if n == "acc_limit" else None)
               for n in names]
-    want, jper = jpt.compute_guidance_loss(jnp.asarray(x), jctx, jspecs)
-    gj = jax.grad(lambda v: jpt.compute_guidance_loss(v, jctx, jspecs)[0])(jnp.asarray(x))
+    (want, jper), gj = jax.jit(lambda v, c: (
+        jpt.compute_guidance_loss(v, c, jspecs),
+        jax.grad(lambda u: jpt.compute_guidance_loss(u, c, jspecs)[0])(v)))(jnp.asarray(x), jctx)
     xt = torch.from_numpy(x).requires_grad_(True)
     got, tper = tpt.compute_guidance_loss(xt, tctx, tspecs)
     got.backward()
@@ -454,7 +460,8 @@ print("RESULT=" + json.dumps(dict(a_rules=a["rules"], a_sat=a["guidance_satisfac
                                   b_rules=b["rules"], b_sat=b["guidance_satisfaction"],
                                   bad=bad)))
 """
-    env = dict(os.environ, PYTHONPATH=str(Path(tlo.__file__).parents[2]))
+    env = dict(os.environ, PYTHONPATH=str(Path(tlo.__file__).parents[2]),
+               OMP_NUM_THREADS="2")  # torch's threads, as this process's
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env,
                          timeout=300, cwd=str(tmp_path))
     assert res.returncode == 0, res.stderr[-2000:]
@@ -488,11 +495,15 @@ def test_observation_context_fields_match_the_jax_policy(packs):
                            n(state.offroad_steps), n(state.collision_steps),
                            n(state.collision_type_steps), n(state.max_abs_acc),
                            n(state.max_abs_yawvel))
-    jobs = jenv.render_observation(jp, jstate, jenv.SimConfig(**cfg_kw))
-    wfa = jobs.world_from_agent
-    dyaw = jnp.arctan2(wfa[:, 1, 0], wfa[:, 0, 0])
-    want = jnp.concatenate([jtp(jobs.history_positions, wfa), jobs.history_speeds[..., None],
-                            jobs.history_yaws + dyaw[:, None, None]], axis=-1)
+
+    def jax_side(jstate):  # one jitted compile (the pack closed over, as `simulate` has it)
+        jobs = jenv.render_observation(jp, jstate, jenv.SimConfig(**cfg_kw))
+        wfa = jobs.world_from_agent
+        dyaw = jnp.arctan2(wfa[:, 1, 0], wfa[:, 0, 0])
+        return jnp.concatenate([jtp(jobs.history_positions, wfa), jobs.history_speeds[..., None],
+                                jobs.history_yaws + dyaw[:, None, None]], axis=-1)
+
+    want = jax.jit(jax_side)(jstate)
     got = pipeline.observation_context_fields(obs)
     np.testing.assert_allclose(got["agent_hist_world"].numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-4)

@@ -61,7 +61,7 @@ def test_core_vjp_matches_jax_in_all_five_arguments(B, T, H):
     def loss_jax(*a):
         return jnp.sum(jl.lstm2_core(*a, True) * ct)
 
-    want = jax.grad(loss_jax, argnums=(0, 1, 2, 3, 4))(*map(jnp.asarray, args))
+    want = jax.jit(jax.grad(loss_jax, argnums=(0, 1, 2, 3, 4)))(*map(jnp.asarray, args))
 
     def torch_grads(fn):
         ts = [torch.from_numpy(a).requires_grad_(True) for a in args]
@@ -122,7 +122,7 @@ def test_bwd_ref_matches_jax_reverse_sweep_kernels(monkeypatch, impl, B, T, H):
 @pytest.fixture(scope="module")
 def vae_pair():
     m = LSTMVAE(hidden_size=16, latent_size=4)
-    v = m.init({"params": jax.random.key(0)}, jnp.zeros((2, 9, 6)), jnp.zeros((2, 32)))
+    v = jax.jit(m.init)({"params": jax.random.key(0)}, jnp.zeros((2, 9, 6)), jnp.zeros((2, 32)))
     sd = export_lstm_vae(jax.tree.map(np.asarray, v["params"]), root="")
     dec = LSTMDecoder(latent_size=4, hidden_size=16, cond_dim=32)
     dec.load_state_dict({k[len("lstm_dec."):]: torch.from_numpy(a)
@@ -137,11 +137,12 @@ def test_fused_decode_actions_matches_jax(vae_pair):
     cond = rng.normal(size=(3, 32)).astype(np.float32)
     ct = rng.normal(size=(3, 9, 2)).astype(np.float32)
 
-    def loss(z, c):
-        return jnp.sum(jl.fused_decode_actions(variables, z, c, impl="interpret") * ct)
+    def jax_side(variables, z, c):  # one jitted compile, the weights passed as arguments
+        loss = lambda z, c: jnp.sum(jl.fused_decode_actions(variables, z, c, impl="interpret") * ct)
+        return (jl.fused_decode_actions(variables, z, c, impl="ref"),
+                jax.grad(loss, argnums=(0, 1))(z, c))
 
-    want = jl.fused_decode_actions(variables, jnp.asarray(z), jnp.asarray(cond), impl="ref")
-    gz, gc = jax.grad(loss, argnums=(0, 1))(jnp.asarray(z), jnp.asarray(cond))
+    want, (gz, gc) = jax.jit(jax_side)(variables, jnp.asarray(z), jnp.asarray(cond))
 
     zt = torch.from_numpy(z).requires_grad_(True)
     ctt = torch.from_numpy(cond).requires_grad_(True)

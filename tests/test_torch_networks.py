@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import zoo_parity as zp
 
 from cld_tpu.data.synthetic import synthetic_batch as jax_synthetic
 from cld_tpu.models.context import ContextEncoder as JaxContext
@@ -98,16 +99,17 @@ def _assert_same_dict(got, want):
 
 
 def test_converter_matches_torch_export():
+    """Both converters on the same variables: their layout is what is held,
+    so the variables are seeded in the layout `init` gives (read off
+    `jax.eval_shape`, `zoo_parity.random_variables`), nothing initialized."""
     jb = jax_synthetic(seed=0, batch_size=2, raster_size=64)
     vae = VaeModel(curr_state_feat_dim=16, map_feature_dim=32, cond_feat_dim=32,
                    vae_hidden_size=16)
-    v = jax.jit(lambda r, b: vae.init(r, b, 0.05))(
-        {"params": jax.random.key(0), "sample": jax.random.key(1)}, jb)
+    v = zp.random_variables(vae, jb, 0.05, rngs=("params", "sample"))
     v = {"params": _np_tree(v["params"]), "batch_stats": _randomize_stats(v["batch_stats"], 3)}
     _assert_same_dict(tw.export_vae_checkpoint(v), te.export_vae_checkpoint(v))
     unet = JaxUnet(transition_dim=4, output_dim=4, dim=8)
-    uv = jax.jit(unet.init)(jax.random.key(2), jnp.zeros((2, 52, 4)), jnp.zeros((2, 32)),
-                   jnp.zeros((2,), jnp.int32))
-    uv = _np_tree(uv)
+    uv = _np_tree(zp.random_variables(unet, jnp.zeros((2, 52, 4)), jnp.zeros((2, 32)),
+                                      jnp.zeros((2,), jnp.int32), seed=2))
     _assert_same_dict(tw.export_dm_checkpoint(uv), te.export_dm_checkpoint(uv))
     _assert_same_dict(tw.export_temporal_unet(uv["params"]), te.export_temporal_unet(uv["params"]))

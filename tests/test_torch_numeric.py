@@ -71,12 +71,12 @@ def test_unicycle_values_and_grads(params):
     x0, act = _dyn_case(2)
     tparams = tdyn.UnicycleParams(*params)
     ct = np.random.default_rng(3).normal(size=act.shape[:2] + (4,)).astype(np.float32)
-    want = jdyn.unicycle_forward_dynamics(params, jnp.asarray(x0), jnp.asarray(act), 0.1)
-
     def loss(x0, a):
         return jnp.sum(jdyn.unicycle_forward_dynamics(params, x0, a, 0.1) * ct)
 
-    gx, ga = jax.grad(loss, argnums=(0, 1))(jnp.asarray(x0), jnp.asarray(act))
+    want, (gx, ga) = jax.jit(lambda x0, a: (  # one jitted compile
+        jdyn.unicycle_forward_dynamics(params, x0, a, 0.1),
+        jax.grad(loss, argnums=(0, 1))(x0, a)))(jnp.asarray(x0), jnp.asarray(act))
     x0t = torch.from_numpy(x0).requires_grad_(True)
     at = torch.from_numpy(act).requires_grad_(True)
     got = tdyn.unicycle_forward_dynamics(tparams, x0t, at, 0.1)

@@ -285,7 +285,8 @@ train.main(base + vae + ["--mode", "dm", "--steps", "4",
 bad = sorted(m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r})
 print("FORBIDDEN_IMPORTED=" + json.dumps(bad))
 """
-    env = dict(os.environ, PYTHONPATH=str(PKG.parent))
+    env = dict(os.environ, PYTHONPATH=str(PKG.parent),
+               OMP_NUM_THREADS="2")  # torch's threads, as this process's
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env,
                          timeout=600, cwd=str(tmp_path))
     assert res.returncode == 0, res.stderr[-2000:]

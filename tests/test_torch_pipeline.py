@@ -166,8 +166,9 @@ def test_first_guidance_gradient_matches_jax(slice_pair, min_dist):
     tb = synthetic_batch(seed=0, batch_size=B, raster_size=64, device="cpu")
     z = np.random.default_rng(3).normal(size=(B, T, L)).astype(np.float32)
     dyn = JaxDyn(0.5, 2 * np.pi, -10.0, 8.0)
-    cond = vae.apply(vv, jb, method=lambda m, b: m.context_encoder(b))["cond_feat"]
-    curr = jax_current(jb)
+    cond, curr = jax.jit(lambda v, b: (  # one jitted compile
+        vae.apply(v, b, method=lambda m, b: m.context_encoder(b))["cond_feat"], jax_current(b)))(
+        vv, jb)
     lane = (np.arange(B) % A).astype(np.float32)
     pos_w = jnp.asarray(np.stack([lane * 8.0, (lane % 2) * 3.5 - 1.75], -1))
     jctx = jlo.GuidanceContext(

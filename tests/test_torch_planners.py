@@ -207,7 +207,7 @@ def test_contingency_tree_plan_and_policy_match_jax():
     cfg_j, cfg_t = jcont.ContingencyConfig(), tcont.ContingencyConfig()
     curr = np.stack([np.zeros(4), np.zeros(4), tb.curr_speed.numpy(), np.zeros(4)], -1)
     curr = curr.astype(np.float32)
-    tree_w = jax.vmap(lambda c: jcont.build_ego_tree(cfg_j, c))(jnp.asarray(curr))
+    tree_w = jax.jit(jax.vmap(lambda c: jcont.build_ego_tree(cfg_j, c)))(jnp.asarray(curr))
     tree_g = tcont.build_ego_tree(cfg_t, Tn(curr))
     assert tuple(tree_g.shape) == (4, 81, 20, 4)
     np.testing.assert_allclose(tree_g.numpy(), np.asarray(tree_w), rtol=0, atol=1e-4)
@@ -219,8 +219,8 @@ def test_contingency_tree_plan_and_policy_match_jax():
     a_ext = np.tile(np.array([4.5, 2.0], np.float32), (4, 3, 1))
     args = (modes, amask, tb.extent[:, :2].numpy(), a_ext, tb.drivable_map.numpy(),
             tb.raster_from_agent.numpy())
-    want = jax.vmap(lambda e, am, m, ee, ae, dm, r, v: jcont.contingency_plan(
-        cfg_j, e, am, jnp.asarray(prob), m, ee, ae, dm, r, curr_speed=v))(
+    want = jax.jit(jax.vmap(lambda e, am, m, ee, ae, dm, r, v: jcont.contingency_plan(
+        cfg_j, e, am, jnp.asarray(prob), m, ee, ae, dm, r, curr_speed=v)))(
         tree_w, *map(jnp.asarray, args), jnp.asarray(curr[:, 2]))
     got = tcont.contingency_plan(cfg_t, tree_g, Tn(modes), Tn(prob), *map(Tn, args[1:]),
                                  curr_speed=Tn(curr[:, 2]))
@@ -231,9 +231,9 @@ def test_contingency_tree_plan_and_policy_match_jax():
                                    err_msg=k)
 
     weights = {"collision_weight": 2.0, "lane_weight": 1.0, "progress_weight": 0.1}
-    sel_w = jcont.ego_sample_planning(tree_w[..., [0, 1, 3]], jnp.asarray(modes[:, 0]),
-                                      *map(jnp.asarray, (tb.extent[:, :2].numpy(), a_ext, amask,
-                                                         args[4], args[5])), weights)
+    sel_w = jax.jit(lambda *a: jcont.ego_sample_planning(*a, weights))(
+        tree_w[..., [0, 1, 3]], jnp.asarray(modes[:, 0]),
+        *map(jnp.asarray, (tb.extent[:, :2].numpy(), a_ext, amask, args[4], args[5])))
     sel_g = tcont.ego_sample_planning(tree_g[..., [0, 1, 3]], Tn(modes[:, 0]), tb.extent[:, :2],
                                       Tn(a_ext), Tn(amask), *map(Tn, args[4:]), weights)
     assert sel_g.tolist() == np.asarray(sel_w).tolist()

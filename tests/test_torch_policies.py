@@ -155,12 +155,19 @@ def test_hierarchical_policy_and_with_kwargs_match_jax():
 
 # ------------------------------------------------------- the diffusion policy
 
+def _jax_first_observation(jp, jcfg):
+    """The JAX simulator's observation at the initial state, from one jitted
+    compile (the scene pack closed over: its map resolution must be
+    concrete, as in `simulate`)."""
+    return jax.jit(lambda: jenv.render_observation(jp, jenv.init_sim_state(jp, jcfg), jcfg))()
+
+
 @pytest.fixture(scope="module")
 def loop_pair():
     jp = jscene.synthetic_scene_pack(**PACK_KW)
     tp = tscene.synthetic_scene_pack(**PACK_KW, device="cpu")
     jcfg, tcfg = jenv.SimConfig(**CFG_KW), tenv.SimConfig(**CFG_KW)
-    obs0 = jenv.render_observation(jp, jenv.init_sim_state(jp, jcfg), jcfg)
+    obs0 = _jax_first_observation(jp, jcfg)
     vae = VaeModel(curr_state_feat_dim=16, map_feature_dim=32, cond_feat_dim=COND,
                    vae_hidden_size=16, vae_latent_size=L)
     vv = jax.jit(lambda r, b: vae.init(r, b, 0.05))(
@@ -234,7 +241,7 @@ def _close(got, want, rtol, floor):
 def test_one_replan_matches_jax(loop_pair, guided):
     jp, tp, jcfg, tcfg, vae, vv, unet, uv, models = loop_pair
     key = jax.random.key(11)
-    obs_j = jenv.render_observation(jp, jenv.init_sim_state(jp, jcfg), jcfg)
+    obs_j = _jax_first_observation(jp, jcfg)
     want = np.asarray(jax.jit(_jax_policy(vae, vv, unet, uv, guided))(obs_j, key))
     obs_t = tenv.render_observation(tp, tenv.init_sim_state(tp, tcfg), tcfg)
     native.reset_launch_counts()
@@ -250,9 +257,12 @@ def test_one_replan_matches_jax(loop_pair, guided):
 def test_two_replan_loop_matches_jax(loop_pair, guided):
     jp, tp, jcfg, tcfg, vae, vv, unet, uv, models = loop_pair
     key = jax.random.key(12)
-    pol_j = _jax_policy(vae, vv, unet, uv, guided)
-    run = jax.jit(lambda k: jenv.simulate(jp, lambda o, r: pol_j(o, r)[:, :, 4:6], k, jcfg))
-    sj, traj_j = run(key)
+
+    def run(vv, uv, k):
+        pol_j = _jax_policy(vae, vv, unet, uv, guided)
+        return jenv.simulate(jp, lambda o, r: pol_j(o, r)[:, :, 4:6], k, jcfg)
+
+    sj, traj_j = jax.jit(run)(vv, uv, key)
     noises = [_replan_noise(k) for k in jax.random.split(key, jcfg.num_replans)]
     st, traj_t = tenv.simulate(tp, pipeline.make_dm_policy(models, A, guided=guided), tcfg,
                                replan_noises=noises)

@@ -211,8 +211,9 @@ def test_perturb_sgd_matches_jax_and_unknown_optimizer_raises():
     jspecs = [jpt.GuidanceSpec(jlo.MapCollisionLoss(), 10.0)]
     tspecs = [tpt.GuidanceSpec(tlo.MapCollisionLoss(), 10.0)]
     lat = x[:, 0]
-    want = jpt.perturb(jnp.asarray(lat), jctx, jspecs, lambda v: v[:, None], lr=5.0,
-                       grad_steps=3, perturb_th=jnp.float32(0.3), optimizer="sgd")
+    want = jax.jit(lambda v, c: jpt.perturb(v, c, jspecs, lambda v: v[:, None], lr=5.0,
+                                            grad_steps=3, perturb_th=jnp.float32(0.3),
+                                            optimizer="sgd"))(jnp.asarray(lat), jctx)
     got = tpt.perturb(torch.from_numpy(lat), tctx, tspecs, lambda v: v[:, None], lr=5.0,
                       grad_steps=3, perturb_th=0.3, optimizer="sgd")
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-5)
@@ -296,12 +297,13 @@ def test_per_sample_guidance_loss_and_scene_level_rule_match_jax():
               jpt.GuidanceSpec(jlo.MapCollisionLoss(), 3.0, agent_mask=mask)]
     tspecs = [tpt.GuidanceSpec(tlo.AgentCollisionLoss(scene_block=A), 10.0),
               tpt.GuidanceSpec(tlo.MapCollisionLoss(), 3.0, agent_mask=mask)]
-    want = jpt.per_sample_guidance_loss(jnp.asarray(trajs), jctx, jspecs)
+    want, jt = jax.jit(lambda x, c: (jpt.per_sample_guidance_loss(x, c, jspecs),
+                                     jpt.compute_guidance_loss(x, c, jspecs)[0]))(
+        jnp.asarray(trajs), jctx)
     got = tpt.per_sample_guidance_loss(torch.from_numpy(trajs), tctx, tspecs)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
     assert [tpt.is_scene_level_spec(s) for s in tspecs] == [True, False]
     assert [jpt.is_scene_level_spec(s) for s in jspecs] == [True, False]
-    jt, _ = jpt.compute_guidance_loss(jnp.asarray(trajs), jctx, jspecs)
     tt, _ = tpt.compute_guidance_loss(torch.from_numpy(trajs), tctx, tspecs)
     np.testing.assert_allclose(float(tt), float(jt), rtol=1e-5)
 
@@ -314,8 +316,8 @@ def test_guided_sampling_policy_matches_jax(scene_coupled):
     if scene_coupled:
         jspecs.append(jpt.GuidanceSpec(jlo.AgentCollisionLoss(scene_block=A), 10.0))
         tspecs.append(tpt.GuidanceSpec(tlo.AgentCollisionLoss(scene_block=A), 10.0))
-    ja = jwr.guided_sampling_policy(lambda o, r: jnp.asarray(trajs), jspecs, lambda o: jctx)(
-        None, None)
+    ja = jax.jit(lambda x, c: jwr.guided_sampling_policy(lambda o, r: x, jspecs, lambda o: c)(
+        None, None))(jnp.asarray(trajs), jctx)
     ta = twr.guided_sampling_policy(lambda o, r: torch.from_numpy(trajs), tspecs,
                                     lambda o: tctx)(None, None)
     for name in ("positions", "yaws", "controls"):

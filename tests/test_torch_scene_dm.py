@@ -515,7 +515,8 @@ print("TRAJ=" + json.dumps([list(traj.shape), bool(torch.isfinite(traj).all())])
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "cld_tpu"))
 print("FORBIDDEN_IMPORTED=" + json.dumps(bad))
 """
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    env = dict(os.environ, PYTHONPATH=str(ROOT),
+               OMP_NUM_THREADS="2")  # torch's threads, as this process's
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env,
                          timeout=600, cwd=str(tmp_path))
     assert res.returncode == 0, res.stderr[-3000:]

@@ -175,7 +175,7 @@ def test_render_observation_matches_jax_field_by_field(packs, frames):
         state, _ = tenv.simulate(tp, _turning, run_cfg)
     assert state.step == frames
     got = tenv.render_observation(tp, state, cfg_t)
-    want = jenv.render_observation(jp, _jax_state(state), cfg_j)
+    want = jax.jit(lambda s: jenv.render_observation(jp, s, cfg_j))(_jax_state(state))
     assert got._fields[:9] == ("image", "drivable_map", "raster_from_agent", "history_positions",
                                "history_yaws", "curr_speed", "extent",
                                "all_other_agents_future_positions",

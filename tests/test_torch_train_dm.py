@@ -68,17 +68,25 @@ def setup():
     return jt, js, pt, ps, jb, tb
 
 
+_DRAWS = {}  # the jitted draws of each JAX trainer: one compile, whatever the step
+
+
 def _jax_draws(jt, jb, rng, step):
     """What `DMTrainer._train_step` draws at `step`: (encoder noise, t, loss
-    noise) as numpy, plus its loss key."""
-    rng = jax.random.fold_in(rng, step)
-    enc_rng, loss_rng = jax.random.split(rng)
-    z, mu, logvar, _ = jt.vae.apply(jt.vae_variables, jb, method="encode",
-                                    rngs={"sample": enc_rng})
-    t_rng, noise_rng = jax.random.split(loss_rng)
-    t = jax.random.randint(t_rng, (B,), 0, N_STEPS)
-    noise = jax.random.normal(noise_rng, z.shape, jnp.float32)
-    enc_noise = (z - mu) / jnp.exp(0.5 * logvar)
+    noise) as numpy, plus its loss key; one jitted compile, the VAE's
+    variables and the batch passed as arguments."""
+
+    def draws(variables, jb, rng, step):
+        rng = jax.random.fold_in(rng, step)
+        enc_rng, loss_rng = jax.random.split(rng)
+        z, mu, logvar, _ = jt.vae.apply(variables, jb, method="encode", rngs={"sample": enc_rng})
+        t_rng, noise_rng = jax.random.split(loss_rng)
+        t = jax.random.randint(t_rng, (B,), 0, N_STEPS)
+        noise = jax.random.normal(noise_rng, z.shape, jnp.float32)
+        return (z - mu) / jnp.exp(0.5 * logvar), t, noise, loss_rng, z
+
+    jitted = _DRAWS.setdefault(id(jt), jax.jit(draws))
+    enc_noise, t, noise, loss_rng, z = jitted(jt.vae_variables, jb, rng, step)
     return np.array(enc_noise), np.array(t), np.array(noise), loss_rng, np.array(z)
 
 

@@ -87,7 +87,9 @@ def test_one_step_gradients_match_jax_grad(pair):
         return out["loss"]
 
     loss, grads = jax.jit(jax.value_and_grad(loss_fn))(v["params"])
-    z, mu, logvar, _ = jax.jit(lambda: m.apply(v, jb, method="encode", rngs={"sample": key}))()
+    # weights and batch are arguments: closed over, XLA would fold them through the network
+    z, mu, logvar, _ = jax.jit(lambda v, jb: m.apply(v, jb, method="encode",
+                                                     rngs={"sample": key}))(v, jb)
     noise = np.array((z - mu) / jnp.exp(0.5 * logvar))
     out = port(tb, BETA, train=False, noise=torch.from_numpy(noise))
     port.zero_grad()
@@ -104,9 +106,9 @@ def test_batchnorm_running_statistics_after_a_train_forward(pair):
     batch variance; the port's BatchNorm2d does the same (torch's own would
     store the unbiased variance at momentum 0.1)."""
     m, v, _, jb, tb = pair
-    _, mutated = jax.jit(lambda: m.apply(
+    _, mutated = jax.jit(lambda v, jb: m.apply(
         v, jb, BETA, train=True, mutable=["batch_stats"],
-        rngs={"sample": jax.random.key(1), "dropout": jax.random.key(2)}))()
+        rngs={"sample": jax.random.key(1), "dropout": jax.random.key(2)}))(v, jb)
     want = tw.export_vae_checkpoint({"params": v["params"],
                                      "batch_stats": _np_tree(mutated["batch_stats"])})
     port = pv.VaeModel(raster_channels=12, **SIZES)

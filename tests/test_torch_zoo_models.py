@@ -197,7 +197,7 @@ def test_spatial_softmax_matches_jax(num_kp, learnable):
     p = tw.load_flax(SpatialSoftmax(16, num_kp, 0.7, learnable), v) if v else \
         SpatialSoftmax(16, num_kp, 0.7, learnable)
     xt = t(x.transpose(0, 3, 1, 2))
-    zp.assert_close(p(xt).detach().numpy(), m.apply(v, x))
+    zp.assert_close(p(xt).detach().numpy(), jax.jit(m.apply)(v, x))
     if v:
         hold_module_grads(p, lambda prm: jnp.sum(m.apply({"params": prm}, x) ** 2), v,
                           lambda: torch.sum(p(xt) ** 2))
@@ -257,7 +257,7 @@ def test_mlp_res_denoiser_matches_jax():
     m = JMLPRes(horizon=8, transition_dim=4, width=32, num_blocks=2)
     v = zp.random_variables(m, x, c, tt)
     p = tw.load_flax(MLPResDenoiser(8, 4, 10, width=32, num_blocks=2), v)
-    zp.assert_close(p(t(x), t(c), t(tt)).detach().numpy(), m.apply(v, x, c, tt))
+    zp.assert_close(p(t(x), t(c), t(tt)).detach().numpy(), jax.jit(m.apply)(v, x, c, tt))
     hold_module_grads(p, lambda prm: jnp.sum(m.apply({"params": prm}, x, c, tt) ** 2), v,
                       lambda: torch.sum(p(t(x), t(c), t(tt)) ** 2))
 
@@ -327,7 +327,7 @@ def test_cvae_building_blocks_match_jax(name):
     v = zp.random_variables(jm, *args)
     tw.load_flax(pm, v)
     targs = [_to_port(a) for a in args]
-    want, got = jm.apply(v, *args), pm(*targs)
+    want, got = jax.jit(jm.apply)(v, *args), pm(*targs)
     for w, g in zip(jax.tree.leaves(want), jax.tree.leaves(got)):
         assert np.isfinite(g.detach().numpy()).all()
         zp.assert_close(g.detach().numpy(), w)
@@ -427,7 +427,7 @@ def test_roi_map_encoder_matches_jax():
     v = zp.random_variables(m, image, centers, yaws)
     p = tw.load_flax(proi.ROIMapEncoder(zp.CHANNELS, agent_feature_dim=12), v)
     args = (t(image), t(centers), t(yaws))
-    zp.assert_close(p(*args).detach().numpy(), m.apply(v, image, centers, yaws))
+    zp.assert_close(p(*args).detach().numpy(), jax.jit(m.apply)(v, image, centers, yaws))
     hold_module_grads(p, lambda prm: jnp.sum(m.apply({"params": prm}, image, centers, yaws) ** 2),
                       v, lambda: torch.sum(p(*args) ** 2))
 
