@@ -268,14 +268,15 @@
    or 16 batch rows) at small B / T, B ragged against the cluster's rows:
    f32 within 1e-5 and bf16 within 2^-7 of max |plain|, two launches bit for
    bit; the wide kernels' registers, spills, shared memory and cluster size
-   (the f32 forward's and the reverse sweep's chain at 8 and 16 rows a
-   cluster, the chain's slice rows in shared memory, its gates GEMM), and
+   (both forwards and the reverse sweep's chain at 8 and 16 rows a cluster,
+   the bf16 forward's m-tiles and k-tiles on the tensor cores, the chain's
+   slice rows in shared memory, its gates GEMM), and
    their times from Python and from a CUDA graph at B = 32, 128, 512, T =
    52, H = 128 and 320, beside the plain versions' and cuDNN's `nn.LSTM`
    (forward, and backward beside the `Lstm2Core` VJP) at that H in the same
    dtype, and cuDNN's from a CUDA graph (f32 with TF32 on, PyTorch's
    default, and off; bf16); the reverse sweep's gates / chain split from
-   `torch.profiler` over graph replays at B = 128; the f32 forward and both
+   `torch.profiler` over graph replays at B = 128; both forwards and both
    reverse sweeps also held at each timed B, with the rows a cluster each
    chose. Then the guided call at the config of record with
    `algo.vae.hidden_size` 128 (B=128 in scenes of 4, raster 224, 100 DDPM
@@ -4718,18 +4719,20 @@ def cudnn_graph_ms(Hn, args, dy, g, dev) -> dict:
     return out
 
 
-def hold_wide_fwd(args) -> float:
-    """The f32 forward against its plain version (within `LSTM_REL_TOL` of
-    max |plain|) and a relaunch (bit-equal); returns the relative error."""
+def hold_wide_fwd(args, tol=LSTM_REL_TOL) -> float:
+    """A wide forward against its plain version (within `tol` of max |plain|:
+    `LSTM_REL_TOL` in f32, `BF16_REL_TOL` in bf16) and a relaunch
+    (bit-equal), at the rows a cluster its plan chose; returns the relative
+    error."""
     import torch
 
     from cld_tpu_torch.ops import lstm_kernels as lk
 
     got, again, want = lk.lstm2_fwd(*args), lk.lstm2_fwd(*args), lk.lstm2_core_ref(*args)
     torch.cuda.synchronize()
-    rel = max(rel_err(a, b)[1] for a, b in zip(got, want))
-    shape = "B/T/H {}/{}/{}".format(*args[0].shape[:2], args[1].shape[-1])
-    check(rel <= LSTM_REL_TOL, f"lstm2_fwd disagrees with its plain version at {shape}")
+    rel = max(rel_err(a.float(), b.float())[1] for a, b in zip(got, want))
+    shape = "B/T/H {}/{}/{} {}".format(*args[0].shape[:2], args[1].shape[-1], args[0].dtype)
+    check(rel <= tol, f"lstm2_fwd disagrees with its plain version at {shape}")
     check(all(torch.equal(a, b) for a, b in zip(got, again)),
           f"two lstm2_fwd launches differ at {shape}")
     return rel
@@ -4779,19 +4782,21 @@ def check_wide_kernels(kernels):
         for Hn in WIDE_TIMED_H:
             gates = ("lstm2_wide_gates_mma_kernel" if dt == torch.bfloat16
                      else "lstm2_wide_gates_f32_kernel")
-            for which, kname in enumerate(("lstm2_wide_fwd_kernel", gates,
-                                           "lstm2_wide_chain_kernel")):
-                f32_fwd = which == 0 and dt == torch.float32
-                rows = (lk.WIDE_ROWS if f32_fwd or which == 2 else (1,))
+            fwd = ("lstm2_wide_fwd_mma_kernel" if dt == torch.bfloat16
+                   else "lstm2_wide_fwd_f32_kernel")
+            for which, kname in enumerate((fwd, gates, "lstm2_wide_chain_kernel")):
+                rows = lk.WIDE_ROWS if which != 1 else (1,)
                 for R in rows:
                     if which == 2 and lk.wide_chain_plan(dev, Hn, R, dt) is None:
                         log(f"{kname} H={Hn} {dt}: no plan at {R} rows a cluster")
                         continue
                     at = lk.kernel_attributes(which, Hn, R, dtype=dt)
-                    name = f"lstm2_wide_fwd_f32_kernel<{R}> H={Hn}" if f32_fwd else (
-                        f"{kname}<{R}> H={Hn}" if which == 2 else f"{kname} H={Hn}")
+                    name = f"{kname}<{R}> H={Hn}" if which != 1 else f"{kname} H={Hn}"
                     attrs[name] = at
-                    where = ("in registers" if which == 2 and dt == torch.bfloat16 else
+                    if "m_tiles" in at:
+                        name += (f" ({at['m_tiles']} m-tiles x {at['k_tiles']} k-tiles a warp, "
+                                 f"built for {at['k_tiles_built']})")
+                    where = ("in registers" if which != 1 and dt == torch.bfloat16 else
                              f"{at['resident_rows']} of {4 * Hn // at['cluster']} rows in shared "
                              "memory" if which == 2 else "in shared memory" if at["resident"]
                              else "read from global memory")
@@ -4813,10 +4818,13 @@ def check_wide_kernels(kernels):
                            bwd_rows=lk.wide_bwd_plan(Bn, Hn, dt, dev).rows,
                            bwd_rel_err=hold_wide_bwd(ba, LSTM_REL_TOL if dt == torch.float32
                                                      else BF16_REL_TOL))
-                if dt == torch.float32:  # the redesigned forward: its plan, held at each B
+                if dt == torch.float32:  # the redesigned forwards: their plans, held at each B
                     plan = lk.wide_f32_plan(Bn, Hn, dev)
                     row.update(fwd_rows=plan.rows, fwd_chunks=plan.chunks,
                                fwd_resident=plan.resident, fwd_rel_err=hold_wide_fwd(a))
+                else:
+                    row.update(fwd_rows=lk.wide_bf16_plan(Bn, Hn, dev).rows,
+                               fwd_rel_err=hold_wide_fwd(a, BF16_REL_TOL))
                 if Bn == B:  # the main path's shape: held, timed beside the plain versions
                     bargs, e = hold(a, d)
                     row.update(err=e, fwd_ms=cuda_ms(lambda: lk.lstm2_fwd(*a), 10),
@@ -4849,9 +4857,9 @@ def check_wide_kernels(kernels):
                 "cluster at B=" + ", ".join(f"{Bn}: {timed[(Hn, Bn)]['bwd_rows']} (held at "
                                             f"{timed[(Hn, Bn)]['bwd_rel_err']:.2e})"
                                             for Bn in (CL_B, B, 512)))
-            if dt == torch.float32:
-                log("the f32 forward's rows a cluster at B=" + ", ".join(
-                    f"{Bn}: {timed[(Hn, Bn)]['fwd_rows']}" for Bn in (CL_B, B, 512)))
+            log(f"the {dt} forward's rows a cluster at B=" + ", ".join(
+                f"{Bn}: {timed[(Hn, Bn)]['fwd_rows']} (held at "
+                f"{timed[(Hn, Bn)]['fwd_rel_err']:.2e})" for Bn in (CL_B, B, 512)))
         for k in ("fwd", "bwd"):
             r = timed[(WIDE_H, B)]
             kernels[f"lstm2_{k}_wide{sfx}"] = dict(

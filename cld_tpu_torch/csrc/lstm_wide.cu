@@ -14,26 +14,29 @@
 // thread-block cluster:
 //
 // * a cluster of C CTAs (8, or 16 where 8 slices do not fit: a non-portable
-//   size, `lstm_kernels.py:wide_cluster`) owns kRows = 8 batch rows; CTA q
-//   owns U = H / C hidden units with all four of their gates, so its cell
-//   updates are local, and keeps its slice of the weights (12 H U values)
-//   in shared memory for the whole sweep. Where the slice and the buffers
-//   do not fit (f32 from H = 256) it reads the slice from global memory
-//   (L2-resident, one copy for every cluster) at each step;
-// * forward in bf16 (`lstm2_wide_fwd_kernel`, the first design): a step's
-//   products run over the CTA's 12 U "columns" (Wh1, W2[:H], W2[H:] against
+//   size, `lstm_kernels.py:wide_cluster`) owns R = 8 or 16 batch rows
+//   (chosen per launch from B and the clusters the card holds at once,
+//   `lstm_kernels.py:wide_rows`); CTA q owns U = H / C hidden units with all
+//   four of their gates, so its cell updates are local, and keeps its slice
+//   of the weights (12 H U values) in shared memory or registers for the
+//   whole sweep. Where the f32 slice and the buffers do not fit (from H =
+//   256) it reads the slice from global memory (L2-resident, one copy for
+//   every cluster) at each step;
+// * every sweep exchanges through per-CTA mbarriers fed by DSMEM bulk copies
+//   (`cp.async.bulk.shared::cluster`), one a peer (and layer) a step, with
+//   a cluster barrier only before the sweep and before exit;
+// * forward in f32 (`lstm2_wide_fwd_f32_kernel<R, kResident>`): a step's
+//   products over the CTA's 12 U "columns" (Wh1, W2[:H], W2[H:] against
 //   h1[t-1], h1[t-1], h2[t-2]: the two layers as a wavefront, as in
-//   `lstm_bf16.cu`), each column's K = H split into S chunks, one thread
-//   per (column, chunk) and eight rows; the chunks meet in shared memory in
-//   a fixed order; one thread per (layer, unit, row) runs the cell and
-//   writes its new h into every CTA of the cluster (distributed shared
-//   memory, an all-gather), then one cluster barrier a step;
-// * forward in f32 (`lstm2_wide_fwd_f32_kernel<R, kResident>`, redesigned
-//   below): the same products and all-gather, but 8 or 16 rows a
-//   cluster (one wave where the card holds the row tiles), two columns a
-//   product thread, and per-CTA mbarriers fed by DSMEM bulk copies
-//   (`cp.async.bulk.shared::cluster`) in place of the cluster barrier;
-// * reverse sweep, two launches counted as one, redesigned below: a gates
+//   `lstm_bf16.cu`) on the CUDA cores, two columns a product thread, each
+//   column's K = H split into S chunks summed in shared memory in a fixed
+//   order; the cells' new h all-gathered into every CTA of the cluster;
+// * forward in bf16 (`lstm2_wide_fwd_mma_kernel<R, KW>`): the same
+//   wavefront and exchange, the products transposed on `mma.sync`
+//   (`lstm_bf16.cu`'s form): the CTA's 4U gate columns as M tiles, the rows
+//   as N, the slice held as A fragments in registers for the whole sweep,
+//   the h buffers read by `ldmatrix.trans`;
+// * reverse sweep, two launches counted as one: a gates
 //   GEMM (`lstm2_wide_gates_f32_kernel`, on the tensor cores in bf16
 //   `lstm2_wide_gates_mma_kernel`) recomputes both layers' gates over all B
 //   T (b, t) pairs at once (no cluster) into the 12 coefficients per (pair,
@@ -42,30 +45,29 @@
 //   CTA forms, from its own units' gate cotangents, partial products for
 //   EVERY unit (W2[H:] dg2, W2[:H] dg2, Wh1 dg1) and sends each owner its
 //   block of them (a reduce-scatter through distributed shared memory, 3 H
-//   floats a row instead of the 8 H that gathering dg would take) by bulk
-//   copies onto per-CTA mbarriers, as the f32 forward does; the owner sums
-//   the C partials in rank order.
+//   floats a row instead of the 8 H that gathering dg would take); the owner
+//   sums the C partials in rank order.
 //
-// Numbers: products on the CUDA cores in f32. Under bf16 storage the weights
-// stay bf16 and the h (forward) or dg (reverse) operand is rounded to bf16
-// once, where the TPU kernels round it (`mm(a, w) = dot(a.astype(bf16), w,
-// f32)`): a product of two bf16 values is exact in f32 and the sums run in
-// f32; the c carries, the dh / dc carries, the gate math (`expf` /
-// `tanhf`) and the coefficient scratch stay f32. Every sum runs in a fixed
-// order, nothing is atomic: two launches agree bit for bit.
+// Numbers: f32 products on the CUDA cores (TF32 would miss 1e-5 of max
+// |plain|); bf16 products on the tensor cores (`mma.sync.m16n8k16` bf16
+// with f32 sums). Under bf16 storage the weights stay bf16 and the h
+// (forward) or dg (reverse) operand is rounded to bf16 once, where the TPU
+// kernels round them (`mm(a, w) = dot(a.astype(bf16), w, f32)`): a product
+// of two bf16 values is exact in f32 and the sums run in f32; the c
+// carries, the dh / dc carries, the gate math (`expf` / `tanhf`) and the
+// coefficient scratch stay f32. Every sum runs in a fixed order, nothing is
+// atomic: two launches agree bit for bit.
 //
 // What bounds them: the chain of T + 1 dependent steps, each an exchange
-// after products of 12 H U MACs per row in every CTA. The bf16 forward is
-// still the simple form: its products are not on the tensor cores, a step's
-// products are bound by the shared-memory reads of the h operand, and a
-// cluster barrier ends each step. The f32 forward's design is set out above
-// its kernel, the reverse sweep's (both storage types) above its gates
-// kernels.
+// after products of 12 H U MACs per row in every CTA: a step's wait, its
+// products and its cells, not bytes or peak operations. Each kernel's
+// design is set out above it.
 //
 // The wrapper (`lstm_kernels.py`) pads H to a multiple of 16 (zero units,
 // exact) and packs the weights per CTA or tile ("wide_fwd", "wide_gates",
-// "wide_chain", and in bf16 "wide_gates_bf16" and "wide_chain_bf16" of
-// `weight_index`), so that consecutive threads read consecutive weights.
+// "wide_chain", and in bf16 "wide_fwd_bf16", "wide_gates_bf16" and
+// "wide_chain_bf16" of `weight_index`), so that consecutive threads read
+// consecutive weights, or each lane its mma fragments.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -81,7 +83,6 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kRows = 8;              // batch rows of a cluster
 constexpr int kPlanes = 12;           // reverse-sweep coefficients per (b, t, unit)
 constexpr int kGrain = 16;            // H is padded to a multiple of this
 constexpr int kMaxHidden = 320;
@@ -100,10 +101,6 @@ __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16_rn(v); }
 
-// The value a product sees: rounded to the storage type once.
-template <typename T>
-__device__ __forceinline__ float operand(float v) { return to_f(from_f<T>(v)); }
-
 // Four consecutive storage values as floats (16- or 8-byte aligned).
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -114,150 +111,6 @@ __device__ __forceinline__ float4 load4(const bf16* p) {
   const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&v.y);
   const float2 a = __bfloat1622float2(lo), b = __bfloat1622float2(hi);
   return make_float4(a.x, a.y, b.x, b.y);
-}
-
-// acc[r] += x[k][r] w for the kRows rows of an operand row (two float4s).
-__device__ __forceinline__ void fma_rows(float (&acc)[kRows], const float* x, float w) {
-  const float4 a = *reinterpret_cast<const float4*>(x);
-  const float4 b = *reinterpret_cast<const float4*>(x + 4);
-  acc[0] = fmaf(a.x, w, acc[0]);
-  acc[1] = fmaf(a.y, w, acc[1]);
-  acc[2] = fmaf(a.z, w, acc[2]);
-  acc[3] = fmaf(a.w, w, acc[3]);
-  acc[4] = fmaf(b.x, w, acc[4]);
-  acc[5] = fmaf(b.y, w, acc[5]);
-  acc[6] = fmaf(b.z, w, acc[6]);
-  acc[7] = fmaf(b.w, w, acc[7]);
-}
-
-__device__ __forceinline__ void store_rows(float* dst, const float (&acc)[kRows]) {
-  reinterpret_cast<float4*>(dst)[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
-  reinterpret_cast<float4*>(dst)[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
-}
-
-// Copy the CTA's weight slice (n storage values, 16-byte multiple) into
-// shared memory.
-template <typename T>
-__device__ __forceinline__ void stage_weights(T* dst, const T* __restrict__ src, size_t n) {
-  const size_t n16 = n * sizeof(T) / 16;
-  for (size_t i = threadIdx.x; i < n16; i += blockDim.x)
-    reinterpret_cast<uint4*>(dst)[i] = reinterpret_cast<const uint4*>(src)[i];
-}
-
-// The bf16 forward's launch geometry at one hidden size and cluster size.
-struct Wide {
-  int H, C, U, S;     // padded hidden size, cluster, units per CTA, K chunks
-  int fwd_threads;
-  bool fwd_resident;  // the weight slice lives in shared memory
-  size_t fwd_smem;    // dynamic shared memory bytes
-};
-
-bool wide_config(int H, int C, int elem, Wide* w) {
-  if (H <= 64 || H > kMaxHidden || H % kGrain || (C != 8 && C != 16) || H % C) return false;
-  w->H = H;
-  w->C = C;
-  w->U = H / C;
-  int S = 16;
-  while (S > 1 && (12 * w->U * S > kMaxThreads || H % S)) S /= 2;
-  w->S = S;
-  w->fwd_threads = 12 * w->U * S;
-  // one thread per (layer, unit, row) runs a cell
-  if (w->fwd_threads < 2 * kRows * w->U) return false;
-  const size_t slice = (size_t)12 * H * w->U * elem;
-  const size_t fbuf = sizeof(float) * ((size_t)4 * H * kRows + (size_t)S * 12 * w->U * kRows);
-  w->fwd_resident = slice + fbuf <= kSmemMax;
-  w->fwd_smem = fbuf + (w->fwd_resident ? slice : 0);
-  return true;
-}
-
-// Forward sweep. wpk ("wide_fwd"): [C][H][12 U], CTA q's slice: row k,
-// column v = part * 4U + g * U + u holds Wh1[k] (part 0), W2[k] (1) or
-// W2[H + k] (2) at gate column g H + q U + u. Outputs y (= h2), h1, c1, c2
-// sequences, each [B, T, H]. 12 U S threads a CTA, C CTAs a cluster.
-template <typename T>
-__global__ void __launch_bounds__(kMaxThreads, 1) lstm2_wide_fwd_kernel(
-    const T* __restrict__ xg1, const T* __restrict__ h0, const T* __restrict__ wpk,
-    const T* __restrict__ b2, T* __restrict__ y, T* __restrict__ h1s, T* __restrict__ c1s,
-    T* __restrict__ c2s, int B, int Tn, int H, int U, int S, int resident) {
-  cg::cluster_group cluster = cg::this_cluster();
-  const int C = (int)cluster.num_blocks(), q = (int)cluster.block_rank();
-  const int b0 = (blockIdx.x / C) * kRows;
-  const int NV = 12 * U, G = 4 * H, KC = H / S, tid = threadIdx.x;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const size_t slice = (size_t)H * NV;
-  const T* w = wpk + (size_t)q * slice;
-  size_t off = 0;
-  if (resident) {
-    stage_weights(reinterpret_cast<T*>(smem), w, slice);
-    w = reinterpret_cast<const T*>(smem);
-    off = slice * sizeof(T);
-  }
-  float* hb = reinterpret_cast<float*>(smem + off);  // [parity][layer][H][kRows]
-  float* red = hb + 4 * H * kRows;                     // [S][NV][kRows] partial sums
-  for (int i = tid; i < H * kRows; i += blockDim.x) {  // h1[-1] (read at s = 0), h2[-1] (s = 1)
-    const int k = i / kRows, r = i % kRows, b = b0 + r;
-    const float v = b < B ? to_f(h0[(size_t)b * H + k]) : 0.0f;
-    hb[(1 * 2 + 0) * H * kRows + i] = v;
-    hb[(0 * 2 + 1) * H * kRows + i] = v;
-  }
-
-  // products: every thread, virtual column v and K chunk `chunk`
-  const int v = tid % NV, chunk = tid / NV;
-  const int part = v / (4 * U);  // 0: Wh1 . h1, 1: W2[:H] . h1, 2: W2[H:] . h2
-  // cells: layer cl (0: 1, 1: 2), unit u of the CTA, row r
-  const int r = tid % kRows, u = (tid / kRows) % U, cl = tid / (kRows * U);
-  const bool cell = cl < 2;
-  const int unit = q * U + u, b = b0 + r;
-  float c = 0.0f, bias[4];
-#pragma unroll
-  for (int g = 0; g < 4; ++g) bias[g] = cell && cl == 1 ? to_f(b2[g * H + unit]) : 0.0f;
-  cluster.sync();  // every CTA of the cluster runs and holds h0 before any remote store
-
-  for (int s = 0; s <= Tn; ++s) {
-    const int cur = s & 1, prv = cur ^ 1;
-    const bool on1 = s < Tn, on2 = s > 0;  // layer 1 runs step s, layer 2 step s - 1
-    float xin[4];  // layer 1's input projection, in flight during the products
-#pragma unroll
-    for (int g = 0; g < 4; ++g)
-      xin[g] = cell && cl == 0 && on1 && b < B
-                   ? to_f(xg1[((size_t)b * Tn + s) * G + g * H + unit])
-                   : 0.0f;
-    {
-      float acc[kRows] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-      if (part == 0 ? on1 : on2) {
-        const float* x = hb + (prv * 2 + (part == 2)) * H * kRows;
-        for (int k = chunk * KC; k < (chunk + 1) * KC; ++k)
-          fma_rows(acc, x + k * kRows, to_f(w[(size_t)k * NV + v]));
-      }
-      store_rows(red + ((size_t)chunk * NV + v) * kRows, acc);
-    }
-    __syncthreads();
-
-    if (cell && (cl == 0 ? on1 : on2)) {
-      float pre[4];
-#pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        const int col = cl * 4 * U + g * U + u;
-        float a = 0.0f;
-        for (int j = 0; j < S; ++j) a += red[((size_t)j * NV + col) * kRows + r];
-        if (cl == 1)
-          for (int j = 0; j < S; ++j) a += red[((size_t)j * NV + col + 4 * U) * kRows + r];
-        pre[g] = a + (cl == 0 ? xin[g] : bias[g]);
-      }
-      const float ig = sigm(pre[0]), fg = sigm(pre[1]), gg = tanhf(pre[2]), og = sigm(pre[3]);
-      c = fg * c + ig * gg;
-      const float h = og * tanhf(c);
-      const float hx = operand<T>(h);
-      const size_t slot = ((size_t)(cur * 2 + cl) * H + unit) * kRows + r;
-      for (int p = 0; p < C; ++p) cluster.map_shared_rank(hb, p)[slot] = hx;
-      if (b < B) {
-        const size_t o = ((size_t)b * Tn + (cl == 0 ? s : s - 1)) * H + unit;
-        (cl == 0 ? h1s : y)[o] = from_f<T>(h);
-        (cl == 0 ? c1s : c2s)[o] = from_f<T>(c);
-      }
-    }
-    cluster.sync();  // the step's h in every CTA; the partial sums free again
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -592,7 +445,7 @@ __global__ void __launch_bounds__(kF32Threads, 1) lstm2_wide_fwd_f32_kernel(
 //   registers for the whole sweep, the slice's rows for units 16 w .. 16 w +
 //   15 of the three groups (M = 16 units, K = the 4U gate columns zero-padded
 //   to KT k-tiles; "wide_chain_bf16"); B = the CTA's own dg, rounded to bf16
-//   once (`operand<T>`), by `ldmatrix`; N = the rows (1 or 2 n-tiles).
+//   once (`from_f<bf16>`), by `ldmatrix`; N = the rows (1 or 2 n-tiles).
 // Why a buffer of parity p may be reused at iteration s + 2:
 // - recv[p] of owner o: a peer sends its s + 2 partials after its wait at
 //   s + 1, which needs o's s + 1 partials, which o sends after its cells of
@@ -1187,6 +1040,279 @@ __global__ void __launch_bounds__(chain_bound<T, KT>(), 1) lstm2_wide_chain_kern
   cluster.sync();  // no CTA leaves while a peer's copy may still read it
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 forward on the tensor cores (`lstm2_wide_fwd_mma_kernel<R, KW>`).
+// ---------------------------------------------------------------------------
+//
+// The f32 forward's exchange with `lstm_bf16.cu`'s products:
+// - a cluster of C CTAs owns R = 8 or 16 rows (`lstm_kernels.py:wide_rows`
+//   with this kernel's own `WIDE_BF16_ROW_COST`, over the plans
+//   `wide_bf16_config` makes); CTA q owns U = H / C units with their four
+//   gates;
+// - products transposed, pre^T [gate columns, rows] = W^T h^T on
+//   `mma.sync.m16n8k16.f32.bf16.bf16.f32`: M = the CTA's 4U gate columns in
+//   (g, u) order, packed densely into MT = ceil(4U / 16) m-tiles (the rows
+//   past 4U zero); N = the R rows (one or two n-tiles); K = the inputs. Warp
+//   (part, mt) holds, as A fragments in registers for the whole sweep, the
+//   KH = H / 16 k-tiles of m-tile mt of one part: Wh1 against h1[s-1] (part
+//   0, layer 1), W2[:H] against h1[s-1] (1) and W2[H:] against h2[s-2] (2,
+//   both layer 2: the two layers run as a wavefront). "wide_fwd_bf16" holds
+//   them in fragment order, [C][MT][3 KH][4][32] words, one coalesced load a
+//   register. 3 MT warps a CTA: 15 at H = 320 (C = 16), each 4 KH = 80
+//   registers of weights, 38,400 in all (the slice, no padding: 4U = 80);
+// - why M tiles over the gate columns and not 8 units a warp (the (i; f),
+//   (g; o) tiles of `lstm_bf16.cu`): U is not a multiple of 8 at most held
+//   shapes (10 at H = 80, 12 at 96, 26 at 208, 20 at 320), and padding each
+//   CTA's units to one would cost 20% more registers at H = 320 (96 gate
+//   columns for 80), past what a CTA holds with the sums. The cells read
+//   their four gates' sums through shared memory instead ([part][row][column],
+//   2 R 4U floats a layer a step);
+// - the h buffers hold K in order, [parity][layer][H][R] bf16: each
+//   sender's block (U units x R rows) is then one contiguous, 16-byte aligned
+//   run of 2 U R bytes whatever U is, and `ldmatrix.trans` reads a k-tile's B
+//   fragments (16 k rows of R rows) as 8 addresses of 16 bytes. At R = 8 a
+//   k row is 16 bytes (eight rows of a phase fill 32 banks); at R = 16 the
+//   two 8-row halves of k row k swap where bit 2 of k is set, so that the
+//   8 k rows of a phase hit 32 distinct banks again;
+// - the exchange is the f32 forward's: the cell threads stage the CTA's new
+//   bf16 h block ([parity][layer][U][R], laid out as its place in the
+//   peers' buffers), one lane per peer sends each layer's block by a DSMEM
+//   bulk copy (`cp.async.bulk.shared::cluster`) completing on the peer's
+//   mbarrier of the step's parity, the owner arms each barrier with the
+//   step's bytes (H R 2 a layer) once it has read the phase before, and a
+//   cluster barrier runs only before the sweep and before exit. Why a buffer
+//   of parity p may be reused two iterations on: hb[p] of CTA o is written
+//   at s + 2 by a peer after its wait at s + 2, which needs o's h of s + 1,
+//   which o sends after a block barrier behind its products of s + 1, the
+//   last reads of hb[p]; stage[p] of CTA q is rewritten at s + 2 after q's
+//   wait at s + 2, which needs every peer's h of s + 1, sent after the
+//   peer's wait at s + 1, which completed only once q's copies of s had
+//   landed there (so had read stage[p]); the barrier of parity p is re-armed
+//   for the copies of iteration s + 1 right after the wait, at iteration s,
+//   for those of s - 1, before this CTA sends its own h of s, which every
+//   peer's copies of s + 1 wait for;
+// - layer 1's input projection comes into per-thread slots by `cp.async`
+//   (the aligned 4-byte word that holds each bf16) before the wait, the bias
+//   once; h1s, c1s, y and c2s leave as bf16 stores from the cell threads,
+//   units fastest (coalesced), without a fence.
+// Numbers as the rest of the file: h rounded to bf16 once, as the product
+// operand and the output; the sums in f32, each m-tile's k-tiles in two
+// chains (n-tiles at R = 16, even and odd k-tiles at R = 8) summed in a
+// fixed order, layer 2's parts in part order; no atomics: two launches
+// agree bit for bit.
+
+constexpr int kMmaPad = 4;  // extra floats a row of the forward's sums: a C fragment's
+                            // stores (rows 2 tq, columns gq) then hit 32 banks
+
+// Most threads a block at KW k-tiles a warp (3 MT warps): the largest MT of
+// the hidden sizes whose H / 16 rounds up to KW (8: H 80-128, MT <= 4; 12:
+// 144-192, MT <= 6; 16: 208-256, MT <= 7; 20: 272-320, MT = 5). ptxas
+// caps the registers at what the bound leaves each of the four SM
+// sub-partitions (their 16 K registers over ceil(warps / 4) warps: 168,
+// 96, 80, 128), so at KW = 16 and, at 16 rows, KW = 20 the 4 KW registers
+// of weights and the sums spill a little (`cld_lstm2_wide_fwd_bf16_query`).
+template <int KW>
+constexpr int fwd_mma_bound() {
+  return KW == 8 ? 384 : KW == 12 ? 576 : KW == 16 ? 672 : 480;
+}
+
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+// Where row r of k row k sits in an h buffer [k][R] (and in a staged block,
+// whose k rows keep their place in the buffers): at R = 16 the two 8-row
+// halves swap where bit 2 of k is set.
+template <int R>
+__device__ __forceinline__ int hpos(int k, int r) {
+  return k * R + (R == 16 ? r ^ (8 * ((k >> 2) & 1)) : r);
+}
+
+// Forward sweep in bf16, R rows a cluster, at most KW k-tiles a warp. wpk
+// ("wide_fwd_bf16", 32-bit words): [C][MT][3 KH][4][32], CTA q's m-tile mt,
+// k-tile kt of cat(Wh1, W2) (KH per part), as `mma_a_fragment`: row m is the
+// CTA's gate column c = 16 mt + m (cat column g H + q U + u of c = g U + u;
+// past 4U zero), column k its K row 16 kt + k. Threads: 3 MT warps (part,
+// m-tile); the first 16 U also run the cells (unit t % U, rows (t / U % 8)
+// R / 8 .., layer t / 8U).
+template <int R, int KW>
+__global__ void __launch_bounds__(fwd_mma_bound<KW>(), 1) lstm2_wide_fwd_mma_kernel(
+    const bf16* __restrict__ xg1, const bf16* __restrict__ h0, const uint32_t* __restrict__ wpk,
+    const bf16* __restrict__ b2, bf16* __restrict__ y, bf16* __restrict__ h1s,
+    bf16* __restrict__ c1s, bf16* __restrict__ c2s, int B, int Tn, int H, int U, int MT) {
+  constexpr int RC = R / 8;  // rows a cell thread runs; n-tiles of the products
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks(), q = (int)cluster.block_rank();
+  const int b0 = (blockIdx.x / C) * R, tid = threadIdx.x;
+  const int KH = H / 16, NR = 16 * MT + kMmaPad, G = 4 * H, NX = 8 * U;
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);  // per parity of hb: the step's h is in
+  bf16* hb = reinterpret_cast<bf16*>(smem + kBarBytes);      // [parity][layer][H][R]
+  bf16* stage = hb + 4 * H * R;                              // [parity][layer][U][R] own h
+  float* red = reinterpret_cast<float*>(stage + 4 * U * R);  // [part][R][NR] the sums
+  float* slots = red + 3 * R * NR;                           // [4][RC][8U] xg1 words
+  float* bs = slots + 4 * RC * NX;                           // [4][U] layer 2's bias
+  for (int i = tid; i < 4 * U; i += blockDim.x) bs[i] = to_f(b2[i / U * H + q * U + i % U]);
+  for (int i = tid; i < H * R; i += blockDim.x) {  // h1[-1] (read at s = 0), h2[-1] (s = 1)
+    const int r = i / H, k = i % H, b = b0 + r;
+    const bf16 v = b < B ? h0[(size_t)b * H + k] : from_f<bf16>(0.0f);
+    hb[(1 * 2 + 0) * H * R + hpos<R>(k, r)] = v;
+    hb[(0 * 2 + 1) * H * R + hpos<R>(k, r)] = v;
+  }
+  const unsigned step_bytes = (unsigned)(H * R * sizeof(bf16));  // one layer's h, all CTAs
+  if (tid == 0) {
+    bar_init(smem_addr(&full[0]), 1);
+    bar_init(smem_addr(&full[1]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (Tn > 0) bar_arm(smem_addr(&full[0]), step_bytes);  // step 0: layer 1 alone
+    if (Tn > 1) bar_arm(smem_addr(&full[1]), 2 * step_bytes);
+  }
+
+  // products: warp (part, m-tile), its A fragments for the whole sweep
+  const int warp = tid >> 5, lane = tid & 31, part = warp / MT, mt = warp % MT;
+  uint32_t a[KW][4];
+  {
+    const uint32_t* w = wpk + ((size_t)(q * MT + mt) * 3 * KH + part * KH) * 128 + lane;
+#pragma unroll
+    for (int kt = 0; kt < KW; ++kt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) a[kt][r] = kt < KH ? w[(kt * 4 + r) * 32] : 0u;
+  }
+  // B (.trans): lane l gives k row (l % 8) + 8 ((l / 8) % 2) of a k-tile, and
+  // at R = 16 the 8-row half l / 16 of it (bit 2 of that k row is bit 2 of l)
+  const int lk = (lane & 7) + 8 * ((lane >> 3) & 1);
+  const int boff = R == 16 ? lk * 16 + 8 * ((lane >> 4) ^ ((lane >> 2) & 1)) : lk * 8;
+  // cells: layer cl (0: 1, 1: 2), unit u of the CTA, rows r0 .. r0 + RC - 1
+  const int u = tid % U, r0 = (tid / U) % 8 * RC, cl = tid / (8 * U);
+  const bool cell = cl < 2;
+  const int unit = q * U + u;
+  float c[RC];
+#pragma unroll
+  for (int j = 0; j < RC; ++j) c[j] = 0.0f;
+  cluster.sync();  // every CTA's barriers armed and h0 in place before any copy lands
+
+  for (int s = 0; s <= Tn; ++s) {
+    const int cur = s & 1, prv = cur ^ 1;
+    const bool on1 = s < Tn, on2 = s > 0;  // layer 1 runs step s, layer 2 step s - 1
+    if (cell && cl == 0 && on1) {  // layer 1's input projection, in flight during the wait
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+#pragma unroll
+        for (int j = 0; j < RC; ++j) {
+          const int b = b0 + r0 + j;
+          float* dst = slots + (g * RC + j) * NX + tid;
+          if (b < B)  // the aligned word that holds the bf16 (its half: unit & 1)
+            cp_async4(dst, reinterpret_cast<const float*>(
+                               xg1 + (((size_t)b * Tn + s) * G + g * H + (unit & ~1))));
+          else
+            *dst = 0.0f;
+        }
+      cp_async_commit();
+    }
+    if (s > 0) {  // step s - 1's h from every CTA, in buffer prv
+      bar_wait(smem_addr(&full[prv]), ((s - 1) >> 1) & 1);
+      if (tid == 0 && s + 1 < Tn) bar_arm(smem_addr(&full[prv]), 2 * step_bytes);
+    }
+
+    if (part == 0 ? on1 : on2) {
+      float acc[2][4];  // two chains: the n-tiles (R = 16), even and odd k-tiles (R = 8)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
+      const bf16* x = hb + (prv * 2 + (part == 2)) * H * R + boff;
+#pragma unroll
+      for (int kt = 0; kt < KW; ++kt) {
+        if (kt < KH) {
+          if constexpr (R == 16) {
+            uint32_t b[4];
+            ldsm_x4_trans(b, x + kt * 16 * R);
+            const uint32_t n0[2] = {b[0], b[1]}, n1[2] = {b[2], b[3]};
+            mma(acc[0], a[kt], n0);
+            mma(acc[1], a[kt], n1);
+          } else {
+            uint32_t b[2];
+            ldsm_x2_trans(b, x + kt * 16 * R);
+            mma(acc[kt & 1], a[kt], b);
+          }
+        }
+      }
+      // C fragment: gate column 16 mt + gq (+ 8), rows 8 nt + 2 tq (+ 1)
+      float* dst = red + (size_t)part * R * NR + 16 * mt + (lane >> 2);
+      const int rq = 2 * (lane & 3);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if constexpr (R == 16) {
+          dst[(rq + (e & 1)) * NR + 8 * (e >> 1)] = acc[0][e];
+          dst[(8 + rq + (e & 1)) * NR + 8 * (e >> 1)] = acc[1][e];
+        } else {
+          dst[(rq + (e & 1)) * NR + 8 * (e >> 1)] = acc[0][e] + acc[1][e];
+        }
+      }
+    }
+    __syncthreads();  // the step's sums
+
+    const bool run = cell && (cl == 0 ? on1 : on2);
+    float h[RC];
+    if (run) {
+      if (cl == 0) asm volatile("cp.async.wait_all;\n" ::: "memory");  // this thread's slots
+#pragma unroll
+      for (int j = 0; j < RC; ++j) {
+        const int r = r0 + j;
+        float pre[4];
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          const int col = g * U + u;
+          if (cl == 0) {
+            const bf16* xw = reinterpret_cast<const bf16*>(slots + (g * RC + j) * NX + tid);
+            pre[g] = red[r * NR + col] + to_f(xw[unit & 1]);
+          } else {
+            pre[g] = red[(R + r) * NR + col] + red[(2 * R + r) * NR + col] + bs[col];
+          }
+        }
+        const float ig = sigm(pre[0]), fg = sigm(pre[1]), gg = tanhf(pre[2]), og = sigm(pre[3]);
+        c[j] = fg * c[j] + ig * gg;
+        h[j] = og * tanhf(c[j]);
+      }
+      if (s < Tn) {  // staged for the bulk copies below, at its place in the peers' buffers
+        bf16* st = stage + (cur * 2 + cl) * U * R;
+        if constexpr (R == 16)
+          *reinterpret_cast<__nv_bfloat162*>(st + u * R + (hpos<R>(unit, r0) - unit * R)) =
+              __floats2bfloat162_rn(h[0], h[1]);
+        else
+          st[u * R + r0] = from_f<bf16>(h[0]);
+        fence_async_smem();
+      }
+    }
+    if (s < Tn) {  // read at step s + 1 by every CTA of the cluster: lane p of warp 0 sends
+      __syncthreads();  // the staged block to CTA p, each layer that ran
+      if (tid < C) {
+        const unsigned bar = map_rank(smem_addr(&full[cur]), tid);
+        const unsigned bytes = (unsigned)(U * R * sizeof(bf16));
+        for (int l = 0; l < (on2 ? 2 : 1); ++l) {
+          const unsigned dst = smem_addr(hb + ((size_t)(cur * 2 + l) * H + q * U) * R);
+          send(map_rank(dst, tid), smem_addr(stage + (cur * 2 + l) * U * R), bytes, bar);
+        }
+      }
+    }
+    if (run) {
+#pragma unroll
+      for (int j = 0; j < RC; ++j) {
+        const int b = b0 + r0 + j;
+        if (b < B) {
+          const size_t o = ((size_t)b * Tn + (cl == 0 ? s : s - 1)) * H + unit;
+          (cl == 0 ? h1s : y)[o] = from_f<bf16>(h[j]);
+          (cl == 0 ? c1s : c2s)[o] = from_f<bf16>(c[j]);
+        }
+      }
+    }
+  }
+  cluster.sync();  // no CTA leaves while a peer may still address it
+}
+
 // The set-up every cluster launch shares: a shared-memory ceiling high
 // enough for every hidden size, the non-portable cluster size above 8, the
 // launch configuration (`attr` holds its cluster dimension), and how many
@@ -1227,19 +1353,6 @@ int cluster_launch(const void* kernel, int C, int grid, int threads, size_t smem
   if (err != 0) return err;
   if (clusters < 1) return kUnschedulable;
   return (int)cudaLaunchKernelExC(&cfg, kernel, args);
-}
-
-template <typename T>
-int wide_fwd(const void* xg1, const void* h0, const void* wpk, const void* b2, void* y,
-             void* h1s, void* c1s, void* c2s, int B, int Tn, const Wide& w,
-             cudaStream_t stream) {
-  const T *px = (const T*)xg1, *ph = (const T*)h0, *pw = (const T*)wpk, *pb = (const T*)b2;
-  T *py = (T*)y, *p1 = (T*)h1s, *pc1 = (T*)c1s, *pc2 = (T*)c2s;
-  int H = w.H, U = w.U, S = w.S, res = w.fwd_resident;
-  void* args[] = {&px, &ph, &pw, &pb, &py, &p1, &pc1, &pc2, &B, &Tn, &H, &U, &S, &res};
-  const int tiles = (B + kRows - 1) / kRows;
-  return cluster_launch((const void*)lstm2_wide_fwd_kernel<T>, w.C, w.C * tiles, w.fwd_threads,
-                        w.fwd_smem, stream, args);
 }
 
 // The chain's plan at (H, C, R, storage type).
@@ -1409,6 +1522,52 @@ const void* f32_kernel(int R, bool resident) {
                   : (const void*)lstm2_wide_fwd_f32_kernel<16, false>;
 }
 
+// The bf16 forward's launch geometry at (H, C, R).
+struct WideBf16 {
+  int H, C, U, R, MT, KH, KW, threads;
+  size_t smem;
+};
+
+// The plan at (H, C, R), or false where there is none: MT m-tiles over the
+// CTA's 4U gate columns, KH = H / 16 k-tiles a warp (instantiated at KW, KH
+// rounded up to a multiple of 4 from 8), 3 MT warps. Shared memory: the two
+// mbarriers, the h buffers [2][2][H][R] and the staged h [2][2][U][R] in
+// bf16, the sums [3][R][16 MT + kMmaPad], the input projection's slots
+// [4][R / 8][8U] and the bias [4][U] in f32.
+bool wide_bf16_config(int H, int C, int R, WideBf16* w) {
+  if (H <= 64 || H > kMaxHidden || H % kGrain || (C != 8 && C != 16) || H % C) return false;
+  if (R != 8 && R != 16) return false;
+  w->H = H;
+  w->C = C;
+  w->U = H / C;
+  w->R = R;
+  w->MT = (4 * w->U + 15) / 16;
+  w->KH = H / 16;
+  w->KW = w->KH <= 8 ? 8 : (w->KH + 3) / 4 * 4;
+  w->threads = 96 * w->MT;
+  const int bound = w->KW == 8 ? fwd_mma_bound<8>() : w->KW == 12 ? fwd_mma_bound<12>()
+                    : w->KW == 16 ? fwd_mma_bound<16>() : fwd_mma_bound<20>();
+  if (w->KW > 20 || w->threads > bound || w->threads < 16 * w->U) return false;
+  w->smem = kBarBytes + sizeof(bf16) * ((size_t)4 * (H + w->U) * R) +
+            sizeof(float) * ((size_t)3 * R * (16 * w->MT + kMmaPad) + (size_t)4 * (R / 8) * 8 * w->U +
+                             4 * w->U);
+  return w->smem <= kSmemMax;
+}
+
+template <int R>
+const void* bf16_fwd_kernel_kw(int KW) {
+  switch (KW) {
+    case 8: return (const void*)lstm2_wide_fwd_mma_kernel<R, 8>;
+    case 12: return (const void*)lstm2_wide_fwd_mma_kernel<R, 12>;
+    case 16: return (const void*)lstm2_wide_fwd_mma_kernel<R, 16>;
+    default: return (const void*)lstm2_wide_fwd_mma_kernel<R, 20>;
+  }
+}
+
+const void* bf16_fwd_kernel(const WideBf16& w) {
+  return w.R == 8 ? bf16_fwd_kernel_kw<8>(w.KW) : bf16_fwd_kernel_kw<16>(w.KW);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1424,15 +1583,49 @@ extern "C" {
 // and b2 (read 16 or 8 bytes at a time) and dy; coef an f32 scratch [B, T,
 // 12, H]. H a multiple of 16 in [80, 320], C 8 or 16 dividing H.
 
-// The bf16 forward (the first design; bf16_storage must be 1: the f32
-// forward is `cld_lstm2_wide_fwd_f32`).
-int cld_lstm2_wide_fwd(const void* xg1, const void* h0, const void* wfwd, const void* b2,
-                       void* y, void* h1s, void* c1s, void* c2s, int B, int T, int H, int C,
-                       int bf16_storage, void* stream) {
-  Wide w;
-  if (!bf16_storage || !wide_config(H, C, 2, &w)) return (int)cudaErrorInvalidValue;
+// The bf16 forward on the tensor cores: R (8 or 16) rows a cluster, its
+// m-tiles, k-tiles and threads planned by `wide_bf16_config`; refused
+// (cudaErrorInvalidValue) where there is no plan at (H, C, R). wfwd is
+// "wide_fwd_bf16".
+int cld_lstm2_wide_fwd_bf16(const void* xg1, const void* h0, const void* wfwd, const void* b2,
+                            void* y, void* h1s, void* c1s, void* c2s, int B, int T, int H,
+                            int C, int R, void* stream) {
+  WideBf16 w;
+  if (!wide_bf16_config(H, C, R, &w)) return (int)cudaErrorInvalidValue;
   if (B == 0 || T == 0) return 0;
-  return wide_fwd<bf16>(xg1, h0, wfwd, b2, y, h1s, c1s, c2s, B, T, w, (cudaStream_t)stream);
+  const bf16 *px = (const bf16*)xg1, *ph = (const bf16*)h0, *pb = (const bf16*)b2;
+  const uint32_t* pw = (const uint32_t*)wfwd;
+  bf16 *py = (bf16*)y, *p1 = (bf16*)h1s, *pc1 = (bf16*)c1s, *pc2 = (bf16*)c2s;
+  int U = w.U, MT = w.MT;
+  void* args[] = {&px, &ph, &pw, &pb, &py, &p1, &pc1, &pc2, &B, &T, &H, &U, &MT};
+  return cluster_launch(bf16_fwd_kernel(w), C, C * ((B + R - 1) / R), w.threads, w.smem,
+                        (cudaStream_t)stream, args);
+}
+
+// The bf16 forward's plan at (H, C, R) and the compiler's verdict on it: out
+// = {registers per thread, local memory bytes per thread (spills), max
+// threads per block, dynamic shared memory bytes, threads per block,
+// clusters the card can hold at once, m-tiles, k-tiles a warp (H / 16), the
+// instantiation's k-tiles (KW)}; cudaErrorInvalidValue where there is no
+// plan.
+int cld_lstm2_wide_fwd_bf16_query(int H, int C, int R, int* out) {
+  WideBf16 w;
+  if (!wide_bf16_config(H, C, R, &w)) return (int)cudaErrorInvalidValue;
+  const void* kernel = bf16_fwd_kernel(w);
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = a.maxThreadsPerBlock;
+  out[3] = (int)w.smem;
+  out[4] = w.threads;
+  out[6] = w.MT;
+  out[7] = w.KH;
+  out[8] = w.KW;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  return cluster_prep(kernel, C, C, w.threads, w.smem, 0, &cfg, &attr, &out[5]);
 }
 
 // The f32 forward: R (8 or 16) rows a cluster, its chunks of K and the
@@ -1523,41 +1716,29 @@ int cld_lstm2_wide_chain_query(int H, int C, int R, int bf16_storage, int* out) 
   return cluster_prep(kernel, C, C, c.threads, c.smem, 0, &cfg, &attr, &out[5]);
 }
 
-// Compiler's verdict and the launch geometry of one kernel at (H, C, storage):
-// out = {registers per thread, local memory bytes per thread (spills), max
-// threads per block, dynamic shared memory bytes, cluster size, weights
-// resident in shared memory (0/1), threads per block, clusters the card can
-// hold at once}. which: 0 the forward (bf16 only: the f32 forward's is
-// `cld_lstm2_wide_fwd_f32_query`), 1 the reverse sweep's gates GEMM (no
-// cluster: size 1; its weight tiles pass through shared memory: 0). The
-// chain's is `cld_lstm2_wide_chain_query`.
+// Compiler's verdict on the reverse sweep's gates GEMM (which = 1; the two
+// forwards' and the chain's plans have their own queries:
+// `cld_lstm2_wide_fwd_bf16_query`, `cld_lstm2_wide_fwd_f32_query`,
+// `cld_lstm2_wide_chain_query`) at (H, C, storage): out = {registers per
+// thread, local memory bytes per thread (spills), max threads per block,
+// dynamic shared memory bytes, cluster size (1: no cluster), weights resident
+// in shared memory (0: its weight tiles pass through it), threads per block,
+// 0}.
 int cld_lstm2_wide_attributes(int which, int H, int C, int bf16_storage, int* out) {
-  Wide w;
-  if ((which == 0 && !bf16_storage) || which < 0 || which > 1 || !wide_config(H, C, 2, &w))
+  if (which != 1 || H <= 64 || H > kMaxHidden || H % kGrain || (C != 8 && C != 16) || H % C)
     return (int)cudaErrorInvalidValue;
-  const void* kernel =
-      which == 0 ? (const void*)lstm2_wide_fwd_kernel<bf16> : gates_kernel(bf16_storage != 0);
   cudaFuncAttributes a;
-  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  const cudaError_t err = cudaFuncGetAttributes(&a, gates_kernel(bf16_storage != 0));
   if (err != cudaSuccess) return (int)err;
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;
   out[2] = a.maxThreadsPerBlock;
-  if (which == 1) {
-    out[3] = (int)gates_smem(bf16_storage != 0);
-    out[4] = 1;
-    out[5] = 0;
-    out[6] = kGThreads;
-    out[7] = 0;
-    return 0;
-  }
-  out[3] = (int)w.fwd_smem;
-  out[4] = C;
-  out[5] = w.fwd_resident;
-  out[6] = w.fwd_threads;
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  return cluster_prep(kernel, C, C, out[6], out[3], 0, &cfg, &attr, &out[7]);
+  out[3] = (int)gates_smem(bf16_storage != 0);
+  out[4] = 1;
+  out[5] = 0;
+  out[6] = kGThreads;
+  out[7] = 0;
+  return 0;
 }
 
 }  // extern "C"

@@ -3,7 +3,7 @@ versions of them on one card: the LSTM decoder sweeps at H = 64, 128 and
 320 in f32 and bf16, the bulk-copy probe beside `2 * x`, the rigid
 map-distance kernels, and the card's launch floor.
 
-    python cld_tpu_torch/kernel_ab.py [--root DIR] [--label NAME] [--only wide_bwd]
+    python cld_tpu_torch/kernel_ab.py [--root DIR] [--label NAME] [--only wide_bwd|wide_fwd]
 
 Imports `cld_tpu_torch` from DIR (default: the checkout that holds this
 file), so that one command can time an older checkout's kernels beside this
@@ -45,6 +45,17 @@ rows a cluster forced (one wave at either: a step's cost at 16 rows
 relative to 8, `lstm_kernels.CHAIN_ROW_COST`). `--only wide_bwd` runs the
 wide reverse sweeps, their splits and the launch floor alone.
 
+`--only wide_fwd` times the bf16 wide forward alone (H = 128 and 320, B =
+32, 128 and 512, each held and hashed), with its split into the kernel and
+the weight pack (`fwd_split`, from `graph_kernel_ms`), and where the
+checkout's `_fwd_launch` takes `rows`, the kernel with 8 and 16 rows a
+cluster forced at one (H, B) per instantiation (`ROWS_AT`: one wave at
+either, a step's cost at 16 rows relative to 8,
+`lstm_kernels.WIDE_BF16_ROW_COST`); and it hashes, without
+timing them, every other LSTM kernel's outputs at those shapes (the f32
+wide forward, both wide reverse sweeps, and the H = 64 kernels in f32 and
+bf16), so that a run beside another checkout shows them unchanged.
+
 Prints one JSON line with the card and appends it to
 chiprun_out/kernel_ab.jsonl. Fails without a CUDA card.
 """
@@ -64,6 +75,10 @@ HERE = Path(__file__).resolve().parent
 BATCHES = (32, 128, 512)
 WIDE_H = (128, 320)
 RIGID_P = 100
+# (H, B) at which the bf16 wide forward runs one wave at 8 rows a cluster and at
+# 16, one H for each of its instantiations' k-tiles (8, 12, 16, 20): the H100
+# holds 15 clusters of 8 CTAs at H = 128 and 192, 14 of 16 at 256, 7 of 16 at 320
+ROWS_AT = ((128, 64), (192, 64), (256, 56), (320, 56))
 
 
 def sha256(*tensors) -> str:
@@ -90,7 +105,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", type=str, default=str(HERE.parent))
     parser.add_argument("--label", type=str, default=None)
-    parser.add_argument("--only", choices=("all", "wide_bwd"), default="all")
+    parser.add_argument("--only", choices=("all", "wide_bwd", "wide_fwd"), default="all")
     args = parser.parse_args(argv)
     every = args.only == "all"
     import torch
@@ -135,6 +150,10 @@ def main(argv=None) -> int:
         res[f"{name}_rel_err"] = rel
 
     torch.cuda._sleep(400_000_000)  # ~0.2 s of one busy thread: the clocks leave idle
+    if args.only == "wide_fwd":
+        wide_fwd_only(res, lk, cs, dev, time_placed, held)
+        time_placed("launch_floor", lambda: torch.cuda._sleep(0))
+        return report(res)
     for Bn in BATCHES if every else ():
         g = torch.Generator().manual_seed(17)
         a32, d32 = cs.lstm_inputs(g, Bn, cs.T, cs.H, dev)
@@ -229,6 +248,62 @@ def main(argv=None) -> int:
     time_placed("rigid_bwd", rk.rigid_bwd, pts, want[1], want[0], gout)
     time_placed("launch_floor", lambda: torch.cuda._sleep(0))  # 4 graphs, no input
     return report(res)
+
+
+def fwd_split(by_kernel: dict) -> dict:
+    """A forward's device ms by part, from `graph_kernel_ms`: the sweep's
+    kernel and the rest (the weight pack's gather)."""
+    out = {"kernel": 0.0, "other": 0.0}
+    for name, ms in by_kernel.items():
+        out["kernel" if "lstm2_" in name else "other"] += ms
+    return out if by_kernel else {}
+
+
+def wide_fwd_only(res, lk, cs, dev, time_placed, held):
+    """`--only wide_fwd`: the bf16 wide forward timed, held, hashed and
+    split at each (H, B); every other LSTM kernel's outputs hashed."""
+    import torch
+
+    for Hn in WIDE_H:
+        for Bn in BATCHES:
+            g = torch.Generator().manual_seed(19)
+            a32, d32 = cs.lstm_inputs(g, Bn, cs.T, Hn, dev)
+            a16 = tuple(x.to(torch.bfloat16) for x in a32)
+            key = f"H{Hn}_B{Bn}_bf16"
+            ref = lk.lstm2_core_ref(*a16)
+            fwd = lk.lstm2_fwd(*a16)
+            held(f"lstm2_fwd_{key}", fwd, lk.lstm2_fwd(*a16), ref)
+            res[f"lstm2_fwd_{key}_sha256"] = sha256(*fwd)
+            time_placed(f"lstm2_fwd_{key}", lk.lstm2_fwd, *a16)
+            res[f"lstm2_fwd_{key}_split"] = fwd_split(
+                cs.graph_kernel_ms(lambda: lk.lstm2_fwd(*a16)))
+            # the other wide kernels at this shape: hashed only
+            b16 = (d32.to(torch.bfloat16), *a16, ref[1], ref[2], ref[0], ref[3])
+            res[f"lstm2_bwd_{key}_sha256"] = sha256(*lk.lstm2_bwd(*b16))
+            ref32 = lk.lstm2_core_ref(*a32)
+            res[f"lstm2_fwd_H{Hn}_B{Bn}_sha256"] = sha256(*lk.lstm2_fwd(*a32))
+            b32 = (d32, *a32, ref32[1], ref32[2], ref32[0], ref32[3])
+            res[f"lstm2_bwd_H{Hn}_B{Bn}_sha256"] = sha256(*lk.lstm2_bwd(*b32))
+            del a32, a16, ref, ref32, b16, b32, fwd
+            torch.cuda.empty_cache()
+    for Bn in BATCHES:  # the H <= 64 kernels (csrc/lstm.cu, csrc/lstm_bf16.cu): hashed only
+        g = torch.Generator().manual_seed(17)
+        a32, d32 = cs.lstm_inputs(g, Bn, cs.T, cs.H, dev)
+        for sfx, a, d in (("", a32, d32), ("_bf16", tuple(x.to(torch.bfloat16) for x in a32),
+                                           d32.to(torch.bfloat16))):
+            ref = lk.lstm2_core_ref(*a)
+            res[f"lstm2_fwd{sfx}_B{Bn}_sha256"] = sha256(*lk.lstm2_fwd(*a))
+            b = (d, *a, ref[1], ref[2], ref[0], ref[3])
+            res[f"lstm2_bwd{sfx}_B{Bn}_sha256"] = sha256(*lk.lstm2_bwd(*b))
+    if "rows" in inspect.signature(lk._fwd_launch).parameters:
+        for Hn, Bn in ROWS_AT:  # the bf16 forward at each R, one wave at either
+            g = torch.Generator().manual_seed(19)
+            a, _ = cs.lstm_inputs(g, Bn, cs.T, Hn, dev)
+            a = dict(zip(("xg1", "h0", "Wh1", "W2", "b2"), (x.to(torch.bfloat16) for x in a)))
+            res[f"fwd_rows_H{Hn}_B{Bn}_bf16"] = {
+                str(R): fwd_split(cs.graph_kernel_ms(
+                    lambda: lk._fwd_launch(Bn, cs.T, Hn, torch.bfloat16, rows=R, **a)))["kernel"]
+                for R in lk.WIDE_ROWS}
 
 
 def report(res: dict) -> int:

@@ -46,10 +46,12 @@ copy), `unpack_weights` inverts it; they run `rows_per_cta` (f32) or
 `ROWS_PER_CTA_BF16` batch rows in each CTA. Padded H in [80, 320] (a
 multiple of 16) goes to `csrc/lstm_wide.cu`, which spreads the units over a
 thread-block cluster of `wide_cluster` CTAs ("wide_fwd", "wide_gates",
-"wide_chain" layouts, and "wide_gates_bf16", "wide_chain_bf16" for the bf16
-reverse sweep's tensor-core tiles), counted as `lstm2_fwd_wide` /
-`lstm2_bwd_wide` and their `_bf16` twins. The reverse sweep there is a gates
-GEMM and a chain whose rows a cluster (8 or 16) `wide_bwd_plan` picks.
+"wide_chain" layouts, and "wide_fwd_bf16", "wide_gates_bf16",
+"wide_chain_bf16" for the bf16 sweeps' tensor-core tiles), counted as
+`lstm2_fwd_wide` / `lstm2_bwd_wide` and their `_bf16` twins. Each forward
+runs 8 or 16 rows a cluster (`wide_f32_plan`, `wide_bf16_plan`); the
+reverse sweep there is a gates GEMM and a chain whose rows a cluster
+`wide_bwd_plan` picks.
 """
 
 from __future__ import annotations
@@ -369,7 +371,7 @@ def wide_cluster(H: int, dtype: torch.dtype) -> int:
     return WIDE_CLUSTERS[0] if 12 * H * H * elem // 8 <= WIDE_SLICE_BYTES else WIDE_CLUSTERS[1]
 
 
-WIDE_ROWS = (8, 16)  # batch rows a cluster of the f32 wide forward owns (its instantiations)
+WIDE_ROWS = (8, 16)  # batch rows a cluster of a wide sweep owns (its instantiations)
 # a step's time at each R, relative to R = 8's: the FMAs double from 8 to 16
 # rows, the exchange and the wait do not (an H100 at H = 128 and 320, both
 # with the slice in shared memory and read from L2: 1.8x; `wide_rows`)
@@ -437,6 +439,69 @@ def wide_f32_plan(B: int, H: int, device: torch.device) -> WidePlan:
     plans = {R: wide_fwd_plan(device, H, R) for R in WIDE_ROWS}
     plans = {R: pl for R, pl in plans.items() if pl is not None}
     return plans[wide_rows(B, {R: pl.max_active_clusters for R, pl in plans.items()})]
+
+
+# The bf16 forward (`lstm2_wide_fwd_mma_kernel<R, KW>`): a step's time at 16
+# rows a cluster relative to 8's, per instantiation (its k-tiles a warp, KW:
+# 8 for H 80-128, 12 for 144-192, 16 for 208-256, 20 for 272-320). An H100
+# at 700 W, one wave at either R, the kernel's device time with R forced
+# (`kernel_ab.py --only wide_fwd`'s `fwd_rows_*`, at H = 128, 192, 256, 320):
+# the 16-row products double a step's mma chain, cheap beside the exchange
+# at KW = 8, not from KW = 12 on (the weights and sums fill the registers)
+WIDE_BF16_ROW_COST = {8: {8: 1.0, 16: 1.36}, 12: {8: 1.0, 16: 1.93},
+                      16: {8: 1.0, 16: 1.83}, 20: {8: 1.0, 16: 1.89}}
+
+
+class WideBf16Plan(NamedTuple):
+    """The bf16 wide forward's plan at one row count, as `wide_bf16_config`
+    in csrc/lstm_wide.cu makes it (`lstm2_wide_fwd_mma_kernel`): rows a
+    cluster, threads a CTA (3 warps a m-tile), m-tiles over the CTA's 4 H / C
+    gate columns, k-tiles a warp (H / 16) and the instantiation's (KW),
+    dynamic shared memory bytes; and the compiler's verdict on its
+    instantiation: registers and local memory bytes (spills) per thread, max
+    threads per block, clusters the card holds at once."""
+
+    rows: int
+    threads: int
+    m_tiles: int
+    k_tiles: int
+    k_tiles_built: int
+    smem: int
+    registers: int
+    local_bytes: int
+    max_threads: int
+    max_active_clusters: int
+
+
+@functools.lru_cache(maxsize=None)
+def wide_fwd_bf16_plan(device: torch.device, H: int, R: int) -> Optional[WideBf16Plan]:
+    """The bf16 wide forward's plan at padded H and R rows a cluster on
+    `device` (`cld_lstm2_wide_fwd_bf16_query`), or None where the kernel has
+    none."""
+    out = (ctypes.c_int * 9)()
+    with torch.cuda.device(device):
+        err = native.library().cld_lstm2_wide_fwd_bf16_query(
+            H, wide_cluster(H, torch.bfloat16), R, ctypes.addressof(out))
+    if err == WIDE_NO_PLAN:
+        return None
+    native.check(err, "lstm2_fwd plan")
+    regs, local, max_threads, smem, threads, clusters, m_tiles, k_tiles, built = out
+    return WideBf16Plan(R, threads, m_tiles, k_tiles, built, smem, regs, local, max_threads,
+                        clusters)
+
+
+def wide_bf16_plan(B: int, H: int, device: torch.device) -> WideBf16Plan:
+    """The plan the bf16 wide forward launches at batch B: `wide_rows` with
+    its instantiation's `WIDE_BF16_ROW_COST` over the row counts that have a
+    plan."""
+    plans = {R: wide_fwd_bf16_plan(device, H, R) for R in WIDE_ROWS}
+    plans = {R: pl for R, pl in plans.items() if pl is not None}
+    if not plans:
+        raise RuntimeError(f"lstm2_fwd: `lstm2_wide_fwd_mma_kernel` has no plan at H={H}")
+    cost = WIDE_BF16_ROW_COST[next(iter(plans.values())).k_tiles_built]
+    R = wide_rows(B, {R: pl.max_active_clusters for R, pl in plans.items()}, cost,
+                  "lstm2_wide_fwd_mma_kernel")
+    return plans[R]
 
 
 # The reverse sweep's chain (`lstm2_wide_chain_kernel<T, R, KT>`): a step's
@@ -516,6 +581,13 @@ def chain_k_tiles(H: int, C: int) -> int:
     return -(-4 * (H // C) // 16)
 
 
+def fwd_m_tiles(H: int, C: int) -> int:
+    """m-tiles of 16 over a CTA's 4 H / C gate columns (the chain's k-tiles
+    tile the same columns): the bf16 wide forward's A fragments
+    ("wide_fwd_bf16", zero past 4 H / C)."""
+    return chain_k_tiles(H, C)
+
+
 def _wide_index(kind: str, H: int, C: int) -> torch.Tensor:
     """The wide layouts as indices into cat(Wh1, W2) [3H, 4H], flattened
     (12 H^2: the zero a bf16 tile pads with). CTA q of a cluster of C owns
@@ -531,7 +603,11 @@ def _wide_index(kind: str, H: int, C: int) -> torch.Tensor:
     "wide_chain_bf16" [C, H / 16, 3, KT, 4, 32, 2]: CTA q's mma A fragments
     (`mma_a_fragment`) of warp w, group grp and k-tile kt: row m is unit i =
     16 w + m of the group's weights (as "wide_chain"), column 16 kt + k the
-    CTA's gate column g U + u (past 4U: the zero)."""
+    CTA's gate column g U + u (past 4U: the zero). "wide_fwd_bf16" [C, MT,
+    3H / 16, 4, 32, 2] (MT = `fwd_m_tiles`): CTA q's mma A fragments of W^T,
+    m-tile mt and k-tile kt: row m is the CTA's gate column c = 16 mt + m
+    (cat column j of c = g U + u; past 4U: the zero), column k the cat row
+    16 kt + k (k-tiles 0 .. H/16 - 1 Wh1, then W2[:H], then W2[H:])."""
     G = 4 * H
     if kind in ("wide_gates", "wide_gates_bf16"):
         unit = gates_tile_units(kind.endswith("_bf16"))
@@ -546,6 +622,14 @@ def _wide_index(kind: str, H: int, C: int) -> torch.Tensor:
         rows = torch.tensor([0, H, 2 * H])[:, None] + torch.arange(H)  # Wh1, W2[:H], W2[H:]
         idx = rows[None, :, :, None] * G + j[:, None, None, :]  # [C, 3, H, 4U]
         return idx.permute(0, 2, 1, 3).reshape(C, H, 12 * U)
+    if kind == "wide_fwd_bf16":
+        MT = fwd_m_tiles(H, C)
+        m, kk = mma_a_fragment()  # [4, 32, 2] each
+        shape = lambda n, at: [n if d == at else 1 for d in range(6)]  # [C, MT, 3H/16, 4, 32, 2]
+        c = 16 * torch.arange(MT).reshape(shape(MT, 1)) + m
+        col = j[q.reshape(shape(C, 0)), c.clamp(max=4 * U - 1)]
+        row = 16 * torch.arange(3 * H // 16).reshape(shape(3 * H // 16, 2)) + kk
+        return torch.where(c < 4 * U, row * G + col, 12 * H * H)
     rows = torch.stack([2 * H + torch.arange(H), H + torch.arange(H), torch.arange(H)])
     if kind == "wide_chain":
         return rows.reshape(-1)[None, None, :] * G + j[:, :, None]  # [C, 4U, 3H]
@@ -560,7 +644,7 @@ def _wide_index(kind: str, H: int, C: int) -> torch.Tensor:
 
 
 WEIGHT_KINDS = ("fwd", "bwd", "fwd_bf16", "bwd_bf16", "wide_fwd", "wide_chain", "wide_gates",
-                "wide_gates_bf16", "wide_chain_bf16")
+                "wide_gates_bf16", "wide_chain_bf16", "wide_fwd_bf16")
 WIDE_BWD_KINDS = {torch.float32: ("wide_gates", "wide_chain"),
                   torch.bfloat16: ("wide_gates_bf16", "wide_chain_bf16")}
 
@@ -614,11 +698,12 @@ def pack_weights(kind: str, Wh1: torch.Tensor, W2: torch.Tensor) -> torch.Tensor
 def pack_layouts(Wh1: torch.Tensor, W2: torch.Tensor, *kinds: str) -> Tuple[torch.Tensor, ...]:
     """`pack_weights` of each kind, from one concatenation of the weights
     (and of the zero a bf16 layout pads with, where H is not a multiple of
-    16 or, in "wide_chain_bf16", 4 H / C not one): the reverse sweep's two
-    layouts in three launches."""
+    16 or, in "wide_chain_bf16" and "wide_fwd_bf16", 4 H / C not one): the
+    reverse sweep's two layouts in three launches."""
     H = Wh1.shape[0]
     parts = (Wh1.reshape(-1), W2.reshape(-1))
-    if any(k.endswith("_bf16") for k in kinds) and (H % 16 or "wide_chain_bf16" in kinds):
+    if any(k.endswith("_bf16") for k in kinds) and (
+            H % 16 or {"wide_chain_bf16", "wide_fwd_bf16"} & set(kinds)):
         parts += (Wh1.new_zeros(1),)
     flat = torch.cat(parts)
     C = wide_cluster(H, Wh1.dtype)
@@ -644,7 +729,7 @@ def kernel_attributes(which: int, H: int, R: int = 1,
     """The compiler's verdict on the instantiation that runs hidden size H
     (which: 0 the forward, 1 the reverse sweep's gates kernel, 2 its chain;
     `dtype` the storage type; R of `ROWS_PER_CTA` for f32 H <= 64, of
-    `WIDE_ROWS` for the f32 wide forward and the wide chain (8 otherwise),
+    `WIDE_ROWS` for the wide forwards and the wide chain (8 otherwise),
     unused by the others): registers and local memory bytes (spills) per
     thread, max threads per block; for bf16 and the wide kernels the shared
     memory bytes (static, and the wide kernels' dynamic); for the wide
@@ -666,6 +751,18 @@ def kernel_attributes(which: int, H: int, R: int = 1,
                     max_active_clusters=plan.max_active_clusters,
                     cluster=wide_cluster(Hp, dtype), resident=int(plan.resident),
                     rows=plan.rows, chunks=plan.chunks)
+    if Hp > H_RANGE[-1] and which == 0:
+        R = R if R in WIDE_ROWS else WIDE_ROWS[0]
+        plan = wide_fwd_bf16_plan(torch.device("cuda", torch.cuda.current_device()), Hp, R)
+        if plan is None:
+            raise ValueError(f"kernel_attributes: the bf16 wide forward has no plan at H={Hp}, "
+                             f"R={R}")
+        return dict(registers=plan.registers, local_bytes=plan.local_bytes,
+                    max_threads=plan.max_threads, shared_bytes=plan.smem, threads=plan.threads,
+                    max_active_clusters=plan.max_active_clusters,
+                    cluster=wide_cluster(Hp, dtype), resident=1, rows=plan.rows,
+                    m_tiles=plan.m_tiles, k_tiles=plan.k_tiles,
+                    k_tiles_built=plan.k_tiles_built)
     if Hp > H_RANGE[-1] and which == 2:
         R = R if R in WIDE_ROWS else WIDE_ROWS[0]
         plan = wide_chain_plan(torch.device("cuda", torch.cuda.current_device()), Hp, R, dtype)
@@ -735,8 +832,9 @@ def _check_wide(err: int, name: str, H: int, C: int, dt: torch.dtype) -> None:
     """Raise on a failed wide launch; a cluster the card cannot schedule is
     refused by name (there is no fallback)."""
     if err == WIDE_UNSCHEDULABLE:
-        kernel = ("lstm2_wide_chain_kernel" if name == "lstm2_bwd" else "lstm2_wide_fwd_kernel"
-                  if dt == torch.bfloat16 else "lstm2_wide_fwd_f32_kernel")
+        kernel = ("lstm2_wide_chain_kernel" if name == "lstm2_bwd" else
+                  "lstm2_wide_fwd_mma_kernel" if dt == torch.bfloat16 else
+                  "lstm2_wide_fwd_f32_kernel")
         raise RuntimeError(f"{name}: this card cannot hold one cluster of {C} CTAs of "
                            f"`{kernel}` (`lstm_wide.cu`) at H={H} ({dt})")
     native.check(err, name)
@@ -746,8 +844,9 @@ def lstm2_fwd(xg1, h0, Wh1, W2, b2):
     """Forward sweep -> (y, h1s, c1s, c2s), in the inputs' dtype. CUDA
     tensors launch, at the padded hidden size (`padded_hidden`),
     `lstm2_fwd_kernel` (f32, `csrc/lstm.cu`), `lstm2_fwd_mma_kernel` (bf16,
-    `csrc/lstm_bf16.cu`) or above 64 `lstm2_wide_fwd_kernel`
-    (`csrc/lstm_wide.cu`); CPU tensors take `lstm2_core_ref`."""
+    `csrc/lstm_bf16.cu`) or above 64 `lstm2_wide_fwd_f32_kernel` (f32) or
+    `lstm2_wide_fwd_mma_kernel` (bf16, on the tensor cores), both in
+    `csrc/lstm_wide.cu`; CPU tensors take `lstm2_core_ref`."""
     if xg1.device.type not in ("cpu", "cuda"):
         raise ValueError(f"lstm2_fwd: unsupported device {xg1.device}")
     dt = _storage("lstm2_fwd", xg1=xg1, h0=h0, Wh1=Wh1, W2=W2, b2=b2)
@@ -764,20 +863,24 @@ def lstm2_fwd(xg1, h0, Wh1, W2, b2):
     return tuple(unpad_blocks(a, -1, 1, H, Hp) for a in outs)
 
 
-def _fwd_launch(B, T, H, dt, xg1, h0, Wh1, W2, b2):
+def _fwd_launch(B, T, H, dt, xg1, h0, Wh1, W2, b2, rows=None):
+    """The forward's launch at padded H. `rows` (wide H only) forces the
+    rows a cluster, for measuring a step's cost at each R
+    (`WIDE_BF16_ROW_COST`); None takes the plan's choice."""
     dev = xg1.device
     y, h1s, c1s, c2s = torch.empty((4, B, T, H), dtype=dt, device=dev).unbind(0)
     lib = native.library()
     if H > H_RANGE[-1]:
         C = wide_cluster(H, dt)
-        wpk = pack_weights("wide_fwd", Wh1, W2)  # alive until the launch is queued
+        bf16 = dt == torch.bfloat16
+        # alive until the launch is queued
+        wpk = pack_weights("wide_fwd_bf16" if bf16 else "wide_fwd", Wh1, W2)
         ptrs = (xg1.data_ptr(), h0.data_ptr(), wpk.data_ptr(), b2.data_ptr(), y.data_ptr(),
                 h1s.data_ptr(), c1s.data_ptr(), c2s.data_ptr(), B, T, H, C)
-        if dt == torch.bfloat16:
-            err = lib.cld_lstm2_wide_fwd(*ptrs, 1, native.stream_ptr(dev))
-        else:
-            plan = wide_f32_plan(B, H, dev)
-            err = lib.cld_lstm2_wide_fwd_f32(*ptrs, plan.rows, native.stream_ptr(dev))
+        if rows is None:
+            rows = (wide_bf16_plan if bf16 else wide_f32_plan)(B, H, dev).rows
+        launch = lib.cld_lstm2_wide_fwd_bf16 if bf16 else lib.cld_lstm2_wide_fwd_f32
+        err = launch(*ptrs, rows, native.stream_ptr(dev))
         _check_wide(err, "lstm2_fwd", H, C, dt)
         native.count_launch("lstm2_fwd_wide_bf16" if dt == torch.bfloat16 else "lstm2_fwd_wide")
         return y, h1s, c1s, c2s

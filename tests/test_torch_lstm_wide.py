@@ -218,14 +218,15 @@ def _padded_weights(seed, H):
 @pytest.mark.parametrize("H,dtype", WIDE)
 def test_wide_layouts_are_permutations_with_exact_inverses(H, dtype):
     """The forward's layout and the reverse sweep's two of the storage type
-    ("wide_gates" / "wide_chain" in f32, "wide_gates_bf16" /
-    "wide_chain_bf16" in bf16): every weight once, the rest the zero that
-    pads the bf16 chain's k-tiles past 4 H / C, and an exact inverse."""
+    ("wide_fwd", "wide_gates" / "wide_chain" in f32, "wide_fwd_bf16",
+    "wide_gates_bf16" / "wide_chain_bf16" in bf16): every weight once, the
+    rest the zero that pads the bf16 chain's k-tiles past 4 H / C and the
+    bf16 forward's m-tiles past 4 H / C, and an exact inverse."""
     Wh1, W2, Hp = _padded_weights(13, H)
     Wh1, W2 = Wh1.to(dtype), W2.to(dtype)
     C = tl.wide_cluster(Hp, dtype)
     assert C in tl.WIDE_CLUSTERS and Hp % C == 0
-    for kind in ("wide_fwd", *tl.WIDE_BWD_KINDS[dtype]):
+    for kind in (FWD_KIND[dtype], *tl.WIDE_BWD_KINDS[dtype]):
         idx = tl.weight_index(kind, Hp, cluster=C).reshape(-1)
         real = idx[idx < 12 * Hp * Hp]
         assert torch.equal(real.sort().values, torch.arange(12 * Hp * Hp)), kind
@@ -234,12 +235,34 @@ def test_wide_layouts_are_permutations_with_exact_inverses(H, dtype):
         assert torch.equal(back[0], Wh1) and torch.equal(back[1], W2), kind
 
 
-def _fwd_products(packed, q, C, X1, X2):
-    """CTA q's forward products from the "wide_fwd" layout: rows = the
-    inputs, columns v = part * 4U + g U + u -> (layer 1's pre [B, 4U], layer
-    2's [B, 4U]), each column's gates in (g, u) order."""
+FWD_KIND = {torch.float32: "wide_fwd", BF16: "wide_fwd_bf16"}
+
+
+def _fwd_bf16_dense(packed, H, C):
+    """Each CTA's forward weights [C, 3H, 16 MT] (cat row, the CTA's gate
+    column c = g U + u; past 4U the zero of the m-tiles' padding), as float,
+    from the mma A fragments of "wide_fwd_bf16" ([C, MT, 3H / 16, 4, 32,
+    2]: row m the gate column 16 mt + m, column k the cat row 16 kt + k)."""
+    MT = tl.fwd_m_tiles(H, C)
+    frag = packed.float().reshape(C, MT, 3 * H // 16, 4, 32, 2)
+    m, kk = torch.broadcast_tensors(*tl.mma_a_fragment())
+    dense = torch.zeros(C, MT, 3 * H // 16, 16, 16)  # [.., k-tile, m, k]
+    dense[:, :, :, m.reshape(-1), kk.reshape(-1)] = frag.reshape(C, MT, 3 * H // 16, -1)
+    return dense.permute(0, 2, 4, 1, 3).reshape(C, 3 * H, 16 * MT)
+
+
+def _fwd_products(packed, q, C, X1, X2, kind="wide_fwd"):
+    """CTA q's forward products from a forward layout ("wide_fwd": rows =
+    the inputs, columns v = part * 4U + g U + u; "wide_fwd_bf16": the A
+    fragments of W^T) -> (layer 1's pre [B, 4U], layer 2's [B, 4U]), each
+    column's gates in (g, u) order."""
     H = X1.shape[-1]
     U = H // C
+    if kind == "wide_fwd_bf16":
+        w = _fwd_bf16_dense(packed, H, C)[q]
+        assert not bool(w[:, 4 * U:].any())  # the m-tiles' padding holds no weight
+        w = w[:, :4 * U]
+        return X1 @ w[:H], X1 @ w[H:2 * H] + X2 @ w[2 * H:]
     w = packed.reshape(C, H, 12 * U)[q].float()
     return X1 @ w[:, :4 * U], X1 @ w[:, 4 * U:8 * U] + X2 @ w[:, 8 * U:]
 
@@ -281,7 +304,8 @@ def _chain_dense(packed, H, C, dtype):
 
 @pytest.mark.parametrize("H,dtype", WIDE)
 def test_wide_layouts_give_the_jax_gate_products(H, dtype):
-    """Each CTA's products through "wide_fwd", the gates GEMM's through its
+    """Each CTA's products through "wide_fwd" (in bf16 "wide_fwd_bf16"), the
+    gates GEMM's through its
     tiles ("wide_gates" / "wide_gates_bf16") and the chain's partial products
     through "wide_chain" / "wide_chain_bf16" summed over the cluster,
     against h @ Wh1, [h1, h2] @ W2 and d @ W^T from the JAX package's states
@@ -299,11 +323,11 @@ def test_wide_layouts_give_the_jax_gate_products(H, dtype):
     h1p, h1t, h2p = rnd(h1s[:, t - 1]), rnd(h1s[:, t]), rnd(y[:, t - 1])
     want1 = h1p @ Wh1.float()
     want2 = torch.cat([h1t, h2p], -1) @ W2.float()
-    fwd = tl.pack_weights("wide_fwd", Wh1, W2)
+    fwd = tl.pack_weights(FWD_KIND[dtype], Wh1, W2)
     for q in range(C):
         cols = _cta_columns(q, C, Hp)
-        p1, _ = _fwd_products(fwd, q, C, h1p, h2p)
-        _, p2 = _fwd_products(fwd, q, C, h1t, h2p)
+        p1, _ = _fwd_products(fwd, q, C, h1p, h2p, FWD_KIND[dtype])
+        _, p2 = _fwd_products(fwd, q, C, h1t, h2p, FWD_KIND[dtype])
         np.testing.assert_allclose(p1, want1[:, cols], rtol=1e-5, atol=1e-6)
         np.testing.assert_allclose(p2, want2[:, cols], rtol=1e-5, atol=1e-6)
 
@@ -328,44 +352,18 @@ def test_wide_layouts_give_the_jax_gate_products(H, dtype):
     np.testing.assert_allclose(parts[2], d1 @ Wh1f.T, rtol=1e-5, atol=1e-5)
 
 
+# the chunks of K that `wide_f32_config` (csrc/lstm_wide.cu) plans for the f32
+# forward at R = 8 (8 while 6 U 8 threads fit the kernel's 512, else 4)
+FWD_F32_CHUNKS = {80: 8, 128: 4, 320: 4}
+
+
 def _walk_fwd(xg1, h0, Wh1, W2, b2):
-    """The forward as `lstm2_wide_fwd_kernel` runs it: iteration s runs
-    layer 1 at step s and layer 2 at step s - 1 from the h vectors the
-    cluster gathered at iteration s - 1; CTA q runs its units' cells."""
-    B, T, G = xg1.shape
-    H = G // 4
-    C = tl.wide_cluster(H, xg1.dtype)
-    U = H // C
-    dt = xg1.dtype
-    fwd = tl.pack_weights("wide_fwd", Wh1, W2)
-    hb = {(1, 0): h0.float(), (0, 1): h0.float()}  # (parity, layer) -> [B, H]
-    c = torch.zeros(2, B, H)
-    outs = torch.zeros(4, B, T, H)  # y, h1, c1, c2
-    for s in range(T + 1):
-        cur, prv = s & 1, (s & 1) ^ 1
-        new = torch.zeros(2, B, H)
-        for q in range(C):
-            p1, p2 = _fwd_products(fwd, q, C, hb[(prv, 0)], hb.get((prv, 1), torch.zeros(B, H)))
-            units = torch.arange(q * U, (q + 1) * U)
-            cols = _cta_columns(q, C, H)
-            for layer, on, pre in ((0, s < T, p1), (1, s > 0, p2)):
-                if not on:
-                    continue
-                step = s if layer == 0 else s - 1
-                add = xg1[:, step, cols].float() if layer == 0 else b2[cols].float()
-                i, f, g, o = (pre + add).reshape(B, 4, U).unbind(1)
-                i, f, g, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
-                cc = f * c[layer][:, units] + i * g
-                c[layer][:, units] = cc
-                h = o * torch.tanh(cc)
-                new[layer][:, units] = h.to(dt).float()
-                outs[1 if layer == 0 else 0, :, step, q * U:(q + 1) * U] = h
-                outs[2 if layer == 0 else 3, :, step, q * U:(q + 1) * U] = cc
-        if s < T:
-            hb[(cur, 0)] = new[0]
-        if s > 0:
-            hb[(cur, 1)] = new[1]
-    return tuple(o.to(dt) for o in outs)
+    """The forward as the storage type's wide kernel runs it at 8 rows a
+    cluster: `_walk_fwd_f32` (`lstm2_wide_fwd_f32_kernel`) or
+    `_walk_fwd_bf16` (`lstm2_wide_fwd_mma_kernel`)."""
+    if xg1.dtype == BF16:
+        return _walk_fwd_bf16(xg1, h0, Wh1, W2, b2, 8)
+    return _walk_fwd_f32(xg1, h0, Wh1, W2, b2, 8, FWD_F32_CHUNKS[xg1.shape[-1] // 4])
 
 
 GATES_PAIRS = 128  # (b, t) pairs of a gates CTA (`kGPairs`)
@@ -704,6 +702,190 @@ def test_walk_of_the_f32_wide_forward_matches_the_plain_version(H, R, S):
     want = tl.lstm2_core_ref(*padded)
     for name, g, w in zip(("y", "h1s", "c1s", "c2s"), got, want):
         np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-5, atol=1e-6, err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 forward on the tensor cores: its rows a cluster, its schedule
+# ---------------------------------------------------------------------------
+
+
+def _hpos(k, r, R):
+    """Where row r of k row k sits in an h buffer [k][R] of
+    `lstm2_wide_fwd_mma_kernel` (`hpos`): at R = 16 the 8-row halves swap
+    where bit 2 of k is set."""
+    return k * R + ((r ^ (8 * ((k >> 2) & 1))) if R == 16 else r)
+
+
+def _ldsm_trans(buf, addrs, n):
+    """`ldmatrix.trans` of n 8 x 8 bf16 matrices from a flat buffer: matrix i
+    has row j at the 8 elements from addrs[8 i + j]; lane t receives, in
+    register i, (M_i[2 (t % 4)][t / 4], M_i[2 (t % 4) + 1][t / 4]).
+    addrs [..., 32] -> [..., n, 32, 2]."""
+    rows = buf[addrs[..., :8 * n, None] + torch.arange(8)]  # [..., 8n, 8]
+    mats = rows.reshape(*rows.shape[:-2], n, 8, 8)
+    t = torch.arange(32)
+    e = torch.arange(2)
+    return mats[..., (2 * (t % 4))[:, None] + e, (t // 4)[:, None]]
+
+
+def _walk_fwd_bf16(xg1, h0, Wh1, W2, b2, R):
+    """The bf16 forward as `lstm2_wide_fwd_mma_kernel<R>` runs it: per tile
+    of R rows and CTA q, warp (part, m-tile) multiplies its A fragments
+    ("wide_fwd_bf16", `mma_a_fragment`) by the B fragments that
+    `ldmatrix.trans` gives each lane from the h buffer [parity][layer][H][R]
+    at the lane's address (`hpos`; x2 of one n-tile at R = 8, x4 of two at
+    16), in two chains (n-tiles, or even and odd k-tiles); its C fragments
+    land in the sums [part][row][column]; the cells (16 U threads, R / 8
+    rows each) add layer 1's input projection (the bf16 half of its aligned
+    word) or layer 2's parts in order and the bias, stage their bf16 h at
+    its place in the peers' buffers, and one bulk copy a peer and layer
+    sends each block, whose bytes must be exactly those the peer's barrier
+    of that parity was armed with."""
+    B, T, G = xg1.shape
+    H = G // 4
+    C = tl.wide_cluster(H, BF16)
+    U, MT, KH, RC = H // C, tl.fwd_m_tiles(H, C), H // 16, R // 8
+    NT = R // 8
+    assert (U * R * 2) % 16 == 0 and (4 * U * R * 2) % 16 == 0  # bulk copies: 16-byte blocks
+    A = tl.pack_weights("wide_fwd_bf16", Wh1, W2).float().reshape(C, MT, 3, KH, 4, 32, 2)
+    m, kk = torch.broadcast_tensors(*tl.mma_a_fragment())
+    # each warp's dense A [part, mt, 16, 16 KH] from its fragments
+    dense = torch.zeros(C, 3, MT, KH, 16, 16)
+    dense[..., m.reshape(-1), kk.reshape(-1)] = A.permute(0, 2, 1, 3, 4, 5, 6).reshape(
+        C, 3, MT, KH, -1)
+    dense = dense.permute(0, 1, 2, 4, 3, 5).reshape(C, 3, MT, 16, 16 * KH)
+    # the lanes' ldmatrix addresses in a k-tile (bit 2 of the k row is bit 2 of the lane)
+    lane = torch.arange(32)
+    lk = (lane & 7) + 8 * ((lane >> 3) & 1)
+    boff = lk * 16 + 8 * ((lane >> 4) ^ ((lane >> 2) & 1)) if R == 16 else lk * 8
+    kr = 16 * torch.arange(KH)[:, None] + lk  # [KH, 32]: the k row each address starts
+    want = torch.stack([torch.as_tensor(_hpos(int(k), int(8 * (l >> 4)) if R == 16 else 0, R))
+                        for k, l in zip(kr.reshape(-1), lane.repeat(KH))]).reshape(KH, 32)
+    assert torch.equal(16 * R * torch.arange(KH)[:, None] + boff, want)
+    addrs = 16 * R * torch.arange(KH)[:, None] + boff  # [KH, 32]
+    gq, tq = lane // 4, lane % 4
+    # the C fragments: each (row, column) of a warp's 16 x R block once
+    cover = torch.zeros(R, 16, dtype=torch.long)
+    for nt in range(NT):
+        for e in range(4):
+            cover.index_put_((8 * nt + 2 * tq + (e & 1), gq + 8 * (e >> 1)),
+                             torch.ones(32, dtype=torch.long), accumulate=True)
+    assert bool((cover == 1).all())
+    cells = torch.arange(16 * U)
+    cu, cr0, ccl = cells % U, (cells // U) % 8 * RC, cells // (8 * U)
+    assert len(set(zip(ccl.tolist(), cu.tolist(), cr0.tolist()))) == 16 * U
+    assert 96 * MT >= 16 * U  # every cell thread is one of the product warps' threads
+    outs = torch.zeros(4, B, T, H)  # y, h1, c1, c2
+    step_bytes = H * R * 2
+    x32, b32 = xg1.float(), b2.float()
+    flat_x = xg1.reshape(-1)
+    for b0 in range(0, B, R):
+        rows = torch.arange(b0, b0 + R)
+        live = rows < B
+        rc_ = rows.clamp(max=B - 1)
+        hb = torch.zeros(C, 2, 2, H * R)  # per CTA: [parity][layer][flat k, row]
+        pos = _hpos(torch.arange(H)[:, None], torch.arange(R)[None], R)  # [H, R]
+        init = torch.where(live[None], h0[rc_].float().T, 0.0)  # [H, R]
+        for par, layer in ((1, 0), (0, 1)):
+            hb[:, par, layer, pos.reshape(-1)] = init.reshape(-1)
+        c = torch.zeros(C, 2, R, U)
+        stage = torch.zeros(C, 2, 2, U * R)
+        armed = {0: step_bytes, 1: 2 * step_bytes}
+        for s in range(T + 1):
+            cur, prv = s & 1, (s & 1) ^ 1
+            on1, on2 = s < T, s > 0
+            arrived = torch.zeros(C, dtype=torch.long)
+            for q in range(C):
+                red = torch.zeros(3, R, 16 * MT)
+                for part, on in ((0, on1), (1, on2), (2, on2)):
+                    if not on:
+                        continue
+                    regs = _ldsm_trans(hb[q, prv, int(part == 2)], addrs, 2 * NT)  # [KH, 2NT, 32, 2]
+                    Bm = torch.zeros(KH, NT, 16, 8)  # B[k][n] of each k-tile and n-tile
+                    for nt in range(NT):
+                        for half in range(2):
+                            for e in range(2):
+                                Bm[:, nt, 8 * half + 2 * tq + e, gq] = regs[:, 2 * nt + half, :, e]
+                    for mt in range(MT):
+                        a_ = dense[q, part, mt].reshape(16, KH, 16).permute(1, 0, 2)  # [KH,16,16]
+                        prod = a_ @ Bm.permute(1, 0, 2, 3)  # [NT, KH, 16, 8]
+                        if R == 16:  # a chain an n-tile
+                            d = prod.sum(1)
+                        else:  # the even k-tiles' chain, then the odd ones'
+                            d = prod[:, 0::2].sum(1) + prod[:, 1::2].sum(1)
+                        red[part, :, 16 * mt:16 * mt + 16] = d.permute(0, 2, 1).reshape(R, 16)
+                for cl, on in ((0, on1), (1, on2)):
+                    if not on:
+                        continue
+                    step = s if cl == 0 else s - 1
+                    col = torch.arange(4)[:, None] * U + torch.arange(U)  # [4, U]: g U + u
+                    unit = q * U + torch.arange(U)
+                    gcol = torch.arange(4)[:, None] * H + unit  # [4, U]
+                    if cl == 0:  # the bf16 half (unit & 1) of the aligned word
+                        idx = (rc_[:, None, None] * T + step) * G + gcol  # [R, 4, U]
+                        assert bool(((idx & 1) == (unit & 1)).all())
+                        xin = torch.where(live[:, None, None],
+                                          flat_x[idx & ~1 | (unit & 1)].float(), 0.0)
+                        pre = red[0][:, col] + xin
+                    else:
+                        pre = red[1][:, col] + red[2][:, col] + b32[gcol]
+                    i, f, gg, o = (torch.sigmoid(pre[:, 0]), torch.sigmoid(pre[:, 1]),
+                                   torch.tanh(pre[:, 2]), torch.sigmoid(pre[:, 3]))
+                    cc = f * c[q, cl] + i * gg  # [R, U]
+                    c[q, cl] = cc
+                    h = (o * torch.tanh(cc)).to(BF16).float()
+                    if s < T:  # staged at its place in the peers' buffers
+                        sp = _hpos(unit[:, None], torch.arange(R)[None], R) - unit[:, None] * R
+                        stage[q, cur, cl, (torch.arange(U)[:, None] * R + sp).reshape(-1)] = (
+                            h.T.reshape(-1))
+                    units = slice(q * U, (q + 1) * U)
+                    outs[1 if cl == 0 else 0, rows[live], step, units] = h[live]
+                    outs[2 if cl == 0 else 3, rows[live], step, units] = cc[live]
+            if s < T:  # each CTA's blocks into every peer's buffer `cur`, one copy a layer
+                for q in range(C):
+                    for layer in range(2 if on2 else 1):
+                        blk = slice(q * U * R, (q + 1) * U * R)
+                        assert (q * U * R * 2) % 16 == 0
+                        hb[:, cur, layer, blk] = stage[q, cur, layer]
+                        arrived += U * R * 2
+                assert arrived.tolist() == [armed.pop(s)] * C
+                if s + 2 < T:
+                    armed[s + 2] = 2 * step_bytes
+        assert not armed
+    return tuple(o.to(BF16) for o in outs)
+
+
+@pytest.mark.parametrize("H,R", [(80, 8), (80, 16), (128, 8), (128, 16), (320, 8), (320, 16)])
+def test_walk_of_the_bf16_wide_forward_matches_the_plain_version(H, R):
+    """`_walk_fwd_bf16` at U = 10, 16, 20 (the m-tiles' padding at 80; 16
+    CTAs at 320), R = 8 and 16, on a ragged last tile of rows (B = 19),
+    against `lstm2_core_ref` in bf16 within 2^-7 of max |plain|."""
+    B, T = 19, 4
+    args = [tl.pad_hidden(n, torch.from_numpy(a), H, H).to(BF16)
+            for n, a in zip(NAMES, _core_inputs(23, B, T, H))]
+    got = _walk_fwd_bf16(*args, R)
+    want = tl.lstm2_core_ref(*args)
+    for name, g, w in zip(("y", "h1s", "c1s", "c2s"), got, want):
+        w = w.float()
+        np.testing.assert_allclose(g.float().numpy(), w.numpy(), rtol=0,
+                                   atol=2.0 ** -7 * float(w.abs().max()), err_msg=name)
+
+
+@pytest.mark.parametrize("kw,B,clusters,want", [
+    (8, 32, {8: 15, 16: 15}, 8), (8, 128, {8: 15, 16: 15}, 16), (8, 512, {8: 15, 16: 15}, 16),
+    (8, 128, {8: 15, 16: 0}, 8), (20, 32, {8: 7, 16: 7}, 8), (20, 128, {8: 7, 16: 7}, 8),
+    (20, 512, {8: 7, 16: 7}, 16), (12, 128, {8: 15, 16: 15}, 16), (16, 512, {8: 14, 16: 14}, 8)])
+def test_wide_bf16_rows_take_the_least_waves_times_step_cost(kw, B, clusters, want):
+    """The bf16 forward's rows a cluster: `wide_rows` over its own
+    `WIDE_BF16_ROW_COST` for the instantiation's k-tiles (16 rows cost 1.36x
+    8 at KW = 8, ~1.9x from 12 on): at H = 128 (KW 8) B = 128 takes one wave
+    of 16 rows; at H = 320 (KW 20, 7 clusters at once) three waves of 8 rows
+    beat two of 16 at B = 128, five of 16 beat ten of 8 at 512; a card
+    without room for one cluster is refused by the kernel's name."""
+    cost = tl.WIDE_BF16_ROW_COST[kw]
+    assert tl.wide_rows(B, clusters, cost, "lstm2_wide_fwd_mma_kernel") == want
+    with pytest.raises(RuntimeError, match="lstm2_wide_fwd_mma_kernel"):
+        tl.wide_rows(B, {8: 0, 16: 0}, cost, "lstm2_wide_fwd_mma_kernel")
 
 
 # ---------------------------------------------------------------------------
